@@ -1,0 +1,68 @@
+"""Config schema: the minRNN subset of ``repro.configs.base``.
+
+A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
+dtype table.  Only the fields the serving slice reads are kept; the
+field names, defaults and properties match the reference so a config
+built here describes the same model as its JAX twin.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class MinRNNConfig:
+    cell: str = "mingru"           # mingru | minlstm
+    expansion: float = 2.0         # paper's alpha (LM uses 2)
+    mode: str = "log"              # log-space parameterization
+    use_conv: bool = True          # Conv4 prefix (paper App. C.2)
+    conv_kernel: int = 4
+    use_mlp: bool = True
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "unnamed"
+    block_kind: str = "minrnn"     # only minrnn in this slice
+    n_layers: int = 2
+    d_model: int = 128
+    d_ff: int = 512
+    vocab_size: int = 256
+    norm: str = "rmsnorm"
+    norm_zero_centered: bool = False
+    tie_embeddings: bool = False
+    embedding_scale: bool = False
+    minrnn: Optional[MinRNNConfig] = None
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    # "auto" resolves to the fused kernels (core.scan.resolve_strategy);
+    # "sequential" forces the plain PyTorch path (the parity oracle)
+    scan_strategy: str = "auto"
+    # whole-block decode fusion (kernels/block_step): "auto"/"on" run the
+    # block kernel; "off" selects the cell-only tier, not ported yet
+    fuse_block: str = "auto"
+    logits_softcap: float = 0.0
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128, as in the reference; pad
+        columns are masked to -1e30 in the logits."""
+        return -(-self.vocab_size // 128) * 128
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return DTYPES[self.param_dtype]
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return DTYPES[self.compute_dtype]
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

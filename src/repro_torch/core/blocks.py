@@ -1,0 +1,217 @@
+"""The paper's minRNN residual block (Appendix C.2), decode forms.
+
+    x = x + Down( minRNN( [Conv4]( Norm(x) ) ) )          # mixer sub-block
+    x = x + MLP( Norm(x) )                                # optional
+
+``step`` / ``step_chunk`` carry (conv window, h) for decode.  Under the
+default ``scan_strategy="auto"`` with ``fuse_block`` "auto"/"on" the
+whole block runs in ONE hand-written CUDA kernel per layer per round
+(``kernels/block_step``); ``scan_strategy="sequential"`` is the plain
+PyTorch oracle.  The cell-only tier (``fuse_block="off"``) needs the
+``decode_step`` kernels, which a later slice ports.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import min_gru, min_lstm, nn
+from repro_torch.core import scan as scan_lib
+
+
+def fuse_block_tier(cfg: "MinRNNBlockConfig",
+                    scan_strategy: Optional[str] = None) -> str:
+    """Which decode tier this block runs: ``"block-fused"`` (whole block
+    in one kernel launch), ``"cell-fused"`` (cell-only kernel; not ported
+    yet) or ``"unfused"`` (plain PyTorch).  The tensor-parallel branch of
+    the reference is not part of this slice."""
+    strategy = scan_strategy if scan_strategy is not None \
+        else cfg.scan_strategy
+    if scan_lib.resolve_strategy(strategy) != "fused":
+        return "unfused"
+    if cfg.fuse_block == "off" or cfg.norm != "rmsnorm":
+        return "cell-fused"
+    return "block-fused"
+
+
+def _reject_cell_tier():
+    raise NotImplementedError(
+        "the cell-fused decode tier (fuse_block='off') needs the "
+        "decode_step kernels, not ported yet (ROADMAP.md queue 1, item "
+        "3); use fuse_block='auto' or scan_strategy='sequential'")
+
+
+@dataclass(frozen=True)
+class MinRNNBlockConfig:
+    d_model: int
+    cell: str = "mingru"            # mingru | minlstm
+    expansion: float = 1.0          # alpha
+    use_conv: bool = False
+    conv_kernel: int = 4
+    use_mlp: bool = False
+    mlp_factor: float = 4.0
+    mode: str = "log"               # log | linear
+    norm: str = "rmsnorm"
+    scan_strategy: str = "auto"
+    fuse_block: str = "auto"        # auto | on | off
+
+    @property
+    def d_hidden(self) -> int:
+        return int(self.d_model * self.expansion)
+
+    @property
+    def d_mlp(self) -> int:
+        return int(self.d_model * self.mlp_factor)
+
+
+_CELLS = {"mingru": min_gru, "minlstm": min_lstm}
+
+
+def init(gen: torch.Generator, cfg: MinRNNBlockConfig, *,
+         dtype=torch.float32):
+    cell = _CELLS[cfg.cell]
+    p = {
+        "norm_rnn": nn.norm_init(cfg.norm, cfg.d_model, dtype),
+        "rnn": cell.init(gen, cfg.d_model, cfg.d_hidden, dtype=dtype),
+        "down": nn.dense_init(gen, cfg.d_hidden, cfg.d_model,
+                              use_bias=False, dtype=dtype),
+    }
+    if cfg.use_conv:
+        p["conv"] = nn.causal_conv_init(gen, cfg.d_model, cfg.conv_kernel,
+                                        dtype)
+    if cfg.use_mlp:
+        p["norm_mlp"] = nn.norm_init(cfg.norm, cfg.d_model, dtype)
+        p["mlp_in"] = nn.dense_init(gen, cfg.d_model, cfg.d_mlp,
+                                    dtype=dtype)
+        p["mlp_out"] = nn.dense_init(gen, cfg.d_mlp, cfg.d_model,
+                                     dtype=dtype)
+    return p
+
+
+def init_state(cfg: MinRNNBlockConfig, batch_shape: Tuple[int, ...],
+               dtype=torch.float32, device="cpu"):
+    """Decode-time carried state for one block."""
+    state = {"h": torch.zeros(batch_shape + (cfg.d_hidden,), dtype=dtype,
+                              device=device)}
+    if cfg.use_conv:
+        state["conv"] = torch.zeros(
+            batch_shape + (cfg.conv_kernel - 1, cfg.d_model), dtype=dtype,
+            device=device)
+    return state
+
+
+def bind(params, cfg: MinRNNBlockConfig, *, compute_dtype=None,
+         scan_strategy: Optional[str] = None):
+    """The block's weights bound for the whole-block kernel, for
+    ``step`` / ``step_chunk``'s ``operands``: a ``BlockOperands`` when the
+    block runs block-fused on CUDA, else None (nothing to bind)."""
+    tier = fuse_block_tier(cfg, scan_strategy)
+    if tier != "block-fused" or params["down"]["kernel"].device.type \
+            != "cuda":
+        return None
+    from repro_torch.kernels.block_step import ops as block_ops
+    return block_ops.BlockOperands(params, cell=cfg.cell,
+                                   compute_dtype=compute_dtype,
+                                   use_conv=cfg.use_conv, use_mlp=cfg.use_mlp)
+
+
+def step(params, cfg: MinRNNBlockConfig, x_t: torch.Tensor, state, *,
+         compute_dtype=None, scan_strategy: Optional[str] = None,
+         operands=None):
+    """Single-token decode. x_t: (B, d_model) -> (y, new state).
+    ``operands``: this block's :func:`bind`, if the caller holds one."""
+    if scan_strategy is None:
+        scan_strategy = cfg.scan_strategy
+    tier = fuse_block_tier(cfg, scan_strategy)
+    if tier == "block-fused":
+        from repro_torch.kernels.block_step import ops as block_ops
+        return block_ops.fused_block_step(
+            params, x_t, state, cell=cfg.cell, mode=cfg.mode,
+            use_conv=cfg.use_conv, use_mlp=cfg.use_mlp,
+            compute_dtype=compute_dtype, operands=operands)
+    if tier == "cell-fused":
+        _reject_cell_tier()
+    cell = _CELLS[cfg.cell]
+    y = nn.norm_apply(cfg.norm, params["norm_rnn"], x_t)
+    new_state = dict(state)
+    if cfg.use_conv:
+        y, new_state["conv"] = nn.causal_conv_step(params["conv"], y,
+                                                   state["conv"])
+    h = cell.step(params["rnn"], y, state["h"], mode=cfg.mode,
+                  compute_dtype=compute_dtype, scan_strategy=scan_strategy)
+    new_state["h"] = h
+    x_t = x_t + nn.dense_apply(params["down"], h, compute_dtype)
+    if cfg.use_mlp:
+        y = nn.norm_apply(cfg.norm, params["norm_mlp"], x_t)
+        y = nn.gelu(nn.dense_apply(params["mlp_in"], y, compute_dtype))
+        x_t = x_t + nn.dense_apply(params["mlp_out"], y, compute_dtype)
+    return x_t, new_state
+
+
+def _conv_chunk(p, y, window, valid, *, return_windows: bool = False):
+    """Varlen chunked causal conv: ``causal_conv_step`` per position with
+    row b's window frozen once ``t >= valid[b]``.  y: (B, C, D), window:
+    (B, K-1, D).  ``return_windows`` also stacks the window after every
+    position, (B, C, K-1, D)."""
+    outs, wins = [], []
+    win = window
+    for t in range(y.shape[1]):
+        out, win_new = nn.causal_conv_step(p, y[:, t], win)
+        win = torch.where((t < valid)[:, None, None], win_new, win)
+        outs.append(out)
+        wins.append(win)
+    outs = torch.stack(outs, dim=1)
+    if return_windows:
+        return outs, win, torch.stack(wins, dim=1)
+    return outs, win
+
+
+def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
+               valid: torch.Tensor, *, compute_dtype=None,
+               scan_strategy: Optional[str] = None,
+               return_positions: bool = False, operands=None):
+    """Packed varlen decode chunk: x (B, C, d_model), valid (B,) int32 in
+    [1, C].  Row b consumes its first ``valid[b]`` positions with the
+    per-token arithmetic of ``valid[b]`` sequential :func:`step` calls;
+    its carried state freezes after.  ``return_positions`` also returns
+    the state after every position."""
+    if scan_strategy is None:
+        scan_strategy = cfg.scan_strategy
+    tier = fuse_block_tier(cfg, scan_strategy)
+    if tier == "block-fused":
+        from repro_torch.kernels.block_step import ops as block_ops
+        return block_ops.fused_block_chunk(
+            params, x, state, valid, cell=cfg.cell, mode=cfg.mode,
+            use_conv=cfg.use_conv, use_mlp=cfg.use_mlp,
+            compute_dtype=compute_dtype, return_positions=return_positions,
+            operands=operands)
+    if tier == "cell-fused":
+        _reject_cell_tier()
+    cell = _CELLS[cfg.cell]
+    y = nn.norm_apply(cfg.norm, params["norm_rnn"], x)
+    new_state = dict(state)
+    pos_states = {}
+    if cfg.use_conv:
+        if return_positions:
+            y, new_state["conv"], pos_states["conv"] = _conv_chunk(
+                params["conv"], y, state["conv"], valid,
+                return_windows=True)
+        else:
+            y, new_state["conv"] = _conv_chunk(params["conv"], y,
+                                               state["conv"], valid)
+    hs = cell.step_chunk(params["rnn"], y, state["h"], valid,
+                         mode=cfg.mode, compute_dtype=compute_dtype,
+                         scan_strategy=scan_strategy)
+    new_state["h"] = hs[:, -1]          # frozen rows: == hs[:, valid-1]
+    pos_states["h"] = hs
+    x = x + nn.dense_apply(params["down"], hs, compute_dtype)
+    if cfg.use_mlp:
+        y = nn.norm_apply(cfg.norm, params["norm_mlp"], x)
+        y = nn.gelu(nn.dense_apply(params["mlp_in"], y, compute_dtype))
+        x = x + nn.dense_apply(params["mlp_out"], y, compute_dtype)
+    if return_positions:
+        return x, new_state, pos_states
+    return x, new_state

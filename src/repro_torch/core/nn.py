@@ -1,0 +1,126 @@
+"""Minimal functional NN building blocks (``repro.core.nn`` subset).
+
+Parameters are plain nested dicts of tensors.  Initializers draw from an
+explicit ``torch.Generator`` on the CPU (so a seed gives the same weights
+whatever device they are moved to); the apply functions run on the
+device of their inputs.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def lecun_normal(gen: torch.Generator, shape, dtype=torch.float32,
+                 in_axis: int = 0) -> torch.Tensor:
+    std = math.sqrt(1.0 / max(1, shape[in_axis]))
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (std * t).to(dtype)
+
+
+def normal_init(gen: torch.Generator, shape, std,
+                dtype=torch.float32) -> torch.Tensor:
+    return (std * torch.randn(shape, generator=gen)).to(dtype)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, *, use_bias: bool = True,
+               dtype=torch.float32, bias_init: float = 0.0):
+    p = {"kernel": lecun_normal(gen, (in_dim, out_dim), dtype)}
+    if use_bias:
+        p["bias"] = torch.full((out_dim,), bias_init, dtype=dtype)
+    return p
+
+
+def dense_apply(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    k = p["kernel"]
+    if compute_dtype is not None:
+        k = k.to(compute_dtype)
+        x = x.to(compute_dtype)
+    y = x @ k
+    if "bias" in p:
+        b = p["bias"]
+        if compute_dtype is not None:
+            b = b.to(compute_dtype)
+        y = y + b
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(dim: int, dtype=torch.float32):
+    return {"scale": torch.ones((dim,), dtype=dtype)}
+
+
+def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6,
+                  zero_centered: bool = False) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    scale = p["scale"].float()
+    if zero_centered:
+        scale = 1.0 + scale
+    return (y * scale).to(dtype)
+
+
+def norm_init(kind: str, dim: int, dtype=torch.float32):
+    if kind == "rmsnorm":
+        return rmsnorm_init(dim, dtype)
+    raise NotImplementedError(
+        f"norm {kind!r} is not ported (ROADMAP.md queue 1, item 5)")
+
+
+def norm_apply(kind: str, p, x: torch.Tensor, **kw) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm_apply(p, x, **kw)
+    raise NotImplementedError(
+        f"norm {kind!r} is not ported (ROADMAP.md queue 1, item 5)")
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (decode step only in this slice)
+# ---------------------------------------------------------------------------
+
+def causal_conv_init(gen, dim: int, kernel_size: int = 4,
+                     dtype=torch.float32):
+    std = math.sqrt(1.0 / kernel_size)
+    return {"kernel": normal_init(gen, (kernel_size, dim), std, dtype),
+            "bias": torch.zeros((dim,), dtype=dtype)}
+
+
+def causal_conv_step(p, x_t: torch.Tensor, conv_state: torch.Tensor):
+    """Single decode step. conv_state: (..., K-1, D) trailing inputs."""
+    k = p["kernel"].to(x_t.dtype)
+    window = torch.cat([conv_state, x_t[..., None, :]], dim=-2)
+    y = torch.einsum("...kd,kd->...d", window, k) \
+        + p["bias"].to(x_t.dtype)
+    return y, window[..., 1:, :]
+
+
+def gather_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, ...) -> (B, ...), row b taken at position lengths[b]-1."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, lengths.long() - 1]
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def g(x: torch.Tensor) -> torch.Tensor:
+    """g(x) = x + 0.5 if x >= 0 else sigmoid(x); ensures h_tilde > 0."""
+    return torch.where(x >= 0, x + 0.5, torch.sigmoid(x))

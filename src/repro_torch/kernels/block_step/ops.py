@@ -1,0 +1,321 @@
+"""Wrappers for the whole-block decode kernel (``csrc/block_step.cu``).
+
+``fused_block_step`` / ``fused_block_chunk`` take one minRNN block's
+param dict (``blocks.init`` layout) and its carried decode state and run
+the ENTIRE block -- norm, conv step, cell, down-projection, MLP -- in one
+kernel launch.  A CPU tensor goes to the plain version in ``ref.py``; a
+CUDA tensor launches the kernel or raises.  Nothing falls back.
+
+Dtype contract (as ``repro.kernels.block_step.ops``): gate / down / MLP
+weights and biases are cast to the compute dtype here, exactly where the
+reference casts them; norm scales and conv params are passed uncast.
+The kernel has one element type, so on CUDA every operand must then be
+in the activation dtype (fp32 or bf16) -- true for the LM, whose params,
+activations and cache share the compute dtype.  Feature dims must be
+multiples of 16 (the kernel's column tile); there is no padding.
+
+The step form is the chunk form at C = 1 with every position valid: one
+kernel, so "a C-token chunk equals C steps" holds by construction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.block_step import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "block_step.cu"
+
+# launches per wrapper: a plain count, reset by whoever reads it
+LAUNCHES = {"block_step_kernel": 0, "block_chunk_kernel": 0}
+
+_GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TILE = 16
+_N_PTRS = 25
+_LIB = None
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import build
+        lib = build.load(SOURCE)
+        lib.repro_block_launch.argtypes = (
+            [ctypes.c_int] * 11
+            + [ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.POINTER(ctypes.c_int)])
+        lib.repro_block_launch.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _cast(a, cd):
+    return a if cd is None else a.to(cd)
+
+
+def kernel_params(params, cell: str, compute_dtype, use_conv: bool,
+                  use_mlp: bool):
+    """The block params with the compute-dtype casts of the reference
+    wrapper applied (gate / down / MLP weights and biases)."""
+    rnn = {}
+    for name in _GATES[cell]:
+        p = params["rnn"][name]
+        rnn[name] = {"kernel": _cast(p["kernel"], compute_dtype)}
+        if "bias" in p:
+            rnn[name]["bias"] = _cast(p["bias"], compute_dtype)
+    out = {"norm_rnn": params["norm_rnn"], "rnn": rnn,
+           "down": {"kernel": _cast(params["down"]["kernel"],
+                                    compute_dtype)}}
+    if use_conv:
+        out["conv"] = params["conv"]
+    if use_mlp:
+        out["norm_mlp"] = params["norm_mlp"]
+        for name in ("mlp_in", "mlp_out"):
+            out[name] = {k: _cast(v, compute_dtype)
+                         for k, v in params[name].items()}
+    return out
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(
+            f"{name} has dtype {t.dtype}; the kernel runs one element type"
+            f" ({dtype}) for activations, state and params")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (vector loads)")
+
+
+class BlockOperands:
+    """One block's weight operands, bound for the kernel once: the
+    compute-dtype casts of the reference wrapper applied, every leaf
+    checked (device, dtype, shape, contiguity, alignment) and its pointer
+    taken.  It holds the tensors it points at, so they live as long as it
+    does, and it reads the params as they were when bound: whoever owns
+    the params binds them (``blocks.bind``, ``lm.bind_layers``) and binds
+    again after replacing a leaf.  A decode round then checks and binds
+    only its activations."""
+
+    def __init__(self, params, *, cell, compute_dtype, use_conv, use_mlp):
+        if cell not in _GATES:
+            raise ValueError(f"unknown cell {cell!r}")
+        self.key = (cell, compute_dtype, use_conv, use_mlp)
+        kp = kernel_params(params, cell, compute_dtype, use_conv, use_mlp)
+        down = kp["down"]["kernel"]
+        dev, dt = down.device, down.dtype
+        if dev.type != "cuda":
+            raise ValueError(f"block kernel needs CUDA tensors, got {dev}")
+        if dt not in _DTYPES:
+            raise ValueError(f"block kernel runs fp32 or bf16, got {dt}")
+        dh, dx = down.shape
+        dm = kp["mlp_in"]["kernel"].shape[1] if use_mlp else 0
+        if dx % _TILE or dh % _TILE or dm % _TILE:
+            raise ValueError(f"feature dims (Dx {dx}, Dh {dh}, Dm {dm}) must "
+                             f"be multiples of {_TILE}")
+        ptrs = [0] * _N_PTRS
+        keep = [kp]
+        _check(kp["norm_rnn"]["scale"], "norm_rnn.scale", (dx,), dt, dev)
+        ptrs[1] = kp["norm_rnn"]["scale"].data_ptr()
+        ksize = 0
+        if use_conv:
+            ck, cb = kp["conv"]["kernel"], kp["conv"]["bias"]
+            ksize = ck.shape[0]
+            _check(ck, "conv.kernel", (ksize, dx), dt, dev)
+            _check(cb, "conv.bias", (dx,), dt, dev)
+            ptrs[2], ptrs[3] = ck.data_ptr(), cb.data_ptr()
+        for g, gname in enumerate(_GATES[cell]):
+            w = kp["rnn"][gname]["kernel"]
+            b = kp["rnn"][gname].get("bias")
+            if b is None:
+                b = torch.zeros((dh,), dtype=dt, device=dev)
+                keep.append(b)
+            _check(w, f"rnn.{gname}.kernel", (dx, dh), dt, dev)
+            _check(b, f"rnn.{gname}.bias", (dh,), dt, dev)
+            ptrs[5 + g], ptrs[8 + g] = w.data_ptr(), b.data_ptr()
+        _check(down, "down.kernel", (dh, dx), dt, dev)
+        ptrs[12] = down.data_ptr()
+        if use_mlp:
+            named = (("norm_mlp", "scale", (dx,)),
+                     ("mlp_in", "kernel", (dx, dm)), ("mlp_in", "bias", (dm,)),
+                     ("mlp_out", "kernel", (dm, dx)),
+                     ("mlp_out", "bias", (dx,)))
+            for i, (mod, leaf, shape) in enumerate(named):
+                _check(kp[mod][leaf], f"{mod}.{leaf}", shape, dt, dev)
+                ptrs[13 + i] = kp[mod][leaf].data_ptr()
+        self.cell, self.use_conv, self.use_mlp = cell, use_conv, use_mlp
+        self.device, self.dtype = dev, dt
+        self.dims = (dx, dh, dm, ksize)
+        self.ptrs = ptrs
+        self._keep = keep
+
+
+def _operands(params, operands, cell, compute_dtype, use_conv, use_mlp):
+    """``operands`` when the caller bound them (checked against the
+    call's options), else a binding made for this one call."""
+    if operands is None:
+        return BlockOperands(params, cell=cell, compute_dtype=compute_dtype,
+                             use_conv=use_conv, use_mlp=use_mlp)
+    if operands.key != (cell, compute_dtype, use_conv, use_mlp):
+        raise ValueError(f"operands were bound for {operands.key}, the call "
+                         f"asks for {(cell, compute_dtype, use_conv, use_mlp)}")
+    return operands
+
+
+def prepare_launch(operands: BlockOperands, x, state, valid, *, mode,
+                   trace=None):
+    """Check the activations, allocate the outputs and bind the C call.
+    Returns ``(launch, (ys, hs, wins))``: ``launch()`` issues the kernel on
+    the current stream and returns its CUDA status; it does not count.
+    x: (B, C, Dx) on CUDA -> ys (B, C, Dx), hs (B, C, Dh), wins
+    (B, C, K-1, Dx) or None.  ``trace``, an int64 (1 + 7 C,) CUDA tensor,
+    receives block 0's ``%globaltimer`` (ns) at launch and, per position,
+    after phase A, barrier, B, barrier, C, barrier, D (``phase_times``)."""
+    dev, dt = operands.device, operands.dtype
+    if mode not in ("log", "linear"):
+        raise ValueError(f"unknown mode {mode!r}")
+    dx, dh, dm, ksize = operands.dims
+    use_conv, use_mlp = operands.use_conv, operands.use_mlp
+    bsz, chunk = x.shape[0], x.shape[1]
+    h0 = state["h"]
+    _check(x, "x", (bsz, chunk, dx), dt, dev)
+    _check(h0, "state['h']", (bsz, dh), dt, dev)
+    ptrs = list(operands.ptrs)
+    ptrs[0], ptrs[11] = x.data_ptr(), h0.data_ptr()
+    keep = [operands, x, h0]
+    if use_conv:
+        win = state["conv"]
+        _check(win, "state['conv']", (bsz, ksize - 1, dx), dt, dev)
+        ptrs[4] = win.data_ptr()
+        keep.append(win)
+    if valid is not None:
+        _check(valid, "valid", (bsz,), torch.int32, dev)
+        ptrs[18] = valid.data_ptr()
+        keep.append(valid)
+    if trace is not None:
+        _check(trace, "trace", (1 + 7 * chunk,), torch.int64, dev)
+        ptrs[24] = trace.data_ptr()
+        keep.append(trace)
+
+    ys = torch.empty((bsz, chunk, dx), dtype=dt, device=dev)
+    hs = torch.empty((bsz, chunk, dh), dtype=dt, device=dev)
+    wins = torch.empty((bsz, chunk, ksize - 1, dx), dtype=dt, device=dev) \
+        if use_conv else None
+    ptrs[19], ptrs[20] = ys.data_ptr(), hs.data_ptr()
+    if use_conv:
+        ptrs[21] = wins.data_ptr()
+    if use_mlp:
+        xr = torch.empty((bsz, dx), dtype=dt, device=dev)
+        m = torch.empty((bsz, dm), dtype=dt, device=dev)
+        ptrs[22], ptrs[23] = xr.data_ptr(), m.data_ptr()
+        keep += [xr, m]
+    keep += [ys, hs, wins]
+
+    lib = _lib()
+    grid = ctypes.c_int(0)
+    args = (int(operands.cell == "minlstm"), int(mode == "log"), _DTYPES[dt],
+            int(use_conv), int(use_mlp), bsz, chunk, dx, dh, dm, ksize,
+            (ctypes.c_void_p * _N_PTRS)(*ptrs),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+            ctypes.byref(grid))
+
+    def launch(_keep=keep):        # _keep: operands alive while bound
+        return lib.repro_block_launch(*args)
+
+    launch.grid = grid
+    return launch, (ys, hs, wins)
+
+
+def phase_times(trace: torch.Tensor, use_mlp: bool = True) -> dict:
+    """Microseconds per phase and per barrier wait, summed over the
+    positions of one traced launch, from block 0's clock (its own work
+    plus its waits for the slowest block)."""
+    ticks = trace.cpu().tolist()
+    names = ("A", "sync_A", "B", "sync_B", "C", "sync_C", "D")
+    out = {n: 0.0 for n in (names if use_mlp else names[:3])}
+    prev = ticks[0]
+    for t in range((len(ticks) - 1) // 7):
+        for i, n in enumerate(out):
+            cur = ticks[1 + 7 * t + i]
+            out[n] += (cur - prev) * 1e-3
+            prev = cur
+    return out
+
+
+def _launch(name, operands, x, state, valid, *, mode):
+    launch, outs = prepare_launch(operands, x, state, valid, mode=mode)
+    rc = launch()
+    if rc != 0:
+        msg = _lib().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES[name] += 1
+    return outs
+
+
+def fused_block_step(params, x_t: torch.Tensor, state: dict, *,
+                     cell: str = "mingru", mode: str = "log",
+                     use_conv: bool = False, use_mlp: bool = False,
+                     compute_dtype=None, operands=None):
+    """One whole-block decode step in one launch.  x_t: (B, D), state:
+    {"h": (B, Dh)[, "conv": (B, K-1, D)]} -> (y, new_state).  On CUDA,
+    ``operands`` (a :class:`BlockOperands` of ``params``) skips binding
+    the weights again."""
+    if x_t.device.type == "cpu":
+        kp = kernel_params(params, cell, compute_dtype, use_conv, use_mlp)
+        return ref.block_step_ref(kp, x_t, state, cell=cell, mode=mode,
+                                  use_conv=use_conv, use_mlp=use_mlp,
+                                  compute_dtype=compute_dtype)
+    operands = _operands(params, operands, cell, compute_dtype, use_conv,
+                         use_mlp)
+    ys, hs, wins = _launch("block_step_kernel", operands, x_t[:, None], state,
+                           None, mode=mode)
+    new_state = dict(state)
+    new_state["h"] = hs[:, 0]
+    if use_conv:
+        new_state["conv"] = wins[:, 0]
+    return ys[:, 0], new_state
+
+
+def fused_block_chunk(params, x: torch.Tensor, state: dict,
+                      valid: torch.Tensor, *, cell: str = "mingru",
+                      mode: str = "log", use_conv: bool = False,
+                      use_mlp: bool = False, compute_dtype=None,
+                      return_positions: bool = False, operands=None):
+    """Varlen C-token whole-block chunk in one launch (packed prefill).
+    x: (B, C, D), valid: (B,) int32 in [1, C] -> (ys, new_state[,
+    per-position states]); frozen rows re-emit their final state."""
+    if x.device.type == "cpu":
+        kp = kernel_params(params, cell, compute_dtype, use_conv, use_mlp)
+        ys, new_state, pos = ref.block_chunk_ref(
+            kp, x, state, valid, cell=cell, mode=mode, use_conv=use_conv,
+            use_mlp=use_mlp, compute_dtype=compute_dtype)
+    else:
+        operands = _operands(params, operands, cell, compute_dtype, use_conv,
+                             use_mlp)
+        ys, hs, wins = _launch("block_chunk_kernel", operands, x, state,
+                               valid.to(torch.int32), mode=mode)
+        new_state = dict(state)
+        new_state["h"] = hs[:, -1]
+        pos = {"h": hs}
+        if use_conv:
+            new_state["conv"] = wins[:, -1]
+            pos["conv"] = wins
+    if return_positions:
+        return ys, new_state, pos
+    return ys, new_state

@@ -1,0 +1,473 @@
+"""Decoder-only minRNN LM: the serving subset of ``repro.models.lm``.
+
+Params are nested dicts with the JAX pytree's layout -- ``embed.table``,
+``final_norm.scale`` and ``layers.blocks.*`` stacked with a leading L
+axis -- so the bridge and the parity tests compare leaf by leaf.
+``MinRNNLM`` is a thin ``nn.Module`` around such a dict (``.to(device)``
+and ``state_dict``).
+
+Serving drives the step forms only: ``superstep`` runs K rounds of
+re-admission -> token select -> ``decode_step`` (or ``decode_chunk`` for
+packed prefill) -> sample-or-teacher-force -> retire over device-resident
+per-slot state (``init_slot_state``).  The reference runs those rounds in
+one ``lax.scan``; here they are a Python loop of eager device ops, and
+each layer of each round is ONE launch of the whole-block CUDA kernel.
+Whoever owns the params binds them once (``bind_layers``) and passes the
+binding as ``layers=``; without it, each call binds its own.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.core import blocks as minrnn_blocks
+from repro_torch.core import nn
+from repro_torch.device import resolve_device
+
+
+# ===========================================================================
+# Parameters
+# ===========================================================================
+
+def _minrnn_block_cfg(cfg) -> minrnn_blocks.MinRNNBlockConfig:
+    mr = cfg.minrnn
+    return minrnn_blocks.MinRNNBlockConfig(
+        d_model=cfg.d_model, cell=mr.cell, expansion=mr.expansion,
+        use_conv=mr.use_conv, conv_kernel=mr.conv_kernel,
+        use_mlp=mr.use_mlp, mlp_factor=cfg.d_ff / cfg.d_model,
+        mode=mr.mode, norm=cfg.norm, scan_strategy=cfg.scan_strategy,
+        fuse_block=cfg.fuse_block)
+
+
+def _check_cfg(cfg):
+    if cfg.block_kind != "minrnn":
+        raise NotImplementedError(
+            f"block_kind {cfg.block_kind!r} is not ported (ROADMAP.md queue "
+            f"1, item 5); this slice serves the minRNN LMs")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_to(tree, device):
+    """Move every leaf of a param / state tree to ``device``; a tree
+    already there comes back as it is."""
+    dev = torch.device(device)
+    if all(a.device.type == dev.type
+           and (dev.index is None or a.device.index == dev.index)
+           for a in _leaves(tree)):
+        return tree
+    return _tree_map(lambda a: a.to(dev), tree)
+
+
+def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
+    """Seeded random init (drawn on the CPU from ``gen``, then moved), in
+    the reference's layout.  The numbers differ from ``jax.random``'s;
+    tests that compare the two packages bridge the JAX weights instead."""
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.pdtype
+    bc = _minrnn_block_cfg(cfg)
+    params: Dict[str, Any] = {
+        "embed": {"table": nn.normal_init(
+            gen, (cfg.padded_vocab, cfg.d_model), 0.02, dtype)},
+        "final_norm": nn.norm_init(cfg.norm, cfg.d_model, dtype),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = nn.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                          use_bias=False, dtype=dtype)
+    layers = [minrnn_blocks.init(gen, bc, dtype=dtype)
+              for _ in range(cfg.n_layers)]
+    params["layers"] = {"blocks": _stack(layers)}
+    return tree_to(params, dev)
+
+
+def _stack(trees: List[dict]) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+class _Tree(torch.nn.Module):
+    """One level of a param dict: sub-dicts are child modules, tensors are
+    buffers, so ``state_dict`` keys are the dotted JAX paths."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_buffer(k, v)
+
+    def tree(self) -> dict:
+        out = {k: v for k, v in self._buffers.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+class MinRNNLM(torch.nn.Module):
+    """Holds a minRNN LM's params for ``.to(device)`` / ``state_dict``;
+    ``params()`` returns the nested dict the functions here take."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__()
+        _check_cfg(cfg)
+        self.cfg = cfg
+        self.tree = _Tree(params)
+
+    def params(self) -> dict:
+        return self.tree.tree()
+
+
+def bind_layers(params, cfg) -> List[tuple]:
+    """``(params, operands)`` per layer: views of the stacked block params
+    and each layer's weights bound for the block kernel (``blocks.bind``;
+    None on the CPU).  Bind once per params and pass the result as
+    ``layers=``; it reads the params as they are now, so bind again after
+    replacing a leaf."""
+    bc = _minrnn_block_cfg(cfg)
+    blocks = params["layers"]["blocks"]
+    n = next(iter(_leaves(blocks))).shape[0]
+    out = []
+    for i in range(n):
+        p_l = _tree_map(lambda a, i=i: a[i], blocks)
+        out.append((p_l, minrnn_blocks.bind(p_l, bc,
+                                            compute_dtype=cfg.cdtype)))
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ===========================================================================
+# Embedding / logits
+# ===========================================================================
+
+def _embed(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"]["table"].to(cfg.cdtype)[tokens.long()]
+    if cfg.embedding_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
+    return x
+
+
+def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].to(cfg.cdtype).T
+    else:
+        logits = nn.dense_apply(params["unembed"], x, cfg.cdtype)
+    if cfg.logits_softcap:
+        logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
+    if cfg.padded_vocab != cfg.vocab_size:     # mask the pad columns
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits,
+                             torch.tensor(-1e30, dtype=logits.dtype,
+                                          device=logits.device))
+    return logits
+
+
+def _final(params, cfg, x):
+    nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
+    x = nn.norm_apply(cfg.norm, params["final_norm"], x, **nk)
+    return _logits(params, cfg, x)
+
+
+# ===========================================================================
+# Decode
+# ===========================================================================
+
+def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
+    """Stacked per-layer recurrent state + per-row position counter."""
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    bc = _minrnn_block_cfg(cfg)
+    dt = cfg.cdtype
+    cache: Dict[str, Any] = {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "h": torch.zeros((cfg.n_layers, batch, bc.d_hidden), dtype=dt,
+                         device=dev)}
+    if bc.use_conv:
+        cache["conv"] = torch.zeros(
+            (cfg.n_layers, batch, bc.conv_kernel - 1, cfg.d_model),
+            dtype=dt, device=dev)
+    return cache
+
+
+def _run_layers(params, cfg, x, cache, block_fn, layers):
+    bc = _minrnn_block_cfg(cfg)
+    if layers is None:
+        layers = bind_layers(params, cfg)
+    hs, convs = [], []
+    for i, (p_l, operands) in enumerate(layers):
+        state = {"h": cache["h"][i]}
+        if bc.use_conv:
+            state["conv"] = cache["conv"][i]
+        x, state = block_fn(p_l, bc, x, state, operands)
+        hs.append(state["h"])
+        if bc.use_conv:
+            convs.append(state["conv"])
+    outs = {"h": torch.stack(hs)}
+    if bc.use_conv:
+        outs["conv"] = torch.stack(convs)
+    return x, outs
+
+
+def _minrnn_decode(params, cfg, x, cache, layers=None):
+    """The layer stack for one token: ``blocks.step`` per layer -- one
+    whole-block kernel launch each under the default strategy."""
+    return _run_layers(
+        params, cfg, x, cache,
+        lambda p, bc, x_, st, ops_: minrnn_blocks.step(
+            p, bc, x_, st, compute_dtype=cfg.cdtype, operands=ops_),
+        layers)
+
+
+def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
+                layers=None):
+    """token: (B,) -> (logits (B, V), new cache).  ``layers``: the
+    params' ``bind_layers``, if the caller holds one."""
+    _check_cfg(cfg)
+    x = _embed(params, cfg, token)
+    new_cache = dict(cache)
+    x, outs = _minrnn_decode(params, cfg, x, cache, layers)
+    new_cache.update(outs)
+    new_cache["pos"] = cache["pos"] + 1
+    return _final(params, cfg, x), new_cache
+
+
+def supports_prompt_packing(cfg) -> bool:
+    """True when the superstep can consume C > 1 prompt tokens per round:
+    the whole decode state is a constant-size recurrence."""
+    return cfg.block_kind == "minrnn"
+
+
+def decode_chunk(params, cfg, tokens: torch.Tensor, valid: torch.Tensor,
+                 cache: Dict[str, Any], *, layers=None):
+    """Packed varlen step: tokens (B, C), valid (B,) int32 in [1, C] ->
+    (logits (B, V) at each row's position ``valid[b]-1``, new cache), per
+    token identical to ``valid[b]`` sequential ``decode_step`` calls."""
+    if not supports_prompt_packing(cfg):
+        raise NotImplementedError(
+            f"packed decode_chunk requires block_kind='minrnn', got "
+            f"{cfg.block_kind!r}")
+    x = _embed(params, cfg, tokens)                    # (B, C, D)
+    x, outs = _run_layers(
+        params, cfg, x, cache,
+        lambda p, bc, x_, st, ops_: minrnn_blocks.step_chunk(
+            p, bc, x_, st, valid, compute_dtype=cfg.cdtype, operands=ops_),
+        layers)
+    new_cache = dict(cache)
+    new_cache.update(outs)
+    x_last = nn.gather_last(x, valid)                  # (B, D) at valid-1
+    new_cache["pos"] = cache["pos"] + valid.to(torch.int32)
+    return _final(params, cfg, x_last), new_cache
+
+
+# ===========================================================================
+# Superstep: prefill + decode + sampling + re-admission, K rounds
+# ===========================================================================
+
+_RECURRENT_CACHE_KEYS = ("h", "conv")
+
+# request fields swapped wholesale from the staging buffer when a row arms
+_ARM_FIELDS = ("prompt_len", "rid", "remaining", "eos", "temperature",
+               "top_k", "top_p")
+
+
+def init_slot_state(cfg, batch: int, max_len: int, *, seed: int = 0,
+                    device="cuda") -> Dict[str, Any]:
+    """Device-resident per-slot serving state for ``superstep`` (layout of
+    the reference's ``init_slot_state``).  The per-slot PRNG key data
+    ``keys`` (B, 2) lives on the host as int64 holding uint32 values;
+    ``key_lag`` (on the device) counts each slot's emissions since those
+    keys were last advanced -- the chain is caught up lazily, only when a
+    sampled request needs it (``serving.sampling``)."""
+    from repro_torch.serving import sampling
+
+    dev = resolve_device(device)
+
+    def iv(fill=0):
+        return torch.full((batch,), fill, dtype=torch.int32, device=dev)
+
+    def fv(fill):
+        return torch.full((batch,), fill, dtype=torch.float32, device=dev)
+
+    def bv():
+        return torch.zeros((batch,), dtype=torch.bool, device=dev)
+
+    def prompt():
+        return torch.zeros((batch, max_len), dtype=torch.int32, device=dev)
+
+    return {
+        "cache": init_cache(cfg, batch, max_len, dev),
+        "tok": iv(), "alive": bv(),
+        "keys": sampling.make_keys(seed, batch), "key_lag": iv(),
+        "prompt": prompt(), "prompt_len": iv(), "prompt_pos": iv(),
+        "rid": iv(-1), "remaining": iv(), "eos": iv(-1),
+        "temperature": fv(0.0), "top_k": iv(), "top_p": fv(1.0),
+        "s_valid": bv(), "s_prompt": prompt(),
+        "s_prompt_len": iv(), "s_rid": iv(-1), "s_remaining": iv(),
+        "s_eos": iv(-1), "s_temperature": fv(0.0), "s_top_k": iv(),
+        "s_top_p": fv(1.0),
+    }
+
+
+def _reset_slot_rows(cache: Dict[str, Any], mask: torch.Tensor):
+    """Re-arm rows ``mask``: zero their recurrent state and position."""
+    out = dict(cache)
+    out["pos"] = torch.where(mask, 0, cache["pos"])
+    for name in _RECURRENT_CACHE_KEYS:
+        if name in cache:
+            leaf = cache[name]
+            m = mask.reshape((1, -1) + (1,) * (leaf.ndim - 2))
+            out[name] = torch.where(m, torch.zeros((), dtype=leaf.dtype,
+                                                   device=leaf.device), leaf)
+    return out
+
+
+def superstep(params, cfg, state: Dict[str, Any], n: int, *,
+              prompt_chunk: int = 1, layers=None,
+              sampled: Optional[bool] = None,
+              chunk_rounds: Optional[Sequence[bool]] = None):
+    """Run ``n`` rounds of the unified serving loop (see the reference's
+    ``lm.superstep`` for the full contract).  Per round, for every slot:
+    re-admission from staging, token select (next prompt token(s) or the
+    fed-back sample), one ``decode_step`` -- or ``decode_chunk`` in a
+    chunk round -- the non-finite health guard, sample-or-teacher-force,
+    and EOS / length retire.
+
+    Returns ``(tokens (B, n), rids (B, n), state, counters)`` with -1 at
+    non-emitting positions, as the reference does.
+
+    Where the reference decides on the device, the caller may say what it
+    knows on the host; each flag left None is read from the device, which
+    waits for the work queued before it.  ``sampled``: whether any armed
+    or staged request samples (if so, the key chain is caught up and the
+    noise drawn on the host, after one read of ``key_lag``).
+    ``chunk_rounds`` (``prompt_chunk > 1``): per round, whether to run the
+    C-token chunk kernel; None reads whether any row is prefilling (the
+    reference's ``lax.cond``).  A row prefilling in a round not marked
+    takes one prompt token, so a wrong guess costs speed, never tokens:
+    the chunk at valid 1 and the step are one kernel, bit for bit."""
+    from repro_torch.serving import sampling
+
+    if prompt_chunk > 1 and not supports_prompt_packing(cfg):
+        raise NotImplementedError(
+            f"prompt_chunk={prompt_chunk} requires block_kind='minrnn'")
+    st = dict(state)
+    batch = st["tok"].shape[0]
+    p_cap = st["prompt"].shape[1]
+    chunk = int(prompt_chunk)
+    dev = st["tok"].device
+    rows = torch.arange(batch, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    prefill_ct, round_ct, waste_ct, nf_ct = zero, zero, zero, zero
+    if layers is None:
+        layers = bind_layers(params, cfg)
+    if sampled is None:
+        sampled = bool(((st["temperature"] > 0)
+                        | (st["s_valid"] & (st["s_temperature"] > 0))).any())
+
+    noise = None
+    if sampled:
+        # a sampled request may emit: bring the key chain up to date and
+        # draw the Gumbel noise of the next n chain positions per slot
+        st["keys"] = sampling.advance_keys(st["keys"], st["key_lag"].cpu())
+        st["key_lag"] = torch.zeros_like(st["key_lag"])
+        noise = sampling.gumbel_table(st["keys"], n,
+                                      cfg.padded_vocab).to(dev)
+
+    emitted, emit_rids, nonfinite = [], [], []
+    for r in range(n):
+        # 1. re-admission from the staging buffer
+        arm = ~st["alive"] & st["s_valid"]
+        for f in _ARM_FIELDS:
+            st[f] = torch.where(arm, st["s_" + f], st[f])
+        st["prompt"] = torch.where(arm[:, None], st["s_prompt"],
+                                   st["prompt"])
+        st["prompt_pos"] = torch.where(arm, 0, st["prompt_pos"])
+        st["alive"] = st["alive"] | arm
+        st["s_valid"] = st["s_valid"] & ~arm
+        st["cache"] = _reset_slot_rows(st["cache"], arm)
+
+        alive = st["alive"]
+        waste_ct = waste_ct + (~alive).sum(dtype=torch.int32)
+        prefilling = alive & (st["prompt_pos"] < st["prompt_len"])
+        round_ct = round_ct + prefilling.sum(dtype=torch.int32)
+
+        if chunk == 1:
+            use_chunk = False
+        elif chunk_rounds is None:
+            use_chunk = bool(prefilling.any())
+        else:
+            use_chunk = bool(chunk_rounds[r])
+        # 2. per-slot token select, 3. the layer stack for all rows
+        if use_chunk:
+            left = st["prompt_len"] - st["prompt_pos"]
+            take = torch.where(prefilling, torch.clamp(left, max=chunk),
+                               0).to(torch.int32)
+            valid = torch.clamp(take, min=1)      # non-prefilling rows: 1
+            idx = st["prompt_pos"][:, None] \
+                + torch.arange(chunk, device=dev)[None]
+            gathered = torch.gather(st["prompt"], 1,
+                                    idx.clamp(0, p_cap - 1).long())
+            tok_blk = torch.where(prefilling[:, None], gathered,
+                                  st["tok"][:, None])
+            logits, st["cache"] = decode_chunk(params, cfg, tok_blk, valid,
+                                               st["cache"], layers=layers)
+        else:
+            take = prefilling.to(torch.int32)
+            nxt = st["prompt"][rows, st["prompt_pos"].clamp(0, p_cap - 1)
+                               .long()]
+            in_tok = torch.where(prefilling, nxt, st["tok"])
+            logits, st["cache"] = decode_step(params, cfg, in_tok,
+                                              st["cache"], layers=layers)
+        prefill_ct = prefill_ct + take.sum(dtype=torch.int32)
+
+        # 3b. numerical health guard: a row whose logits or recurrent
+        # state went non-finite dies this round with its emission dropped
+        ok = torch.isfinite(logits).all(dim=-1)
+        h = st["cache"]["h"]
+        ok = ok & torch.isfinite(h).transpose(0, 1).reshape(batch, -1) \
+            .all(dim=-1)
+        bad = alive & ~ok
+        nf_ct = nf_ct + (bad & ~prefilling).sum(dtype=torch.int32)
+
+        # 4. sample-or-teacher-force
+        gum = None if noise is None else \
+            noise[rows, st["key_lag"].clamp(max=n - 1).long()]
+        toks = sampling.sample_tokens(logits, gum, st["temperature"],
+                                      st["top_k"], st["top_p"])
+        pos_next = st["prompt_pos"] + take
+        emitting = alive & ~bad & (pos_next >= st["prompt_len"])
+        st["key_lag"] = st["key_lag"] + emitting.to(torch.int32)
+        emitted.append(torch.where(emitting, toks, -1))
+        emit_rids.append(torch.where(emitting, st["rid"], -1))
+        nonfinite.append(bad)
+
+        # 5. EOS / length-cap retire (a non-finite row dies too)
+        st["remaining"] = st["remaining"] - emitting.to(torch.int32)
+        hit_eos = emitting & (st["eos"] >= 0) & (toks == st["eos"])
+        died = hit_eos | (emitting & (st["remaining"] <= 0))
+        st["alive"] = alive & ~(died | bad)
+        st["tok"] = torch.where(emitting, toks, st["tok"])
+        st["prompt_pos"] = pos_next
+
+    counters = {"prefill_steps": prefill_ct, "prefill_rounds": round_ct,
+                "wasted_slot_steps": waste_ct,
+                "nonfinite_decode_rounds": nf_ct,
+                "nonfinite": torch.stack(nonfinite, dim=1)}
+    return (torch.stack(emitted, dim=1).to(torch.int32),
+            torch.stack(emit_rids, dim=1).to(torch.int32), st, counters)
