@@ -1,30 +1,46 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernels from source,
-holds each against its plain PyTorch version at full model width, then
-serves full-width mingru-lm (and a short minlstm-lm run) through the
-port's ServingEngine and checks that every layer of every device round
-went through the kernels.
+holds each against its plain PyTorch version at full model width, serves
+full-width mingru-lm (and a short minlstm-lm run) through the port's
+ServingEngine, then trains full-width mingru-lm / minlstm-lm through the
+port's train step, and checks that every layer of every device round and
+every training step went through the kernels.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
 Phases (any failed check exits non-zero before the result line):
-  1. the card's name and power limit; kernel build time;
-  2. kernels at mingru-lm widths (Dx 768, Dh 1536, Dm 3072, K 4), B = 8,
-     C = 8, both cells, fp32 and bf16: kernel vs plain version, chunk ==
-     C steps bit for bit, a row independent of B, kernel / plain times
-     and the bound;
-  3. serving: full-width mingru-lm (bf16, seeded init), 8 slots, 8 byte
+  1. the card's name and power limit; the four sources built in parallel
+     (one nvcc each), with each source's ptxas report;
+  2. block kernels at mingru-lm widths (Dx 768, Dh 1536, Dm 3072, K 4),
+     B = 8, C = 8, both cells, fp32 and bf16: kernel vs plain version,
+     chunk == C steps bit for bit, a row independent of B, kernel / plain
+     times and the bound;
+  3. training kernels at the training shapes (B 8, T 256, Dx 768,
+     Dh 1536; T 250 for a ragged edge; h0 given and not): the fused
+     minGRU / minLSTM kernels and the linear / log-space scans, forward
+     and each autograd Function's gradients against the plain versions;
+     kernel / plain times, the bound, and one cuBLAS bf16 matmul of the
+     projections as a note (the floor the GEMM part faces);
+  4. serving: full-width mingru-lm (bf16, seeded init), 8 slots, 8 byte
      prompts, 32 new tokens, K = 4, C in {1, 8}: greedy streams equal
      across C and to ``generate_one``, launches == layers x rounds;
      then a short full-width minlstm-lm run; then, outside the counted
      main path, decoded tok/s over 5 windows per C (min / median / max)
      and the cost of sampled requests;
-  4. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  5. training: full-width mingru-lm (bf16, remat "full") 10 AdamW steps
+     of B 8 x T 256 on the corpus, minlstm-lm 3 steps, mingru-lm under
+     scan_strategy "pallas" 3 steps; launches == the stated formulas;
+     loss finite and falling; outside the count, the first 3 losses
+     against the same run on the plain versions, a checkpoint restore +
+     resumed step 6, and ms per step over 5 repeats;
+  6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -40,9 +56,19 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from repro_torch.configs import archs  # noqa: E402
+from repro_torch.data import lm_corpus  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.block_step import ops, ref  # noqa: E402
+from repro_torch.kernels.fused_mingru import ops as gru_ops  # noqa: E402
+from repro_torch.kernels.fused_mingru import ref as gru_ref  # noqa: E402
+from repro_torch.kernels.fused_minlstm import ops as lstm_ops  # noqa: E402
+from repro_torch.kernels.fused_minlstm import ref as lstm_ref  # noqa: E402
+from repro_torch.kernels.scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.scan import ref as scan_ref  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.training import optimizer as opt_lib  # noqa: E402
+from repro_torch.training import train_step as ts_lib  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import ServingEngine, generate_one  # noqa
 
@@ -58,7 +84,21 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 2e-2)}
 DX, DH, DM, K, B, C = 768, 1536, 3072, 4, 8, 8
 GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
 REPLACES = {"block_step_kernel": "src/repro/kernels/block_step/kernel.py:298",
-            "block_chunk_kernel": "src/repro/kernels/block_step/kernel.py:349"}
+            "block_chunk_kernel": "src/repro/kernels/block_step/kernel.py:349",
+            "linear_scan_kernel": "src/repro/kernels/scan/kernel.py:94",
+            "log_scan_kernel": "src/repro/kernels/scan/kernel.py:153",
+            "fused_mingru_kernel":
+                "src/repro/kernels/fused_mingru/kernel.py:60",
+            "fused_minlstm_kernel":
+                "src/repro/kernels/fused_minlstm/kernel.py:64"}
+SOURCES = {"block_step_kernel": ops.SOURCE,
+           "block_chunk_kernel": ops.SOURCE,
+           "linear_scan_kernel": scan_ops.SOURCE,
+           "log_scan_kernel": scan_ops.SOURCE,
+           "fused_mingru_kernel": gru_ops.SOURCE,
+           "fused_minlstm_kernel": lstm_ops.SOURCE}
+TRAIN_KERNELS = ("fused_mingru_kernel", "fused_minlstm_kernel",
+                 "linear_scan_kernel", "log_scan_kernel")
 
 
 def fail(msg):
@@ -129,7 +169,7 @@ def bound_ms(cell, dtype, bsz, chunk):
 
 
 def max_err(got, want, dtype, what):
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     err = (got - want).abs()
     atol, rtol = TOL[dtype]
@@ -437,6 +477,418 @@ def serve_phase(gen):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# 3. training kernels at the training shapes
+# ---------------------------------------------------------------------------
+
+TB, TT = 8, 256                       # training batch and sequence
+# gradients: largest |kernel - plain| over the largest |plain|.  fp32:
+# the same arithmetic in another order (1e-4).  bf16: the backward reads
+# the kernel's rounded h where the plain version's autograd keeps it
+# unrounded, and every gradient is rounded to bf16 (2e-2, a few bf16 ulps)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# training losses, kernels vs plain versions: bf16 activations in both;
+# a sum in another order moves an fp32 h across a bf16 rounding boundary
+# in a few elements per layer, and AdamW's first steps move every weight
+# by ~lr whatever its gradient's size, so those bits compound over the
+# three steps.  1% of the loss bounds that drift with room; a wrong
+# kernel moves the loss by far more.
+LOSS_RTOL_PLAIN = 1e-2
+# the resumed step: the same kernels on the same restored bits; only the
+# order cuBLAS picks for a product could differ
+LOSS_RTOL_RESUME = 1e-3
+
+
+def rel_err(got, want, what, tol):
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    e = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+    check(e <= tol, f"{what}: relative error {e:.3g} > {tol}")
+    return e
+
+
+def fused_inputs(gen, cell, dtype, t, with_h0):
+    n = len(GATES[cell])
+    x = torch.randn((TB, t, DX), generator=gen)
+    wb = []
+    for _ in range(n):
+        wb += [torch.randn((DX, DH), generator=gen) / DX ** 0.5,
+               0.1 * torch.randn((DH,), generator=gen)]
+    h0 = 0.5 * torch.randn((TB, DH), generator=gen) if with_h0 else None
+    out = [v.to(dtype).to(DEV) for v in (x, *wb)]
+    return out, (None if h0 is None else h0.to(dtype).to(DEV))
+
+
+def fused_bound_ms(cell, dtype, t):
+    """Projection multiply-adds over the type's peak, against the bytes
+    of x, weights, biases, h0 in and h out."""
+    n = len(GATES[cell])
+    e = torch.tensor([], dtype=dtype).element_size()
+    flops = 2 * TB * t * DX * DH * n
+    nbytes = e * (TB * t * DX + n * (DX * DH + DH) + TB * t * DH) \
+        + 4 * TB * DH
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def scan_bound_ms(in_elem, out_elem, d=DH):
+    """Two (B, T, D) inputs and h0 read, one output written."""
+    nbytes = TB * TT * d * (2 * in_elem + out_elem) + 4 * TB * d
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def fused_checks(gen):
+    """The fused kernels at the training shapes; returns per-kernel main
+    numbers (bf16, T 256, as the LM's layers run them)."""
+    rows, main = [], {}
+    for cell in ("mingru", "minlstm"):
+        fn, plain, raw_launch = (
+            (gru_ops.fused_mingru, gru_ref.fused_mingru_ref, gru_ops.launch)
+            if cell == "mingru" else
+            (lstm_ops.fused_minlstm, lstm_ref.fused_minlstm_ref,
+             lstm_ops.launch))
+        name = f"fused_{cell}_kernel"
+        for dtype in (torch.float32, torch.bfloat16):
+            for t, with_h0 in ((TT, False), (250, True)):
+                wb, h0 = fused_inputs(gen, cell, dtype, t, with_h0)
+                x, rest = wb[0], wb[1:]
+                ins = [v.requires_grad_(True) for v in
+                       [x, *rest] + ([h0] if with_h0 else [])]
+                out = fn(*ins[:len(wb)], ins[-1] if with_h0 else None)
+                want = plain(*ins[:len(wb)], ins[-1] if with_h0 else None)
+                tag = f"{cell}/{str(dtype).split('.')[-1]}/T{t}" + \
+                    ("/h0" if with_h0 else "")
+                err = max_err(out, want, dtype, f"{tag} forward")
+                ct = torch.randn(out.shape, generator=gen).to(dtype).to(DEV)
+                got_g = torch.autograd.grad(out, ins, ct)
+                want_g = torch.autograd.grad(want, ins, ct)
+                g_err = max(rel_err(g, w, f"{tag} grad {i}", GRAD_TOL[dtype])
+                            for i, (g, w) in enumerate(zip(got_g, want_g)))
+                with torch.no_grad():
+                    h0z = (ins[-1] if with_h0 else torch.zeros(
+                        (TB, DH), dtype=dtype, device=DEV)).detach()
+                    args = [v.detach() for v in ins[:len(wb)]]
+                    t_k = time_ms([lambda: raw_launch(*args, h0z)], 20)
+                    t_p = time_ms([lambda: plain(*args, h0z)], 3)
+                    w_cat = torch.cat(args[1::2], dim=1)
+                    x2 = args[0].reshape(-1, DX)
+                    if dtype == torch.bfloat16:
+                        t_mm = time_ms([lambda: x2 @ w_cat], 20)
+                    else:
+                        t_mm = float("nan")
+                b_ms, b_by = fused_bound_ms(cell, dtype, t)
+                rows.append((tag, t_k, t_p, b_ms, t_mm, err, g_err))
+                if dtype == torch.bfloat16 and t == TT and not with_h0:
+                    main[name] = (err, t_k, t_p, (b_ms, b_by))
+                del ins, out, want, got_g, want_g
+    print(f"fused cell kernels at B {TB} Dx {DX} Dh {DH} (ms per launch, "
+          f"L2-warm repeats on one input set):")
+    print("  cell/dtype/T         kernel_ms  plain_ms   bound_ms  "
+          "cublas_bf16_proj_ms  fwd_max_err  grad_rel_err")
+    for r in rows:
+        print("  {:<20} {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3g}  {:.3g}"
+              .format(*r))
+    return main
+
+
+def scan_checks(gen):
+    rows, main = [], {}
+    shape = (TB, TT, DH)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = (0.05 + 0.9 * torch.rand(shape, generator=gen)).to(dtype).to(DEV)
+        b = torch.randn(shape, generator=gen).to(dtype).to(DEV)
+        h0 = torch.randn((TB, DH), generator=gen).to(DEV)
+        tag = str(dtype).split('.')[-1]
+        for reverse in (False, True):
+            got = scan_ops.linear_scan_kernel(a, b, h0, reverse=reverse)
+            want = scan_ref.linear_scan_ref(a, b, h0, reverse=reverse)
+            err = max_err(got, want, dtype, f"linear {tag} rev={reverse}")
+            t_k = time_ms([lambda: scan_ops.linear_scan_kernel(
+                a, b, h0, reverse=reverse)], 50)
+            t_p = time_ms([lambda: scan_ref.linear_scan_ref(
+                a, b, h0, reverse=reverse)], 3)
+            e = a.element_size()
+            b_ms, b_by = scan_bound_ms(e, e)
+            rows.append((f"linear/{tag}/" + ("reverse" if reverse
+                                              else "forward"),
+                         t_k, t_p, b_ms, err))
+            if dtype == torch.float32 and reverse:
+                # the main path's use: the backward of every layer, fp32
+                main["linear_scan_kernel"] = (err, t_k, t_p, (b_ms, b_by))
+        k = 3 * torch.randn(shape, generator=gen)
+        la = (-torch.nn.functional.softplus(k)).to(dtype).to(DEV)
+        lb = (-torch.nn.functional.softplus(-k)
+              + 0.3 * torch.randn(shape, generator=gen)).to(dtype).to(DEV)
+        for lh0 in (torch.full((TB, DH), float("-inf"), device=DEV),
+                    0.3 * torch.randn((TB, DH), generator=gen).to(DEV)):
+            got = scan_ops.log_scan_kernel(la, lb, lh0)
+            want = scan_ref.log_scan_ref(la, lb, lh0)
+            neg = bool(torch.isinf(lh0).all())
+            err = max_err(got, want, torch.float32,
+                          f"log {tag} h0={'0' if neg else 'given'}")
+            t_k = time_ms([lambda: scan_ops.log_scan_kernel(la, lb, lh0)],
+                          50)
+            t_p = time_ms([lambda: scan_ref.log_scan_ref(la, lb, lh0)], 3)
+            b_ms, b_by = scan_bound_ms(la.element_size(), 4)
+            rows.append((f"log/{tag}/h0=" + ("0" if neg else "given"), t_k,
+                         t_p, b_ms, err))
+            if dtype == torch.float32 and neg:
+                main["log_scan_kernel"] = (err, t_k, t_p, (b_ms, b_by))
+    # the Functions' gradients (reversed linear scan inside), fp32
+    a = (0.05 + 0.9 * torch.rand(shape, generator=gen)).to(DEV)
+    b = torch.randn(shape, generator=gen).to(DEV)
+    h0 = torch.randn((TB, DH), generator=gen).to(DEV)
+    ins = [v.requires_grad_(True) for v in (a, b, h0)]
+    ct = torch.randn(shape, generator=gen).to(DEV)
+    got = torch.autograd.grad(scan_ops.linear_scan(*ins), ins, ct)
+    want = torch.autograd.grad(scan_ref.linear_scan_ref(*ins), ins, ct)
+    g1 = max(rel_err(g, w, f"linear_scan grad {i}", GRAD_TOL[torch.float32])
+             for i, (g, w) in enumerate(zip(got, want)))
+    ins = [v.requires_grad_(True) for v in
+           (torch.log(a.detach()), torch.randn(shape, generator=gen).to(DEV),
+            torch.randn((TB, DH), generator=gen).to(DEV))]
+    got = torch.autograd.grad(scan_ops.log_space_scan(*ins), ins, ct)
+    want = torch.autograd.grad(scan_ref.log_scan_ref(*ins), ins, ct)
+    g2 = max(rel_err(g, w, f"log_space_scan grad {i}",
+                     GRAD_TOL[torch.float32])
+             for i, (g, w) in enumerate(zip(got, want)))
+    print(f"scan kernels at B {TB} T {TT} D {DH} (ms per launch):")
+    print("  scan/dtype/form          kernel_ms  plain_ms  bound_ms  "
+          "max_err")
+    for r in rows:
+        print("  {:<24} {:.5f}  {:.5f}  {:.5f}  {:.3g}".format(*r))
+    print(f"  Function grads vs plain autograd (fp32, relative): "
+          f"linear_scan {g1:.3g}, log_space_scan {g2:.3g}")
+    return main
+
+
+def train_kernel_phase(gen):
+    main = fused_checks(gen)
+    main.update(scan_checks(gen))
+    torch.cuda.empty_cache()
+    return main
+
+
+# ---------------------------------------------------------------------------
+# 5. training
+# ---------------------------------------------------------------------------
+
+def train_launches():
+    out = dict(gru_ops.LAUNCHES)
+    out.update(lstm_ops.LAUNCHES)
+    out.update(scan_ops.LAUNCHES)
+    return out
+
+
+def reset_train_launches():
+    for mod in (gru_ops, lstm_ops, scan_ops):
+        mod.reset_launches()
+
+
+def clone(tree):
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def train_run(cfg, params, batches, ocfg, n, ckpt=None):
+    """``n`` train steps from ``params`` (updated in place); returns the
+    per-step losses (synchronised floats) and the final state."""
+    step = ts_lib.make_train_step(cfg, ocfg)
+    state = opt_lib.init(ocfg, params)
+    losses = []
+    for i in range(n):
+        params, state, m = step(params, state, batches(i))
+        losses.append(float(m["loss"]))
+        if ckpt is not None:
+            ckpt.maybe_save(i + 1, params, state)
+    return losses, params, state
+
+
+class plain_kernels:
+    """Within the block, the model's kernel calls go to the plain versions
+    (autograd through them): the reference run for the loss check."""
+
+    @staticmethod
+    def gru(x, wz, bz, wh, bh, h0=None, *, mode):
+        return gru_ref.fused_mingru_ref(x, wz, bz, wh, bh, h0, mode=mode)
+
+    @staticmethod
+    def lstm(x, wf, bf, wi, bi, wh, bh, h0=None, *, mode, normalize):
+        return lstm_ref.fused_minlstm_ref(x, wf, bf, wi, bi, wh, bh, h0,
+                                          mode=mode, normalize=normalize)
+
+    def __enter__(self):
+        self.saved = (gru_ops.fused_mingru, lstm_ops.fused_minlstm,
+                      scan_ops.log_space_scan)
+        gru_ops.fused_mingru = self.gru          # the LM's layers have
+        lstm_ops.fused_minlstm = self.lstm       # biases: no None here
+        scan_ops.log_space_scan = scan_ref.log_scan_ref
+        return self
+
+    def __exit__(self, *exc):
+        (gru_ops.fused_mingru, lstm_ops.fused_minlstm,
+         scan_ops.log_space_scan) = self.saved
+        return False
+
+
+def train_profile(cfg, params, batches, ocfg, top=20):
+    """Where one training step's device time goes: ``torch.profiler``
+    over one step (after a warm one), kernels by self device time, and
+    the device-busy share of the step's wall time (the profiler's own
+    host cost inflates the wall time, so the share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    step = ts_lib.make_train_step(cfg, ocfg)
+    state = opt_lib.init(ocfg, params)
+    params, state, _ = step(params, state, batches(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batches(1))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only (kernels, copies): a CPU op's row carries
+    # the time of the kernels it launched, which would count them twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    if not events:
+        print("train profile: the profiler saw no device time")
+        return
+    ours = ("fused_cell_kernel", "linear_scan_kernel", "log_scan_kernel")
+    groups = {"this repo's kernels": 0.0, "cuBLAS matmuls": 0.0,
+              "elementwise, reductions, copies": 0.0}
+    for e in events:
+        if any(k in e.key for k in ours):
+            groups["this repo's kernels"] += dev_us(e) / 1e3
+        elif any(k in e.key.lower() for k in ("gemm", "cutlass", "xmma",
+                                                "nvjet", "cublas")):
+            groups["cuBLAS matmuls"] += dev_us(e) / 1e3
+        else:
+            groups["elementwise, reductions, copies"] += dev_us(e) / 1e3
+    print(f"train profile, one mingru-lm step (B {TB} x T {TT}): wall "
+          f"{wall_ms:.2f} ms under the profiler, device busy "
+          f"{total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}% of the "
+          f"wall); " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                 groups.items()))
+    n_kernels = sum(e.count for e in events)
+    print(f"  {n_kernels} device events in the step; top {top} by self "
+          f"device time (ms, calls):")
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        print(f"    {dev_us(e) / 1e3:8.3f}  {e.count:5d}  {e.key[:90]}")
+
+
+def train_phase(gen):
+    cfg = archs.get("mingru-lm")
+    check(cfg.remat == "full" and cfg.cdtype == torch.bfloat16,
+          f"unexpected training config {cfg}")
+    train_data, _ = lm_corpus.build_corpus()
+
+    def batches(i):
+        return lm_corpus.lm_batch(train_data, 0, i, TB, TT)
+
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    p0 = lm.MinRNNLM(cfg, lm.init_params(gen, cfg, device=DEV)).params()
+    p_init = clone(p0)
+    lstm_cfg = archs.get("minlstm-lm")
+    lstm_p = lm.init_params(gen, lstm_cfg, device=DEV)
+    pallas_cfg = cfg.replace(scan_strategy="pallas")
+    # first-use allocations and library loads off the clock and the count
+    train_run(cfg, clone(p_init), batches, ocfg, 1)
+    ckdir = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckpt = ckpt_lib.CheckpointManager(ckdir, keep=2, save_interval=5,
+                                      device=DEV)
+
+    reset_train_launches()
+    counted = {}
+    t0 = time.perf_counter()
+    losses, _, _ = train_run(cfg, p0, batches, ocfg, 10, ckpt=ckpt)
+    counted["mingru"] = train_launches()
+    lstm_losses, _, _ = train_run(lstm_cfg, lstm_p, batches, ocfg, 3)
+    pallas_losses, _, _ = train_run(pallas_cfg, clone(p_init), batches,
+                                    ocfg, 3)
+    torch.cuda.synchronize()
+    t_counted = time.perf_counter() - t0
+    launches = train_launches()
+    layers = cfg.n_layers
+    want = {"fused_mingru_kernel": 2 * layers * 10,
+            "fused_minlstm_kernel": 2 * layers * 3,
+            "log_scan_kernel": 2 * layers * 3,
+            "linear_scan_kernel": layers * (10 + 3 + 3)}
+    check(launches == want, f"training launches {launches} != {want}")
+    check(counted["mingru"]["fused_mingru_kernel"] == 2 * layers * 10,
+          f"auto mingru run launched {counted['mingru']}")
+    for name, ls in (("mingru-lm", losses), ("minlstm-lm", lstm_losses),
+                     ("mingru-lm pallas", pallas_losses)):
+        check(all(math.isfinite(v) for v in ls), f"{name}: loss {ls}")
+        check(ls[-1] < ls[0], f"{name}: loss did not fall: {ls}")
+    print(f"train mingru-lm (bf16, remat full, B {TB} T {TT}) losses "
+          + " ".join(f"{v:.4f}" for v in losses))
+    print(f"train minlstm-lm losses " + " ".join(f"{v:.4f}"
+                                                for v in lstm_losses))
+    print(f"train mingru-lm pallas losses " + " ".join(
+        f"{v:.4f}" for v in pallas_losses))
+    print(f"train: counted runs (16 steps) took {t_counted:.2f}s; launches "
+          f"{launches} == {want}")
+
+    # outside the count: the same run on the plain versions
+    with plain_kernels():
+        before = train_launches()
+        plain_losses, _, _ = train_run(cfg, clone(p_init), batches, ocfg, 3)
+        check(train_launches() == before, "the plain run launched kernels")
+    d_plain = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    check(max(d_plain) <= LOSS_RTOL_PLAIN,
+          f"kernel vs plain losses {losses[:3]} vs {plain_losses} "
+          f"(relative {d_plain})")
+    print(f"train: first 3 losses vs the plain versions' run "
+          f"{plain_losses}: relative differences "
+          + " ".join(f"{v:.3g}" for v in d_plain)
+          + f" (limit {LOSS_RTOL_PLAIN})")
+
+    # restore the step-5 checkpoint and take step 6 again
+    r_step, rp, rstate = ckpt_lib.restore(
+        os.path.join(ckdir, "step_00000005"), device=DEV)
+    check(r_step == 5 and int(rstate.step) == 5,
+          f"checkpoint restore gave step {r_step} / {int(rstate.step)}")
+    _, _, m6 = ts_lib.make_train_step(cfg, ocfg)(rp, rstate, batches(5))
+    d_res = abs(float(m6["loss"]) - losses[5]) / abs(losses[5])
+    check(d_res <= LOSS_RTOL_RESUME,
+          f"resumed step 6 loss {float(m6['loss'])} vs {losses[5]}")
+    print(f"train: restored step 5, step 6 loss {float(m6['loss']):.6f} vs "
+          f"{losses[5]:.6f} uninterrupted (relative {d_res:.3g}, limit "
+          f"{LOSS_RTOL_RESUME})")
+
+    train_profile(cfg, clone(p_init), batches, ocfg)
+
+    # rates: ms per step over 5 repeats of 2 steps, outside the count
+    step = ts_lib.make_train_step(cfg, ocfg)
+    params, state = clone(p_init), opt_lib.init(ocfg, clone(p_init))
+    times = []
+    for r in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(2):
+            params, state, _ = step(params, state, batches(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) / 2 * 1e3)
+    times.sort()
+    tok = TB * TT
+    print(f"rate mingru-lm training, B {TB} x T {TT}, 5 repeats of 2 steps: "
+          f"ms per step min {times[0]:.2f} median {times[2]:.2f} max "
+          f"{times[-1]:.2f}; tokens/s median {tok / times[2] * 1e3:.1f}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     print(card_line())
@@ -445,21 +897,29 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    sources = sorted(set(SOURCES.values()))
     t0 = time.perf_counter()
-    build.build_all([ops.SOURCE])
-    print(f"built {ops.SOURCE.name} in {time.perf_counter() - t0:.1f}s")
-    print(build.ptxas_log(ops.SOURCE).strip())
+    build.build_all(sources)
+    print(f"built {', '.join(s_.name for s_ in sources)} in parallel in "
+          f"{time.perf_counter() - t0:.1f}s")
+    for src in sources:
+        print(f"ptxas report of {src.name}:")
+        print(build.ptxas_log(src).strip())
 
     gen = torch.Generator().manual_seed(0)
     main_k = kernel_phase(gen)
+    main_k.update(train_kernel_phase(gen))
     launches = serve_phase(gen)
+    launches.update(train_phase(gen))
 
     entries = []
-    for name in ("block_step_kernel", "block_chunk_kernel"):
+    for name in REPLACES:
         err, t_k, t_p, (b_ms, b_by) = main_k[name]
+        check(launches[name] > 0, f"{name} was launched no time on the "
+              f"main path")
         entries.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/block_step/csrc/block_step.cu",
+            "source": os.path.relpath(SOURCES[name], HERE),
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": t_k, "kernel_ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,

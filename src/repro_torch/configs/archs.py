@@ -13,8 +13,9 @@ from repro_torch.configs.base import MinRNNConfig, ModelConfig
 _REGISTRY: Dict[str, ModelConfig] = {}
 _SMOKE: Dict[str, ModelConfig] = {}
 
-_BIG = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
-_SMOKE_NUM = dict(param_dtype="float32", compute_dtype="float32")
+_BIG = dict(param_dtype="bfloat16", compute_dtype="bfloat16", remat="full")
+_SMOKE_NUM = dict(param_dtype="float32", compute_dtype="float32",
+                  remat="none")
 
 
 def _register(cfg: ModelConfig, smoke: ModelConfig):

@@ -1,9 +1,9 @@
 """Config schema: the minRNN subset of ``repro.configs.base``.
 
 A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
-dtype table.  Only the fields the serving slice reads are kept; the
-field names, defaults and properties match the reference so a config
-built here describes the same model as its JAX twin.
+dtype table.  Only the fields the serving and training slices read are
+kept; the field names, defaults and properties match the reference so a
+config built here describes the same model as its JAX twin.
 """
 
 from __future__ import annotations
@@ -49,6 +49,11 @@ class ModelConfig:
     # block kernel; "off" selects the cell-only tier, not ported yet
     fuse_block: str = "auto"
     logits_softcap: float = 0.0
+    # training: per-layer activation checkpointing ("full" recomputes each
+    # layer's forward in the backward; "none" keeps its activations) and
+    # the z-loss weight on logsumexp(logits)^2
+    remat: str = "none"            # none | full
+    z_loss: float = 0.0
 
     @property
     def padded_vocab(self) -> int:

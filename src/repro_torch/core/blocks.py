@@ -1,8 +1,11 @@
-"""The paper's minRNN residual block (Appendix C.2), decode forms.
+"""The paper's minRNN residual block (Appendix C.2).
 
     x = x + Down( minRNN( [Conv4]( Norm(x) ) ) )          # mixer sub-block
     x = x + MLP( Norm(x) )                                # optional
 
+``apply`` is the parallel (training) form: under ``scan_strategy="auto"``
+the cell runs in the fused CUDA layer kernel (``kernels/fused_mingru`` /
+``fused_minlstm``), under ``"pallas"`` in the CUDA scans.
 ``step`` / ``step_chunk`` carry (conv window, h) for decode.  Under the
 default ``scan_strategy="auto"`` with ``fuse_block`` "auto"/"on" the
 whole block runs in ONE hand-written CUDA kernel per layer per round
@@ -89,6 +92,37 @@ def init(gen: torch.Generator, cfg: MinRNNBlockConfig, *,
         p["mlp_out"] = nn.dense_init(gen, cfg.d_mlp, cfg.d_model,
                                      dtype=dtype)
     return p
+
+
+def apply(params, cfg: MinRNNBlockConfig, x: torch.Tensor, *,
+          h0: Optional[torch.Tensor] = None, state0=None, lengths=None,
+          compute_dtype=None, scan_strategy: Optional[str] = None,
+          return_state: bool = False) -> torch.Tensor:
+    """x: (..., T, d_model) parallel (training) form, from ``h0`` (or the
+    zero state).  ``scan_strategy`` overrides ``cfg.scan_strategy``.
+
+    The prefill branches of the reference -- ``return_state``,
+    ``lengths`` and ``state0`` -- wait for ``lm.prefill`` (ROADMAP.md queue
+    1); block dropout is not ported (the LM configs never set it)."""
+    if return_state or lengths is not None or state0 is not None:
+        raise NotImplementedError(
+            "blocks.apply's prefill branches (return_state, lengths, "
+            "state0) are not ported yet (ROADMAP.md queue 1, item 6)")
+    if scan_strategy is None:
+        scan_strategy = cfg.scan_strategy
+    cell = _CELLS[cfg.cell]
+    y = nn.norm_apply(cfg.norm, params["norm_rnn"], x)
+    if cfg.use_conv:
+        y = nn.causal_conv_apply(params["conv"], y)
+    h = cell.parallel(params["rnn"], y, h0, mode=cfg.mode,
+                      scan_strategy=scan_strategy,
+                      compute_dtype=compute_dtype)
+    x = x + nn.dense_apply(params["down"], h, compute_dtype)
+    if cfg.use_mlp:
+        y = nn.norm_apply(cfg.norm, params["norm_mlp"], x)
+        y = nn.gelu(nn.dense_apply(params["mlp_in"], y, compute_dtype))
+        x = x + nn.dense_apply(params["mlp_out"], y, compute_dtype)
+    return x
 
 
 def init_state(cfg: MinRNNBlockConfig, batch_shape: Tuple[int, ...],

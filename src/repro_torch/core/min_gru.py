@@ -1,10 +1,11 @@
-"""minGRU (the paper's Section 3.1): init and the sequential decode forms.
+"""minGRU (the paper's Section 3.1).
 
     z_t  = sigma(Linear_dh(x_t))
     h~_t = Linear_dh(x_t)            (linear mode) | g(Linear_dh(x_t)) (log)
     h_t  = (1 - z_t) * h_{t-1} + z_t * h~_t
 
-The parallel (training / prefill) forms come with the training slice.
+``parallel`` is the training form (the fused CUDA layer under "auto");
+``step`` / ``step_chunk`` are the sequential decode forms.
 """
 
 from __future__ import annotations
@@ -26,6 +27,77 @@ def init(gen: torch.Generator, d_in: int, d_hidden: int, *,
                             dtype=dtype),
     }
 
+
+# ---------------------------------------------------------------------------
+# Parallel (training) forms
+# ---------------------------------------------------------------------------
+
+def parallel(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+             mode: str = "log", scan_strategy: str = "associative",
+             compute_dtype=None) -> torch.Tensor:
+    """x: (..., T, d_in) -> h: (..., T, d_hidden).
+
+    ``"auto"`` / ``"fused"`` run the whole layer (projections + scan) in
+    the fused CUDA kernel; ``"pallas"`` keeps torch projections and scans
+    in the CUDA scan kernels (the log-space one for ``mode="log"``); the
+    other strategies are plain torch.  In log mode only ``"pallas"``
+    changes the scan: the rest run the associative Heinsen scan."""
+    if mode not in ("log", "linear"):
+        raise ValueError(f"unknown minGRU mode {mode!r}")
+    strategy = scan_lib.resolve_strategy(scan_strategy)
+    if strategy == "fused":
+        return _fused_parallel(params, x, h0, mode=mode,
+                               compute_dtype=compute_dtype)
+    k = nn.dense_apply(params["wz"], x, compute_dtype)   # gate pre-act
+    v = nn.dense_apply(params["wh"], x, compute_dtype)   # candidate
+    if mode == "log":
+        # Appendix B Algorithm 6, scanned in fp32 for stability
+        log_z = nn.log_sigmoid(k.float())
+        log_coeffs = nn.log_sigmoid(-k.float())          # log(1 - z)
+        log_h_tilde = nn.log_g(v.float())
+        log_h0 = None if h0 is None else torch.log(h0.float())
+        h = scan_lib.scan_log_space(log_coeffs, log_z + log_h_tilde, log_h0,
+                                    strategy=strategy)
+        return h.to(x.dtype if compute_dtype is None else compute_dtype)
+    z = torch.sigmoid(k)
+    return scan_lib.scan_linear(1.0 - z, z * v, h0, strategy=strategy)
+
+
+def _fused_parallel(params, x, h0, *, mode: str, compute_dtype=None):
+    """Whole layer in one CUDA launch (kernels/fused_mingru)."""
+    from repro_torch.kernels.fused_mingru import ops as fused_ops
+    from repro_torch.kernels.scan.ops import call_with_flat_lead
+    wz, wh = params["wz"]["kernel"], params["wh"]["kernel"]
+    bz, bh = params["wz"].get("bias"), params["wh"].get("bias")
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        wz, wh = wz.to(compute_dtype), wh.to(compute_dtype)
+        bz = None if bz is None else bz.to(compute_dtype)
+        bh = None if bh is None else bh.to(compute_dtype)
+    if h0 is None:                          # the kernel wants (B, T, D)
+        return call_with_flat_lead(
+            lambda xf: fused_ops.fused_mingru(xf, wz, bz, wh, bh,
+                                              mode=mode), (x, 2))
+    return call_with_flat_lead(
+        lambda xf, h0f: fused_ops.fused_mingru(xf, wz, bz, wh, bh, h0f,
+                                               mode=mode), (x, 2), (h0, 1))
+
+
+def gates(params, x: torch.Tensor, *, mode: str = "log",
+          compute_dtype=None):
+    """The linear-space (a, b) recurrence inputs, (1 - z, z * h~), for
+    external scans -- in log mode too, where scanning them linearly is
+    the log-space scan up to rounding."""
+    k = nn.dense_apply(params["wz"], x, compute_dtype)
+    v = nn.dense_apply(params["wh"], x, compute_dtype)
+    z = torch.sigmoid(k)
+    h_tilde = nn.g(v) if mode == "log" else v
+    return 1.0 - z, z * h_tilde
+
+
+# ---------------------------------------------------------------------------
+# Sequential (decode) forms
+# ---------------------------------------------------------------------------
 
 def _no_cell_kernel(scan_strategy):
     if scan_strategy is not None and \

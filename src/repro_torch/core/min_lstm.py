@@ -1,4 +1,4 @@
-"""minLSTM (the paper's Section 3.2): init and the sequential decode forms.
+"""minLSTM (the paper's Section 3.2).
 
     f_t, i_t = sigma(Linear_dh(x_t)), sigma(Linear_dh(x_t))
     h~_t = Linear_dh(x_t)           (linear mode) | g(Linear_dh(x_t)) (log)
@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import nn
+from repro_torch.core import scan as scan_lib
 from repro_torch.core.min_gru import _no_cell_kernel
 
 
@@ -36,6 +37,84 @@ def normalized_gates(kf: torch.Tensor, ki: torch.Tensor):
     quotient is 0/0 once both sigmoids underflow."""
     diff = F.softplus(-kf) - F.softplus(-ki)
     return torch.sigmoid(-diff), torch.sigmoid(diff)
+
+
+def _normalized_log_gates(kf: torch.Tensor, ki: torch.Tensor):
+    """Appendix B Algorithm 8: log f', log i' from gate pre-activations."""
+    diff = F.softplus(-kf) - F.softplus(-ki)
+    return -F.softplus(diff), -F.softplus(-diff)
+
+
+def parallel(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+             mode: str = "log", normalize: bool = True,
+             scan_strategy: str = "associative",
+             compute_dtype=None) -> torch.Tensor:
+    """See ``min_gru.parallel`` for the strategy contract; ``"auto"`` /
+    ``"fused"`` run the whole layer in the fused CUDA minLSTM kernel."""
+    if mode not in ("log", "linear"):
+        raise ValueError(f"unknown minLSTM mode {mode!r}")
+    strategy = scan_lib.resolve_strategy(scan_strategy)
+    if strategy == "fused":
+        return _fused_parallel(params, x, h0, mode=mode, normalize=normalize,
+                               compute_dtype=compute_dtype)
+    kf = nn.dense_apply(params["wf"], x, compute_dtype)
+    ki = nn.dense_apply(params["wi"], x, compute_dtype)
+    v = nn.dense_apply(params["wh"], x, compute_dtype)
+    if mode == "log":
+        kf32, ki32 = kf.float(), ki.float()
+        if normalize:
+            log_f, log_i = _normalized_log_gates(kf32, ki32)
+        else:
+            log_f, log_i = nn.log_sigmoid(kf32), nn.log_sigmoid(ki32)
+        log_h_tilde = nn.log_g(v.float())
+        log_h0 = None if h0 is None else torch.log(h0.float())
+        h = scan_lib.scan_log_space(log_f, log_i + log_h_tilde, log_h0,
+                                    strategy=strategy)
+        return h.to(x.dtype if compute_dtype is None else compute_dtype)
+    if normalize:
+        f, i = normalized_gates(kf, ki)
+    else:
+        f, i = torch.sigmoid(kf), torch.sigmoid(ki)
+    return scan_lib.scan_linear(f, i * v, h0, strategy=strategy)
+
+
+def _fused_parallel(params, x, h0, *, mode: str, normalize: bool,
+                    compute_dtype=None):
+    """Whole layer in one CUDA launch (kernels/fused_minlstm)."""
+    from repro_torch.kernels.fused_minlstm import ops as fused_ops
+    from repro_torch.kernels.scan.ops import call_with_flat_lead
+    ws = [params[k]["kernel"] for k in ("wf", "wi", "wh")]
+    bs = [params[k].get("bias") for k in ("wf", "wi", "wh")]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        ws = [w.to(compute_dtype) for w in ws]
+        bs = [None if b is None else b.to(compute_dtype) for b in bs]
+    wf, wi, wh = ws
+    bf, bi, bh = bs
+    if h0 is None:                          # the kernel wants (B, T, D)
+        return call_with_flat_lead(
+            lambda xf: fused_ops.fused_minlstm(
+                xf, wf, bf, wi, bi, wh, bh, mode=mode, normalize=normalize),
+            (x, 2))
+    return call_with_flat_lead(
+        lambda xf, h0f: fused_ops.fused_minlstm(
+            xf, wf, bf, wi, bi, wh, bh, h0f, mode=mode, normalize=normalize),
+        (x, 2), (h0, 1))
+
+
+def gates(params, x: torch.Tensor, *, mode: str = "log",
+          normalize: bool = True, compute_dtype=None):
+    """Linear-space (a, b) recurrence inputs, (f', i' * h~), for external
+    scans (as ``min_gru.gates``)."""
+    kf = nn.dense_apply(params["wf"], x, compute_dtype)
+    ki = nn.dense_apply(params["wi"], x, compute_dtype)
+    v = nn.dense_apply(params["wh"], x, compute_dtype)
+    if normalize:
+        f, i = normalized_gates(kf, ki)
+    else:
+        f, i = torch.sigmoid(kf), torch.sigmoid(ki)
+    h_tilde = nn.g(v) if mode == "log" else v
+    return f, i * h_tilde
 
 
 def step(params, x_t: torch.Tensor, h_prev: torch.Tensor, *,

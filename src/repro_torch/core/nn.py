@@ -88,7 +88,7 @@ def norm_apply(kind: str, p, x: torch.Tensor, **kw) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Causal depthwise conv (decode step only in this slice)
+# Causal depthwise conv (the paper's "Conv4" temporal mixer)
 # ---------------------------------------------------------------------------
 
 def causal_conv_init(gen, dim: int, kernel_size: int = 4,
@@ -96,6 +96,25 @@ def causal_conv_init(gen, dim: int, kernel_size: int = 4,
     std = math.sqrt(1.0 / kernel_size)
     return {"kernel": normal_init(gen, (kernel_size, dim), std, dtype),
             "bias": torch.zeros((dim,), dtype=dtype)}
+
+
+def causal_conv_apply(p, x: torch.Tensor,
+                      prefix: torch.Tensor = None) -> torch.Tensor:
+    """x: (..., T, D) depthwise causal conv along T, in x's dtype.
+
+    ``prefix`` (default zeros) is the (..., K-1, D) window of inputs that
+    precede ``x``.  The reference's unrolled slide-multiply-add: K adds of
+    shifted slices, each product and sum rounded to x's dtype."""
+    k = p["kernel"].to(x.dtype)              # (K, D)
+    ksize = k.shape[0]
+    if prefix is None:
+        prefix = x.new_zeros(x.shape[:-2] + (ksize - 1, x.shape[-1]))
+    xp = torch.cat([prefix.to(x.dtype), x], dim=-2)
+    t = x.shape[-2]
+    y = torch.zeros_like(x)
+    for i in range(ksize):
+        y = y + xp[..., i:i + t, :] * k[i]
+    return y + p["bias"].to(x.dtype)
 
 
 def causal_conv_step(p, x_t: torch.Tensor, conv_state: torch.Tensor):
@@ -124,3 +143,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def g(x: torch.Tensor) -> torch.Tensor:
     """g(x) = x + 0.5 if x >= 0 else sigmoid(x); ensures h_tilde > 0."""
     return torch.where(x >= 0, x + 0.5, torch.sigmoid(x))
+
+
+def log_g(x: torch.Tensor) -> torch.Tensor:
+    """log g(x), computed stably: log(x+0.5) / -softplus(-x)."""
+    return torch.where(x >= 0, torch.log(F.relu(x) + 0.5),
+                       -F.softplus(-x))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log sigma(x) = -softplus(-x)."""
+    return -F.softplus(-x)

@@ -25,6 +25,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import launch as kl
 from repro_torch.kernels.block_step import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "block_step.cu"
@@ -33,7 +34,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "block_step.cu"
 LAUNCHES = {"block_step_kernel": 0, "block_chunk_kernel": 0}
 
 _GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = kl.DTYPES
 _TILE = 16
 _N_PTRS = 25
 _LIB = None
@@ -54,8 +55,7 @@ def _lib():
             + [ctypes.c_void_p, ctypes.c_void_p,
                ctypes.POINTER(ctypes.c_int)])
         lib.repro_block_launch.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        kl.declare_error_string(lib)
         _LIB = lib
     return _LIB
 
@@ -88,17 +88,9 @@ def kernel_params(params, cell: str, compute_dtype, use_conv: bool,
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(
-            f"{name} has dtype {t.dtype}; the kernel runs one element type"
-            f" ({dtype}) for activations, state and params")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    """The kernel runs one element type for activations, state and
+    params, and loads them in 16-byte vectors."""
+    kl.check(t, name, shape, dtype, device)
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned (vector loads)")
 
@@ -261,9 +253,7 @@ def phase_times(trace: torch.Tensor, use_mlp: bool = True) -> dict:
 def _launch(name, operands, x, state, valid, *, mode):
     launch, outs = prepare_launch(operands, x, state, valid, mode=mode)
     rc = launch()
-    if rc != 0:
-        msg = _lib().repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    kl.raise_on_error(_lib(), name, rc)
     LAUNCHES[name] += 1
     return outs
 

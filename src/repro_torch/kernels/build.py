@@ -4,8 +4,9 @@ with ctypes.
 Each ``csrc/*.cu`` file becomes one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  Libraries go
 to ``build/repro_torch/<source stem>-<hash>/`` under the repository root
-(listed in ``.gitignore``), keyed by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one loads at once.  Nothing
+(listed in ``.gitignore``), keyed by a hash of the source, the shared
+headers (``*.cuh`` under ``kernels/``) and the flags, so an edited source
+rebuilds and an unchanged one loads at once.  Nothing
 here runs at import time: the CPU tests import every module of the port.
 """
 
@@ -19,7 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-REPO_ROOT = Path(__file__).resolve().parents[3]
+KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
@@ -44,6 +46,8 @@ def nvcc_path() -> str:
 
 def _lib_dir(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(KERNELS_DIR.rglob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}"
 

@@ -1,0 +1,97 @@
+"""What the fused minGRU and minLSTM wrappers share: the launch of a
+``csrc/fused_cell.cuh`` kernel and the layer's custom backward.
+
+Backward (mirrors ``repro.kernels.fused_mingru.ops._bwd``): the fp32
+gates (a, b) are recomputed from the saved inputs with plain torch ops,
+the reversed CUDA linear scan gives g_t = dh_t + a_{t+1} g_{t+1}
+(``scan.ops.reverse_scan_grads``), and ``torch.autograd.grad`` pulls
+(dL/da, dL/db) = (g h_{t-1}, g) back through the gates to x, the weights
+and the biases.  Those transposed products lie outside the TPU kernel in
+the reference too.  The saved h is the kernel's rounded output, cast to
+fp32 exactly as the reference casts it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import launch as kl
+from repro_torch.kernels.scan import ops as scan_ops
+
+
+def declare(lib, fn_name: str):
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kl.declare_error_string(lib)
+
+
+def launch(get_lib, fn_name: str, name: str, x, ws, bs, h0, *, mode: str,
+           normalize: bool = False) -> torch.Tensor:
+    """Check the operands and launch one fused layer on x's stream.
+    x: (B, T, Dx); ws: G (Dx, Dh); bs: G (Dh,), all of x's dtype;
+    h0: (B, Dh), taken as fp32 -> h (B, T, Dh) in x's dtype.
+    ``get_lib()`` builds and loads the library, after the checks."""
+    if mode not in ("log", "linear"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (B, T, Dx), got "
+                         f"{tuple(x.shape)}")
+    code = kl.element_type(x, f"{name} x")
+    bsz, t, dx = x.shape
+    dh = ws[0].shape[-1]
+    dev, dt = x.device, x.dtype
+    h0 = h0.float()
+    kl.check(x, "x", (bsz, t, dx), dt)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        kl.check(w, f"weight {i}", (dx, dh), dt, dev)
+        kl.check(b, f"bias {i}", (dh,), dt, dev)
+    kl.check(h0, "h0", (bsz, dh), torch.float32, dev)
+    out = torch.empty((bsz, t, dh), dtype=dt, device=dev)
+    ptrs = [x.data_ptr()] + [w.data_ptr() for w in ws] \
+        + [b.data_ptr() for b in bs] + [h0.data_ptr(), out.data_ptr()]
+    lib = get_lib()
+    fn = getattr(lib, fn_name)
+    rc = fn(code, int(mode == "log"), int(normalize), bsz, t, dx, dh,
+            (ctypes.c_void_p * len(ptrs))(*ptrs), kl.stream(dev))
+    kl.raise_on_error(lib, name, rc)
+    return out
+
+
+class FusedCell(torch.autograd.Function):
+    """h = kernel(x, h0, *wb); backward through ``gates(x, *wb)``, the
+    fp32 (a, b) scan inputs.  ``wb`` are the weights and biases in the
+    cell's order; missing biases come in as zeros."""
+
+    @staticmethod
+    def forward(ctx, kernel, gates, x, h0, *wb):
+        h = kernel(x, h0, *wb)
+        ctx.gates = gates
+        ctx.save_for_backward(x, h0, h, *wb)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, h0, h, *wb = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (x, *wb)]
+            a, b = ctx.gates(*leaves)
+        acc = a.dtype                      # fp32 (fp64 for fp64 inputs)
+        g, h_prev, dh0 = scan_ops.reverse_scan_grads(
+            a.detach(), dh.to(acc), h.to(acc), h0.to(acc))
+        grads = torch.autograd.grad((a, b), leaves, (g * h_prev, g))
+        grads = [gr.to(t.dtype) for gr, t in zip(grads, (x, *wb))]
+        return (None, None, grads[0], dh0.to(h0.dtype), *grads[1:])
+
+
+def with_defaults(x, ws, bs, h0):
+    """Missing biases -> zeros (Dh,), missing h0 -> zeros (B, Dh), in x's
+    dtype, as the reference wrapper makes them."""
+    dh = ws[0].shape[-1]
+    bs = [torch.zeros((dh,), dtype=x.dtype, device=x.device) if b is None
+          else b for b in bs]
+    if h0 is None:
+        h0 = torch.zeros((x.shape[0], dh), dtype=x.dtype, device=x.device)
+    return bs, h0

@@ -18,13 +18,9 @@ import time
 import torch
 
 from repro_torch.configs import archs
+from repro_torch.data.lm_corpus import decode_bytes
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServingEngine
-
-
-def decode_bytes(ids) -> str:
-    """Byte-level detokenizer (copy of ``repro.data.lm_corpus``'s)."""
-    return bytes(int(i) for i in ids).decode(errors="replace")
 
 
 def main(argv=None):

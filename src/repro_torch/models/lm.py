@@ -1,10 +1,17 @@
-"""Decoder-only minRNN LM: the serving subset of ``repro.models.lm``.
+"""Decoder-only minRNN LM: the training and serving subset of
+``repro.models.lm``.
 
 Params are nested dicts with the JAX pytree's layout -- ``embed.table``,
 ``final_norm.scale`` and ``layers.blocks.*`` stacked with a leading L
-axis -- so the bridge and the parity tests compare leaf by leaf.
-``MinRNNLM`` is a thin ``nn.Module`` around such a dict (``.to(device)``
-and ``state_dict``).
+axis -- so the bridge, the checkpoints and the parity tests line up leaf
+by leaf.  ``MinRNNLM`` is a thin ``nn.Module`` around such a dict whose
+floating leaves are ``nn.Parameter``s (``.to(device)``, ``state_dict``,
+``parameters()``).
+
+Training runs ``forward`` / ``loss_fn``: the layer stack of
+``blocks.apply`` (the fused CUDA cell kernel in every layer under the
+default strategy), each layer under ``torch.utils.checkpoint`` when
+``cfg.remat == "full"``.
 
 Serving drives the step forms only: ``superstep`` runs K rounds of
 re-admission -> token select -> ``decode_step`` (or ``decode_chunk`` for
@@ -13,7 +20,9 @@ per-slot state (``init_slot_state``).  The reference runs those rounds in
 one ``lax.scan``; here they are a Python loop of eager device ops, and
 each layer of each round is ONE launch of the whole-block CUDA kernel.
 Whoever owns the params binds them once (``bind_layers``) and passes the
-binding as ``layers=``; without it, each call binds its own.
+binding as ``layers=``; without it, each call binds its own.  The decode
+functions run under ``torch.no_grad()``: they build no graph, whether or
+not the params require grad.
 """
 
 from __future__ import annotations
@@ -22,10 +31,12 @@ import math
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import blocks as minrnn_blocks
 from repro_torch.core import nn
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves, tree_map
 
 
 # ===========================================================================
@@ -49,21 +60,15 @@ def _check_cfg(cfg):
             f"1, item 5); this slice serves the minRNN LMs")
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def tree_to(tree, device):
     """Move every leaf of a param / state tree to ``device``; a tree
     already there comes back as it is."""
     dev = torch.device(device)
     if all(a.device.type == dev.type
            and (dev.index is None or a.device.index == dev.index)
-           for a in _leaves(tree)):
+           for a in leaves(tree)):
         return tree
-    return _tree_map(lambda a: a.to(dev), tree)
+    return tree_map(lambda a: a.to(dev), tree)
 
 
 def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
@@ -96,19 +101,23 @@ def _stack(trees: List[dict]) -> dict:
 
 
 class _Tree(torch.nn.Module):
-    """One level of a param dict: sub-dicts are child modules, tensors are
-    buffers, so ``state_dict`` keys are the dotted JAX paths."""
+    """One level of a param dict: sub-dicts are child modules, floating
+    tensors are ``nn.Parameter``s (trainable), any other leaf a buffer, so
+    ``state_dict`` keys are the dotted JAX paths."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, _Tree(v))
+            elif v.is_floating_point():
+                self.register_parameter(k, torch.nn.Parameter(v))
             else:
                 self.register_buffer(k, v)
 
     def tree(self) -> dict:
-        out = {k: v for k, v in self._buffers.items()}
+        out = dict(self._parameters)
+        out.update(self._buffers)
         out.update({k: m.tree() for k, m in self._modules.items()})
         return out
 
@@ -134,22 +143,19 @@ def bind_layers(params, cfg) -> List[tuple]:
     ``layers=``; it reads the params as they are now, so bind again after
     replacing a leaf."""
     bc = _minrnn_block_cfg(cfg)
-    blocks = params["layers"]["blocks"]
-    n = next(iter(_leaves(blocks))).shape[0]
     out = []
-    for i in range(n):
-        p_l = _tree_map(lambda a, i=i: a[i], blocks)
-        out.append((p_l, minrnn_blocks.bind(p_l, bc,
-                                            compute_dtype=cfg.cdtype)))
+    with torch.no_grad():
+        for p_l in _layer_params(params):
+            out.append((p_l, minrnn_blocks.bind(p_l, bc,
+                                                compute_dtype=cfg.cdtype)))
     return out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def _layer_params(params) -> List[dict]:
+    """Views of the stacked block params, one dict per layer."""
+    blocks = params["layers"]["blocks"]
+    n = leaves(blocks)[0].shape[0]
+    return [tree_map(lambda a, i=i: a[i], blocks) for i in range(n)]
 
 
 # ===========================================================================
@@ -182,6 +188,72 @@ def _final(params, cfg, x):
     nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
     x = nn.norm_apply(cfg.norm, params["final_norm"], x, **nk)
     return _logits(params, cfg, x)
+
+
+# ===========================================================================
+# Trunk (parallel) / forward / loss
+# ===========================================================================
+
+def _remat(cfg, fn):
+    """``remat="full"``: recompute the layer's forward in the backward
+    (``torch.utils.checkpoint``, non-reentrant; a block draws no random
+    numbers, so no RNG state is stashed)."""
+    if cfg.remat == "full":
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat {cfg.remat!r} is not ported (ROADMAP.md queue 1, item "
+            f"5); the LM configs use 'full' or 'none'")
+    return fn
+
+
+def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The minRNN layer stack in the parallel form: ``blocks.apply`` per
+    layer, under ``_remat``."""
+    _check_cfg(cfg)
+    bc = _minrnn_block_cfg(cfg)
+
+    def body(x_, p_l):
+        return minrnn_blocks.apply(p_l, bc, x_, compute_dtype=cfg.cdtype,
+                                   scan_strategy=cfg.scan_strategy)
+
+    body = _remat(cfg, body)
+    for p_l in _layer_params(params):
+        x = body(x, p_l)
+    return x
+
+
+def forward(params, cfg, tokens: torch.Tensor):
+    """tokens: (B, S) -> (logits (B, S, V) in the compute dtype, aux
+    loss); the aux loss is the reference's MoE term, zero here."""
+    x = _embed(params, cfg, tokens)
+    x = _trunk_apply(params, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _final(params, cfg, x), aux
+
+
+def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
+    """batch: tokens (B, S), labels (B, S) with -1 = ignore ->
+    (loss, metrics): the token-mean NLL in fp32, plus ``cfg.z_loss`` x
+    the mean squared logsumexp.  Metrics are detached."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    logits, _ = forward(params, cfg, tokens)
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    metrics = {"nll": loss.detach(), "ntokens": mask.sum()}
+    if cfg.z_loss:
+        zl = cfg.z_loss * (logz ** 2 * mask).sum() / denom
+        loss = loss + zl
+        metrics["z_loss"] = zl.detach()
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 # ===========================================================================
@@ -234,6 +306,7 @@ def _minrnn_decode(params, cfg, x, cache, layers=None):
         layers)
 
 
+@torch.no_grad()
 def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
                 layers=None):
     """token: (B,) -> (logits (B, V), new cache).  ``layers``: the
@@ -253,6 +326,7 @@ def supports_prompt_packing(cfg) -> bool:
     return cfg.block_kind == "minrnn"
 
 
+@torch.no_grad()
 def decode_chunk(params, cfg, tokens: torch.Tensor, valid: torch.Tensor,
                  cache: Dict[str, Any], *, layers=None):
     """Packed varlen step: tokens (B, C), valid (B,) int32 in [1, C] ->
@@ -337,6 +411,7 @@ def _reset_slot_rows(cache: Dict[str, Any], mask: torch.Tensor):
     return out
 
 
+@torch.no_grad()
 def superstep(params, cfg, state: Dict[str, Any], n: int, *,
               prompt_chunk: int = 1, layers=None,
               sampled: Optional[bool] = None,

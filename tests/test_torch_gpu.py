@@ -8,7 +8,10 @@ This file imports no JAX, so it runs on a machine that has only PyTorch.
 The kernels are built from source by their first call.  Tolerances are
 those of ``chip_smoke.py``: fp32 1e-4 (the same arithmetic summed in
 another order), bf16 atol 6e-2 / rtol 2e-2 (same cast points, a sum
-landing on the neighbouring bf16 value).
+landing on the neighbouring bf16 value).  Gradients are compared by
+their largest error over the largest reference value (fp32 1e-4, bf16
+2e-2: the backward reads the kernel's rounded h where the plain
+version's autograd keeps it unrounded).
 """
 
 from __future__ import annotations
@@ -18,8 +21,16 @@ import torch
 
 from repro_torch.configs import archs
 from repro_torch.kernels.block_step import ops, ref
+from repro_torch.kernels.fused_mingru import ops as gru_ops
+from repro_torch.kernels.fused_mingru import ref as gru_ref
+from repro_torch.kernels.fused_minlstm import ops as lstm_ops
+from repro_torch.kernels.fused_minlstm import ref as lstm_ref
+from repro_torch.kernels.scan import ops as scan_ops
+from repro_torch.kernels.scan import ref as scan_ref
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServingEngine, generate_one
+from repro_torch.training import optimizer as opt_lib
+from repro_torch.training import train_step as ts_lib
 
 pytestmark = pytest.mark.gpu
 
@@ -113,3 +124,101 @@ def test_smoke_engine_streams_on_gpu(cuda_device):
     for p, o in zip(prompts, outs[1]):
         assert o == generate_one(cfg, params, p, max_new=5, max_len=32,
                                  device=cuda_device)
+
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_scan_kernel_matches_plain(reverse, dtype, cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    a = torch.rand((3, 37, 70), generator=gen).to(dtype).to(cuda_device)
+    b = torch.randn((3, 37, 70), generator=gen).to(dtype).to(cuda_device)
+    h0 = torch.randn((3, 70), generator=gen).to(cuda_device)
+    scan_ops.reset_launches()
+    got = scan_ops.linear_scan_kernel(a, b, h0, reverse=reverse)
+    assert scan_ops.LAUNCHES["linear_scan_kernel"] == 1
+    _close(got, scan_ref.linear_scan_ref(a, b, h0, reverse=reverse), dtype)
+
+
+def test_log_scan_kernel_matches_plain_and_neg_inf(cuda_device):
+    gen = torch.Generator().manual_seed(2)
+    k = 3 * torch.randn((2, 45, 33), generator=gen)
+    la = (-torch.nn.functional.softplus(k)).to(cuda_device)
+    lb = (-torch.nn.functional.softplus(-k)
+          + 0.1 * torch.randn(k.shape, generator=gen)).to(cuda_device)
+    lh0 = torch.full((2, 33), float("-inf"), device=cuda_device)
+    lb[0, :4] = float("-inf")                  # h stays exactly 0 there
+    got = scan_ops.log_scan_kernel(la, lb, lh0)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[0, :4], torch.zeros_like(got[0, :4]))
+    _close(got, scan_ref.log_scan_ref(la, lb, lh0), torch.float32)
+    sat = torch.full((1, 64, 8), 40.0, device=cuda_device)
+    out = scan_ops.log_scan_kernel(-torch.nn.functional.softplus(sat),
+                                   -torch.nn.functional.softplus(-sat) + 0.3,
+                                   torch.zeros((1, 8), device=cuda_device))
+    assert bool(torch.isfinite(out).all())
+
+
+def _fused_case(gen, cell, dtype, dev, bsz=2, t=70, dx=40, dh=72):
+    n = 2 if cell == "mingru" else 3
+    x = torch.randn((bsz, t, dx), generator=gen)
+    wb = []
+    for _ in range(n):
+        wb += [torch.randn((dx, dh), generator=gen) / dx ** 0.5,
+               0.1 * torch.randn((dh,), generator=gen)]
+    h0 = 0.5 * torch.randn((bsz, dh), generator=gen)
+    return [v.to(dtype).to(dev).requires_grad_(True) for v in (x, *wb, h0)]
+
+
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+@pytest.mark.parametrize("mode", ["log", "linear"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_and_grads_match_plain(cell, mode, dtype,
+                                             cuda_device):
+    """Ragged T (70 over 64-step chunks) and Dh (72 over 64 columns)."""
+    gen = torch.Generator().manual_seed(3)
+    ins = _fused_case(gen, cell, dtype, cuda_device)
+    fn, plain = ((gru_ops.fused_mingru, gru_ref.fused_mingru_ref)
+                 if cell == "mingru" else
+                 (lstm_ops.fused_minlstm, lstm_ref.fused_minlstm_ref))
+    out = fn(*ins, mode=mode)
+    want = plain(*ins, mode=mode)
+    _close(out, want, dtype)
+    ct = torch.randn(out.shape, generator=gen).to(dtype).to(cuda_device)
+    got_g = torch.autograd.grad(out, ins, ct)
+    want_g = torch.autograd.grad(want, ins, ct)
+    for g, w in zip(got_g, want_g):
+        assert g.dtype == w.dtype
+        assert _rel_err(g, w) < GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
+def test_smoke_training_step_on_gpu(arch, cuda_device):
+    cfg = archs.smoke(arch).replace(remat="full")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device=cuda_device)
+    ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1)
+    step = ts_lib.make_train_step(cfg, ocfg)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, 256, (2, 33), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for mod in (gru_ops, lstm_ops, scan_ops):
+        mod.reset_launches()
+    state = opt_lib.init(ocfg, params)
+    losses = []
+    for _ in range(3):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses[-1] < losses[0]
+    fused = gru_ops.LAUNCHES["fused_mingru_kernel"] if arch == "mingru-lm" \
+        else lstm_ops.LAUNCHES["fused_minlstm_kernel"]
+    assert fused == 2 * cfg.n_layers * 3          # forward + remat replay
+    assert scan_ops.LAUNCHES["linear_scan_kernel"] == cfg.n_layers * 3

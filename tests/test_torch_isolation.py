@@ -16,6 +16,9 @@ import torch
 from repro_torch.configs import archs
 from repro_torch.core import blocks
 from repro_torch.kernels.block_step import ops as block_ops
+from repro_torch.kernels.fused_mingru import ops as gru_ops
+from repro_torch.kernels.fused_minlstm import ops as lstm_ops
+from repro_torch.kernels.scan import ops as scan_ops
 from repro_torch.models import lm
 from repro_torch.serving import engine
 
@@ -70,6 +73,9 @@ def test_cuda_request_without_cuda_raises():
         engine.generate_one(cfg, params, [1, 2], max_new=2, max_len=16)
     with pytest.raises(RuntimeError, match="cuda"):
         lm.init_cache(cfg, 2, 16)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--smoke", "--steps", "1"])   # --device defaults to cuda
 
 
 def test_kernel_launcher_refuses_cpu_tensors():
@@ -80,6 +86,18 @@ def test_kernel_launcher_refuses_cpu_tensors():
         block_ops.BlockOperands(params, cell="mingru", compute_dtype=None,
                                 use_conv=False, use_mlp=False)
     assert blocks.bind(params, bc) is None     # on the CPU: nothing to bind
+    # the raw launchers check their operands before building anything
+    x = torch.zeros((2, 5, 4))
+    w, b, h0 = torch.zeros((4, 6)), torch.zeros((6,)), torch.zeros((2, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        gru_ops.launch(x, w, b, w, b, h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_ops.launch(x, w, b, w, b, w, b, h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_ops.launch_linear_scan(x, x, h0[:, :4])
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_ops.launch_log_scan(x, x, h0[:, :4])
+    assert gru_ops.LAUNCHES["fused_mingru_kernel"] == 0
 
 
 def test_cpu_serving_launches_no_kernel():

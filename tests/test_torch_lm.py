@@ -17,7 +17,7 @@ import torch
 
 from repro.configs import archs as jax_archs
 from repro.models import lm as jax_lm
-from repro_torch import bridge
+from repro_torch import bridge, tree
 from repro_torch.configs import archs as pt_archs
 from repro_torch.models import lm as pt_lm
 
@@ -96,7 +96,7 @@ def test_bridge_round_trips(dtype):
     pparams = bridge.params_from_jax(jparams, device="cpu")
     want_dt = torch.float32 if dtype == "float32" else torch.bfloat16
     flat_j = jax.tree_util.tree_leaves_with_path(jparams)
-    assert len(flat_j) == sum(1 for _ in pt_lm._leaves(pparams))
+    assert len(flat_j) == len(tree.leaves(pparams))
     for path, leaf in flat_j:
         t = pparams
         for k in path:
