@@ -1,19 +1,25 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernels from source,
 holds each against its plain PyTorch version at full model width, serves
 full-width mingru-lm (and a short minlstm-lm run) through the port's
-ServingEngine, then trains full-width mingru-lm / minlstm-lm through the
-port's train step, and checks that every layer of every device round and
-every training step went through the kernels.
+ServingEngine on the block-fused and on the cell-fused tier, serves
+full-width gemma-2b-mingru, then trains full-width mingru-lm / minlstm-lm
+through the port's train step, and checks that every layer of every
+device round and every training step went through the kernels.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
 Phases (any failed check exits non-zero before the result line):
-  1. the card's name and power limit; the four sources built in parallel
+  1. the card's name and power limit; the five sources built in parallel
      (one nvcc each), with each source's ptxas report;
   2. block kernels at mingru-lm widths (Dx 768, Dh 1536, Dm 3072, K 4),
      B = 8, C = 8, both cells, fp32 and bf16: kernel vs plain version,
      chunk == C steps bit for bit, a row independent of B, kernel / plain
-     times and the bound;
+     times and the bound; then the cell-only decode kernels at mingru-lm /
+     minlstm-lm widths (B 8, Dx 768, Dh 1536; step and chunk C 8 with
+     mixed valid), gemma-2b-mingru's (B 8, 2048 x 2048, step) and a ragged
+     case (B 3, Dx 200, Dh 72), fp32 and bf16: kernel vs plain version, a
+     bf16 chunk == C step launches bit for bit, kernel / plain / one
+     torch.matmul of the projections (the yardstick) and the bound;
   3. training kernels at the training shapes (B 8, T 256, Dx 768,
      Dh 1536; T 250 for a ragged edge; h0 given and not): the fused
      minGRU / minLSTM kernels and the linear / log-space scans, forward
@@ -25,7 +31,17 @@ Phases (any failed check exits non-zero before the result line):
      across C and to ``generate_one``, launches == layers x rounds;
      then a short full-width minlstm-lm run; then, outside the counted
      main path, decoded tok/s over 5 windows per C (min / median / max)
-     and the cost of sampled requests;
+     and the cost of sampled requests.  The cell-fused tier
+     (fuse_block "off") serves the same traffic, C in {1, 8}, and
+     minlstm-lm at C 8: streams equal across C and to ``generate_one``,
+     one cell launch per layer per round, step / chunk split as the
+     rounds were; the streams and first-round logits set beside the
+     block tier's; a device profile of one window and the rates.
+     gemma-2b-mingru at full width (bf16, drawn on the card): 8 slots, 8
+     prompts of 8 seeded token ids, 32 new tokens, K 4, C 1: streams
+     equal ``generate_one``, 18 mingru_step_kernel launches per round,
+     tok/s over 5 windows, peak device memory, a device profile, and one
+     short sampled window;
   5. training: full-width mingru-lm (bf16, remat "full") 10 AdamW steps
      of B 8 x T 256 on the corpus, minlstm-lm 3 steps, mingru-lm under
      scan_strategy "pallas" 3 steps; launches == the stated formulas;
@@ -59,6 +75,8 @@ from repro_torch.configs import archs  # noqa: E402
 from repro_torch.data import lm_corpus  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.block_step import ops, ref  # noqa: E402
+from repro_torch.kernels.decode_step import ops as step_ops  # noqa: E402
+from repro_torch.kernels.decode_step import ref as step_ref  # noqa: E402
 from repro_torch.kernels.fused_mingru import ops as gru_ops  # noqa: E402
 from repro_torch.kernels.fused_mingru import ref as gru_ref  # noqa: E402
 from repro_torch.kernels.fused_minlstm import ops as lstm_ops  # noqa: E402
@@ -69,6 +87,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
 from repro_torch.training import train_step as ts_lib  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import ServingEngine, generate_one  # noqa
 
@@ -90,13 +109,28 @@ REPLACES = {"block_step_kernel": "src/repro/kernels/block_step/kernel.py:298",
             "fused_mingru_kernel":
                 "src/repro/kernels/fused_mingru/kernel.py:60",
             "fused_minlstm_kernel":
-                "src/repro/kernels/fused_minlstm/kernel.py:64"}
+                "src/repro/kernels/fused_minlstm/kernel.py:64",
+            "mingru_step_kernel": "src/repro/kernels/decode_step/kernel.py:75",
+            "mingru_chunk_kernel":
+                "src/repro/kernels/decode_step/kernel.py:150",
+            "minlstm_step_kernel":
+                "src/repro/kernels/decode_step/kernel.py:214",
+            "minlstm_chunk_kernel":
+                "src/repro/kernels/decode_step/kernel.py:288"}
 SOURCES = {"block_step_kernel": ops.SOURCE,
            "block_chunk_kernel": ops.SOURCE,
            "linear_scan_kernel": scan_ops.SOURCE,
            "log_scan_kernel": scan_ops.SOURCE,
            "fused_mingru_kernel": gru_ops.SOURCE,
-           "fused_minlstm_kernel": lstm_ops.SOURCE}
+           "fused_minlstm_kernel": lstm_ops.SOURCE,
+           "mingru_step_kernel": step_ops.SOURCE,
+           "mingru_chunk_kernel": step_ops.SOURCE,
+           "minlstm_step_kernel": step_ops.SOURCE,
+           "minlstm_chunk_kernel": step_ops.SOURCE}
+# one torch.matmul of x against the concatenated projections, per kernel
+# (a yardstick only: no single PyTorch call computes projections, gates
+# and update together, and the port never calls it)
+LIBRARY_MS = {}
 TRAIN_KERNELS = ("fused_mingru_kernel", "fused_minlstm_kernel",
                  "linear_scan_kernel", "log_scan_kernel")
 
@@ -337,6 +371,130 @@ def kernel_phase(gen):
     return main
 
 
+# cell-only decode kernels: (B, Dx, Dh) and whether the chunk form runs
+CELL_SHAPES = {"mingru-lm": (8, 768, 1536, True),
+               "gemma-2b-mingru": (8, 2048, 2048, False),
+               "ragged": (3, 200, 72, True)}
+CELL_VALID = [8, 1, 3, 8, 5, 2, 8, 7]
+
+
+def cell_operands(gen, cell, dtype, dx, dh):
+    ws = [(torch.randn((dx, dh), generator=gen) / dx ** 0.5).to(dtype)
+          .to(DEV) for _ in GATES[cell]]
+    bs = [(0.1 * torch.randn((dh,), generator=gen)).to(dtype).to(DEV)
+          for _ in GATES[cell]]
+    return step_ops.CellOperands(cell, ws, bs)
+
+
+def cell_bound_ms(n_g, dtype, bsz, chunk, dx, dh):
+    """Weights, biases, x, h0 read once and the output written once over
+    the memory rate (plus valid for a chunk); the projections'
+    multiply-adds over the type's peak."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    nbytes = e * (n_g * (dx * dh + dh) + bsz * chunk * dx + bsz * dh
+                  + bsz * chunk * dh) + (4 * bsz if chunk > 1 else 0)
+    flops = 2 * bsz * chunk * n_g * dx * dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def cell_kernel_phase(gen):
+    """The four decode_step kernels against their plain versions; returns
+    the main numbers: mingru_step_kernel at gemma-2b-mingru's width (every
+    decode round of that model), the others at mingru-lm / minlstm-lm's,
+    all bf16, B 8."""
+    rows, main = [], {}
+    for cell in ("mingru", "minlstm"):
+        kw = {} if cell == "mingru" else {"normalize": True}
+        step_fn = getattr(step_ops, f"fused_{cell}_step")
+        chunk_fn = getattr(step_ops, f"fused_{cell}_chunk")
+        step_plain = getattr(step_ref, f"{cell}_step_ref")
+        chunk_plain = getattr(step_ref, f"{cell}_chunk_ref")
+        n_g = len(GATES[cell])
+        for dtype in (torch.float32, torch.bfloat16):
+            e = torch.tensor([], dtype=dtype).element_size()
+            for shape, (bsz, dx, dh, chunked) in CELL_SHAPES.items():
+                if shape == "gemma-2b-mingru" and cell != "mingru":
+                    continue
+                tag = f"{cell}/{str(dtype).split('.')[-1]}/{shape}"
+                # weight sets together larger than the 50 MB L2, so each
+                # timed launch streams its weights from HBM
+                n_sets = min(16, math.ceil(60e6 / (n_g * dx * dh * e)))
+                sets = [cell_operands(gen, cell, dtype, dx, dh)
+                        for _ in range(n_sets)]
+                x = torch.randn((bsz, C, dx), generator=gen).to(dtype).to(DEV)
+                h = (0.5 * torch.randn((bsz, dh), generator=gen)).to(dtype) \
+                    .to(DEV)
+                valid = torch.tensor(CELL_VALID[:bsz], dtype=torch.int32,
+                                     device=DEV)
+                x0 = x[:, 0].contiguous()
+                w_cat = [torch.cat(s_.ws, dim=1) for s_ in sets]
+                got = step_fn(x0, *sets[0].args, h, operands=sets[0], **kw)
+                e_step = max_err(got, step_plain(x0, *sets[0].args, h, **kw),
+                                 dtype, f"{tag} step")
+                t_step = time_ms([raw(step_ops.prepare_launch(
+                    s_, x0[:, None], h, None, mode="log", **kw)[0])
+                    for s_ in sets], 200)
+                t_step_plain = time_ms([lambda s_=s_: step_plain(
+                    x0, *s_.args, h, **kw) for s_ in sets], 50)
+                t_step_lib = time_ms([lambda w=w: x0 @ w for w in w_cat], 200)
+                b_step = cell_bound_ms(n_g, dtype, bsz, 1, dx, dh)
+                row = [tag, t_step, t_step_plain, t_step_lib, b_step[0],
+                       e_step]
+                if chunked:
+                    hs = chunk_fn(x, *sets[0].args, h, valid,
+                                  operands=sets[0], **kw)
+                    e_chunk = max_err(hs, chunk_plain(x, *sets[0].args, h,
+                                                      valid, **kw),
+                                      dtype, f"{tag} chunk")
+                    # a chunk equals C step launches, bit for bit
+                    s_h = h
+                    for t in range(C):
+                        st = step_fn(x[:, t].contiguous(), *sets[0].args,
+                                     s_h, operands=sets[0], **kw)
+                        s_h = torch.where((t < valid)[:, None], st, s_h)
+                        check(torch.equal(hs[:, t], s_h),
+                              f"{tag}: chunk position {t} != step launches")
+                    t_chunk = time_ms([raw(step_ops.prepare_launch(
+                        s_, x, h, valid, mode="log", **kw)[0])
+                        for s_ in sets], 100)
+                    t_chunk_plain = time_ms([lambda s_=s_: chunk_plain(
+                        x, *s_.args, h, valid, **kw) for s_ in sets], 20)
+                    x2 = x.reshape(-1, dx)
+                    t_chunk_lib = time_ms([lambda w=w: x2 @ w
+                                           for w in w_cat], 200)
+                    b_chunk = cell_bound_ms(n_g, dtype, bsz, C, dx, dh)
+                    row += [t_chunk, t_chunk_plain, t_chunk_lib, b_chunk[0],
+                            e_chunk]
+                else:
+                    row += [float("nan")] * 5
+                rows.append(row)
+                if dtype == torch.bfloat16:
+                    if shape == ("gemma-2b-mingru" if cell == "mingru"
+                                 else "mingru-lm"):
+                        main[f"{cell}_step_kernel"] = (
+                            e_step, t_step, t_step_plain, b_step)
+                        LIBRARY_MS[f"{cell}_step_kernel"] = t_step_lib
+                    if shape == "mingru-lm":
+                        main[f"{cell}_chunk_kernel"] = (
+                            e_chunk, t_chunk, t_chunk_plain, b_chunk)
+                        LIBRARY_MS[f"{cell}_chunk_kernel"] = t_chunk_lib
+                del sets, w_cat
+                torch.cuda.empty_cache()
+    print(f"cell-only decode kernels, chunk C {C} with valid {CELL_VALID} "
+          f"(ms per launch; weight sets rotate, > L2 where they fit in "
+          f"16; library = one torch.matmul of x against the concatenated "
+          f"projections):")
+    print("  cell/dtype/shape                 step_ms  step_plain_ms  "
+          "step_library_ms  step_bound_ms  step_err  chunk_ms  "
+          "chunk_plain_ms  chunk_library_ms  chunk_bound_ms  chunk_err")
+    for r in rows:
+        print("  {:<32} {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3g}  {:.5f}  "
+              "{:.5f}  {:.5f}  {:.5f}  {:.3g}".format(*r))
+    return main
+
+
 # ---------------------------------------------------------------------------
 # 3. serving
 # ---------------------------------------------------------------------------
@@ -345,21 +503,39 @@ PROMPTS = ["To be, o", "Friends,", "Now is t", "What's i", "O Romeo,",
            "All the ", "Tomorrow", "Double, "]
 
 
+def serve_launches():
+    out = dict(ops.LAUNCHES)
+    out.update(step_ops.LAUNCHES)
+    return out
+
+
+def reset_serve_launches():
+    ops.reset_launches()
+    step_ops.reset_launches()
+
+
+def tokens_of(p):
+    return list(p.encode()) if isinstance(p, str) else list(p)
+
+
 def serve(cfg, params, chunk, prompts, max_new, k=4, label="serve",
           quiet=False, **submit_kw):
-    """One closed batch through a fresh engine; returns the streams (and
-    the decoded tok/s with ``quiet``, which prints nothing)."""
+    """One closed batch through a fresh engine; returns the streams and
+    {"rounds", "launches" (this run's, per kernel), "rate" (decoded
+    tok/s)}; ``quiet`` prints nothing.  Checks one decode kernel launch
+    per layer per device round."""
     eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
                         decode_block=k, prompt_chunk=chunk, device=DEV)
-    before = dict(ops.LAUNCHES)
-    rids = [eng.submit(list(p.encode()), max_new=max_new, **submit_kw)
+    before = serve_launches()
+    rids = [eng.submit(tokens_of(p), max_new=max_new, **submit_kw)
             for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = eng.run_to_completion()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launched = sum(ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES)
+    delta = {n: v - before[n] for n, v in serve_launches().items()}
+    launched = sum(delta.values())
     rounds = eng.stats.decode_steps
     check(launched == cfg.n_layers * rounds,
           f"{cfg.name} C={chunk}: {launched} kernel launches for "
@@ -370,9 +546,11 @@ def serve(cfg, params, chunk, prompts, max_new, k=4, label="serve",
     snap = eng.stats.snapshot()
     n_tok = snap["decode_tokens"]
     streams = [tuple(outs[r]) for r in rids]
+    info = {"rounds": rounds, "launches": delta, "rate": n_tok / dt}
     if quiet:
-        return streams, n_tok / dt
-    print(f"{label} {cfg.name} K={k} C={chunk}: {n_tok} tokens in {dt:.3f}s "
+        return streams, info
+    print(f"{label} {cfg.name} [{eng.kernel_tier}] K={k} C={chunk}: "
+          f"{n_tok} tokens in {dt:.3f}s "
           f"({n_tok / dt:.1f} decoded tok/s, "
           f"{snap['tokens_per_second']:.1f} tok/s incl. prompt), "
           f"{rounds} rounds, {snap['decode_calls']} host round-trips, "
@@ -382,19 +560,20 @@ def serve(cfg, params, chunk, prompts, max_new, k=4, label="serve",
     print("  engine stats: " + ", ".join(
         f"{k_}={v:.4g}" if isinstance(v, float) else f"{k_}={v}"
         for k_, v in sorted(snap.items()) if k_ != "shards"))
-    return streams
+    return streams, info
 
 
-def rate_spread(cfg, params, reps=5):
+def rate_spread(cfg, params, reps=5, chunks=(1, 8), prompts=PROMPTS):
     """Decoded tok/s over ``reps`` windows of the serving traffic per C:
     min / median / max, since one window of 8 requests is short and the
     host clock varies."""
-    for c in (1, 8):
-        rates = sorted(serve(cfg, params, c, PROMPTS, 32, quiet=True)[1]
-                       for _ in range(reps))
-        print(f"rate {cfg.name} K=4 C={c}, {reps} windows of 8 requests x "
-              f"32 tokens: decoded tok/s min {rates[0]:.1f} median "
-              f"{rates[reps // 2]:.1f} max {rates[-1]:.1f}")
+    tier = lm.kernel_tier(cfg)
+    for c in chunks:
+        rates = sorted(serve(cfg, params, c, prompts, 32, quiet=True)[1]
+                       ["rate"] for _ in range(reps))
+        print(f"rate {cfg.name} [{tier}] K=4 C={c}, {reps} windows of 8 "
+              f"requests x 32 tokens: decoded tok/s min {rates[0]:.1f} "
+              f"median {rates[reps // 2]:.1f} max {rates[-1]:.1f}")
 
 
 def sampled_phase(cfg, params, reps=50):
@@ -419,11 +598,12 @@ def sampled_phase(cfg, params, reps=50):
     for s in runs[0][0]:
         check(len(s) == 32 and all(0 <= t < cfg.vocab_size for t in s),
               "malformed sampled stream")
-    greedy = serve(cfg, params, 1, PROMPTS, 32, quiet=True)[1]
+    greedy = serve(cfg, params, 1, PROMPTS, 32, quiet=True)[1]["rate"]
     print(f"sampled {cfg.name} K=4 C=1 (T 0.8, top-k 40, top-p 0.95): host "
           f"key catch-up + Gumbel table {host_ms:.3f} ms per superstep; "
-          f"decoded tok/s {runs[0][1]:.1f} / {runs[1][1]:.1f} sampled "
-          f"against {greedy:.1f} greedy; seeded streams repeat")
+          f"decoded tok/s {runs[0][1]['rate']:.1f} / "
+          f"{runs[1][1]['rate']:.1f} sampled against {greedy:.1f} greedy; "
+          f"seeded streams repeat")
 
 
 def host_profile(cfg, params, top=12):
@@ -450,12 +630,14 @@ def serve_phase(gen):
     for c in (1, 8):               # first-use allocations off the clock
         serve(cfg, params, c, PROMPTS, 4, label="warm-up")
     host_profile(cfg, params)
-    ops.reset_launches()
-    streams = {c: serve(cfg, params, c, PROMPTS, 32) for c in (1, 8)}
+    reset_serve_launches()
+    streams = {c: serve(cfg, params, c, PROMPTS, 32)[0] for c in (1, 8)}
     lstm_cfg = archs.get("minlstm-lm")
     lstm_params = lm.init_params(gen, lstm_cfg, device=DEV)
-    lstm_streams = serve(lstm_cfg, lstm_params, 8, PROMPTS[:4], 8)
+    lstm_streams = serve(lstm_cfg, lstm_params, 8, PROMPTS[:4], 8)[0]
     launches = dict(ops.LAUNCHES)
+    check(set(step_ops.LAUNCHES.values()) == {0},
+          f"the block tier launched cell kernels: {step_ops.LAUNCHES}")
     for name, n in launches.items():
         check(n > 0, f"{name} was launched no time on the main path")
     check(streams[1] == streams[8], "greedy streams differ across C")
@@ -474,6 +656,197 @@ def serve_phase(gen):
           f"launches on the main path {launches}")
     rate_spread(cfg, params)
     sampled_phase(cfg, params)
+    return launches, (cfg, params, streams[1])
+
+
+def serve_profile(cfg, params, prompts, label):
+    """Where one window's device time goes: ``torch.profiler`` over one
+    K 4, C 1 window (after the warm-ups), device kernels by group and the
+    device-busy share of the window's wall time (the profiler's own host
+    cost inflates the wall time, so the share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(cfg, params, 1, prompts, 8, quiet=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    if not events:
+        print(f"{label} profile: the profiler saw no device time")
+        return
+    groups = {"cell kernel": 0.0, "block kernel": 0.0, "cuBLAS": 0.0,
+              "elementwise, reductions, copies": 0.0}
+    for e in events:
+        if "cell_kernel" in e.key:
+            groups["cell kernel"] += dev_us(e) / 1e3
+        elif "block_kernel" in e.key:
+            groups["block kernel"] += dev_us(e) / 1e3
+        elif any(k_ in e.key.lower() for k_ in ("gemm", "cutlass", "xmma",
+                                                 "nvjet", "cublas", "gemv")):
+            groups["cuBLAS"] += dev_us(e) / 1e3
+        else:
+            groups["elementwise, reductions, copies"] += dev_us(e) / 1e3
+    busy = sum(groups.values())
+    print(f"{label} profile, one window of {len(prompts)} requests x 8 "
+          f"tokens (K 4, C 1): wall {wall_ms:.2f} ms under the profiler, "
+          f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%); "
+          + ", ".join(f"{k_} {v:.2f} ms" for k_, v in groups.items())
+          + f"; {sum(e.count for e in events)} device events")
+    for e in sorted(events, key=dev_us, reverse=True)[:6]:
+        print(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:5d}  {e.key[:80]}")
+
+
+def first_divergence(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def cell_serve_phase(gen, cfg, params, block_streams):
+    """mingru-lm on the cell-fused tier (fuse_block "off"), C 1 and 8, then
+    minlstm-lm at C 8: one cell launch per layer per round, streams equal
+    across C and to ``generate_one`` on the same tier; beside the block
+    tier: the streams (reported) and the first round's logits (held to the
+    bf16 tolerance)."""
+    off = cfg.replace(fuse_block="off")
+    check(lm.kernel_tier(off) == "cell-fused", "fuse_block off not cell")
+    for c in (1, 8):
+        serve(off, params, c, PROMPTS, 4, label="warm-up")
+    lstm_off = archs.get("minlstm-lm").replace(fuse_block="off")
+    lstm_params = lm.init_params(gen, lstm_off, device=DEV)
+    reset_serve_launches()
+    streams, infos = {}, {}
+    for c in (1, 8):
+        streams[c], infos[c] = serve(off, params, c, PROMPTS, 32)
+    lstm_streams, lstm_info = serve(lstm_off, lstm_params, 8, PROMPTS[:4], 8)
+    launches = dict(step_ops.LAUNCHES)
+    check(set(ops.LAUNCHES.values()) == {0},
+          f"the cell tier launched block kernels: {ops.LAUNCHES}")
+    layers = cfg.n_layers
+    d1, d8 = infos[1]["launches"], infos[8]["launches"]
+    check(d1["mingru_step_kernel"] == layers * infos[1]["rounds"]
+          and d1["mingru_chunk_kernel"] == 0,
+          f"C=1 cell launches {d1} for {infos[1]['rounds']} rounds")
+    check(d8["mingru_chunk_kernel"] > 0 and d8["mingru_step_kernel"]
+          + d8["mingru_chunk_kernel"] == layers * infos[8]["rounds"],
+          f"C=8 cell launches {d8} for {infos[8]['rounds']} rounds")
+    dl = lstm_info["launches"]
+    check(dl["minlstm_chunk_kernel"] > 0 and dl["minlstm_step_kernel"]
+          + dl["minlstm_chunk_kernel"] == layers * lstm_info["rounds"],
+          f"minlstm C=8 cell launches {dl}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was launched no time on the cell tier")
+    check(streams[1] == streams[8], "cell tier: greedy streams differ "
+          "across C")
+    for p, s_ in zip(PROMPTS, streams[1]):
+        ref_s = generate_one(off, params, list(p.encode()), max_new=32,
+                             max_len=128, device=DEV)
+        check(tuple(ref_s) == s_, f"cell tier: stream for {p!r} != "
+              f"generate_one")
+    for p, s_ in zip(PROMPTS[:2], lstm_streams):
+        ref_s = generate_one(lstm_off, lstm_params, list(p.encode()),
+                             max_new=8, max_len=128, device=DEV)
+        check(tuple(ref_s) == s_, f"cell tier: minlstm stream for {p!r} != "
+              f"generate_one")
+    print(f"serve cell tier: streams identical across C and equal to "
+          f"generate_one; launches {launches} (C 1: {d1['mingru_step_kernel']}"
+          f" step for {infos[1]['rounds']} rounds; C 8: "
+          f"{d8['mingru_step_kernel']} step + {d8['mingru_chunk_kernel']} "
+          f"chunk for {infos[8]['rounds']} rounds)")
+    # beside the block tier
+    div = [first_divergence(a, b) for a, b in zip(streams[1], block_streams)]
+    same = sum(d is None for d in div)
+    print(f"cell tier vs block tier, greedy streams: {same} of "
+          f"{len(div)} identical; first diverging positions "
+          f"{[d for d in div]}")
+    tok = torch.tensor([p.encode()[0] for p in PROMPTS], dtype=torch.int32,
+                       device=DEV)
+    lb, _ = lm.decode_step(params, cfg, tok, lm.init_cache(cfg, 8, 16, DEV))
+    lc, _ = lm.decode_step(params, off, tok, lm.init_cache(off, 8, 16, DEV))
+    e_log = max_err(lc, lb, torch.bfloat16,
+                    "first-round logits, cell tier vs block tier")
+    print(f"first-round logits, cell tier vs block tier: max abs err "
+          f"{e_log:.3g} (bf16 limit atol {TOL[torch.bfloat16][0]} rtol "
+          f"{TOL[torch.bfloat16][1]})")
+    rate_spread(off, params)
+    serve_profile(off, params, PROMPTS, "cell tier mingru-lm")
+    return launches
+
+
+def gemma_phase():
+    """gemma-2b-mingru at full width: 18 layers, d_model 2048, GeGLU d_ff
+    16384, vocab 256,000, bf16, weights drawn on the card from a seed.
+    Every decode round runs mingru_step_kernel once per layer."""
+    cfg = archs.get("gemma-2b-mingru")
+    check(cfg.n_layers == 18 and cfg.d_model == 2048
+          and cfg.cdtype == torch.bfloat16 and cfg.vocab_size == 256000,
+          f"unexpected gemma-2b-mingru config {cfg}")
+    check(lm.kernel_tier(cfg) == "cell-fused", "gemma-2b-mingru not cell")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(0), cfg,
+                            device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in leaves(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    pgen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8),
+                            generator=pgen).tolist()
+    print(f"gemma-2b-mingru: {n_params} parameters drawn on the card in "
+          f"{t_init:.2f}s; peak device memory during the init "
+          f"{init_peak / 2**30:.2f} GiB")
+    serve(cfg, params, 1, prompts, 4, label="warm-up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_serve_launches()
+    streams, info = serve(cfg, params, 1, prompts, 32)
+    launches = serve_launches()
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(launches["mingru_step_kernel"] == cfg.n_layers * info["rounds"]
+          and sum(launches.values()) == launches["mingru_step_kernel"],
+          f"gemma launches {launches} for {info['rounds']} rounds")
+    for p, s_ in zip(prompts, streams):
+        check(len(s_) == 32 and all(0 <= t < cfg.vocab_size for t in s_),
+              "malformed gemma stream")
+        ref_s = generate_one(cfg, params, p, max_new=32, max_len=128,
+                             device=DEV)
+        check(tuple(ref_s) == s_, f"gemma stream for {p} != generate_one")
+    print(f"serve gemma-2b-mingru: streams equal generate_one; "
+          f"mingru_step_kernel launches {launches['mingru_step_kernel']} == "
+          f"{cfg.n_layers} x {info['rounds']} rounds; peak device memory "
+          f"while serving {serve_peak / 2**30:.2f} GiB")
+    rate_spread(cfg, params, chunks=(1,), prompts=prompts)
+    serve_profile(cfg, params, prompts, "gemma-2b-mingru")
+    # sampled: the Gumbel table is drawn on the host, vocab 256,000 wide
+    keys = sampling.make_keys(0, 8)
+    t0 = time.perf_counter()
+    table = sampling.gumbel_table(keys, 4, cfg.padded_vocab)
+    t_table = time.perf_counter() - t0
+    check(bool(torch.isfinite(table).all()), "non-finite Gumbel table")
+    t0 = time.perf_counter()
+    s_streams, s_info = serve(cfg, params, 1, prompts, 8, quiet=True,
+                              temperature=0.8, top_k=40, top_p=0.95)
+    t_window = time.perf_counter() - t0
+    for s_ in s_streams:
+        check(len(s_) == 8 and all(0 <= t < cfg.vocab_size for t in s_),
+              "malformed sampled gemma stream")
+    print(f"sampled gemma-2b-mingru, one window of 8 requests x 8 tokens "
+          f"(K 4, T 0.8, top-k 40, top-p 0.95): {t_window:.2f}s, decoded "
+          f"tok/s {s_info['rate']:.1f}; one host Gumbel table (8 slots x 4 "
+          f"x {cfg.padded_vocab}) {t_table * 1e3:.1f} ms")
+    del params
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -908,8 +1281,14 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     main_k = kernel_phase(gen)
+    main_k.update(cell_kernel_phase(gen))
     main_k.update(train_kernel_phase(gen))
-    launches = serve_phase(gen)
+    launches, (cfg, params, block_streams) = serve_phase(gen)
+    launches.update(cell_serve_phase(gen, cfg, params, block_streams))
+    del params
+    torch.cuda.empty_cache()
+    for name, n in gemma_phase().items():
+        launches[name] = launches.get(name, 0) + n
     launches.update(train_phase(gen))
 
     entries = []
@@ -923,7 +1302,7 @@ def main():
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": t_k, "kernel_ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            "library_ms": LIBRARY_MS.get(name)})
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

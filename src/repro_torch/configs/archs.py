@@ -1,7 +1,8 @@
-"""The paper's own minGRU / minLSTM LMs (Feng et al. 2024, App. C).
+"""The paper's own minGRU / minLSTM LMs (Feng et al. 2024, App. C), and
+gemma-2b with the paper's minGRU as its sequence mixer.
 
 Copied from ``repro.configs.archs`` (full and smoke entries); the other
-architectures of the reference zoo are not part of this slice.
+architectures of the reference zoo are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +36,20 @@ for _name, _cell in (("mingru-lm", "mingru"), ("minlstm-lm", "minlstm")):
                     tie_embeddings=True, minrnn=_mr, **_SMOKE_NUM))
 
 PAPER_OWN = ["mingru-lm", "minlstm-lm"]
+
+# gemma-2b [arXiv:2403.08295]: MQA (kv 1), GeGLU, head_dim 256 -- with the
+# paper's minGRU replacing attention (the reference's beyond-paper model)
+_g2_mr = MinRNNConfig(cell="mingru", expansion=1.0, mode="log",
+                      use_conv=False, use_mlp=False)
+_g2 = dict(name="gemma-2b-mingru", block_kind="attention", seq_mixer="mingru",
+           norm="rmsnorm", norm_zero_centered=True, gated_mlp=True,
+           mlp_activation="gelu", rope=True, tie_embeddings=True,
+           embedding_scale=True, minrnn=_g2_mr)
+_register(
+    ModelConfig(n_layers=18, d_model=2048, n_heads=8, n_kv_heads=1,
+                head_dim=256, d_ff=16384, vocab_size=256000, **_g2, **_BIG),
+    ModelConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=1, head_dim=32,
+                d_ff=128, vocab_size=1024, **_g2, **_SMOKE_NUM))
 
 
 def get(name: str) -> ModelConfig:

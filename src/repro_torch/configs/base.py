@@ -1,9 +1,11 @@
 """Config schema: the minRNN subset of ``repro.configs.base``.
 
 A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
-dtype table.  Only the fields the serving and training slices read are
-kept; the field names, defaults and properties match the reference so a
-config built here describes the same model as its JAX twin.
+dtype table.  Only the fields the port reads are kept (the minRNN LMs,
+and the attention trunk whose mixer ``seq_mixer`` swaps for a minRNN
+cell, with the attention fields such a config carries); the field names,
+defaults and properties match the reference so a config built here
+describes the same model as its JAX twin.
 """
 
 from __future__ import annotations
@@ -30,15 +32,26 @@ class MinRNNConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
-    block_kind: str = "minrnn"     # only minrnn in this slice
+    # minrnn | attention (served only with a minRNN ``seq_mixer``)
+    block_kind: str = "minrnn"
+    seq_mixer: str = "native"      # native | mingru | minlstm
     n_layers: int = 2
     d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0              # 0 -> d_model // n_heads
     d_ff: int = 512
     vocab_size: int = 256
     norm: str = "rmsnorm"
-    norm_zero_centered: bool = False
+    norm_zero_centered: bool = False   # gemma (1 + scale) RMSNorm
+    mlp_activation: str = "silu"   # silu | gelu for the (gated) MLP
+    gated_mlp: bool = True         # SwiGLU / GeGLU vs plain MLP
+    mlp_bias: bool = False
+    rope: bool = True
+    rope_theta: float = 10000.0
+    attn_kind: str = "gqa"         # gqa | mla
     tie_embeddings: bool = False
-    embedding_scale: bool = False
+    embedding_scale: bool = False  # gemma: x *= sqrt(d_model)
     minrnn: Optional[MinRNNConfig] = None
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -46,7 +59,7 @@ class ModelConfig:
     # "sequential" forces the plain PyTorch path (the parity oracle)
     scan_strategy: str = "auto"
     # whole-block decode fusion (kernels/block_step): "auto"/"on" run the
-    # block kernel; "off" selects the cell-only tier, not ported yet
+    # block kernel; "off" keeps the cell-only kernel (kernels/decode_step)
     fuse_block: str = "auto"
     logits_softcap: float = 0.0
     # training: per-layer activation checkpointing ("full" recomputes each

@@ -9,9 +9,11 @@ the cell runs in the fused CUDA layer kernel (``kernels/fused_mingru`` /
 ``step`` / ``step_chunk`` carry (conv window, h) for decode.  Under the
 default ``scan_strategy="auto"`` with ``fuse_block`` "auto"/"on" the
 whole block runs in ONE hand-written CUDA kernel per layer per round
-(``kernels/block_step``); ``scan_strategy="sequential"`` is the plain
-PyTorch oracle.  The cell-only tier (``fuse_block="off"``) needs the
-``decode_step`` kernels, which a later slice ports.
+(``kernels/block_step``).  The cell-fused tier (``fuse_block="off"``, or
+a norm the block kernel does not pin) runs only the cell in a CUDA
+kernel (``kernels/decode_step``); norm, conv window, down projection and
+MLP stay PyTorch ops.  ``scan_strategy="sequential"`` is the plain
+PyTorch oracle.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ from repro_torch.core import scan as scan_lib
 def fuse_block_tier(cfg: "MinRNNBlockConfig",
                     scan_strategy: Optional[str] = None) -> str:
     """Which decode tier this block runs: ``"block-fused"`` (whole block
-    in one kernel launch), ``"cell-fused"`` (cell-only kernel; not ported
-    yet) or ``"unfused"`` (plain PyTorch).  The tensor-parallel branch of
-    the reference is not part of this slice."""
+    in one kernel launch), ``"cell-fused"`` (cell-only kernel) or
+    ``"unfused"`` (plain PyTorch).  The tensor-parallel branch of the
+    reference is not part of this slice."""
     strategy = scan_strategy if scan_strategy is not None \
         else cfg.scan_strategy
     if scan_lib.resolve_strategy(strategy) != "fused":
@@ -38,13 +40,6 @@ def fuse_block_tier(cfg: "MinRNNBlockConfig",
     if cfg.fuse_block == "off" or cfg.norm != "rmsnorm":
         return "cell-fused"
     return "block-fused"
-
-
-def _reject_cell_tier():
-    raise NotImplementedError(
-        "the cell-fused decode tier (fuse_block='off') needs the "
-        "decode_step kernels, not ported yet (ROADMAP.md queue 1, item "
-        "3); use fuse_block='auto' or scan_strategy='sequential'")
 
 
 @dataclass(frozen=True)
@@ -139,13 +134,18 @@ def init_state(cfg: MinRNNBlockConfig, batch_shape: Tuple[int, ...],
 
 def bind(params, cfg: MinRNNBlockConfig, *, compute_dtype=None,
          scan_strategy: Optional[str] = None):
-    """The block's weights bound for the whole-block kernel, for
-    ``step`` / ``step_chunk``'s ``operands``: a ``BlockOperands`` when the
-    block runs block-fused on CUDA, else None (nothing to bind)."""
+    """The block's weights bound once for its kernel, for ``step`` /
+    ``step_chunk``'s ``operands``: a ``BlockOperands`` (whole block) on
+    the block-fused tier, a ``CellOperands`` (the cell's gates, in the
+    compute dtype, zero biases made once) on the cell-fused tier, None on
+    the CPU or the unfused tier (nothing to bind)."""
     tier = fuse_block_tier(cfg, scan_strategy)
-    if tier != "block-fused" or params["down"]["kernel"].device.type \
-            != "cuda":
+    if tier == "unfused" or params["down"]["kernel"].device.type != "cuda":
         return None
+    if tier == "cell-fused":
+        from repro_torch.kernels.decode_step import ops as step_ops
+        return step_ops.CellOperands.from_params(params["rnn"], cfg.cell,
+                                                 compute_dtype)
     from repro_torch.kernels.block_step import ops as block_ops
     return block_ops.BlockOperands(params, cell=cfg.cell,
                                    compute_dtype=compute_dtype,
@@ -166,8 +166,8 @@ def step(params, cfg: MinRNNBlockConfig, x_t: torch.Tensor, state, *,
             params, x_t, state, cell=cfg.cell, mode=cfg.mode,
             use_conv=cfg.use_conv, use_mlp=cfg.use_mlp,
             compute_dtype=compute_dtype, operands=operands)
-    if tier == "cell-fused":
-        _reject_cell_tier()
+    # cell-fused (the cell in its kernel, ``operands`` its binding) or
+    # unfused: the norm, conv, down projection and MLP are PyTorch ops
     cell = _CELLS[cfg.cell]
     y = nn.norm_apply(cfg.norm, params["norm_rnn"], x_t)
     new_state = dict(state)
@@ -175,7 +175,8 @@ def step(params, cfg: MinRNNBlockConfig, x_t: torch.Tensor, state, *,
         y, new_state["conv"] = nn.causal_conv_step(params["conv"], y,
                                                    state["conv"])
     h = cell.step(params["rnn"], y, state["h"], mode=cfg.mode,
-                  compute_dtype=compute_dtype, scan_strategy=scan_strategy)
+                  compute_dtype=compute_dtype, scan_strategy=scan_strategy,
+                  operands=operands)
     new_state["h"] = h
     x_t = x_t + nn.dense_apply(params["down"], h, compute_dtype)
     if cfg.use_mlp:
@@ -222,8 +223,6 @@ def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
             use_conv=cfg.use_conv, use_mlp=cfg.use_mlp,
             compute_dtype=compute_dtype, return_positions=return_positions,
             operands=operands)
-    if tier == "cell-fused":
-        _reject_cell_tier()
     cell = _CELLS[cfg.cell]
     y = nn.norm_apply(cfg.norm, params["norm_rnn"], x)
     new_state = dict(state)
@@ -238,7 +237,7 @@ def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
                                                state["conv"], valid)
     hs = cell.step_chunk(params["rnn"], y, state["h"], valid,
                          mode=cfg.mode, compute_dtype=compute_dtype,
-                         scan_strategy=scan_strategy)
+                         scan_strategy=scan_strategy, operands=operands)
     new_state["h"] = hs[:, -1]          # frozen rows: == hs[:, valid-1]
     pos_states["h"] = hs
     x = x + nn.dense_apply(params["down"], hs, compute_dtype)

@@ -5,7 +5,8 @@
     h_t  = (1 - z_t) * h_{t-1} + z_t * h~_t
 
 ``parallel`` is the training form (the fused CUDA layer under "auto");
-``step`` / ``step_chunk`` are the sequential decode forms.
+``step`` / ``step_chunk`` are the sequential decode forms (the cell-only
+CUDA decode kernels under "auto").
 """
 
 from __future__ import annotations
@@ -99,34 +100,71 @@ def gates(params, x: torch.Tensor, *, mode: str = "log",
 # Sequential (decode) forms
 # ---------------------------------------------------------------------------
 
-def _no_cell_kernel(scan_strategy):
-    if scan_strategy is not None and \
-            scan_lib.resolve_strategy(scan_strategy) == "fused":
-        raise NotImplementedError(
-            "the cell-only decode kernels (kernels/decode_step) are not "
-            "ported yet (ROADMAP.md queue 1, item 3); the block-fused "
-            "tier or scan_strategy='sequential' serves instead")
-
-
 def step(params, x_t: torch.Tensor, h_prev: torch.Tensor, *,
          mode: str = "log", compute_dtype=None,
-         scan_strategy: Optional[str] = None) -> torch.Tensor:
-    """x_t: (..., d_in), h_prev: (..., d_hidden) -> h_t (plain PyTorch;
-    the oracle the kernels are held against)."""
-    _no_cell_kernel(scan_strategy)
+         scan_strategy: Optional[str] = None, operands=None) -> torch.Tensor:
+    """x_t: (..., d_in), h_prev: (..., d_hidden) -> h_t.
+
+    ``"auto"`` / ``"fused"`` run the whole step (both projections, the
+    gates, the update) in the cell-only CUDA decode kernel
+    (``kernels/decode_step``); ``None`` or any other strategy runs the
+    plain PyTorch step below.  ``operands``: these weights bound for the
+    kernel (``kernels.decode_step.ops.CellOperands``), if the caller holds
+    them."""
+    if scan_strategy is not None and \
+            scan_lib.resolve_strategy(scan_strategy) == "fused":
+        return _fused_step(params, x_t, h_prev, mode=mode,
+                           compute_dtype=compute_dtype, operands=operands)
     z = torch.sigmoid(nn.dense_apply(params["wz"], x_t, compute_dtype))
     v = nn.dense_apply(params["wh"], x_t, compute_dtype)
     h_tilde = nn.g(v) if mode == "log" else v
     return (1.0 - z) * h_prev + z * h_tilde
 
 
+def _fused_step_args(params, x: torch.Tensor, compute_dtype, operands=None):
+    """The kernel's operands: x and every weight / bias cast to the
+    compute dtype (the bound ones when ``operands`` is given)."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    if operands is not None:
+        wz, bz, wh, bh = operands.args
+        return x, wz, bz, wh, bh
+    wz, wh = params["wz"]["kernel"], params["wh"]["kernel"]
+    bz, bh = params["wz"].get("bias"), params["wh"].get("bias")
+    if compute_dtype is not None:
+        wz, wh = wz.to(compute_dtype), wh.to(compute_dtype)
+        bz = None if bz is None else bz.to(compute_dtype)
+        bh = None if bh is None else bh.to(compute_dtype)
+    return x, wz, bz, wh, bh
+
+
+def _fused_step(params, x_t: torch.Tensor, h_prev: torch.Tensor, *,
+                mode: str, compute_dtype=None, operands=None):
+    """Whole cell step in one CUDA launch (kernels/decode_step)."""
+    from repro_torch.kernels.decode_step import ops as step_ops
+    x_t, wz, bz, wh, bh = _fused_step_args(params, x_t, compute_dtype,
+                                           operands)
+    return step_ops.fused_mingru_step(x_t, wz, bz, wh, bh, h_prev, mode=mode,
+                                      operands=operands)
+
+
 def step_chunk(params, x: torch.Tensor, h_prev: torch.Tensor,
                valid: torch.Tensor, *, mode: str = "log",
-               compute_dtype=None,
-               scan_strategy: Optional[str] = None) -> torch.Tensor:
-    """Packed varlen decode chunk: x (B, C, d_in), valid (B,) in [1, C]
-    -> hs (B, C, d_hidden); row b freezes once t >= valid[b]."""
-    _no_cell_kernel(scan_strategy)
+               compute_dtype=None, scan_strategy: Optional[str] = None,
+               operands=None) -> torch.Tensor:
+    """Packed varlen decode chunk: x (..., C, d_in), h_prev (...,
+    d_hidden), valid (...,) in [1, C] -> hs (..., C, d_hidden).  Row b
+    advances through its first ``valid[b]`` tokens with the per-token
+    arithmetic of :func:`step` and freezes after.  ``"auto"`` /
+    ``"fused"`` run the chunk in one CUDA launch that reads the weights
+    once; anything else is the plain masked sequential loop."""
+    if scan_strategy is not None and \
+            scan_lib.resolve_strategy(scan_strategy) == "fused":
+        from repro_torch.kernels.decode_step import ops as step_ops
+        x, wz, bz, wh, bh = _fused_step_args(params, x, compute_dtype,
+                                             operands)
+        return step_ops.fused_mingru_chunk(x, wz, bz, wh, bh, h_prev, valid,
+                                           mode=mode, operands=operands)
     hs = []
     h = h_prev
     for t in range(x.shape[-2]):

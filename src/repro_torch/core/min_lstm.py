@@ -15,7 +15,6 @@ import torch.nn.functional as F
 
 from repro_torch.core import nn
 from repro_torch.core import scan as scan_lib
-from repro_torch.core.min_gru import _no_cell_kernel
 
 
 def init(gen: torch.Generator, d_in: int, d_hidden: int, *,
@@ -119,8 +118,16 @@ def gates(params, x: torch.Tensor, *, mode: str = "log",
 
 def step(params, x_t: torch.Tensor, h_prev: torch.Tensor, *,
          mode: str = "log", normalize: bool = True, compute_dtype=None,
-         scan_strategy: Optional[str] = None) -> torch.Tensor:
-    _no_cell_kernel(scan_strategy)
+         scan_strategy: Optional[str] = None, operands=None) -> torch.Tensor:
+    """x_t: (..., d_in), h_prev: (..., d_hidden) -> h_t.  ``"auto"`` /
+    ``"fused"`` run the whole step in the cell-only CUDA decode kernel
+    (``kernels/decode_step``); otherwise plain PyTorch.  Both normalise
+    through the stable ``normalized_gates`` form."""
+    if scan_strategy is not None and \
+            scan_lib.resolve_strategy(scan_strategy) == "fused":
+        return _fused_step(params, x_t, h_prev, mode=mode,
+                           normalize=normalize, compute_dtype=compute_dtype,
+                           operands=operands)
     kf = nn.dense_apply(params["wf"], x_t, compute_dtype)
     ki = nn.dense_apply(params["wi"], x_t, compute_dtype)
     v = nn.dense_apply(params["wh"], x_t, compute_dtype)
@@ -132,11 +139,49 @@ def step(params, x_t: torch.Tensor, h_prev: torch.Tensor, *,
     return f * h_prev + i * h_tilde
 
 
+def _fused_step_args(params, x: torch.Tensor, compute_dtype, operands=None):
+    """x, wf, wi, wh, bf, bi, bh cast to the compute dtype (the bound
+    weights when ``operands`` is given), as ``min_gru._fused_step_args``."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    if operands is not None:
+        wf, bf, wi, bi, wh, bh = operands.args
+        return x, wf, wi, wh, bf, bi, bh
+    ws = [params[k]["kernel"] for k in ("wf", "wi", "wh")]
+    bs = [params[k].get("bias") for k in ("wf", "wi", "wh")]
+    if compute_dtype is not None:
+        ws = [w.to(compute_dtype) for w in ws]
+        bs = [None if b is None else b.to(compute_dtype) for b in bs]
+    return (x,) + tuple(ws) + tuple(bs)
+
+
+def _fused_step(params, x_t: torch.Tensor, h_prev: torch.Tensor, *,
+                mode: str, normalize: bool, compute_dtype=None,
+                operands=None):
+    """Whole cell step in one CUDA launch (kernels/decode_step)."""
+    from repro_torch.kernels.decode_step import ops as step_ops
+    x_t, wf, wi, wh, bf, bi, bh = _fused_step_args(params, x_t,
+                                                   compute_dtype, operands)
+    return step_ops.fused_minlstm_step(x_t, wf, bf, wi, bi, wh, bh, h_prev,
+                                       mode=mode, normalize=normalize,
+                                       operands=operands)
+
+
 def step_chunk(params, x: torch.Tensor, h_prev: torch.Tensor,
                valid: torch.Tensor, *, mode: str = "log",
                normalize: bool = True, compute_dtype=None,
-               scan_strategy: Optional[str] = None) -> torch.Tensor:
-    _no_cell_kernel(scan_strategy)
+               scan_strategy: Optional[str] = None,
+               operands=None) -> torch.Tensor:
+    """Packed varlen decode chunk; contract as ``min_gru.step_chunk``."""
+    if scan_strategy is not None and \
+            scan_lib.resolve_strategy(scan_strategy) == "fused":
+        from repro_torch.kernels.decode_step import ops as step_ops
+        x, wf, wi, wh, bf, bi, bh = _fused_step_args(params, x,
+                                                     compute_dtype, operands)
+        return step_ops.fused_minlstm_chunk(x, wf, bf, wi, bi, wh, bh,
+                                            h_prev, valid, mode=mode,
+                                            normalize=normalize,
+                                            operands=operands)
     hs = []
     h = h_prev
     for t in range(x.shape[-2]):

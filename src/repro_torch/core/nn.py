@@ -1,9 +1,10 @@
 """Minimal functional NN building blocks (``repro.core.nn`` subset).
 
 Parameters are plain nested dicts of tensors.  Initializers draw from an
-explicit ``torch.Generator`` on the CPU (so a seed gives the same weights
-whatever device they are moved to); the apply functions run on the
-device of their inputs.
+explicit ``torch.Generator`` on that generator's device: a CPU generator
+gives the same weights whatever device they are moved to; a CUDA one
+draws on the card, where a model too large for a host-side draw is made.
+The apply functions run on the device of their inputs.
 """
 
 from __future__ import annotations
@@ -21,21 +22,23 @@ import torch.nn.functional as F
 def lecun_normal(gen: torch.Generator, shape, dtype=torch.float32,
                  in_axis: int = 0) -> torch.Tensor:
     std = math.sqrt(1.0 / max(1, shape[in_axis]))
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (std * t).to(dtype)
 
 
 def normal_init(gen: torch.Generator, shape, std,
                 dtype=torch.float32) -> torch.Tensor:
-    return (std * torch.randn(shape, generator=gen)).to(dtype)
+    return (std * torch.randn(shape, generator=gen, device=gen.device)
+            ).to(dtype)
 
 
 def dense_init(gen, in_dim: int, out_dim: int, *, use_bias: bool = True,
                dtype=torch.float32, bias_init: float = 0.0):
     p = {"kernel": lecun_normal(gen, (in_dim, out_dim), dtype)}
     if use_bias:
-        p["bias"] = torch.full((out_dim,), bias_init, dtype=dtype)
+        p["bias"] = torch.full((out_dim,), bias_init, dtype=dtype,
+                               device=gen.device)
     return p
 
 
@@ -138,6 +141,9 @@ def gather_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"gelu": gelu, "silu": F.silu}
 
 
 def g(x: torch.Tensor) -> torch.Tensor:

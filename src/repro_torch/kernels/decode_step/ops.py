@@ -1,0 +1,262 @@
+"""Wrappers for the cell-only decode kernels (``csrc/decode_step.cu``).
+
+``fused_mingru_step`` / ``fused_minlstm_step`` run one cell step
+(projections + gates + state update) for any leading batch dims, x
+(..., Dx) and h_prev (..., Dh) -> h (..., Dh); ``fused_mingru_chunk`` /
+``fused_minlstm_chunk`` a varlen C-token chunk, x (..., C, Dx) and valid
+(...,) -> hs (..., C, Dh), row b frozen once ``t >= valid[b]``, each
+position bit-identical to the step.  A missing bias means zeros.  The
+output is in x's dtype; h_prev may be x's dtype or float32.
+
+A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor
+launches the kernel or raises.  Nothing falls back.  The norm, conv,
+down projection and MLP around the cell stay PyTorch ops
+(``blocks.step``).
+
+Weights are bound once by whoever owns them (:class:`CellOperands`, made
+by ``blocks.bind`` / ``lm.bind_layers``): cast to the compute dtype, made
+contiguous, missing biases made as zeros, checked, pointers taken.  A
+call given ``operands=`` then checks and binds only its activations; a
+call without binds its weights for itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import launch as kl
+from repro_torch.kernels.decode_step import ref
+from repro_torch.kernels.scan.ops import call_with_flat_lead
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_step.cu"
+
+# launches per kernel: a plain count, reset by whoever reads it
+LAUNCHES = {"mingru_step_kernel": 0, "mingru_chunk_kernel": 0,
+            "minlstm_step_kernel": 0, "minlstm_chunk_kernel": 0}
+
+GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
+_N_PTRS = 10
+_LIB = None
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import build
+        lib = build.load(SOURCE)
+        for fn in (lib.repro_cell_step_launch, lib.repro_cell_chunk_launch):
+            fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p,
+                                                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        kl.declare_error_string(lib)
+        _LIB = lib
+    return _LIB
+
+
+class CellOperands:
+    """One cell's gate weights bound for the kernel: every weight and bias
+    in one dtype (fp32 or bf16), contiguous, on one CUDA device, missing
+    biases made as zeros once.  It holds the tensors it points at and
+    reads them as they were when bound: bind again after replacing a
+    leaf."""
+
+    def __init__(self, cell: str, ws, bs):
+        if cell not in GATES:
+            raise ValueError(f"unknown cell {cell!r}")
+        if len(ws) != len(GATES[cell]) or len(bs) != len(ws):
+            raise ValueError(f"{cell} takes {len(GATES[cell])} weights and "
+                             f"biases, got {len(ws)} and {len(bs)}")
+        dev, dt = ws[0].device, ws[0].dtype
+        if dev.type != "cuda":
+            raise ValueError(f"the decode_step kernels need CUDA tensors, "
+                             f"got {dev}")
+        kl.element_type(ws[0], "weight 0")
+        dx, dh = ws[0].shape
+        bs = [torch.zeros((dh,), dtype=dt, device=dev) if b is None else b
+              for b in bs]
+        for i, (w, b) in enumerate(zip(ws, bs)):
+            kl.check(w, f"{cell} weight {i}", (dx, dh), dt, dev)
+            kl.check(b, f"{cell} bias {i}", (dh,), dt, dev)
+        self.cell, self.device, self.dtype, self.dims = cell, dev, dt, (dx, dh)
+        self.ws, self.bs = tuple(ws), tuple(bs)
+        ptrs = [0] * 7
+        for i, (w, b) in enumerate(zip(ws, bs)):
+            ptrs[1 + i], ptrs[4 + i] = w.data_ptr(), b.data_ptr()
+        self.ptrs = ptrs
+
+    @classmethod
+    def from_params(cls, params, cell: str, compute_dtype=None):
+        """Bind a cell's param dict (``min_gru.init`` / ``min_lstm.init``
+        layout), cast to ``compute_dtype`` where given, as the reference
+        casts them for its kernel."""
+        ws, bs = [], []
+        for name in GATES[cell]:
+            w, b = params[name]["kernel"], params[name].get("bias")
+            if compute_dtype is not None:
+                w = w.to(compute_dtype)
+                b = None if b is None else b.to(compute_dtype)
+            ws.append(w.contiguous())
+            bs.append(None if b is None else b.contiguous())
+        return cls(cell, ws, bs)
+
+    @property
+    def args(self):
+        """The bound weights and biases in the wrappers' argument order
+        (w0, b0, w1, b1[, w2, b2])."""
+        return tuple(t for wb in zip(self.ws, self.bs) for t in wb)
+
+
+def _bound(cell, ws, bs, operands):
+    if operands is None:
+        return CellOperands(cell, ws, bs)
+    if operands.cell != cell:
+        raise ValueError(f"operands were bound for {operands.cell}, the "
+                         f"call runs {cell}")
+    return operands
+
+
+def prepare_launch(operands: CellOperands, x, h_prev, valid, *, mode,
+                   normalize=True):
+    """Check the activations, allocate the output and bind the C call.
+    Returns ``(launch, out)``: ``launch()`` issues the kernel on the
+    current stream and returns its CUDA status; it does not count.
+    x: (B, C, Dx) on CUDA -> out (B, C, Dh) in x's dtype; ``valid`` (B,)
+    selects the chunk kernel, None the step kernel (C must be 1)."""
+    if mode not in ("log", "linear"):
+        raise ValueError(f"unknown mode {mode!r}")
+    dev, dt = operands.device, operands.dtype
+    dx, dh = operands.dims
+    x = x.contiguous()
+    bsz, chunk = x.shape[0], x.shape[1]
+    kl.check(x, "x", (bsz, chunk, dx), dt, dev)
+    h0_f32 = h_prev.dtype != dt
+    h0 = (h_prev.float() if h0_f32 else h_prev).contiguous()
+    kl.check(h0, "h_prev", (bsz, dh), h0.dtype, dev)
+    out = torch.empty((bsz, chunk, dh), dtype=dt, device=dev)
+    ptrs = list(operands.ptrs) + [0, 0, 0]
+    ptrs[0], ptrs[7], ptrs[9] = x.data_ptr(), h0.data_ptr(), out.data_ptr()
+    keep = [operands, x, h0, out]
+    lib = _lib()
+    if valid is None:
+        fn = lib.repro_cell_step_launch
+    else:
+        valid = valid.to(torch.int32).contiguous()
+        kl.check(valid, "valid", (bsz,), torch.int32, dev)
+        ptrs[8] = valid.data_ptr()
+        keep.append(valid)
+        fn = lib.repro_cell_chunk_launch
+    args = (int(operands.cell == "minlstm"), int(mode == "log"),
+            int(normalize), kl.DTYPES[dt], int(h0_f32), bsz, chunk, dx, dh,
+            (ctypes.c_void_p * _N_PTRS)(*ptrs), kl.stream(dev))
+
+    def launch(_keep=keep):        # _keep: the operands alive while bound
+        return fn(*args)
+
+    return launch, out
+
+
+def _launch(name, operands, x, h_prev, valid, *, mode, normalize=True):
+    launch, out = prepare_launch(operands, x, h_prev, valid, mode=mode,
+                                 normalize=normalize)
+    kl.raise_on_error(_lib(), name, launch())
+    LAUNCHES[name] += 1
+    return out
+
+
+def _zeros_for_missing(bs, ws, x):
+    return [torch.zeros((w.shape[1],), dtype=x.dtype, device=x.device)
+            if b is None else b for w, b in zip(ws, bs)]
+
+
+def fused_mingru_step(x: torch.Tensor, wz: torch.Tensor,
+                      bz: Optional[torch.Tensor], wh: torch.Tensor,
+                      bh: Optional[torch.Tensor], h_prev: torch.Tensor, *,
+                      mode: str = "log",
+                      operands: Optional[CellOperands] = None
+                      ) -> torch.Tensor:
+    """minGRU cell step in one launch.  x: (..., Dx), h_prev: (..., Dh)
+    -> h_t: (..., Dh)."""
+    if x.device.type == "cpu":
+        bz, bh = _zeros_for_missing((bz, bh), (wz, wh), x)
+        return ref.mingru_step_ref(x, wz, bz, wh, bh, h_prev, mode=mode)
+    operands = _bound("mingru", (wz, wh), (bz, bh), operands)
+    return call_with_flat_lead(
+        lambda xf, hf: _launch("mingru_step_kernel", operands, xf[:, None],
+                               hf, None, mode=mode)[:, 0],
+        (x, 1), (h_prev, 1))
+
+
+def fused_minlstm_step(x: torch.Tensor, wf: torch.Tensor,
+                       bf: Optional[torch.Tensor], wi: torch.Tensor,
+                       bi: Optional[torch.Tensor], wh: torch.Tensor,
+                       bh: Optional[torch.Tensor], h_prev: torch.Tensor, *,
+                       mode: str = "log", normalize: bool = True,
+                       operands: Optional[CellOperands] = None
+                       ) -> torch.Tensor:
+    """minLSTM cell step (three projections, the stable f/(f+i), the
+    update) in one launch.  Shapes as :func:`fused_mingru_step`."""
+    if x.device.type == "cpu":
+        bf, bi, bh = _zeros_for_missing((bf, bi, bh), (wf, wi, wh), x)
+        return ref.minlstm_step_ref(x, wf, bf, wi, bi, wh, bh, h_prev,
+                                    mode=mode, normalize=normalize)
+    operands = _bound("minlstm", (wf, wi, wh), (bf, bi, bh), operands)
+    return call_with_flat_lead(
+        lambda xf, hf: _launch("minlstm_step_kernel", operands, xf[:, None],
+                               hf, None, mode=mode,
+                               normalize=normalize)[:, 0],
+        (x, 1), (h_prev, 1))
+
+
+def fused_mingru_chunk(x: torch.Tensor, wz: torch.Tensor,
+                       bz: Optional[torch.Tensor], wh: torch.Tensor,
+                       bh: Optional[torch.Tensor], h_prev: torch.Tensor,
+                       valid: torch.Tensor, *, mode: str = "log",
+                       operands: Optional[CellOperands] = None
+                       ) -> torch.Tensor:
+    """Packed varlen minGRU chunk in one launch: the weights are read once
+    for up to C tokens.  x: (..., C, Dx), h_prev: (..., Dh), valid:
+    (...,) int in [1, C] -> hs: (..., C, Dh); bit-identical to
+    ``valid[b]`` sequential :func:`fused_mingru_step` calls."""
+    if x.device.type == "cpu":
+        bz, bh = _zeros_for_missing((bz, bh), (wz, wh), x)
+        return call_with_flat_lead(
+            lambda xf, hf, vf: ref.mingru_chunk_ref(xf, wz, bz, wh, bh, hf,
+                                                    vf, mode=mode),
+            (x, 2), (h_prev, 1), (valid, 0))
+    operands = _bound("mingru", (wz, wh), (bz, bh), operands)
+    return call_with_flat_lead(
+        lambda xf, hf, vf: _launch("mingru_chunk_kernel", operands, xf, hf,
+                                   vf, mode=mode),
+        (x, 2), (h_prev, 1), (valid, 0))
+
+
+def fused_minlstm_chunk(x: torch.Tensor, wf: torch.Tensor,
+                        bf: Optional[torch.Tensor], wi: torch.Tensor,
+                        bi: Optional[torch.Tensor], wh: torch.Tensor,
+                        bh: Optional[torch.Tensor], h_prev: torch.Tensor,
+                        valid: torch.Tensor, *, mode: str = "log",
+                        normalize: bool = True,
+                        operands: Optional[CellOperands] = None
+                        ) -> torch.Tensor:
+    """Packed varlen minLSTM chunk; contract as :func:`fused_mingru_chunk`."""
+    if x.device.type == "cpu":
+        bf, bi, bh = _zeros_for_missing((bf, bi, bh), (wf, wi, wh), x)
+        return call_with_flat_lead(
+            lambda xf, hf, vf: ref.minlstm_chunk_ref(
+                xf, wf, bf, wi, bi, wh, bh, hf, vf, mode=mode,
+                normalize=normalize),
+            (x, 2), (h_prev, 1), (valid, 0))
+    operands = _bound("minlstm", (wf, wi, wh), (bf, bi, bh), operands)
+    return call_with_flat_lead(
+        lambda xf, hf, vf: _launch("minlstm_chunk_kernel", operands, xf, hf,
+                                   vf, mode=mode, normalize=normalize),
+        (x, 2), (h_prev, 1), (valid, 0))

@@ -4,10 +4,14 @@
         --device cuda --prompts "To be" "Friends," --decode-block 4
 
 Serves the given prompts from a seeded random init through the
-continuous-batching superstep engine, one whole-block CUDA kernel launch
-per layer per device round.  Prints the completions, the superstep /
-latency lines and the engine stats snapshot.  ``--device cpu`` runs the
-plain PyTorch versions of the kernels.
+continuous-batching superstep engine: one whole-block CUDA kernel launch
+per layer per device round, or with ``--fuse-block off`` (and always for
+``--arch gemma-2b-mingru``) one cell-only kernel launch per layer per
+round between PyTorch norms, projections and MLPs.  Prints the
+completions, the kernel tier, the superstep / latency lines and the
+engine stats snapshot.  ``--device cpu`` runs the plain PyTorch versions
+of the kernels.  On the card the weights are drawn there, from the
+seed.
 """
 
 from __future__ import annotations
@@ -41,6 +45,11 @@ def main(argv=None):
     ap.add_argument("--prompt-chunk", type=int, default=1,
                     help="prompt tokens a prefilling slot consumes per "
                          "device round (C)")
+    ap.add_argument("--fuse-block", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="decode tier of the minRNN LMs: 'auto' / 'on' "
+                         "run each layer as one whole-block kernel, 'off' "
+                         "keeps the cell-only kernel tier")
     ap.add_argument("--priority", type=int, default=1)
     ap.add_argument("--deadline-rounds", type=int, default=None)
     ap.add_argument("--max-queue", type=int, default=0)
@@ -49,14 +58,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = archs.smoke(args.arch) if args.smoke else archs.get(args.arch)
-    gen = torch.Generator().manual_seed(args.seed)
-    params = lm.init_params(gen, cfg, device=args.device)
+    if cfg.vocab_size != 256:       # byte prompts, as the reference serves
+        cfg = cfg.replace(vocab_size=256)
+    device = torch.device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = lm.init_params(gen, cfg, device=device)
     engine = ServingEngine(cfg, params, max_batch=args.max_batch,
                            max_len=args.max_len, seed=args.seed,
                            decode_block=args.decode_block,
                            prompt_chunk=args.prompt_chunk,
                            max_queue=args.max_queue,
-                           max_retries=args.max_retries, device=args.device)
+                           max_retries=args.max_retries,
+                           fuse_block=args.fuse_block, device=device)
     rids = {}
     for p in args.prompts:
         rid = engine.submit(list(p.encode()), max_new=args.max_new,

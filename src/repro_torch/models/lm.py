@@ -1,5 +1,7 @@
-"""Decoder-only minRNN LM: the training and serving subset of
-``repro.models.lm``.
+"""Decoder-only LM: the minRNN LMs' training and serving, and the
+attention trunk's serving where ``seq_mixer`` swaps its attention for a
+minRNN cell (gemma-2b-mingru) -- the subset of ``repro.models.lm`` ported
+so far.
 
 Params are nested dicts with the JAX pytree's layout -- ``embed.table``,
 ``final_norm.scale`` and ``layers.blocks.*`` stacked with a leading L
@@ -17,8 +19,11 @@ Serving drives the step forms only: ``superstep`` runs K rounds of
 re-admission -> token select -> ``decode_step`` (or ``decode_chunk`` for
 packed prefill) -> sample-or-teacher-force -> retire over device-resident
 per-slot state (``init_slot_state``).  The reference runs those rounds in
-one ``lax.scan``; here they are a Python loop of eager device ops, and
-each layer of each round is ONE launch of the whole-block CUDA kernel.
+one ``lax.scan``; here they are a Python loop of eager device ops.  Each
+minRNN layer of each round is ONE launch of the whole-block CUDA kernel,
+or, on the cell-fused tier (``fuse_block="off"``) and in every layer of
+the attention trunk, one launch of the cell-only CUDA kernel between
+PyTorch norms, projections and MLPs.
 Whoever owns the params binds them once (``bind_layers``) and passes the
 binding as ``layers=``; without it, each call binds its own.  The decode
 functions run under ``torch.no_grad()``: they build no graph, whether or
@@ -34,9 +39,13 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import blocks as minrnn_blocks
-from repro_torch.core import nn
+from repro_torch.core import min_gru, min_lstm, nn
+from repro_torch.core import scan as scan_lib
 from repro_torch.device import resolve_device
+from repro_torch.models import mlp as mlp_lib
 from repro_torch.tree import leaves, tree_map
+
+_MIN_CELLS = {"mingru": min_gru, "minlstm": min_lstm}
 
 
 # ===========================================================================
@@ -54,10 +63,40 @@ def _minrnn_block_cfg(cfg) -> minrnn_blocks.MinRNNBlockConfig:
 
 
 def _check_cfg(cfg):
-    if cfg.block_kind != "minrnn":
-        raise NotImplementedError(
-            f"block_kind {cfg.block_kind!r} is not ported (ROADMAP.md queue "
-            f"1, item 5); this slice serves the minRNN LMs")
+    """The minRNN trunk, or the attention trunk with a minRNN mixer;
+    native attention (GQA or MLA), SSD, hybrid and MoE trunks are not
+    ported."""
+    if cfg.block_kind == "minrnn" or _attn_minrnn(cfg):
+        return
+    what = f"block_kind {cfg.block_kind!r}"
+    if cfg.block_kind == "attention":
+        what = f"the native {cfg.attn_kind} attention mixer"
+    raise NotImplementedError(
+        f"{what} is not ported (ROADMAP.md queue 1, item 5); the port "
+        f"serves the minRNN LMs and attention trunks whose seq_mixer is "
+        f"mingru or minlstm")
+
+
+def _attn_minrnn(cfg) -> bool:
+    """The attention trunk with its mixer swapped for a minRNN cell."""
+    return cfg.block_kind == "attention" and cfg.seq_mixer in _MIN_CELLS
+
+
+def _mixer_d_hidden(cfg) -> int:
+    exp = cfg.minrnn.expansion if cfg.minrnn else 1.0
+    return int(cfg.d_model * exp)
+
+
+def kernel_tier(cfg) -> str:
+    """The decode tier the layers run: "block-fused" (one whole-block
+    kernel launch per layer per round), "cell-fused" (one cell-only
+    kernel launch per layer per round, the rest PyTorch ops; always so on
+    the attention trunk) or "unfused" (plain PyTorch)."""
+    _check_cfg(cfg)
+    if _attn_minrnn(cfg):
+        return "cell-fused" if scan_lib.resolve_strategy(
+            cfg.scan_strategy) == "fused" else "unfused"
+    return minrnn_blocks.fuse_block_tier(_minrnn_block_cfg(cfg))
 
 
 def tree_to(tree, device):
@@ -72,13 +111,14 @@ def tree_to(tree, device):
 
 
 def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
-    """Seeded random init (drawn on the CPU from ``gen``, then moved), in
-    the reference's layout.  The numbers differ from ``jax.random``'s;
-    tests that compare the two packages bridge the JAX weights instead."""
+    """Seeded random init in the reference's layout, drawn on ``gen``'s
+    device (a CUDA generator draws on the card: gemma-2b-mingru's 2.5 B
+    weights are too many for a quick host-side draw), then moved to
+    ``device``.  The numbers differ from ``jax.random``'s; tests that
+    compare the two packages bridge the JAX weights instead."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     dtype = cfg.pdtype
-    bc = _minrnn_block_cfg(cfg)
     params: Dict[str, Any] = {
         "embed": {"table": nn.normal_init(
             gen, (cfg.padded_vocab, cfg.d_model), 0.02, dtype)},
@@ -87,10 +127,34 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = nn.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                           use_bias=False, dtype=dtype)
-    layers = [minrnn_blocks.init(gen, bc, dtype=dtype)
-              for _ in range(cfg.n_layers)]
+    if _attn_minrnn(cfg):
+        layers = [_attn_layer_init(gen, cfg, dtype)
+                  for _ in range(cfg.n_layers)]
+    else:
+        bc = _minrnn_block_cfg(cfg)
+        layers = [minrnn_blocks.init(gen, bc, dtype=dtype)
+                  for _ in range(cfg.n_layers)]
     params["layers"] = {"blocks": _stack(layers)}
     return tree_to(params, dev)
+
+
+def _mixer_init(gen, cfg, dtype):
+    """The attention block's sequence mixer, here a minRNN cell and its
+    down projection (the reference's ``_mixer_init``)."""
+    cell = _MIN_CELLS[cfg.seq_mixer]
+    dh = _mixer_d_hidden(cfg)
+    return {"rnn": cell.init(gen, cfg.d_model, dh, dtype=dtype),
+            "down": nn.dense_init(gen, dh, cfg.d_model, use_bias=False,
+                                  dtype=dtype)}
+
+
+def _attn_layer_init(gen, cfg, dtype):
+    return {"norm1": nn.norm_init(cfg.norm, cfg.d_model, dtype),
+            "mixer": _mixer_init(gen, cfg, dtype),
+            "norm2": nn.norm_init(cfg.norm, cfg.d_model, dtype),
+            "mlp": mlp_lib.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                    gated=cfg.gated_mlp, bias=cfg.mlp_bias,
+                                    dtype=dtype)}
 
 
 def _stack(trees: List[dict]) -> dict:
@@ -123,7 +187,7 @@ class _Tree(torch.nn.Module):
 
 
 class MinRNNLM(torch.nn.Module):
-    """Holds a minRNN LM's params for ``.to(device)`` / ``state_dict``;
+    """Holds an LM's params for ``.to(device)`` / ``state_dict``;
     ``params()`` returns the nested dict the functions here take."""
 
     def __init__(self, cfg, params: dict):
@@ -137,14 +201,27 @@ class MinRNNLM(torch.nn.Module):
 
 
 def bind_layers(params, cfg) -> List[tuple]:
-    """``(params, operands)`` per layer: views of the stacked block params
-    and each layer's weights bound for the block kernel (``blocks.bind``;
-    None on the CPU).  Bind once per params and pass the result as
-    ``layers=``; it reads the params as they are now, so bind again after
-    replacing a leaf."""
-    bc = _minrnn_block_cfg(cfg)
+    """``(params, operands)`` per layer: views of the stacked layer params
+    and each layer's weights bound for its kernel -- the whole block
+    (``blocks.bind``) or, on the cell-fused tier and the attention trunk,
+    the cell's gates (``CellOperands``); None on the CPU.  Bind once per
+    params and pass the result as ``layers=``; it reads the params as they
+    are now, so bind again after replacing a leaf."""
+    _check_cfg(cfg)
     out = []
     with torch.no_grad():
+        if _attn_minrnn(cfg):
+            cell_tier = kernel_tier(cfg) == "cell-fused"
+            for p_l in _layer_params(params):
+                rnn = p_l["mixer"]["rnn"]
+                ops_ = None
+                if cell_tier and leaves(rnn)[0].device.type == "cuda":
+                    from repro_torch.kernels.decode_step import ops as so
+                    ops_ = so.CellOperands.from_params(rnn, cfg.seq_mixer,
+                                                       cfg.cdtype)
+                out.append((p_l, ops_))
+            return out
+        bc = _minrnn_block_cfg(cfg)
         for p_l in _layer_params(params):
             out.append((p_l, minrnn_blocks.bind(p_l, bc,
                                                 compute_dtype=cfg.cdtype)))
@@ -212,6 +289,11 @@ def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """The minRNN layer stack in the parallel form: ``blocks.apply`` per
     layer, under ``_remat``."""
     _check_cfg(cfg)
+    if _attn_minrnn(cfg):
+        raise NotImplementedError(
+            "training the attention trunk (gemma-2b-mingru's forward / "
+            "loss_fn) is not ported yet (ROADMAP.md queue 1, item 5); it "
+            "serves through decode_step")
     bc = _minrnn_block_cfg(cfg)
 
     def body(x_, p_l):
@@ -264,10 +346,15 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     """Stacked per-layer recurrent state + per-row position counter."""
     _check_cfg(cfg)
     dev = resolve_device(device)
-    bc = _minrnn_block_cfg(cfg)
     dt = cfg.cdtype
+    pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if _attn_minrnn(cfg):
+        return {"pos": pos, "h": torch.zeros(
+            (cfg.n_layers, batch, _mixer_d_hidden(cfg)), dtype=dt,
+            device=dev)}
+    bc = _minrnn_block_cfg(cfg)
     cache: Dict[str, Any] = {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "pos": pos,
         "h": torch.zeros((cfg.n_layers, batch, bc.d_hidden), dtype=dt,
                          device=dev)}
     if bc.use_conv:
@@ -306,6 +393,40 @@ def _minrnn_decode(params, cfg, x, cache, layers=None):
         layers)
 
 
+def _attn_mixer_step(p, cfg, y, h, operands):
+    """The minRNN mixer for one token: the cell (its kernel under the
+    default strategy; ``operands`` its binding) and the down projection.
+    Returns (out, new h)."""
+    cell = _MIN_CELLS[cfg.seq_mixer]
+    mode = cfg.minrnn.mode if cfg.minrnn else "log"
+    h = cell.step(p["rnn"], y, h, mode=mode, compute_dtype=cfg.cdtype,
+                  scan_strategy=cfg.scan_strategy, operands=operands)
+    return nn.dense_apply(p["down"], h, cfg.cdtype), h
+
+
+def _attn_block_step(p, cfg, x, h, operands):
+    nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
+    y = nn.norm_apply(cfg.norm, p["norm1"], x, **nk)
+    out, h = _attn_mixer_step(p["mixer"], cfg, y, h, operands)
+    x = x + out
+    y = nn.norm_apply(cfg.norm, p["norm2"], x, **nk)
+    out = mlp_lib.mlp_apply(p["mlp"], y, activation=cfg.mlp_activation,
+                            compute_dtype=cfg.cdtype)
+    return x + out, h
+
+
+def _attn_decode(params, cfg, x, cache, layers=None):
+    """The attention trunk for one token: per layer norm, minRNN mixer,
+    residual, norm, MLP, residual -- one cell-kernel launch per layer."""
+    if layers is None:
+        layers = bind_layers(params, cfg)
+    hs = []
+    for i, (p_l, operands) in enumerate(layers):
+        x, h = _attn_block_step(p_l, cfg, x, cache["h"][i], operands)
+        hs.append(h)
+    return x, {"h": torch.stack(hs)}
+
+
 @torch.no_grad()
 def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
                 layers=None):
@@ -314,7 +435,8 @@ def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
     _check_cfg(cfg)
     x = _embed(params, cfg, token)
     new_cache = dict(cache)
-    x, outs = _minrnn_decode(params, cfg, x, cache, layers)
+    decode = _attn_decode if _attn_minrnn(cfg) else _minrnn_decode
+    x, outs = decode(params, cfg, x, cache, layers)
     new_cache.update(outs)
     new_cache["pos"] = cache["pos"] + 1
     return _final(params, cfg, x), new_cache

@@ -3,7 +3,7 @@
 The port of ``repro.serving.engine`` for a single device.  Per ``step()``:
 the host sweeps deadlines and stages queued requests into per-slot
 staging buffers (device tensors), then ONE ``lm.superstep`` call runs K
-rounds of re-admission -> token select -> block kernels ->
+rounds of re-admission -> token select -> layer kernels ->
 sample-or-teacher-force -> retire on the device, and the host drains the
 (B, K) token and request-id planes with one device-to-host copy,
 retires finished requests, quarantines rows the non-finite guard killed
@@ -15,8 +15,9 @@ for token, under any admission order, mid-flight arrival, slot reuse and
 
 Not in this slice (each raises ``NotImplementedError`` naming its
 ROADMAP.md entry): speculative decoding, serving meshes, fault injection,
-crash recovery (``recover_dir`` / ``restore``), autotune plans, and the
-cell-only kernel tier (``fuse_block="off"``).
+crash recovery (``recover_dir`` / ``restore``) and autotune plans.
+``fuse_block="off"`` serves on the cell-only kernel tier; the attention
+trunk with a minRNN mixer (gemma-2b-mingru) always does.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import blocks as minrnn_blocks
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serving import sampling
@@ -116,9 +116,6 @@ class ServingEngine:
             cfg = cfg.replace(fuse_block=fuse_block)
         self.device = resolve_device(device)
         self.cfg = cfg
-        if self.kernel_tier == "cell-fused":
-            _not_ported("the cell-fused decode tier (fuse_block='off', the "
-                        "decode_step kernels)", "queue 1, item 3")
         self.params = lm.tree_to(params, self.device)
         # the engine owns the params for its lifetime: bind them for the
         # kernels once, not once per round
@@ -159,8 +156,9 @@ class ServingEngine:
     @property
     def kernel_tier(self) -> str:
         """"block-fused" (one whole-block kernel launch per layer per
-        round), "cell-fused" (not ported) or "unfused" (plain PyTorch)."""
-        return minrnn_blocks.fuse_block_tier(lm._minrnn_block_cfg(self.cfg))
+        round), "cell-fused" (one cell-only kernel launch per layer per
+        round) or "unfused" (plain PyTorch)."""
+        return lm.kernel_tier(self.cfg)
 
     @classmethod
     def restore(cls, *args, **kwargs):

@@ -21,6 +21,8 @@ import torch
 
 from repro_torch.configs import archs
 from repro_torch.kernels.block_step import ops, ref
+from repro_torch.kernels.decode_step import ops as step_ops
+from repro_torch.kernels.decode_step import ref as step_ref
 from repro_torch.kernels.fused_mingru import ops as gru_ops
 from repro_torch.kernels.fused_mingru import ref as gru_ref
 from repro_torch.kernels.fused_minlstm import ops as lstm_ops
@@ -222,3 +224,126 @@ def test_smoke_training_step_on_gpu(arch, cuda_device):
         else lstm_ops.LAUNCHES["fused_minlstm_kernel"]
     assert fused == 2 * cfg.n_layers * 3          # forward + remat replay
     assert scan_ops.LAUNCHES["linear_scan_kernel"] == cfg.n_layers * 3
+
+
+# ---------------------------------------------------------------------------
+# the cell-only decode kernels (kernels/decode_step)
+# ---------------------------------------------------------------------------
+
+def _cell_case(gen, cell, dtype, dev, bsz, dx, dh, chunk, scale=1.0):
+    n = 2 if cell == "mingru" else 3
+    wb = []
+    for _ in range(n):
+        wb += [scale * torch.randn((dx, dh), generator=gen) / dx ** 0.5,
+               0.1 * torch.randn((dh,), generator=gen)]
+    x = torch.randn((bsz, chunk, dx), generator=gen)
+    h = 0.5 * torch.randn((bsz, dh), generator=gen)
+    return [v.to(dtype).to(dev) for v in (x, h, *wb)]
+
+
+def _cell_fns(cell, normalize):
+    kw = {} if cell == "mingru" else {"normalize": normalize}
+    return (getattr(step_ops, f"fused_{cell}_step"),
+            getattr(step_ops, f"fused_{cell}_chunk"),
+            getattr(step_ref, f"{cell}_step_ref"),
+            getattr(step_ref, f"{cell}_chunk_ref"), kw)
+
+
+@pytest.mark.parametrize("cell,normalize", [("mingru", True),
+                                            ("minlstm", True),
+                                            ("minlstm", False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(11, 64, 128), (3, 200, 72),
+                                   (3, 37, 70), (2, 2048, 48)])
+def test_decode_step_kernels_match_plain_and_chunk_equals_steps(
+        cell, normalize, dtype, shape, cuda_device):
+    """Smoke width with two batch tiles; a ragged case (Dx 200 off the 64
+    k-lanes, Dh 72 off the 16-column units); odd widths, whose rows allow
+    no 16-byte loads; gemma's Dx, where the fp32 weight tiles (and bf16
+    minLSTM's three) do not fit in shared memory and stream instead."""
+    bsz, dx, dh = shape
+    chunk = 4
+    gen = torch.Generator().manual_seed(5)
+    x, h, *wb = _cell_case(gen, cell, dtype, cuda_device, bsz, dx, dh, chunk)
+    step, chunk_fn, step_plain, chunk_plain, kw = _cell_fns(cell, normalize)
+    valid = torch.tensor([4, 1, 3, 2, 4, 1, 4, 3, 2, 1, 4][:bsz],
+                         dtype=torch.int32, device=cuda_device)
+    step_ops.reset_launches()
+    got = step(x[:, 0], *wb, h, **kw)
+    _close(got, step_plain(x[:, 0], *wb, h, **kw), dtype)
+    hs = chunk_fn(x, *wb, h, valid, **kw)
+    _close(hs, chunk_plain(x, *wb, h, valid, **kw), dtype)
+    # a chunk equals C step launches bit for bit; frozen rows re-emit
+    s = h
+    for t in range(chunk):
+        s = torch.where((t < valid)[:, None],
+                        step(x[:, t].contiguous(), *wb, s, **kw), s)
+        assert torch.equal(hs[:, t], s)
+    # a row's result does not depend on B
+    assert torch.equal(step(x[:1, 0], *wb, h[:1], **kw), got[:1])
+    assert step_ops.LAUNCHES[f"{cell}_step_kernel"] == 2 + chunk
+    assert step_ops.LAUNCHES[f"{cell}_chunk_kernel"] == 1
+    # h_prev in fp32 beside bf16 x: read as it is, as the reference does
+    _close(step(x[:, 0], *wb, h.float(), **kw),
+           step_plain(x[:, 0], *wb, h.float(), **kw), dtype)
+
+
+def test_saturated_minlstm_kernel_stays_finite(cuda_device):
+    gen = torch.Generator().manual_seed(6)
+    x, h, *wb = _cell_case(gen, "minlstm", torch.float32, cuda_device, 4, 64,
+                           64, 3, scale=200.0)
+    valid = torch.tensor([3, 1, 2, 3], dtype=torch.int32, device=cuda_device)
+    hs = step_ops.fused_minlstm_chunk(x, *wb, h, valid)
+    assert bool(torch.isfinite(hs).all())
+    _close(hs, step_ref.minlstm_chunk_ref(x, *wb, h, valid), torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
+def test_cell_tier_engine_streams_on_gpu(arch, cuda_device):
+    """fp32 smoke width: the cell tier's streams equal the block tier's,
+    across C, and ``generate_one``; one cell launch per layer per round."""
+    cfg = archs.smoke(arch)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device=cuda_device)
+    prompts = [[5, 6, 7], [1], [9, 9, 9, 9, 9]]
+    cell = cfg.minrnn.cell
+    outs = {}
+    for tier, c in (("auto", 1), ("off", 1), ("off", 4)):
+        step_ops.reset_launches()
+        eng = ServingEngine(cfg, params, max_batch=2, max_len=32,
+                            decode_block=3, prompt_chunk=c, fuse_block=tier,
+                            device=cuda_device)
+        rids = [eng.submit(p, max_new=5) for p in prompts]
+        res = eng.run_to_completion()
+        outs[(tier, c)] = [res[r] for r in rids]
+        assert eng.stats.shard_identities_ok()
+        cell_launches = step_ops.LAUNCHES[f"{cell}_step_kernel"] \
+            + step_ops.LAUNCHES[f"{cell}_chunk_kernel"]
+        if tier == "off":
+            assert eng.kernel_tier == "cell-fused"
+            assert cell_launches == cfg.n_layers * eng.stats.decode_steps
+        else:
+            assert cell_launches == 0
+    assert outs[("off", 1)] == outs[("off", 4)] == outs[("auto", 1)]
+    off = cfg.replace(fuse_block="off")
+    for p, o in zip(prompts, outs[("off", 1)]):
+        assert o == generate_one(off, params, p, max_new=5, max_len=32,
+                                 device=cuda_device)
+
+
+def test_gemma_mingru_smoke_streams_on_gpu(cuda_device):
+    cfg = archs.smoke("gemma-2b-mingru")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(gen, cfg, device=cuda_device)
+    prompts = [[5, 600, 7], [1], [900, 9, 9, 9, 9]]
+    step_ops.reset_launches()
+    eng = ServingEngine(cfg, params, max_batch=2, max_len=32, decode_block=3,
+                        device=cuda_device)
+    rids = [eng.submit(p, max_new=5) for p in prompts]
+    res = eng.run_to_completion()
+    assert eng.kernel_tier == "cell-fused"
+    assert step_ops.LAUNCHES["mingru_step_kernel"] \
+        == cfg.n_layers * eng.stats.decode_steps
+    for p, r in zip(prompts, rids):
+        assert res[r] == generate_one(cfg, params, p, max_new=5, max_len=32,
+                                      device=cuda_device)

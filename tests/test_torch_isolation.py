@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs import archs
 from repro_torch.core import blocks
 from repro_torch.kernels.block_step import ops as block_ops
+from repro_torch.kernels.decode_step import ops as step_ops
 from repro_torch.kernels.fused_mingru import ops as gru_ops
 from repro_torch.kernels.fused_minlstm import ops as lstm_ops
 from repro_torch.kernels.scan import ops as scan_ops
@@ -98,6 +99,12 @@ def test_kernel_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         scan_ops.launch_log_scan(x, x, h0[:, :4])
     assert gru_ops.LAUNCHES["fused_mingru_kernel"] == 0
+    # the cell-only decode kernels bind their weights the same way
+    with pytest.raises(ValueError, match="CUDA"):
+        step_ops.CellOperands("mingru", (w, w), (b, None))
+    cell_cfg = blocks.MinRNNBlockConfig(d_model=32, fuse_block="off")
+    assert blocks.bind(blocks.init(torch.Generator().manual_seed(0),
+                                   cell_cfg), cell_cfg) is None
 
 
 def test_cpu_serving_launches_no_kernel():
@@ -105,19 +112,23 @@ def test_cpu_serving_launches_no_kernel():
     params = lm.init_params(torch.Generator().manual_seed(1), cfg,
                             device="cpu")
     block_ops.reset_launches()
-    eng = engine.ServingEngine(cfg, params, max_batch=2, max_len=32,
-                               decode_block=2, prompt_chunk=3, device="cpu")
-    eng.submit([1, 2, 3, 4], max_new=3)
-    eng.submit([5], max_new=2)
-    eng.run_to_completion()
-    assert eng.stats.completed == 2
+    step_ops.reset_launches()
+    for fuse_block in ("auto", "off"):
+        eng = engine.ServingEngine(cfg, params, max_batch=2, max_len=32,
+                                   decode_block=2, prompt_chunk=3,
+                                   fuse_block=fuse_block, device="cpu")
+        eng.submit([1, 2, 3, 4], max_new=3)
+        eng.submit([5], max_new=2)
+        eng.run_to_completion()
+        assert eng.stats.completed == 2
     assert block_ops.LAUNCHES == {"block_step_kernel": 0,
                                   "block_chunk_kernel": 0}
+    assert set(step_ops.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("kw", [
     {"speculative": "ngram"}, {"mesh": "2x1"}, {"faults": object()},
-    {"recover_dir": "x"}, {"tune": "auto"}, {"fuse_block": "off"}])
+    {"recover_dir": "x"}, {"tune": "auto"}])
 def test_left_out_features_raise_not_implemented(kw):
     cfg = archs.smoke("mingru-lm")
     params = lm.init_params(torch.Generator().manual_seed(0), cfg,

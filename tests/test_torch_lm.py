@@ -40,13 +40,15 @@ def _close(a, b):
 
 
 def test_port_config_matches_reference():
-    for arch in ARCHS:
+    for arch in ARCHS + ("gemma-2b-mingru",):
         for get in ("get", "smoke"):
             j = getattr(jax_archs, get)(arch)
             p = getattr(pt_archs, get)(arch)
-            for f in ("n_layers", "d_model", "d_ff", "vocab_size", "norm",
-                      "tie_embeddings", "param_dtype", "compute_dtype",
-                      "padded_vocab"):
+            for f in ("block_kind", "seq_mixer", "n_layers", "d_model",
+                      "d_ff", "vocab_size", "norm", "norm_zero_centered",
+                      "gated_mlp", "mlp_activation", "mlp_bias",
+                      "embedding_scale", "tie_embeddings", "param_dtype",
+                      "compute_dtype", "padded_vocab"):
                 assert getattr(j, f) == getattr(p, f), (arch, get, f)
             for f in ("cell", "expansion", "mode", "use_conv",
                       "conv_kernel", "use_mlp"):
