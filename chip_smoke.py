@@ -24,8 +24,13 @@ Phases (any failed check exits non-zero before the result line):
      Dh 1536; T 250 for a ragged edge; h0 given and not): the fused
      minGRU / minLSTM kernels and the linear / log-space scans, forward
      and each autograd Function's gradients against the plain versions;
-     kernel / plain times, the bound, and one cuBLAS bf16 matmul of the
-     projections as a note (the floor the GEMM part faces);
+     for the fused kernels the body each launch takes (bf16: the
+     tensor-core body) and the occupancy query's blocks per SM, grid
+     blocks and waves (bf16: one wave), two launches equal bit for bit;
+     kernel / plain times, the bound, and the unfused yardstick (one bf16
+     torch.matmul of the projections + the gates as torch ops + the
+     port's linear scan, held to the bf16 tolerance), the kernel and the
+     yardstick timed both as eager calls and as a CUDA graph;
   4. serving: full-width mingru-lm (bf16, seeded init), 8 slots, 8 byte
      prompts, 32 new tokens, K = 4, C in {1, 8}: greedy streams equal
      across C and to ``generate_one``, launches == layers x rounds;
@@ -44,7 +49,8 @@ Phases (any failed check exits non-zero before the result line):
      short sampled window;
   5. training: full-width mingru-lm (bf16, remat "full") 10 AdamW steps
      of B 8 x T 256 on the corpus, minlstm-lm 3 steps, mingru-lm under
-     scan_strategy "pallas" 3 steps; launches == the stated formulas;
+     scan_strategy "pallas" 3 steps; launches == the stated formulas,
+     every fused-cell launch on the tensor-core body;
      loss finite and falling; outside the count, the first 3 losses
      against the same run on the plain versions, a checkpoint restore +
      resumed step 6, and ms per step over 5 repeats;
@@ -73,6 +79,8 @@ if not torch.cuda.is_available():
 
 from repro_torch.configs import archs  # noqa: E402
 from repro_torch.data import lm_corpus  # noqa: E402
+from repro_torch.core import nn as core_nn  # noqa: E402
+from repro_torch.core.min_lstm import normalized_gates  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.block_step import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_step import ops as step_ops  # noqa: E402
@@ -131,6 +139,9 @@ SOURCES = {"block_step_kernel": ops.SOURCE,
 # (a yardstick only: no single PyTorch call computes projections, gates
 # and update together, and the port never calls it)
 LIBRARY_MS = {}
+# the fused kernels' device time per launch (a CUDA graph of launches),
+# reported beside ``ms``, which times eager launches as every kernel's does
+DEVICE_MS = {}
 TRAIN_KERNELS = ("fused_mingru_kernel", "fused_minlstm_kernel",
                  "linear_scan_kernel", "log_scan_kernel")
 
@@ -229,6 +240,32 @@ def time_ms(fns, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, n=20, reps=5):
+    """Device time per call of ``fn``: ``n`` calls captured in a CUDA graph
+    and replayed ``reps`` times.  A kernel shorter than its wrapper's host
+    time would otherwise time the host's enqueue, not the device."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm the allocator off the graph
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
 
 
 def raw(launch):
@@ -912,16 +949,36 @@ def scan_bound_ms(in_elem, out_elem, d=DH):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def unfused(cell, x, wb, h0):
+    """The unfused route, a yardstick never on the port's path: one bf16
+    torch.matmul of x against the concatenated projections, the gates as
+    torch ops in fp32 (log mode; minLSTM normalised), the port's forward
+    linear scan."""
+    ws, bs = wb[0::2], wb[1::2]
+    n, (bsz, t, dx) = len(ws), x.shape
+    k = (x.reshape(-1, dx) @ torch.cat(ws, 1)).float() + torch.cat(bs).float()
+    k = k.reshape(bsz, t, n, DH)
+    if cell == "mingru":
+        z = torch.sigmoid(k[:, :, 0])
+        a, b = 1.0 - z, z * core_nn.g(k[:, :, 1])
+    else:
+        a, i = normalized_gates(k[:, :, 0], k[:, :, 1])
+        b = i * core_nn.g(k[:, :, 2])
+    return scan_ops.linear_scan_kernel(a.contiguous(), b.contiguous(),
+                                       h0.float())
+
+
 def fused_checks(gen):
     """The fused kernels at the training shapes; returns per-kernel main
     numbers (bf16, T 256, as the LM's layers run them)."""
-    rows, main = [], {}
+    rows, main, occ_lines = [], {}, []
     for cell in ("mingru", "minlstm"):
-        fn, plain, raw_launch = (
-            (gru_ops.fused_mingru, gru_ref.fused_mingru_ref, gru_ops.launch)
+        fn, plain, raw_launch, mod = (
+            (gru_ops.fused_mingru, gru_ref.fused_mingru_ref, gru_ops.launch,
+             gru_ops)
             if cell == "mingru" else
             (lstm_ops.fused_minlstm, lstm_ref.fused_minlstm_ref,
-             lstm_ops.launch))
+             lstm_ops.launch, lstm_ops))
         name = f"fused_{cell}_kernel"
         for dtype in (torch.float32, torch.bfloat16):
             for t, with_h0 in ((TT, False), (250, True)):
@@ -943,26 +1000,66 @@ def fused_checks(gen):
                     h0z = (ins[-1] if with_h0 else torch.zeros(
                         (TB, DH), dtype=dtype, device=DEV)).detach()
                     args = [v.detach() for v in ins[:len(wb)]]
-                    t_k = time_ms([lambda: raw_launch(*args, h0z)], 20)
-                    t_p = time_ms([lambda: plain(*args, h0z)], 3)
-                    w_cat = torch.cat(args[1::2], dim=1)
-                    x2 = args[0].reshape(-1, DX)
+                    # the occupancy query, and the body the launcher
+                    # reports taking on two launches, equal bit for bit
+                    occ = mod.occupancy(*args, h0z)
+                    before = dict(mod.LAUNCHES)
+                    one, two = raw_launch(*args, h0z), raw_launch(*args, h0z)
+                    ran = {k.split("/")[1]: mod.LAUNCHES[k] - before[k]
+                           for k in mod.LAUNCHES if "/" in k}
+                    body = occ["body"]
+                    check(ran[body] == 2 and sum(ran.values()) == 2,
+                          f"{tag}: the occupancy query names {body}, the "
+                          f"launches took {ran}")
+                    check(torch.equal(one, two),
+                          f"{tag}: two launches differ")
                     if dtype == torch.bfloat16:
-                        t_mm = time_ms([lambda: x2 @ w_cat], 20)
+                        check(body == "tc", f"{tag}: bf16 took {body}")
+                        check(occ["waves"] == 1, f"{tag}: {occ}")
+                    occ_lines.append(
+                        f"  {tag:<24} body {occ['body']:<9} "
+                        f"{occ['blocks_per_sm']} block(s)/SM, "
+                        f"{occ['grid_blocks']} blocks on {occ['sms']} SMs, "
+                        f"{occ['waves']} wave(s)")
+                    t_k = time_ms([lambda: raw_launch(*args, h0z)], 20)
+                    t_kd = graph_ms(lambda: raw_launch(*args, h0z))
+                    t_p = time_ms([lambda: plain(*args, h0z)], 3)
+                    if dtype == torch.bfloat16:
+                        u = unfused(cell, args[0], args[1:], h0z)
+                        u_err = max_err(u, want, dtype,
+                                        f"{tag} unfused yardstick")
+                        t_u = time_ms([lambda: unfused(
+                            cell, args[0], args[1:], h0z)], 20)
+                        t_ud = graph_ms(lambda: unfused(
+                            cell, args[0], args[1:], h0z))
                     else:
-                        t_mm = float("nan")
+                        t_u = t_ud = u_err = float("nan")
                 b_ms, b_by = fused_bound_ms(cell, dtype, t)
-                rows.append((tag, t_k, t_p, b_ms, t_mm, err, g_err))
+                rows.append((tag, body, t_k, t_kd, t_p, b_ms, t_u, t_ud, err,
+                             g_err, u_err))
                 if dtype == torch.bfloat16 and t == TT and not with_h0:
                     main[name] = (err, t_k, t_p, (b_ms, b_by))
+                    DEVICE_MS[name] = t_kd
                 del ins, out, want, got_g, want_g
     print(f"fused cell kernels at B {TB} Dx {DX} Dh {DH} (ms per launch, "
-          f"L2-warm repeats on one input set):")
-    print("  cell/dtype/T         kernel_ms  plain_ms   bound_ms  "
-          "cublas_bf16_proj_ms  fwd_max_err  grad_rel_err")
+          f"L2-warm on one input set; kernel_ms and unfused_ms: 20 eager "
+          f"calls, wrappers included, as every other kernel is timed; "
+          f"device_ms: the same calls captured in a CUDA graph, 20 per "
+          f"graph replayed 5 times; plain: 3 eager calls; two launches "
+          f"equal bit for bit in every row):")
+    print("  cell/dtype/T           body       kernel_ms  device_ms  "
+          "plain_ms  bound_ms  unfused_ms  unfused_device_ms  fwd_max_err  "
+          "grad_rel_err  unfused_max_err")
     for r in rows:
-        print("  {:<20} {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3g}  {:.3g}"
-              .format(*r))
+        print("  {:<22} {:<9}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  "
+              "{:.5f}  {:.3g}  {:.3g}  {:.3g}".format(*r))
+    print("  unfused: one bf16 torch.matmul of the concatenated projections "
+          "+ the gates as torch ops + linear_scan_kernel (a yardstick, "
+          "never on the port's path)")
+    print("fused cell occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+          " at the launch's grid):")
+    for line in occ_lines:
+        print(line)
     return main
 
 
@@ -1049,9 +1146,18 @@ def train_kernel_phase(gen):
 # ---------------------------------------------------------------------------
 
 def train_launches():
+    """Launch totals per kernel (the per-body counts are in
+    ``body_launches``)."""
     out = dict(gru_ops.LAUNCHES)
     out.update(lstm_ops.LAUNCHES)
     out.update(scan_ops.LAUNCHES)
+    return {k: v for k, v in out.items() if "/" not in k}
+
+
+def body_launches():
+    """Fused-cell launches by body, e.g. "fused_mingru_kernel/tc"."""
+    out = {k: v for k, v in gru_ops.LAUNCHES.items() if "/" in k}
+    out.update({k: v for k, v in lstm_ops.LAUNCHES.items() if "/" in k})
     return out
 
 
@@ -1137,7 +1243,8 @@ def train_profile(cfg, params, batches, ocfg, top=20):
     if not events:
         print("train profile: the profiler saw no device time")
         return
-    ours = ("fused_cell_kernel", "linear_scan_kernel", "log_scan_kernel")
+    ours = ("fused_cell_kernel", "fused_cell_tc_kernel", "linear_scan_kernel",
+            "log_scan_kernel")
     groups = {"this repo's kernels": 0.0, "cuBLAS matmuls": 0.0,
               "elementwise, reductions, copies": 0.0}
     for e in events:
@@ -1153,6 +1260,10 @@ def train_profile(cfg, params, batches, ocfg, top=20):
           f"{total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}% of the "
           f"wall); " + ", ".join(f"{k} {v:.2f} ms" for k, v in
                                  groups.items()))
+    fused = [e for e in events if "fused_cell" in e.key]
+    print(f"  fused-cell kernels in the step: "
+          f"{sum(dev_us(e) for e in fused) / 1e3:.3f} ms device time, "
+          f"{sum(e.count for e in fused)} launches")
     n_kernels = sum(e.count for e in events)
     print(f"  {n_kernels} device events in the step; top {top} by self "
           f"device time (ms, calls):")
@@ -1201,6 +1312,14 @@ def train_phase(gen):
     check(launches == want, f"training launches {launches} != {want}")
     check(counted["mingru"]["fused_mingru_kernel"] == 2 * layers * 10,
           f"auto mingru run launched {counted['mingru']}")
+    # every full-width bf16 training launch took the tensor-core body
+    bodies = body_launches()
+    want_bodies = {"fused_mingru_kernel/tc": 2 * layers * 10,
+                   "fused_mingru_kernel/cuda_core": 0,
+                   "fused_minlstm_kernel/tc": 2 * layers * 3,
+                   "fused_minlstm_kernel/cuda_core": 0}
+    check(bodies == want_bodies,
+          f"training launches by body {bodies} != {want_bodies}")
     for name, ls in (("mingru-lm", losses), ("minlstm-lm", lstm_losses),
                      ("mingru-lm pallas", pallas_losses)):
         check(all(math.isfinite(v) for v in ls), f"{name}: loss {ls}")
@@ -1212,7 +1331,7 @@ def train_phase(gen):
     print(f"train mingru-lm pallas losses " + " ".join(
         f"{v:.4f}" for v in pallas_losses))
     print(f"train: counted runs (16 steps) took {t_counted:.2f}s; launches "
-          f"{launches} == {want}")
+          f"{launches} == {want}; by body {bodies}")
 
     # outside the count: the same run on the plain versions
     with plain_kernels():
@@ -1303,6 +1422,8 @@ def main():
             "max_abs_err": err, "ms": t_k, "kernel_ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": LIBRARY_MS.get(name)})
+        if name in DEVICE_MS:
+            entries[-1]["device_ms"] = DEVICE_MS[name]
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,12 @@ the reversed CUDA linear scan gives g_t = dh_t + a_{t+1} g_{t+1}
 and the biases.  Those transposed products lie outside the TPU kernel in
 the reference too.  The saved h is the kernel's rounded output, cast to
 fp32 exactly as the reference casts it.
+
+Two kernel bodies (``csrc/fused_cell.cuh``): the tensor-core body for
+bf16 operands whose rows and bases allow 16-byte asynchronous copies, the
+CUDA-core body for fp32 and for any other bf16.  The C launcher picks the
+body before the launch and reports the one it took; the wrappers count
+each body's launches beside the total.
 """
 
 from __future__ import annotations
@@ -21,19 +27,30 @@ from repro_torch.kernels import launch as kl
 from repro_torch.kernels.scan import ops as scan_ops
 
 
+# the kernel's bodies, by the C launcher's number (1: tensor cores)
+BODIES = ("cuda_core", "tc")
+
+
+def waves(blocks: int, per_sm: int, sms: int) -> int:
+    """How many rounds of resident blocks a grid needs."""
+    if per_sm < 1:
+        raise ValueError(f"no block fits on an SM (per_sm={per_sm})")
+    return -(-blocks // (per_sm * sms))
+
+
 def declare(lib, fn_name: str):
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
+    occ = getattr(lib, fn_name.replace("_launch", "_occupancy"))
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
+    occ.restype = ctypes.c_int
     kl.declare_error_string(lib)
 
 
-def launch(get_lib, fn_name: str, name: str, x, ws, bs, h0, *, mode: str,
-           normalize: bool = False) -> torch.Tensor:
-    """Check the operands and launch one fused layer on x's stream.
-    x: (B, T, Dx); ws: G (Dx, Dh); bs: G (Dh,), all of x's dtype;
-    h0: (B, Dh), taken as fp32 -> h (B, T, Dh) in x's dtype.
-    ``get_lib()`` builds and loads the library, after the checks."""
+def _operands(name, x, ws, bs, h0, mode):
+    """Check the operands; returns (code, shape, h0 fp32, out, pointers)."""
     if mode not in ("log", "linear"):
         raise ValueError(f"unknown mode {mode!r}")
     if x.dim() != 3:
@@ -52,12 +69,45 @@ def launch(get_lib, fn_name: str, name: str, x, ws, bs, h0, *, mode: str,
     out = torch.empty((bsz, t, dh), dtype=dt, device=dev)
     ptrs = [x.data_ptr()] + [w.data_ptr() for w in ws] \
         + [b.data_ptr() for b in bs] + [h0.data_ptr(), out.data_ptr()]
+    return code, (bsz, t, dx, dh), h0, out, ptrs
+
+
+def launch(get_lib, fn_name: str, name: str, x, ws, bs, h0, *, mode: str,
+           normalize: bool = False):
+    """Check the operands and launch one fused layer on x's stream.
+    x: (B, T, Dx); ws: G (Dx, Dh); bs: G (Dh,), all of x's dtype;
+    h0: (B, Dh), taken as fp32 -> (h (B, T, Dh) in x's dtype, the body
+    that ran, as the launcher reports it).  ``get_lib()`` builds and loads
+    the library, after the checks."""
+    code, shape, h0, out, ptrs = _operands(name, x, ws, bs, h0, mode)
     lib = get_lib()
     fn = getattr(lib, fn_name)
-    rc = fn(code, int(mode == "log"), int(normalize), bsz, t, dx, dh,
-            (ctypes.c_void_p * len(ptrs))(*ptrs), kl.stream(dev))
+    body = ctypes.c_int(-1)
+    rc = fn(code, int(mode == "log"), int(normalize), *shape,
+            (ctypes.c_void_p * len(ptrs))(*ptrs), kl.stream(x.device),
+            ctypes.byref(body))
     kl.raise_on_error(lib, name, rc)
-    return out
+    return out, BODIES[body.value]
+
+
+def occupancy(get_lib, fn_name: str, name: str, x, ws, bs, h0, *,
+              mode: str, normalize: bool = False) -> dict:
+    """What a launch on these operands would run, from the C launcher's
+    own choice and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``:
+    {"body", "blocks_per_sm", "grid_blocks", "sms", "waves"}.  Launches
+    nothing."""
+    code, shape, h0, out, ptrs = _operands(name, x, ws, bs, h0, mode)
+    lib = get_lib()
+    occ = getattr(lib, fn_name.replace("_launch", "_occupancy"))
+    res = (ctypes.c_int * 4)()
+    with torch.cuda.device(x.device):
+        rc = occ(code, int(mode == "log"), int(normalize), *shape,
+                 (ctypes.c_void_p * len(ptrs))(*ptrs), res)
+    kl.raise_on_error(lib, f"{name} occupancy", rc)
+    b, per_sm, blocks, sms = list(res)
+    return {"body": BODIES[b], "blocks_per_sm": per_sm,
+            "grid_blocks": blocks, "sms": sms,
+            "waves": waves(blocks, per_sm, sms)}
 
 
 class FusedCell(torch.autograd.Function):

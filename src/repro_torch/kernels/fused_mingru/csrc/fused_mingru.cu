@@ -11,14 +11,26 @@ extern "C" {
 
 // ptrs: x, w_0 .. w_1, b_0 .. b_1, h0 (fp32), out (7 pointers).
 // bf16 != 0: x, weights, biases and out are bfloat16, else float32.
+// *body gets the body the launch took (1 tensor cores, 0 CUDA cores).
 // Returns 0 or the cudaError_t of the launch.
 int repro_fused_mingru_launch(int bf16, int log_mode, int normalize, int B,
                               int T, int Dx, int Dh, void* const* ptrs,
-                              void* stream) {
+                              void* stream, int* body) {
   const fused_cell::Params p =
       fused_cell::make_params(B, T, Dx, Dh, ptrs, 2);
   return fused_cell::launch<2>(bf16, log_mode, normalize, p,
-                               static_cast<cudaStream_t>(stream));
+                               static_cast<cudaStream_t>(stream), body);
+}
+
+// What repro_fused_mingru_launch would run on these operands, without
+// launching: out[0] the body (1 tensor cores, 0 CUDA cores), out[1]
+// resident blocks per SM, out[2] grid blocks, out[3] the device's SMs.
+int repro_fused_mingru_occupancy(int bf16, int log_mode, int normalize,
+                                 int B, int T, int Dx, int Dh,
+                                 void* const* ptrs, int* out) {
+  const fused_cell::Params p =
+      fused_cell::make_params(B, T, Dx, Dh, ptrs, 2);
+  return fused_cell::occupancy<2>(bf16, log_mode, normalize, p, out);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -25,13 +25,16 @@ from repro_torch.kernels.fused_mingru import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_mingru.cu"
 _FN = "repro_fused_mingru_launch"
 
-# launches of the kernel: a plain count, reset by whoever reads it
-LAUNCHES = {"fused_mingru_kernel": 0}
+# launches of the kernel, and of each body ("fused_mingru_kernel/tc",
+# "fused_mingru_kernel/cuda_core"): plain counts, reset by whoever reads them
+LAUNCHES = {"fused_mingru_kernel": 0,
+            **{f"fused_mingru_kernel/{b}": 0 for b in fused_cell.BODIES}}
 _LIB = None
 
 
 def reset_launches():
-    LAUNCHES["fused_mingru_kernel"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _lib():
@@ -54,10 +57,19 @@ def fused_mingru_kernel(x, wz, bz, wh, bh, h0, *, mode: str = "log"):
 
 def launch(x, wz, bz, wh, bh, h0, *, mode: str = "log") -> torch.Tensor:
     """Launch the kernel on x's stream (CUDA tensors only)."""
-    out = fused_cell.launch(_lib, _FN, "fused_mingru_kernel", x, (wz, wh),
-                            (bz, bh), h0, mode=mode)
+    out, body = fused_cell.launch(_lib, _FN, "fused_mingru_kernel", x,
+                                  (wz, wh), (bz, bh), h0, mode=mode)
     LAUNCHES["fused_mingru_kernel"] += 1
+    LAUNCHES[f"fused_mingru_kernel/{body}"] += 1
     return out
+
+
+def occupancy(x, wz, bz, wh, bh, h0, *, mode: str = "log") -> dict:
+    """The body, resident blocks per SM, grid and waves a launch on these
+    CUDA operands would run (``fused_cell.occupancy``); launches
+    nothing."""
+    return fused_cell.occupancy(_lib, _FN, "fused_mingru_kernel", x,
+                                (wz, wh), (bz, bh), h0, mode=mode)
 
 
 def fused_mingru(x: torch.Tensor, wz: torch.Tensor,

@@ -24,13 +24,16 @@ from repro_torch.kernels.fused_minlstm import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_minlstm.cu"
 _FN = "repro_fused_minlstm_launch"
 
-# launches of the kernel: a plain count, reset by whoever reads it
-LAUNCHES = {"fused_minlstm_kernel": 0}
+# launches of the kernel, and of each body ("fused_minlstm_kernel/tc",
+# "fused_minlstm_kernel/cuda_core"): plain counts, reset by whoever reads them
+LAUNCHES = {"fused_minlstm_kernel": 0,
+            **{f"fused_minlstm_kernel/{b}": 0 for b in fused_cell.BODIES}}
 _LIB = None
 
 
 def reset_launches():
-    LAUNCHES["fused_minlstm_kernel"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _lib():
@@ -57,11 +60,22 @@ def fused_minlstm_kernel(x, wf, bf, wi, bi, wh, bh, h0, *,
 def launch(x, wf, bf, wi, bi, wh, bh, h0, *, mode: str = "log",
            normalize: bool = True) -> torch.Tensor:
     """Launch the kernel on x's stream (CUDA tensors only)."""
-    out = fused_cell.launch(_lib, _FN, "fused_minlstm_kernel", x,
-                            (wf, wi, wh), (bf, bi, bh), h0, mode=mode,
-                            normalize=normalize)
+    out, body = fused_cell.launch(_lib, _FN, "fused_minlstm_kernel", x,
+                                  (wf, wi, wh), (bf, bi, bh), h0, mode=mode,
+                                  normalize=normalize)
     LAUNCHES["fused_minlstm_kernel"] += 1
+    LAUNCHES[f"fused_minlstm_kernel/{body}"] += 1
     return out
+
+
+def occupancy(x, wf, bf, wi, bi, wh, bh, h0, *, mode: str = "log",
+              normalize: bool = True) -> dict:
+    """The body, resident blocks per SM, grid and waves a launch on these
+    CUDA operands would run (``fused_cell.occupancy``); launches
+    nothing."""
+    return fused_cell.occupancy(_lib, _FN, "fused_minlstm_kernel", x,
+                                (wf, wi, wh), (bf, bi, bh), h0, mode=mode,
+                                normalize=normalize)
 
 
 def fused_minlstm(x: torch.Tensor, wf: torch.Tensor,

@@ -145,3 +145,58 @@ def test_missing_biases_are_zeros():
     torch.testing.assert_close(
         pt_gru.fused_mingru(x, wz, None, wh, None, h0),
         pt_gru.fused_mingru(x, wz, zero, wh, zero, h0), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# what the wrappers keep beside the launch: waves and per-body counts
+# ---------------------------------------------------------------------------
+
+def test_waves_counts_rounds_of_resident_blocks():
+    from repro_torch.kernels import fused_cell
+    # the training widths: 128 tensor-core blocks fill 128 of 132 SMs in
+    # one wave; the CUDA-core body's 192 blocks at one per SM need two
+    assert fused_cell.waves(128, 1, 132) == 1
+    assert fused_cell.waves(192, 1, 132) == 2
+    assert fused_cell.waves(264, 2, 132) == 1
+    with pytest.raises(ValueError):
+        fused_cell.waves(128, 0, 132)
+
+
+@pytest.mark.parametrize("mod,name", [(pt_gru, "fused_mingru_kernel"),
+                                      (pt_lstm, "fused_minlstm_kernel")])
+def test_launch_counts_name_each_body(mod, name):
+    assert set(mod.LAUNCHES) == {name, f"{name}/tc", f"{name}/cuda_core"}
+    mod.LAUNCHES[f"{name}/tc"] = 3
+    mod.reset_launches()
+    assert set(mod.LAUNCHES.values()) == {0}
+
+
+def _raw_operands(cell, x):
+    """Weights, biases and h0 matching x (B, T, Dx), in the order the raw
+    launchers take them after x."""
+    bsz, _, dx = x.shape
+    w, b = torch.zeros((dx, 6), dtype=x.dtype), torch.zeros((6,),
+                                                            dtype=x.dtype)
+    return [w, b] * N_GATES[cell] + [torch.zeros((bsz, 6))]
+
+
+@pytest.mark.parametrize("entry", ["launch", "occupancy"])
+@pytest.mark.parametrize("fault,match", [
+    ("mode", "unknown mode"), ("rank", "must be \\(B, T, Dx\\)"),
+    ("dtype", "float32 or bfloat16"), ("device", "CUDA")])
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+def test_fused_entry_points_check_operands_before_building(cell, fault,
+                                                           match, entry):
+    """The launch and the occupancy query share one operand check, made
+    before the library is built or a pointer reaches C; here on the CPU
+    every case raises, and nothing is counted."""
+    mod = pt_gru if cell == "mingru" else pt_lstm
+    dtype = torch.float16 if fault == "dtype" else torch.float32
+    x = torch.zeros((2, 5, 4), dtype=dtype)
+    args = [x[0] if fault == "rank" else x, *_raw_operands(cell, x)]
+    kw = {"mode": "exp"} if fault == "mode" else {}
+    mod.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        getattr(mod, entry)(*args, **kw)
+    assert set(mod.LAUNCHES.values()) == {0}
+    assert mod._LIB is None

@@ -179,19 +179,46 @@ def _fused_case(gen, cell, dtype, dev, bsz=2, t=70, dx=40, dh=72):
     return [v.to(dtype).to(dev).requires_grad_(True) for v in (x, *wb, h0)]
 
 
-@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+def _fused_fns(cell, mode):
+    """(kernel layer, plain version, ops module) for a cell; "minlstm-raw"
+    is minLSTM with normalize off."""
+    if cell == "mingru":
+        return (lambda *a: gru_ops.fused_mingru(*a, mode=mode),
+                lambda *a: gru_ref.fused_mingru_ref(*a, mode=mode), gru_ops)
+    norm = cell == "minlstm"
+    return (lambda *a: lstm_ops.fused_minlstm(*a, mode=mode, normalize=norm),
+            lambda *a: lstm_ref.fused_minlstm_ref(*a, mode=mode,
+                                                  normalize=norm),
+            lstm_ops)
+
+
+# (B, T, Dx, Dh) against the tensor-core body's tiling (128-row time
+# chunks, 64-deep k stages, 96-column tiles): ragged T (70 in one chunk,
+# 250 over two), Dx off the k stage (40, 200), Dh off the tile (72 in one,
+# 232 = two tiles and 40); B 1.  The last is not 16-byte aligned (Dx 36,
+# Dh 70), so bf16 takes the CUDA-core body there too.
+FUSED_SHAPES = [(2, 70, 40, 72), (1, 250, 200, 232), (2, 130, 36, 70)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("cell", ["mingru", "minlstm", "minlstm-raw"])
 @pytest.mark.parametrize("mode", ["log", "linear"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_kernels_and_grads_match_plain(cell, mode, dtype,
+def test_fused_kernels_and_grads_match_plain(cell, mode, dtype, shape,
                                              cuda_device):
-    """Ragged T (70 over 64-step chunks) and Dh (72 over 64 columns)."""
+    """Forward and gradients against the plain version, on the body the
+    operands route to (bf16 aligned: tensor cores; else CUDA cores)."""
     gen = torch.Generator().manual_seed(3)
-    ins = _fused_case(gen, cell, dtype, cuda_device)
-    fn, plain = ((gru_ops.fused_mingru, gru_ref.fused_mingru_ref)
-                 if cell == "mingru" else
-                 (lstm_ops.fused_minlstm, lstm_ref.fused_minlstm_ref))
-    out = fn(*ins, mode=mode)
-    want = plain(*ins, mode=mode)
+    bsz, t, dx, dh = shape
+    ins = _fused_case(gen, cell, dtype, cuda_device, bsz, t, dx, dh)
+    fn, plain, mod = _fused_fns(cell, mode)
+    name = next(iter(mod.LAUNCHES))
+    body = "tc" if dtype == torch.bfloat16 and dx % 8 == 0 \
+        and dh % 8 == 0 else "cuda_core"
+    mod.reset_launches()
+    out = fn(*ins)
+    assert mod.LAUNCHES[f"{name}/{body}"] == mod.LAUNCHES[name] == 1
+    want = plain(*ins)
     _close(out, want, dtype)
     ct = torch.randn(out.shape, generator=gen).to(dtype).to(cuda_device)
     got_g = torch.autograd.grad(out, ins, ct)
@@ -199,6 +226,59 @@ def test_fused_kernels_and_grads_match_plain(cell, mode, dtype,
     for g, w in zip(got_g, want_g):
         assert g.dtype == w.dtype
         assert _rel_err(g, w) < GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", [(2, 250, 200, 232), (2, 130, 36, 70)])
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_launches_are_bit_identical(cell, dtype, shape,
+                                                 cuda_device):
+    """Sums run in a fixed order in both bodies: the remat replay of the
+    forward reproduces it bit for bit."""
+    gen = torch.Generator().manual_seed(5)
+    ins = [v.detach() for v in _fused_case(gen, cell, dtype, cuda_device,
+                                           *shape)]
+    launch = gru_ops.launch if cell == "mingru" else lstm_ops.launch
+    assert torch.equal(launch(*ins), launch(*ins))
+
+
+@pytest.mark.parametrize("where", ["x", "w"])
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+def test_fused_misaligned_bf16_takes_cuda_core_body(cell, where,
+                                                    cuda_device):
+    """bf16 at widths the tensor-core body takes, but x or a weight 2 bytes
+    off a 16-byte line: the launcher routes it to the CUDA-core body, and
+    the output matches the plain version."""
+    gen = torch.Generator().manual_seed(7)
+    ins = [v.detach() for v in _fused_case(gen, cell, torch.bfloat16,
+                                           cuda_device, 2, 70, 40, 72)]
+    i = 0 if where == "x" else 1
+    off = torch.empty(ins[i].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(ins[i].shape)
+    off.copy_(ins[i])
+    ins[i] = off
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    fn, plain, mod = _fused_fns(cell, "log")
+    name = next(iter(mod.LAUNCHES))
+    mod.reset_launches()
+    out = fn(*ins)
+    assert mod.LAUNCHES[f"{name}/cuda_core"] == mod.LAUNCHES[name] == 1
+    assert mod.occupancy(*ins)["body"] == "cuda_core"
+    _close(out, plain(*ins), torch.bfloat16)
+
+
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+def test_fused_training_shape_runs_in_one_wave(cell, cuda_device):
+    """bf16 at the training widths (B 8, Dx 768, Dh 1536): the
+    tensor-core body, 128 blocks, all resident at once."""
+    gen = torch.Generator().manual_seed(6)
+    ins = [v.detach() for v in _fused_case(gen, cell, torch.bfloat16,
+                                           cuda_device, 8, 16, 768, 1536)]
+    mod = gru_ops if cell == "mingru" else lstm_ops
+    occ = mod.occupancy(*ins)
+    assert occ["body"] == "tc"
+    assert occ["grid_blocks"] == 128
+    assert occ["blocks_per_sm"] >= 1 and occ["waves"] == 1
 
 
 @pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
