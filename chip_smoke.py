@@ -18,8 +18,12 @@ Phases (any failed check exits non-zero before the result line):
      minlstm-lm widths (B 8, Dx 768, Dh 1536; step and chunk C 8 with
      mixed valid), gemma-2b-mingru's (B 8, 2048 x 2048, step) and a ragged
      case (B 3, Dx 200, Dh 72), fp32 and bf16: kernel vs plain version, a
-     bf16 chunk == C step launches bit for bit, kernel / plain / one
-     torch.matmul of the projections (the yardstick) and the bound;
+     chunk == C step launches bit for bit, a row independent of B, the
+     body every launch took (bf16 minGRU: the tensor-core body) and the
+     occupancy query's blocks per SM, clusters and waves (one wave at both
+     full widths), kernel / plain / one torch.matmul of the projections
+     (the yardstick) and the bound, kernel and yardstick timed both as
+     eager calls and as a CUDA graph;
   3. training kernels at the training shapes (B 8, T 256, Dx 768,
      Dh 1536; T 250 for a ragged edge; h0 given and not): the fused
      minGRU / minLSTM kernels and the linear / log-space scans, forward
@@ -40,11 +44,14 @@ Phases (any failed check exits non-zero before the result line):
      (fuse_block "off") serves the same traffic, C in {1, 8}, and
      minlstm-lm at C 8: streams equal across C and to ``generate_one``,
      one cell launch per layer per round, step / chunk split as the
-     rounds were; the streams and first-round logits set beside the
+     rounds were, every minGRU launch on the tensor-core body and every
+     minLSTM launch on the CUDA-core body; the streams and first-round
+     logits set beside the
      block tier's; a device profile of one window and the rates.
      gemma-2b-mingru at full width (bf16, drawn on the card): 8 slots, 8
      prompts of 8 seeded token ids, 32 new tokens, K 4, C 1: streams
      equal ``generate_one``, 18 mingru_step_kernel launches per round,
+     all on the tensor-core body,
      tok/s over 5 windows, peak device memory, a device profile, and one
      short sampled window;
   5. training: full-width mingru-lm (bf16, remat "full") 10 AdamW steps
@@ -59,6 +66,7 @@ Phases (any failed check exits non-zero before the result line):
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -139,9 +147,11 @@ SOURCES = {"block_step_kernel": ops.SOURCE,
 # (a yardstick only: no single PyTorch call computes projections, gates
 # and update together, and the port never calls it)
 LIBRARY_MS = {}
-# the fused kernels' device time per launch (a CUDA graph of launches),
-# reported beside ``ms``, which times eager launches as every kernel's does
+# the device time per launch (a CUDA graph of launches) of the fused and
+# the cell kernels, reported beside ``ms``, which times eager launches as
+# every kernel's does; and the cell kernels' library call's
 DEVICE_MS = {}
+LIBRARY_DEVICE_MS = {}
 TRAIN_KERNELS = ("fused_mingru_kernel", "fused_minlstm_kernel",
                  "linear_scan_kernel", "log_scan_kernel")
 
@@ -242,12 +252,36 @@ def time_ms(fns, iters):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fns, iters):
+    """Host time per call to issue ``iters`` calls, rotating over ``fns``,
+    without waiting for the device (the queue does not fill at these
+    counts): where it is below the device time, eager launches time the
+    device, not the host."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+_GRAPH_SIDE = []
+
+
 def graph_ms(fn, n=20, reps=5):
     """Device time per call of ``fn``: ``n`` calls captured in a CUDA graph
     and replayed ``reps`` times.  A kernel shorter than its wrapper's host
-    time would otherwise time the host's enqueue, not the device."""
+    time would otherwise time the host's enqueue, not the device.  The
+    warm-up runs on one side stream for every call: each stream that runs
+    a cuBLAS call keeps a cuBLAS workspace for the rest of the process,
+    which the serving phases' peak memory would count."""
     fn()
-    side = torch.cuda.Stream()
+    if not _GRAPH_SIDE:
+        _GRAPH_SIDE.append(torch.cuda.Stream())
+    side = _GRAPH_SIDE[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):       # warm the allocator off the graph
         fn()
@@ -274,6 +308,13 @@ def raw(launch):
         if rc != 0:
             fail(f"raw kernel launch returned CUDA error {rc}")
     return run
+
+
+def rotating(fns):
+    """A call that runs the next of ``fns`` each time (captured into a CUDA
+    graph, the calls rotate over the weight sets as eager calls do)."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
 
 
 def traced_phases(bound, x, st, valid, reps=20):
@@ -440,8 +481,10 @@ def cell_kernel_phase(gen):
     """The four decode_step kernels against their plain versions; returns
     the main numbers: mingru_step_kernel at gemma-2b-mingru's width (every
     decode round of that model), the others at mingru-lm / minlstm-lm's,
-    all bf16, B 8."""
-    rows, main = [], {}
+    all bf16, B 8.  Also the body each launch took (bf16 minGRU: the
+    tensor-core body), its occupancy (one wave at the full widths), and
+    device times of the kernel and the library call as CUDA graphs."""
+    rows, occ_lines, main = [], [], {}
     for cell in ("mingru", "minlstm"):
         kw = {} if cell == "mingru" else {"normalize": True}
         step_fn = getattr(step_ops, f"fused_{cell}_step")
@@ -460,6 +503,9 @@ def cell_kernel_phase(gen):
                 n_sets = min(16, math.ceil(60e6 / (n_g * dx * dh * e)))
                 sets = [cell_operands(gen, cell, dtype, dx, dh)
                         for _ in range(n_sets)]
+                body = sets[0].body
+                if cell == "mingru" and dtype == torch.bfloat16:
+                    check(body == "tc", f"{tag}: bound to the {body} body")
                 x = torch.randn((bsz, C, dx), generator=gen).to(dtype).to(DEV)
                 h = (0.5 * torch.randn((bsz, dh), generator=gen)).to(dtype) \
                     .to(DEV)
@@ -467,18 +513,46 @@ def cell_kernel_phase(gen):
                                      device=DEV)
                 x0 = x[:, 0].contiguous()
                 w_cat = [torch.cat(s_.ws, dim=1) for s_ in sets]
+                step_ops.reset_launches()
                 got = step_fn(x0, *sets[0].args, h, operands=sets[0], **kw)
                 e_step = max_err(got, step_plain(x0, *sets[0].args, h, **kw),
                                  dtype, f"{tag} step")
-                t_step = time_ms([raw(step_ops.prepare_launch(
+                # a row's result does not depend on B
+                check(torch.equal(step_fn(x0[:1], *sets[0].args, h[:1],
+                                          operands=sets[0], **kw), got[:1]),
+                      f"{tag}: a row changed with the batch size")
+                forms = [("step", 1)] + ([("chunk", C)] if chunked else [])
+                for form, c_ in forms:
+                    occ = step_ops.occupancy(sets[0], bsz, c_)
+                    clusters = (f" in clusters of {occ['cluster']} "
+                                f"({occ['clusters_resident']} resident at "
+                                f"once)" if occ["cluster"] > 1 else "")
+                    occ_lines.append(
+                        f"  {tag + '/' + form:<38} body {occ['body']:<9} "
+                        f"{occ['blocks_per_sm']} block(s)/SM, "
+                        f"{occ['grid_blocks']} blocks{clusters} on "
+                        f"{occ['sms']} SMs, {occ['waves']} wave(s)")
+                    if body == "tc" and shape != "ragged":
+                        check(occ["waves"] == 1, f"{tag} {form}: {occ}")
+                step_l = [raw(step_ops.prepare_launch(
                     s_, x0[:, None], h, None, mode="log", **kw)[0])
-                    for s_ in sets], 200)
+                    for s_ in sets]
+                t_step = time_ms(step_l, 200)
+                t_step_host = host_ms(step_l, 200)
+                # launches bound inside the capture, on its stream
+                t_step_dev = graph_ms(rotating([
+                    lambda s_=s_: raw(step_ops.prepare_launch(
+                        s_, x0[:, None], h, None, mode="log", **kw)[0])()
+                    for s_ in sets]))
                 t_step_plain = time_ms([lambda s_=s_: step_plain(
                     x0, *s_.args, h, **kw) for s_ in sets], 50)
-                t_step_lib = time_ms([lambda w=w: x0 @ w for w in w_cat], 200)
+                lib_step = [lambda w=w: x0 @ w for w in w_cat]
+                t_step_lib = time_ms(lib_step, 200)
+                t_step_lib_dev = graph_ms(rotating(lib_step))
                 b_step = cell_bound_ms(n_g, dtype, bsz, 1, dx, dh)
-                row = [tag, t_step, t_step_plain, t_step_lib, b_step[0],
-                       e_step]
+                row = [tag, body, t_step, t_step_host, t_step_dev,
+                       t_step_plain,
+                       t_step_lib, t_step_lib_dev, b_step[0], e_step]
                 if chunked:
                     hs = chunk_fn(x, *sets[0].args, h, valid,
                                   operands=sets[0], **kw)
@@ -496,16 +570,27 @@ def cell_kernel_phase(gen):
                     t_chunk = time_ms([raw(step_ops.prepare_launch(
                         s_, x, h, valid, mode="log", **kw)[0])
                         for s_ in sets], 100)
+                    t_chunk_dev = graph_ms(rotating([
+                        lambda s_=s_: raw(step_ops.prepare_launch(
+                            s_, x, h, valid, mode="log", **kw)[0])()
+                        for s_ in sets]))
                     t_chunk_plain = time_ms([lambda s_=s_: chunk_plain(
                         x, *s_.args, h, valid, **kw) for s_ in sets], 20)
                     x2 = x.reshape(-1, dx)
-                    t_chunk_lib = time_ms([lambda w=w: x2 @ w
-                                           for w in w_cat], 200)
+                    lib_chunk = [lambda w=w: x2 @ w for w in w_cat]
+                    t_chunk_lib = time_ms(lib_chunk, 200)
+                    t_chunk_lib_dev = graph_ms(rotating(lib_chunk))
                     b_chunk = cell_bound_ms(n_g, dtype, bsz, C, dx, dh)
-                    row += [t_chunk, t_chunk_plain, t_chunk_lib, b_chunk[0],
-                            e_chunk]
+                    row += [t_chunk, t_chunk_dev, t_chunk_plain, t_chunk_lib,
+                            t_chunk_lib_dev, b_chunk[0], e_chunk]
                 else:
-                    row += [float("nan")] * 5
+                    row += [float("nan")] * 7
+                # every launch above took the body the weights were bound to
+                for form in ("step", "chunk"):
+                    name = f"{cell}_{form}_kernel"
+                    check(step_ops.LAUNCHES[f"{name}/{body}"]
+                          == step_ops.LAUNCHES[name],
+                          f"{tag}: launches by body {step_ops.LAUNCHES}")
                 rows.append(row)
                 if dtype == torch.bfloat16:
                     if shape == ("gemma-2b-mingru" if cell == "mingru"
@@ -513,22 +598,41 @@ def cell_kernel_phase(gen):
                         main[f"{cell}_step_kernel"] = (
                             e_step, t_step, t_step_plain, b_step)
                         LIBRARY_MS[f"{cell}_step_kernel"] = t_step_lib
+                        DEVICE_MS[f"{cell}_step_kernel"] = t_step_dev
+                        LIBRARY_DEVICE_MS[f"{cell}_step_kernel"] = \
+                            t_step_lib_dev
                     if shape == "mingru-lm":
                         main[f"{cell}_chunk_kernel"] = (
                             e_chunk, t_chunk, t_chunk_plain, b_chunk)
                         LIBRARY_MS[f"{cell}_chunk_kernel"] = t_chunk_lib
+                        DEVICE_MS[f"{cell}_chunk_kernel"] = t_chunk_dev
+                        LIBRARY_DEVICE_MS[f"{cell}_chunk_kernel"] = \
+                            t_chunk_lib_dev
                 del sets, w_cat
                 torch.cuda.empty_cache()
+    step_ops.reset_launches()
     print(f"cell-only decode kernels, chunk C {C} with valid {CELL_VALID} "
           f"(ms per launch; weight sets rotate, > L2 where they fit in "
-          f"16; library = one torch.matmul of x against the concatenated "
-          f"projections):")
-    print("  cell/dtype/shape                 step_ms  step_plain_ms  "
-          "step_library_ms  step_bound_ms  step_err  chunk_ms  "
-          "chunk_plain_ms  chunk_library_ms  chunk_bound_ms  chunk_err")
+          f"16; ms: eager launches, device_ms: the same launches captured "
+          f"in a CUDA graph, 20 per graph replayed 5 times; host_ms: the "
+          f"host's time to issue one eager launch; library = one "
+          f"torch.matmul of x against the concatenated projections, timed "
+          f"both ways; every launch on the body named; a row independent "
+          f"of B and a chunk equal to C step launches, bit for bit):")
+    print("  cell/dtype/shape                 body       step_ms  "
+          "step_host_ms  step_device_ms  step_plain_ms  step_library_ms  "
+          "step_library_device_ms  step_bound_ms  step_err  chunk_ms  "
+          "chunk_device_ms  chunk_plain_ms  chunk_library_ms  "
+          "chunk_library_device_ms  chunk_bound_ms  chunk_err")
     for r in rows:
-        print("  {:<32} {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3g}  {:.5f}  "
-              "{:.5f}  {:.5f}  {:.5f}  {:.3g}".format(*r))
+        print("  {:<32} {:<9}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  "
+              "{:.5f}  {:.3g}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  "
+              "{:.5f}  {:.3g}".format(*r))
+    print("cell kernel occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+          " and, for clusters, cudaOccupancyMaxActiveClusters at the "
+          "launch's grid and shared memory):")
+    for line in occ_lines:
+        print(line)
     return main
 
 
@@ -541,9 +645,16 @@ PROMPTS = ["To be, o", "Friends,", "Now is t", "What's i", "O Romeo,",
 
 
 def serve_launches():
+    """Launch totals per kernel (the cell kernels' per-body counts are in
+    ``cell_body_launches``)."""
     out = dict(ops.LAUNCHES)
-    out.update(step_ops.LAUNCHES)
+    out.update({k: v for k, v in step_ops.LAUNCHES.items() if "/" not in k})
     return out
+
+
+def cell_body_launches():
+    """Cell-kernel launches by body, e.g. "mingru_step_kernel/tc"."""
+    return {k: v for k, v in step_ops.LAUNCHES.items() if "/" in k}
 
 
 def reset_serve_launches():
@@ -722,7 +833,8 @@ def serve_profile(cfg, params, prompts, label):
     groups = {"cell kernel": 0.0, "block kernel": 0.0, "cuBLAS": 0.0,
               "elementwise, reductions, copies": 0.0}
     for e in events:
-        if "cell_kernel" in e.key:
+        if any(k_ in e.key for k_ in ("cell_kernel", "cell_tc_kernel",
+                                      "cell_tc_joint_kernel")):
             groups["cell kernel"] += dev_us(e) / 1e3
         elif "block_kernel" in e.key:
             groups["block kernel"] += dev_us(e) / 1e3
@@ -765,9 +877,17 @@ def cell_serve_phase(gen, cfg, params, block_streams):
     for c in (1, 8):
         streams[c], infos[c] = serve(off, params, c, PROMPTS, 32)
     lstm_streams, lstm_info = serve(lstm_off, lstm_params, 8, PROMPTS[:4], 8)
-    launches = dict(step_ops.LAUNCHES)
+    launches = {k: v for k, v in step_ops.LAUNCHES.items() if "/" not in k}
     check(set(ops.LAUNCHES.values()) == {0},
           f"the cell tier launched block kernels: {ops.LAUNCHES}")
+    # every full-width bf16 minGRU launch on the tensor-core body, every
+    # minLSTM launch on the CUDA-core body
+    bodies = cell_body_launches()
+    want_bodies = {f"{k}/{b}": (launches[k] if (b == "tc")
+                                == k.startswith("mingru") else 0)
+                   for k in launches for b in ("tc", "cuda_core")}
+    check(bodies == want_bodies,
+          f"cell tier launches by body {bodies} != {want_bodies}")
     layers = cfg.n_layers
     d1, d8 = infos[1]["launches"], infos[8]["launches"]
     check(d1["mingru_step_kernel"] == layers * infos[1]["rounds"]
@@ -795,7 +915,8 @@ def cell_serve_phase(gen, cfg, params, block_streams):
         check(tuple(ref_s) == s_, f"cell tier: minlstm stream for {p!r} != "
               f"generate_one")
     print(f"serve cell tier: streams identical across C and equal to "
-          f"generate_one; launches {launches} (C 1: {d1['mingru_step_kernel']}"
+          f"generate_one; launches {launches}, by body {bodies} "
+          f"(C 1: {d1['mingru_step_kernel']}"
           f" step for {infos[1]['rounds']} rounds; C 8: "
           f"{d8['mingru_step_kernel']} step + {d8['mingru_chunk_kernel']} "
           f"chunk for {infos[8]['rounds']} rounds)")
@@ -853,6 +974,9 @@ def gemma_phase():
     check(launches["mingru_step_kernel"] == cfg.n_layers * info["rounds"]
           and sum(launches.values()) == launches["mingru_step_kernel"],
           f"gemma launches {launches} for {info['rounds']} rounds")
+    check(step_ops.LAUNCHES["mingru_step_kernel/tc"]
+          == launches["mingru_step_kernel"],
+          f"gemma launches by body {cell_body_launches()}")
     for p, s_ in zip(prompts, streams):
         check(len(s_) == 32 and all(0 <= t < cfg.vocab_size for t in s_),
               "malformed gemma stream")
@@ -861,7 +985,8 @@ def gemma_phase():
         check(tuple(ref_s) == s_, f"gemma stream for {p} != generate_one")
     print(f"serve gemma-2b-mingru: streams equal generate_one; "
           f"mingru_step_kernel launches {launches['mingru_step_kernel']} == "
-          f"{cfg.n_layers} x {info['rounds']} rounds; peak device memory "
+          f"{cfg.n_layers} x {info['rounds']} rounds, all on the tensor-core "
+          f"body; peak device memory "
           f"while serving {serve_peak / 2**30:.2f} GiB")
     rate_spread(cfg, params, chunks=(1,), prompts=prompts)
     serve_profile(cfg, params, prompts, "gemma-2b-mingru")
@@ -1424,6 +1549,8 @@ def main():
             "library_ms": LIBRARY_MS.get(name)})
         if name in DEVICE_MS:
             entries[-1]["device_ms"] = DEVICE_MS[name]
+        if name in LIBRARY_DEVICE_MS:
+            entries[-1]["library_device_ms"] = LIBRARY_DEVICE_MS[name]
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -15,43 +15,105 @@
 //
 // all in fp32 from T-valued inputs (T = float or bfloat16); h is rounded to
 // T after every token (kernel.py:140 / :277), so a bf16 chunk equals
-// sequential steps that re-read h from a T-valued cache.  The norm, conv,
-// down projection and MLP around the cell stay PyTorch ops.
+// sequential steps that re-read h from a T-valued cache.  Rows with
+// t >= valid[b] keep their h and write it again; valid is read here, on
+// the device.  The norm, conv, down projection and MLP around the cell
+// stay PyTorch ops.
 //
 // Bound.  At serving batch sizes a launch is a batched GEMV: every weight
 // byte is read once per launch and used for B (or B*C) multiply-adds.  At
 // mingru-lm's width (Dx 768, Dh 1536, bf16) the two projections are 4.72 MB,
 // about 1.41 us at the H100's 3.35 TB/s; minlstm-lm's three 7.08 MB, about
 // 2.11 us; gemma-2b-mingru's (2048 x 2048) two 16.8 MB, about 5.0 us.  x, h
-// and the output are a few KB.  So the kernel is bound by weight bytes.
+// and the output are a few KB to 100 KB.  So the kernel is bound by weight
+// bytes.  A chunk of C 8 at B 8 is 64 rows: 302 MFLOP at mingru-lm's
+// width, 0.3 us on the tensor cores but 4.5 us at the CUDA cores' fp32
+// peak, so only the tensor cores keep the chunk near its byte bound.
 //
-// Design.  Block (u, bt) owns a unit of 16 Dh columns for batch tile bt (8
-// rows).  When the unit's G weight tiles (G * Dx * 16 elements) fit in
-// shared memory with the x tile -- every bf16 width the LMs use, and fp32 up
-// to minlstm-lm's -- the block stages them once and then loops t over C:
-// the TPU kernel's "weights resident, x per token", carried to Hopper.
-// Otherwise (fp32 at gemma width) each token reads the tile from device
-// memory (an L2 hit after the first token); the values and the order are
-// the same.  h stays in an fp32 register of the thread that owns (row,
-// column) across t.  Rows with t >= valid[b] keep their h and write it
-// again; valid is read here, on the device.  Ragged Dx, Dh and B are
-// masked (zero operands, no stores), not padded.
+// Two bodies.  The wrapper picks one when it binds the weights
+// (decode_step/ops.py, cell_body: a function of the cell, the dtype, Dx,
+// Dh and the weights' alignment, never of x or C) and passes it to the
+// launcher, which runs that body or refuses the launch; it never picks
+// another.  So a layer's steps and its chunks run the same body.
 //
-// Determinism.  Every pre-activation is summed by a fixed thread in a fixed
-// order that depends only on Dx: 64 k-lanes each sum k = lane, lane + 64,
-// ... in ascending order, the 8 k-lanes of a warp are combined by a fixed
-// xor butterfly, then the 8 warps in order 0..7 (the order of
-// block_step.cu).  The batch tile, the chunk length, the grid and whether
-// the weights were staged change only WHICH block does a unit and where it
-// reads the weights from, never the arithmetic.  So a C-token chunk equals
-// C step launches bit for bit, and a row's result does not depend on B.
+// * tc::cell_tc_kernel, the tensor-core body: minGRU in bf16 with Dx and
+//   Dh multiples of 8, Dx <= 4096 and 16-byte aligned weights.  A unit is
+//   16 Dh columns of one batch tile (8 rows), every position of the chunk;
+//   it is a pair of blocks in one cluster, rank 0 owning W_z's 16
+//   columns, rank 1 W_h's: one whole 32-byte sector per weight row
+//   (8-column units with both gates read half sectors, so every sector
+//   crossed L2 twice, and streamed W markedly slower).  192 blocks at
+//   mingru-lm's width, 256 at gemma-2b-mingru's, two resident per SM: one
+//   wave on the 132 SMs.
+//   1. x (B x C x Dx, read by every block; 16-byte aligned, which the
+//      wrapper ensures and the launcher checks) comes by bulk copies
+//      multicast to both blocks of the pair: one L2 read per unit, not per
+//      block.  It is issued first, by warp 0, once the cluster has
+//      arrived at its first barrier.
+//   2. The block's whole W tile (Dx x 16 bf16, 24 KB / 64 KB) stays in
+//      shared memory for the launch, in the caller's (Dx, Dh) layout: one
+//      16-byte cp.async per half row, no repacking in device memory (the
+//      two halves of a row trade places every 4 rows, against ldmatrix
+//      bank conflicts).  Each of the 8 warps owns a fixed slice of the
+//      k16 steps and streams it in cp.async groups (8 at gemma's Dx, 4 at
+//      mingru-lm's), two ahead of its multiplies, so the multiplies
+//      overlap the stream (a warp that issued its whole slice at once sat
+//      blocked in the issue for most of the stream; two producer warps
+//      feeding eight consumers could not issue fast enough).
+//   3. mma.sync.m16n8k16, bf16 in, fp32 accumulate, with W^T as the m16
+//      operand (the unit's 16 columns, ldmatrix.trans of the resident
+//      tile) and x^T as the n8 operand (one position's 8 batch rows): one
+//      mma per k16 step and position, no padding rows.  Positions go in
+//      passes of up to 8, as many as shared memory holds beside W for two
+//      blocks per SM (4 at mingru-lm's Dx, 1 at gemma's); between passes
+//      a cluster barrier, then the next pass's x comes in while the gates
+//      and the recurrence run.  A chunk that would take more than one
+//      pass and fits one with both gates in a block (mingru-lm's C 8)
+//      runs instead on one block per unit, one per SM (96 blocks), x for
+//      every position multicast to clusters of four units, no hand-off
+//      (tc::cell_tc_joint_kernel): each SM then takes in W and x once.
+//      Where that grid is more than one wave, the chunk stays on pairs.
+//   4. The warps' partial sums meet in shared memory; all threads add them
+//      and the bias and compute the gate, which does not depend on h: the
+//      z block writes z = sigmoid into the h~ block's shared memory and
+//      arrives on its mbarrier for the pass's parity (release, cluster
+//      scope); the h~ block keeps h~ = g(v) (or v).
+//   5. The h~ block's thread that owns (batch row, column) walks the
+//      pass's positions in order: h = (1 - z) h + z h~ in fp32, rounded to
+//      bf16 per token, frozen at t >= valid[b].
+// * cell_kernel, the CUDA-core body: fp32 (the exact path, held to 1e-4,
+//   which TF32 would break), minLSTM, and bf16 that the tensor-core body
+//   cannot take.  Block (u, bt) owns a unit of 16 Dh columns for batch
+//   tile bt.  When the unit's G weight tiles (G * Dx * 16 elements) fit in
+//   shared memory with the x tile -- every bf16 width the LMs use, and
+//   fp32 up to minlstm-lm's -- the block stages them once (plain 16-byte
+//   loads) and then loops t over C, restaging x and running the GEMV per
+//   token on fp32 FMAs from shared memory.  Otherwise (fp32 at gemma
+//   width) each token reads the tile from device memory (an L2 hit after
+//   the first token); the values and the order are the same.  Ragged Dx,
+//   Dh and B are masked (zero operands, no stores), not padded.
 //
-// Plain coalesced 16-byte loads for staging and fp32 FMAs from shared
-// memory; no wgmma or TMA yet.
+// Determinism.  In either body every pre-activation is summed by a fixed
+// thread in an order that depends only on Dx:
+// * tensor cores: each warp's k16 steps in ascending order (the fp32
+//   accumulator carried from one mma to the next; warp w owns steps
+//   [w nk / 8, (w + 1) nk / 8), nk = ceil(Dx / 16)), then the 8 warps'
+//   partials added in order 0..7, then the bias;
+// * CUDA cores: 64 k-lanes each sum k = lane, lane + 64, ... in ascending
+//   order, the 8 k-lanes of a warp are combined by a fixed xor butterfly,
+//   then the 8 warps in order 0..7 (the order of block_step.cu).
+// The batch tile, the chunk length, the pass, the cp.async grouping, the
+// launch shape (pairs or one block per unit), a row's place in its mma
+// tile and the grid change only WHERE a row is computed, never the
+// arithmetic.  So a C-token chunk equals C step launches bit
+// for bit, and a row's result does not depend on B.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/mma_sm90.cuh"
 
 namespace {
 
@@ -319,43 +381,723 @@ int smem_bytes(int Dx, int G, int elem, bool staged) {
   return kRedBytes + align16(kBT * Dx * elem) + (staged ? G * Dx * kTN * elem : 0);
 }
 
-template <typename T, int G, bool kStaged>
-int launch_one(const Params& p, int smem, cudaStream_t stream) {
-  auto kernel = cell_kernel<T, G, kStaged>;
-  // opt in to the whole 227 KB once per device; the launch asks for smem
-  static bool opted[64] = {false};
+// ---------------------------------------------------------------------------
+// The tensor-core body (minGRU, bf16)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
+using sm90::bulk_copy_multicast;
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::fence_mbar_init;
+using sm90::ldmatrix_x2;
+using sm90::ldmatrix_x4;
+using sm90::ldmatrix_x4_trans;
+using sm90::mbar_arrive_expect_tx;
+using sm90::mbar_arrive_remote;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::mbar_wait_cluster;
+using sm90::mma_bf16;
+
+constexpr int kThreads = 256;           // 8 warps, each a slice of K
+constexpr int kWarps = kThreads / 32;
+constexpr int kBT = 8;                  // batch rows per tile: one n8 tile
+constexpr int kTN = 16;                 // Dh columns per unit: one m16 tile
+constexpr int kMaxPos = 8;              // positions per pass
+constexpr int kPair = 2;                // blocks per cluster on pairs
+constexpr int kJointCluster = 4;        // units per cluster, one block each
+// the row stride of the joint kernel's partial sums (2 kTN columns),
+// padded so that the mma fragments' stores (rows 2 tq apart) fall into
+// distinct banks
+constexpr int kRedJoint = 2 * kTN + 4;
+// W streams through each warp's slice in kGroups cp.async groups, two
+// groups ahead of the multiplies on pairs: 8 groups when a warp's slice
+// has 16 k16 steps or more (gemma's Dx), else 4 (mingru-lm's: 6 steps);
+// always 4 on one block per unit, where they are issued all at once
+constexpr int kManyGroupsSteps = 16;
+constexpr int kJointGroups = 4;
+constexpr int kMaxDx = 4096;            // W's tile must fit shared memory
+// a block's shared memory when two are to be resident on an SM (228 KB
+// per SM, 1 KB of it reserved per block)
+constexpr int kPairBytes = 112 * 1024;
+
+// Shared memory of one block: W [16 nk][kTN] bf16 (its gate's tile; the
+// two 16-byte halves of row k swapped when bit 2 of k is set, so that
+// ldmatrix is free of bank conflicts), x [pos kBT][xs] bf16, the warps'
+// partial sums [kWarps][pos kBT][kTN] fp32, the gates [2 (pass
+// parity)][2 (z, h~)][pos kBT][kTN] fp32 (rank 1's are read), the bias
+// [kTN] fp32, the mbarriers of x and of z's arrival [2 (pass parity)].
+struct Layout {
+  int nk;       // k16 steps
+  int xs;       // x row stride, elements
+  int pos;      // positions per pass
+  int x_off, red_off, gate_off, bias_off, bar_off, bytes;
+};
+
+__host__ __device__ __forceinline__ Layout layout(int Dx, int C) {
+  Layout L;
+  L.nk = (Dx + 15) / 16;
+  L.xs = 16 * L.nk + 8;                 // +16 bytes: no bank conflicts
+  const int w_bytes = 16 * L.nk * kTN * 2;
+  const int per_pos = kBT * L.xs * 2 + (kWarps + 4) * kBT * kTN * 4;
+  const int tail = kTN * 4 + 24;       // bias, three mbarriers
+  int pos = (kPairBytes - w_bytes - tail) / per_pos;
+  pos = pos < 1 ? 1 : (pos > kMaxPos ? kMaxPos : pos);
+  if (pos > C) pos = C;
+  L.pos = pos;
+  L.x_off = w_bytes;
+  L.red_off = L.x_off + pos * kBT * L.xs * 2;
+  L.gate_off = L.red_off + kWarps * pos * kBT * kTN * 4;
+  L.bias_off = L.gate_off + 4 * pos * kBT * kTN * 4;
+  L.bar_off = L.bias_off + kTN * 4;
+  L.bytes = L.bar_off + 24;
+  return L;
+}
+
+// element offset of the 16-byte half `c` of W tile row k
+__device__ __forceinline__ int w_at(int k, int c) {
+  return k * kTN + ((c ^ (k >> 2)) & 1) * 8;
+}
+
+// h after one token: (1 - z) h + z h~, its rounding spelled out so that
+// both tensor-core kernels compute it alike
+__device__ __forceinline__ float gru_update(float z, float h, float ht) {
+  return __fmaf_rn(1.0f - z, h, __fmul_rn(z, ht));
+}
+
+// cp_async_wait<n> for a run-time n in [0, 1]
+__device__ __forceinline__ void cp_async_wait_upto1(int n) {
+  if (n) cp_async_wait<1>(); else cp_async_wait<0>();
+}
+
+// cp_async_wait<n> for a run-time n in [0, kJointGroups - 1]
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  static_assert(kJointGroups == 4, "one case per group");
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+template <int kGroups>
+__global__ void __cluster_dims__(kPair, 1, 1)
+__launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int Dx = p.Dx, Dh = p.Dh, C = p.C, B = p.B;
+  const Layout L = layout(Dx, C);
+  bf16* ws = reinterpret_cast<bf16*>(smem);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.x_off);
+  float* red = reinterpret_cast<float*>(smem + L.red_off);
+  float* gate = reinterpret_cast<float*>(smem + L.gate_off);
+  float* bias = reinterpret_cast<float*>(smem + L.bias_off);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  // in the h~ block, z of the passes of each parity has arrived: one
+  // mbarrier per parity, so that the z block, which may run a pass ahead,
+  // never completes a phase the h~ block has yet to test
+  uint64_t* zbar = xbar + 1;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = (int)cluster.block_rank();      // the gate this block owns
+  // the h~ block of this unit (rank 1), where the z block puts z
+  float* gate_h = cluster.map_shared_rank(gate, 1);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tq = lane & 3;     // mma fragment coordinates
+  const int j0 = (blockIdx.x >> 1) * kTN, b0 = blockIdx.y * kBT;
+  const int nb = min(kBT, B - b0);              // batch rows in the tile
+  const int rows = L.pos * kBT;                 // x rows of a full pass
+  const int gsize = rows * kTN;                 // one gate buffer
+  // 16-byte aligned (the launcher refuses any other x), so that its rows
+  // (Dx * 2 bytes, a multiple of 16) come by bulk copies
+  const bf16* x = static_cast<const bf16*>(p.x);
+  // this warp's k16 steps, group q: [step_of(q), step_of(q + 1))
+  const int s0 = warp * L.nk / kWarps, s1 = (warp + 1) * L.nk / kWarps;
+  auto step_of = [&](int q) { return s0 + q * (s1 - s0) / kGroups; };
+
+  if (tid == 0) {
+    mbar_init(xbar, 1);
+    mbar_init(zbar, kThreads);       // every thread of the z block
+    mbar_init(zbar + 1, kThreads);
+    fence_mbar_init();
+  }
+  // no block writes into another's shared memory (x, z) before every
+  // block of the cluster has arrived here
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // W group q of this warp's slice: two 16-byte halves (one 32-byte
+  // sector) per row; rows past Dx and columns past Dh are zeros
+  const bf16* w = static_cast<const bf16*>(g ? p.w[1] : p.w[0]);
+  auto issue_w = [&](int q) {
+    const int k0 = 16 * step_of(q), n = 32 * (step_of(q + 1) - step_of(q));
+    for (int i = lane; i < n; i += 32) {
+      const int k = k0 + i / 2, c = i % 2;
+      const bool ok = k < Dx && j0 + 8 * c < Dh;
+      cp_async16(ws + w_at(k, c), ok ? w + (size_t)k * Dh + j0 + 8 * c : w,
+                 ok);
+    }
+    cp_async_commit();
+  };
+  // x rows of positions t0 .. t0 + npos - 1 (row r: position t0 + r / kBT,
+  // batch row b0 + r % kBT), each block of the pair issuing every other
+  // row to both; by warp 0
+  auto issue_x = [&](int t0, int npos) {
+    if (lane == 0)
+      mbar_arrive_expect_tx(xbar, (uint32_t)(npos * nb * Dx * 2));
+    __syncwarp();
+    for (int r = lane; r < npos * kBT; r += 32) {
+      if (r % kBT >= nb || r % kPair != g) continue;
+      const int b = b0 + r % kBT, t = t0 + r / kBT;
+      bulk_copy_multicast(xs + (size_t)r * L.xs, x + ((size_t)b * C + t) * Dx,
+                          (uint32_t)(Dx * 2), xbar,
+                          (uint16_t)((1 << kPair) - 1));
+    }
+  };
+
+  // x first (warp 0, once the cluster has arrived), and W streaming
+  // through each warp's slice two groups ahead of its multiplies
+  if (warp == 0) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    issue_x(0, L.pos);
+  }
+  issue_w(0);
+  // x rows that no copy writes read as zeros: the K tail past Dx, and
+  // rows past B
+  for (int r = tid; r < rows; r += kThreads) {
+    bf16* xr = xs + (size_t)r * L.xs;
+    if (r % kBT >= nb) {
+      for (int c = 0; c < 2 * L.nk; ++c)
+        reinterpret_cast<uint4*>(xr)[c] = make_uint4(0u, 0u, 0u, 0u);
+    } else if (Dx % 16 != 0) {
+      reinterpret_cast<uint4*>(xr + Dx)[0] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // the small operands, needed only after the multiplies: the bias and,
+  // in the h~ block, the state and length of each (batch row ob, column
+  // oj) whose thread carries h across t
+  const float bias_v = tid < kTN && j0 + tid < Dh
+      ? __bfloat162float(static_cast<const bf16*>(
+            g ? p.b[1] : p.b[0])[j0 + tid])
+      : 0.0f;
+  const int rb = tid / kTN, rc = tid % kTN;
+  const int ob = b0 + rb, oj = j0 + rc;
+  const bool owner = g == 1 && tid < kBT * kTN && ob < B && oj < Dh;
+  float h = 0.0f;
+  int vlen = C;
+  if (owner) {
+    h = p.h0_f32 ? static_cast<const float*>(p.h0)[(size_t)ob * Dh + oj]
+                 : __bfloat162float(
+                       static_cast<const bf16*>(p.h0)[(size_t)ob * Dh + oj]);
+    if (p.valid != nullptr) vlen = p.valid[ob];
+  }
+  __syncthreads();                    // the zeros, before any ldmatrix
+  issue_w(1);
+
+  bf16* out = static_cast<bf16*>(p.out);
+  for (int t0 = 0, pass = 0; t0 < C; t0 += L.pos, ++pass) {
+    const int npos = min(L.pos, C - t0);
+    mbar_wait(xbar, (uint32_t)(pass & 1));
+
+    // acc[i]: columns j0 + grp (e 0, 1) and j0 + grp + 8 (e 2, 3) of
+    // batch rows b0 + 2 tq (e 0, 2) and b0 + 2 tq + 1 (e 1, 3), position
+    // t0 + i: the m16 tile is the unit's columns (A = W^T), the n8 tile a
+    // position's batch rows (B = x^T)
+    float acc[kMaxPos][4];
+#pragma unroll
+    for (int i = 0; i < kMaxPos; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+    for (int q = 0; q < kGroups; ++q) {
+      if (pass == 0) {                 // W is resident after the first pass
+        cp_async_wait_upto1(q + 1 < kGroups);   // group q has landed ...
+        __syncwarp();                           // ... for every lane
+        if (q + 2 < kGroups) issue_w(q + 2);
+      }
+      const int end = step_of(q + 1);
+      for (int s = step_of(q); s < end; ++s) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, ws + w_at(16 * s + (lane & 7) + ((lane >> 4) << 3),
+                                       (lane >> 3) & 1));
+        const bf16* xk = xs + 16 * s + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int i = 0; i < kMaxPos; i += 2) {
+          if (i >= npos) break;
+          if (i + 1 < npos) {
+            uint32_t b[4];
+            ldmatrix_x4(b, xk + (size_t)((i + (lane >> 4)) * kBT + (lane & 7)) * L.xs);
+            mma_bf16(acc[i], a, b[0], b[1]);
+            mma_bf16(acc[i + 1], a, b[2], b[3]);
+          } else {
+            uint32_t b0_, b1_;
+            ldmatrix_x2(b0_, b1_, xk + (size_t)(i * kBT + (lane & 7)) * L.xs);
+            mma_bf16(acc[i], a, b0_, b1_);
+          }
+        }
+      }
+    }
+    if (pass == 0 && tid < kTN) bias[tid] = bias_v;
+    // this warp's partial sums: red[warp][position * kBT + batch row][col]
+#pragma unroll
+    for (int i = 0; i < kMaxPos; ++i) {
+      if (i >= npos) break;
+      float* d = red + ((size_t)warp * rows + i * kBT + 2 * tq) * kTN + grp;
+      d[0] = acc[i][0];
+      d[kTN] = acc[i][1];
+      d[8] = acc[i][2];
+      d[kTN + 8] = acc[i][3];
+    }
+    __syncthreads();
+    if (pass == 0 && warp != 0)
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    // both blocks are done with this pass's x: the next pass's may come
+    // in while the gates and the recurrence run; after the last pass, only
+    // arrive (the wait is at the end: no block exits while a multicast
+    // copy may still land in it)
+    const bool last = t0 + L.pos >= C;
+    if (!last) {
+      cluster.sync();
+      if (warp == 0) issue_x(t0 + L.pos, min(L.pos, C - t0 - L.pos));
+    } else {
+      asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    }
+    // pre-activations: the warps' partials in order 0..7, then the bias;
+    // then the gate, which does not depend on h: the z block puts z into
+    // the h~ block's shared memory and arrives on its mbarrier, the h~
+    // block keeps h~ (buffers alternate by pass, so a pass never
+    // overwrites what may still be read of the one before)
+    float* gz = gate_h + (size_t)(2 * (pass & 1)) * gsize;
+    float* gh = gate + (size_t)(2 * (pass & 1) + 1) * gsize;
+    const int n_el = npos * kBT * kTN;
+    for (int e = tid; e < n_el; e += kThreads) {
+      float s = red[e];
+#pragma unroll
+      for (int w_ = 1; w_ < kWarps; ++w_)
+        s += red[(size_t)w_ * rows * kTN + e];
+      const float v = s + bias[e % kTN];
+      if (g == 0)
+        gz[e] = sigmoidf_(v);
+      else
+        gh[e] = p.log_mode ? g_(v) : v;
+    }
+    // red is read; in the h~ block, h~ is in, and then z: the passes of
+    // one parity complete zbar[parity]'s phases in turn, and the cluster
+    // barrier between passes keeps the z block within a pass of the h~
+    // block, so it never arrives twice on a barrier the h~ block has yet
+    // to pass
+    __syncthreads();
+    if (g == 0)
+      mbar_arrive_remote(zbar + (pass & 1), 1);
+    else
+      mbar_wait_cluster(zbar + (pass & 1), (uint32_t)((pass >> 1) & 1));
+    if (owner) {
+      const float* lz = gate + (size_t)(2 * (pass & 1)) * gsize;
+      for (int i = 0; i < npos; ++i) {
+        const int t = t0 + i, e = (i * kBT + rb) * kTN + rc;
+        const float z = lz[e], ht = gh[e];
+        if (t < vlen) h = rnd<bf16>(gru_update(z, h, ht));
+        out[((size_t)ob * C + t) * Dh + oj] = __float2bfloat16_rn(h);
+      }
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// ---- long chunks: one block per unit, both gates ----------------------
+//
+// A chunk whose positions the pair layout above would run in more than
+// one pass (x for C 8 at mingru-lm's Dx, 99 KB, does not fit beside W
+// with two blocks per SM) runs here in one: one block per unit with
+// both gates' W tiles, one block per SM (96 blocks at mingru-lm's
+// width), x for every position multicast to a cluster of units.  The
+// arithmetic is the pair layout's, step for step: the same K split over
+// the same 8 warps, the same mma per k16 step, the warps' partials added
+// in order 0..7, the same gate and update code; so a chunk here equals
+// its C step launches there, bit for bit.
+
+// Shared memory: W [2][16 nk][kTN] bf16, x [C kBT][xs] bf16 (the warps'
+// partial sums [kWarps][C kBT][kRedJoint] fp32 overwrite it once the
+// multiplies are done, or follow it when x is the smaller), the gates
+// [2][C kBT][kTN] fp32, the biases [2][kTN] fp32, x's mbarrier.
+struct JointLayout {
+  int nk, xs, x_off, red_off, gate_off, bias_off, bar_off, bytes;
+};
+
+__host__ __device__ __forceinline__ JointLayout joint_layout(int Dx, int C) {
+  JointLayout L;
+  L.nk = (Dx + 15) / 16;
+  L.xs = 16 * L.nk + 8;
+  const int rows = C * kBT;
+  const int x_bytes = rows * L.xs * 2;
+  const int red_bytes = kWarps * rows * kRedJoint * 4;
+  L.x_off = 2 * 16 * L.nk * kTN * 2;
+  L.red_off = red_bytes <= x_bytes ? L.x_off : L.x_off + x_bytes;
+  const int end = L.red_off == L.x_off ? L.x_off + x_bytes
+                                       : L.red_off + red_bytes;
+  L.gate_off = end;
+  L.bias_off = L.gate_off + 2 * rows * kTN * 4;
+  L.bar_off = L.bias_off + 2 * kTN * 4;
+  L.bytes = L.bar_off + 16;
+  return L;
+}
+
+__global__ void __cluster_dims__(kJointCluster, 1, 1)
+__launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
+  constexpr int kGroups = kJointGroups;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int Dx = p.Dx, Dh = p.Dh, C = p.C, B = p.B;
+  const JointLayout L = joint_layout(Dx, C);
+  bf16* ws = reinterpret_cast<bf16*>(smem);          // [2][16 nk][kTN]
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.x_off);
+  float* red = reinterpret_cast<float*>(smem + L.red_off);
+  float* gate = reinterpret_cast<float*>(smem + L.gate_off);
+  float* bias = reinterpret_cast<float*>(smem + L.bias_off);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  const int rank = (int)cg::this_cluster().block_rank();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int j0 = blockIdx.x * kTN, b0 = blockIdx.y * kBT;
+  const int nb = min(kBT, B - b0);
+  const int rows = C * kBT;
+  const int wsize = 16 * L.nk * kTN;                 // one gate's W tile
+  const bf16* x = static_cast<const bf16*>(p.x);     // 16-byte aligned
+  const int s0 = warp * L.nk / kWarps, s1 = (warp + 1) * L.nk / kWarps;
+  auto step_of = [&](int q) { return s0 + q * (s1 - s0) / kGroups; };
+
+  if (tid == 0) {
+    mbar_init(xbar, 1);
+    fence_mbar_init();
+  }
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const bf16* w0 = static_cast<const bf16*>(p.w[0]);
+  const bf16* w1 = static_cast<const bf16*>(p.w[1]);
+  // W group q of this warp's slice, both gates: per row two 32-byte
+  // sectors, one of each matrix
+  auto issue_w = [&](int q) {
+    const int k0 = 16 * step_of(q), n = 32 * (step_of(q + 1) - step_of(q));
+    for (int i = lane; i < 2 * n; i += 32) {
+      const int g = i / n, k = k0 + (i % n) / 2, c = i % 2;
+      const bf16* w = g ? w1 : w0;
+      const bool ok = k < Dx && j0 + 8 * c < Dh;
+      cp_async16(ws + g * wsize + w_at(k, c),
+                 ok ? w + (size_t)k * Dh + j0 + 8 * c : w, ok);
+    }
+    cp_async_commit();
+  };
+
+  // x, every position, multicast to the cluster's units; by warp 0
+  if (warp == 0) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (lane == 0)
+      mbar_arrive_expect_tx(xbar, (uint32_t)(C * nb * Dx * 2));
+    __syncwarp();
+    for (int r = lane; r < rows; r += 32) {
+      if (r % kBT >= nb || r % kJointCluster != rank) continue;
+      const int b = b0 + r % kBT, t = r / kBT;
+      bulk_copy_multicast(xs + (size_t)r * L.xs,
+                          x + ((size_t)b * C + t) * Dx, (uint32_t)(Dx * 2),
+                          xbar, (uint16_t)((1 << kJointCluster) - 1));
+    }
+  }
+  issue_w(0);
+  for (int r = tid; r < rows; r += kThreads) {
+    bf16* xr = xs + (size_t)r * L.xs;
+    if (r % kBT >= nb) {
+      for (int c = 0; c < 2 * L.nk; ++c)
+        reinterpret_cast<uint4*>(xr)[c] = make_uint4(0u, 0u, 0u, 0u);
+    } else if (Dx % 16 != 0) {
+      reinterpret_cast<uint4*>(xr + Dx)[0] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  float bias_v = 0.0f;
+  if (tid < 2 * kTN && j0 + tid % kTN < Dh)
+    bias_v = __bfloat162float(static_cast<const bf16*>(
+        tid < kTN ? p.b[0] : p.b[1])[j0 + tid % kTN]);
+  const int rb = tid / kTN, rc = tid % kTN;
+  const int ob = b0 + rb, oj = j0 + rc;
+  const bool owner = tid < kBT * kTN && ob < B && oj < Dh;
+  float h = 0.0f;
+  int vlen = C;
+  if (owner) {
+    h = p.h0_f32 ? static_cast<const float*>(p.h0)[(size_t)ob * Dh + oj]
+                 : __bfloat162float(
+                       static_cast<const bf16*>(p.h0)[(size_t)ob * Dh + oj]);
+    if (p.valid != nullptr) vlen = p.valid[ob];
+  }
+  __syncthreads();                    // the zeros, before any ldmatrix
+  // one block per SM: the whole tile in flight at once (two groups ahead
+  // of the multiplies, as the pairs run, leaves too few bytes in flight)
+  for (int q = 1; q < kGroups; ++q) issue_w(q);
+  mbar_wait(xbar, 0u);
+
+  // acc[g][i]: gate g, laid out as the pair layout's acc[i]
+  float acc[2][kMaxPos][4];
+#pragma unroll
+  for (int g = 0; g < 2; ++g)
+#pragma unroll
+    for (int i = 0; i < kMaxPos; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][i][e] = 0.0f;
+  for (int q = 0; q < kGroups; ++q) {
+    cp_async_wait_pending(kGroups - 1 - q);
+    __syncwarp();
+    const int end = step_of(q + 1);
+    for (int s = step_of(q); s < end; ++s) {
+      uint32_t a[2][4];
+      const int k = 16 * s + (lane & 7) + ((lane >> 4) << 3);
+      ldmatrix_x4_trans(a[0], ws + w_at(k, (lane >> 3) & 1));
+      ldmatrix_x4_trans(a[1], ws + wsize + w_at(k, (lane >> 3) & 1));
+      const bf16* xk = xs + 16 * s + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int i = 0; i < kMaxPos; i += 2) {
+        if (i >= C) break;
+        if (i + 1 < C) {
+          uint32_t b[4];
+          ldmatrix_x4(b, xk + (size_t)((i + (lane >> 4)) * kBT + (lane & 7)) * L.xs);
+#pragma unroll
+          for (int g = 0; g < 2; ++g) {
+            mma_bf16(acc[g][i], a[g], b[0], b[1]);
+            mma_bf16(acc[g][i + 1], a[g], b[2], b[3]);
+          }
+        } else {
+          uint32_t b0_, b1_;
+          ldmatrix_x2(b0_, b1_, xk + (size_t)(i * kBT + (lane & 7)) * L.xs);
+#pragma unroll
+          for (int g = 0; g < 2; ++g) mma_bf16(acc[g][i], a[g], b0_, b1_);
+        }
+      }
+    }
+  }
+  if (tid < 2 * kTN) bias[tid] = bias_v;
+  if (warp != 0)
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // no block exits while a multicast copy may still land in it: x has
+  // landed here; the wait is at the end
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  __syncthreads();                    // every warp is done with x
+  // red[warp][position * kBT + batch row][g * kTN + col]
+#pragma unroll
+  for (int i = 0; i < kMaxPos; ++i) {
+    if (i >= C) break;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      float* d = red + ((size_t)warp * rows + i * kBT + 2 * tq) * kRedJoint +
+                 g * kTN + grp;
+      d[0] = acc[g][i][0];
+      d[kRedJoint] = acc[g][i][1];
+      d[8] = acc[g][i][2];
+      d[kRedJoint + 8] = acc[g][i][3];
+    }
+  }
+  __syncthreads();
+  // pre-activations: the warps' partials in order 0..7, then the bias;
+  // then the gates
+#pragma unroll 4
+  for (int e = tid; e < rows * kTN; e += kThreads) {
+    const int r = e / kTN, c = e % kTN;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int at = r * kRedJoint + g * kTN + c;
+      float s = red[at];
+#pragma unroll
+      for (int w_ = 1; w_ < kWarps; ++w_)
+        s += red[w_ * rows * kRedJoint + at];
+      const float v = s + bias[g * kTN + c];
+      gate[(size_t)g * rows * kTN + e] =
+          g == 0 ? sigmoidf_(v) : (p.log_mode ? g_(v) : v);
+    }
+  }
+  __syncthreads();
+  if (owner) {
+    bf16* out = static_cast<bf16*>(p.out);
+    for (int t = 0; t < C; ++t) {
+      const int e = (t * kBT + rb) * kTN + rc;
+      const float z = gate[e], ht = gate[(size_t)rows * kTN + e];
+      if (t < vlen) h = rnd<bf16>(gru_update(z, h, ht));
+      out[((size_t)ob * C + t) * Dh + oj] = __float2bfloat16_rn(h);
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Routing and launch
+// ---------------------------------------------------------------------------
+
+// the bodies, by the number the wrapper passes
+constexpr int kBodyCudaCore = 0;
+constexpr int kBodyTC = 1;
+
+// Whether the tensor-core body can run these operands (the wrapper's
+// choice is checked against it, never replaced by it).
+bool tc_can_run(int lstm, int bf16, const Params& p) {
+  if (lstm || !bf16 || p.Dx % 8 != 0 || p.Dh % 8 != 0 || p.Dx > tc::kMaxDx)
+    return false;
+  for (int g = 0; g < 2; ++g)
+    if (reinterpret_cast<uintptr_t>(p.w[g]) % 16 != 0) return false;
+  return true;
+}
+
+struct Choice {
+  const void* fn;
+  int threads;
+  int smem;          // dynamic shared memory, bytes
+  int cluster;       // blocks per cluster
+  bool carveout;     // ask for the largest shared-memory carveout
+  dim3 grid;
+};
+
+template <typename T, int G>
+int choose_cuda_core(const Params& p, Choice* c) {
+  const int elem = (int)sizeof(T);
+  const int staged = smem_bytes(p.Dx, G, elem, true);
+  if (staged <= kSmemCap) {
+    c->fn = reinterpret_cast<const void*>(cell_kernel<T, G, true>);
+    c->smem = staged;
+  } else {
+    const int plain = smem_bytes(p.Dx, G, elem, false);
+    if (plain > kSmemCap) return (int)cudaErrorInvalidValue;
+    c->fn = reinterpret_cast<const void*>(cell_kernel<T, G, false>);
+    c->smem = plain;
+  }
+  c->threads = kThreads;
+  c->cluster = 1;
+  c->carveout = false;
+  c->grid = dim3((p.Dh + kTN - 1) / kTN, (p.B + kBT - 1) / kBT);
+  return 0;
+}
+
+// Opt a kernel in to the whole 227 KB of dynamic shared memory (and, for
+// the tensor-core body, the largest carveout, so two blocks fit an SM),
+// once per kernel and device; the launch asks for what it uses.
+int opt_in(const Choice& c) {
+  constexpr int kSeen = 64;
+  static const void* seen_fn[kSeen];
+  static int seen_dev[kSeen];
+  static int n_seen = 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!opted[device]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemCap);
-    if (err != cudaSuccess) return (int)err;
-    opted[device] = true;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen_fn[i] == c.fn && seen_dev[i] == device) return 0;
+  err = cudaFuncSetAttribute(c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemCap);
+  if (err == cudaSuccess && c.carveout)
+    err = cudaFuncSetAttribute(c.fn,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  if (n_seen < kSeen) {
+    seen_fn[n_seen] = c.fn;
+    seen_dev[n_seen] = device;
+    ++n_seen;
   }
-  const dim3 grid((p.Dh + kTN - 1) / kTN, (p.B + kBT - 1) / kBT);
-  cell_kernel<T, G, kStaged><<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
-template <typename T, int G>
-int launch_typed(const Params& p, cudaStream_t stream) {
-  const int elem = (int)sizeof(T);
-  const int staged = smem_bytes(p.Dx, G, elem, true);
-  if (staged <= kSmemCap) return launch_one<T, G, true>(p, staged, stream);
-  const int plain = smem_bytes(p.Dx, G, elem, false);
-  if (plain > kSmemCap) return (int)cudaErrorInvalidValue;
-  return launch_one<T, G, false>(p, plain, stream);
+// Clusters of `fn` (a kernel of `cluster`-block clusters) resident at
+// once for a launch of `smem` bytes (the occupancy query, asked once per
+// device, kernel and size).
+int resident_clusters(const void* fn, int cluster, int smem, int* out) {
+  constexpr int kSeen = 64;
+  static const void* seen_fn[kSeen];
+  static int seen[kSeen][3];             // device, smem, clusters
+  static int n_seen = 0;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen_fn[i] == fn && seen[i][0] == device && seen[i][1] == smem) {
+      *out = seen[i][2];
+      return 0;
+    }
+  Choice q = {};
+  q.fn = fn;
+  q.carveout = true;
+  const int err = opt_in(q);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(tc::kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  e = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (n_seen < kSeen) {
+    seen_fn[n_seen] = fn;
+    seen[n_seen][0] = device;
+    seen[n_seen][1] = smem;
+    seen[n_seen][2] = *out;
+    ++n_seen;
+  }
+  return 0;
 }
 
-int launch(int lstm, int log_mode, int normalize, int bf16, int h0_f32,
-           int B, int C, int Dx, int Dh, void* const* ptrs, void* stream,
-           bool chunk) {
-  if (B < 1 || C < 1 || Dx < 1 || Dh < 1 || (!chunk && C != 1) ||
-      (B + kBT - 1) / kBT > 65535)
+// The tensor-core body's launch: a pair of blocks per unit (one gate
+// each, one cluster); or, for a chunk the pairs would run in more than
+// one pass, a block per unit (both gates) in clusters of four units, where
+// its one pass fits shared memory and its grid one wave.  The arithmetic
+// is the same in both shapes.
+int choose_tc(const Params& p, Choice* c) {
+  const int units = (p.Dh + tc::kTN - 1) / tc::kTN;
+  const int tiles = (p.B + tc::kBT - 1) / tc::kBT;
+  const tc::Layout L = tc::layout(p.Dx, p.C);
+  c->threads = tc::kThreads;
+  c->carveout = true;
+  const int joint_smem = tc::joint_layout(p.Dx, p.C).bytes;
+  if (L.pos < p.C && p.C <= tc::kMaxPos && joint_smem <= kSmemCap) {
+    const void* joint = reinterpret_cast<const void*>(tc::cell_tc_joint_kernel);
+    int resident = 0;
+    const int err = resident_clusters(joint, tc::kJointCluster, joint_smem,
+                                      &resident);
+    if (err != 0) return err;
+    const int clusters = (units + tc::kJointCluster - 1) / tc::kJointCluster;
+    if (clusters * tiles <= resident) {
+      c->fn = joint;
+      c->smem = joint_smem;
+      c->cluster = tc::kJointCluster;
+      // a unit past Dh (rounding up to whole clusters) only loads and
+      // synchronises
+      c->grid = dim3(clusters * tc::kJointCluster, tiles);
+      return 0;
+    }
+  }
+  c->smem = L.bytes;
+  if (c->smem > kSmemCap) return (int)cudaErrorInvalidValue;
+  c->fn = L.nk / tc::kWarps >= tc::kManyGroupsSteps
+      ? reinterpret_cast<const void*>(tc::cell_tc_kernel<8>)
+      : reinterpret_cast<const void*>(tc::cell_tc_kernel<4>);
+  c->cluster = tc::kPair;
+  c->grid = dim3(tc::kPair * units, tiles);
+  return 0;
+}
+
+int choose(int lstm, int bf16, int body, const Params& p, Choice* c) {
+  if (p.B < 1 || p.C < 1 || p.Dx < 1 || p.Dh < 1 ||
+      (p.B + kBT - 1) / kBT > 65535)
     return (int)cudaErrorInvalidValue;
+  if (body == kBodyTC) {
+    if (!tc_can_run(lstm, bf16, p)) return (int)cudaErrorInvalidValue;
+    return choose_tc(p, c);
+  }
+  if (body != kBodyCudaCore) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return lstm ? choose_cuda_core<__nv_bfloat16, 3>(p, c)
+                : choose_cuda_core<__nv_bfloat16, 2>(p, c);
+  return lstm ? choose_cuda_core<float, 3>(p, c)
+              : choose_cuda_core<float, 2>(p, c);
+}
+
+Params make_params(int log_mode, int normalize, int h0_f32, int B, int C,
+                   int Dx, int Dh, void* const* ptrs, bool chunk) {
   Params p;
   p.x = ptrs[0];
   for (int g = 0; g < 3; ++g) { p.w[g] = ptrs[1 + g]; p.b[g] = ptrs[4 + g]; }
@@ -364,11 +1106,28 @@ int launch(int lstm, int log_mode, int normalize, int bf16, int h0_f32,
   p.out = ptrs[9];
   p.B = B; p.C = C; p.Dx = Dx; p.Dh = Dh;
   p.log_mode = log_mode; p.normalize = normalize; p.h0_f32 = h0_f32;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return lstm ? launch_typed<__nv_bfloat16, 3>(p, s)
-                : launch_typed<__nv_bfloat16, 2>(p, s);
-  return lstm ? launch_typed<float, 3>(p, s) : launch_typed<float, 2>(p, s);
+  return p;
+}
+
+int launch(int lstm, int log_mode, int normalize, int bf16, int h0_f32,
+           int B, int C, int Dx, int Dh, void* const* ptrs, void* stream,
+           int body, bool chunk) {
+  if (!chunk && C != 1) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(log_mode, normalize, h0_f32, B, C, Dx, Dh,
+                               ptrs, chunk);
+  // the tensor-core body takes x by bulk copies: the wrapper hands it an
+  // aligned x, and any other is refused, never read another way
+  if (body == kBodyTC && reinterpret_cast<uintptr_t>(p.x) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  Choice c;
+  int err = choose(lstm, bf16, body, p, &c);
+  if (err == 0) err = opt_in(c);
+  if (err != 0) return err;
+  void* args[] = {const_cast<Params*>(&p)};
+  const cudaError_t e = cudaLaunchKernel(
+      c.fn, c.grid, dim3(c.threads), args, (size_t)c.smem,
+      static_cast<cudaStream_t>(stream));
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
@@ -377,25 +1136,60 @@ extern "C" {
 
 // ptrs: x, w0, w1, w2, b0, b1, b2, h0, valid, out (10 pointers; w2 / b2
 // unused by minGRU, valid unused by the step form).  bf16 != 0: x, weights,
-// biases, out (and h0 unless h0_f32) are bfloat16, else float32.
+// biases, out (and h0 unless h0_f32) are bfloat16, else float32.  body:
+// the body the wrapper chose when it bound the weights (0 CUDA cores, 1
+// tensor cores); a body that cannot run these operands is refused.
 // Returns 0 or the cudaError_t of the launch.
 
 // One token for every row: C must be 1 (mingru_step_kernel /
 // minlstm_step_kernel).
 int repro_cell_step_launch(int lstm, int log_mode, int normalize, int bf16,
                            int h0_f32, int B, int C, int Dx, int Dh,
-                           void* const* ptrs, void* stream) {
+                           void* const* ptrs, void* stream, int body) {
   return launch(lstm, log_mode, normalize, bf16, h0_f32, B, C, Dx, Dh, ptrs,
-                stream, false);
+                stream, body, false);
 }
 
 // A varlen C-token chunk; rows freeze at t >= valid[b] (mingru_chunk_kernel
 // / minlstm_chunk_kernel).
 int repro_cell_chunk_launch(int lstm, int log_mode, int normalize, int bf16,
                             int h0_f32, int B, int C, int Dx, int Dh,
-                            void* const* ptrs, void* stream) {
+                            void* const* ptrs, void* stream, int body) {
   return launch(lstm, log_mode, normalize, bf16, h0_f32, B, C, Dx, Dh, ptrs,
-                stream, true);
+                stream, body, true);
+}
+
+// What a launch of this body on these operands would run, without
+// launching: out[0] resident blocks per SM (the occupancy query at the
+// launch's shared memory), out[1] grid blocks, out[2] the device's SMs,
+// out[3] blocks per cluster, out[4] clusters resident at once on the
+// device (cudaOccupancyMaxActiveClusters; 0 without clusters).
+int repro_cell_occupancy(int lstm, int bf16, int body, int B, int C, int Dx,
+                         int Dh, void* const* ptrs, int* out) {
+  const Params p = make_params(1, 1, 0, B, C, Dx, Dh, ptrs, C > 1);
+  Choice c;
+  int err = choose(lstm, bf16, body, p, &c);
+  if (err == 0) err = opt_in(c);
+  if (err != 0) return err;
+  int per_sm = 0, dev = 0, sms = 0, clusters = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, c.fn, c.threads, c.smem);
+  if (e == cudaSuccess && c.cluster > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = c.grid;
+    cfg.blockDim = dim3(c.threads);
+    cfg.dynamicSmemBytes = (size_t)c.smem;
+    e = cudaOccupancyMaxActiveClusters(&clusters, c.fn, &cfg);
+  }
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  out[0] = per_sm;
+  out[1] = (int)(c.grid.x * c.grid.y);
+  out[2] = sms;
+  out[3] = c.cluster;
+  out[4] = clusters;
+  return (int)e;
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -18,6 +18,14 @@ by ``blocks.bind`` / ``lm.bind_layers``): cast to the compute dtype, made
 contiguous, missing biases made as zeros, checked, pointers taken.  A
 call given ``operands=`` then checks and binds only its activations; a
 call without binds its weights for itself.
+
+Binding also picks the kernel body (:func:`cell_body`): the tensor-core
+body for minGRU in bf16 at widths and addresses it takes, the CUDA-core
+body for everything else.  The choice rests on the bound weights alone,
+never on x or C, so a layer's steps and chunks run one body; the C
+launcher runs the body it is given or refuses the launch.  Each body's
+launches are counted beside the kernel's total
+(``LAUNCHES["mingru_step_kernel/tc"]``).
 """
 
 from __future__ import annotations
@@ -30,15 +38,24 @@ import torch
 
 from repro_torch.kernels import launch as kl
 from repro_torch.kernels.decode_step import ref
+from repro_torch.kernels.fused_cell import waves
 from repro_torch.kernels.scan.ops import call_with_flat_lead
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_step.cu"
 
-# launches per kernel: a plain count, reset by whoever reads it
-LAUNCHES = {"mingru_step_kernel": 0, "mingru_chunk_kernel": 0,
-            "minlstm_step_kernel": 0, "minlstm_chunk_kernel": 0}
+KERNELS = ("mingru_step_kernel", "mingru_chunk_kernel",
+           "minlstm_step_kernel", "minlstm_chunk_kernel")
+# the kernel's bodies, by the C launcher's number (1: tensor cores)
+BODIES = ("cuda_core", "tc")
+# launches per kernel and per kernel and body ("mingru_step_kernel/tc"):
+# plain counts, reset by whoever reads them
+LAUNCHES = {**{k: 0 for k in KERNELS},
+            **{f"{k}/{b}": 0 for k in KERNELS for b in BODIES}}
 
 GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
+# the widest Dx whose whole weight tile the tensor-core body keeps in
+# shared memory (csrc/decode_step.cu, tc::kMaxDx)
+TC_MAX_DX = 4096
 _N_PTRS = 10
 _LIB = None
 
@@ -55,17 +72,34 @@ def _lib():
         lib = build.load(SOURCE)
         for fn in (lib.repro_cell_step_launch, lib.repro_cell_chunk_launch):
             fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p,
-                                                ctypes.c_void_p]
+                                                ctypes.c_void_p,
+                                                ctypes.c_int]
             fn.restype = ctypes.c_int
+        lib.repro_cell_occupancy.argtypes = [ctypes.c_int] * 7 + [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        lib.repro_cell_occupancy.restype = ctypes.c_int
         kl.declare_error_string(lib)
         _LIB = lib
     return _LIB
 
 
+def cell_body(cell: str, dtype: torch.dtype, dx: int, dh: int,
+              aligned: bool) -> str:
+    """The kernel body a cell bound with these weights runs: "tc" (tensor
+    cores) for minGRU in bf16 whose Dx and Dh are multiples of 8, Dx at
+    most ``TC_MAX_DX``, and whose weights start on 16-byte boundaries
+    (``aligned``); "cuda_core" for fp32 (the exact path), minLSTM and any
+    other bf16."""
+    tc = (cell == "mingru" and dtype == torch.bfloat16 and dx % 8 == 0
+          and dh % 8 == 0 and dx <= TC_MAX_DX and aligned)
+    return "tc" if tc else "cuda_core"
+
+
 class CellOperands:
     """One cell's gate weights bound for the kernel: every weight and bias
     in one dtype (fp32 or bf16), contiguous, on one CUDA device, missing
-    biases made as zeros once.  It holds the tensors it points at and
+    biases made as zeros once, and the body the kernel runs on them
+    (``body``, :func:`cell_body`).  It holds the tensors it points at and
     reads them as they were when bound: bind again after replacing a
     leaf."""
 
@@ -88,6 +122,8 @@ class CellOperands:
             kl.check(b, f"{cell} bias {i}", (dh,), dt, dev)
         self.cell, self.device, self.dtype, self.dims = cell, dev, dt, (dx, dh)
         self.ws, self.bs = tuple(ws), tuple(bs)
+        self.body = cell_body(cell, dt, dx, dh,
+                              all(w.data_ptr() % 16 == 0 for w in ws))
         ptrs = [0] * 7
         for i, (w, b) in enumerate(zip(ws, bs)):
             ptrs[1 + i], ptrs[4 + i] = w.data_ptr(), b.data_ptr()
@@ -136,6 +172,8 @@ def prepare_launch(operands: CellOperands, x, h_prev, valid, *, mode,
     dev, dt = operands.device, operands.dtype
     dx, dh = operands.dims
     x = x.contiguous()
+    if x.data_ptr() % 16:       # a fresh copy is aligned for bulk copies
+        x = x.clone()
     bsz, chunk = x.shape[0], x.shape[1]
     kl.check(x, "x", (bsz, chunk, dx), dt, dev)
     h0_f32 = h_prev.dtype != dt
@@ -156,7 +194,8 @@ def prepare_launch(operands: CellOperands, x, h_prev, valid, *, mode,
         fn = lib.repro_cell_chunk_launch
     args = (int(operands.cell == "minlstm"), int(mode == "log"),
             int(normalize), kl.DTYPES[dt], int(h0_f32), bsz, chunk, dx, dh,
-            (ctypes.c_void_p * _N_PTRS)(*ptrs), kl.stream(dev))
+            (ctypes.c_void_p * _N_PTRS)(*ptrs), kl.stream(dev),
+            BODIES.index(operands.body))
 
     def launch(_keep=keep):        # _keep: the operands alive while bound
         return fn(*args)
@@ -164,11 +203,38 @@ def prepare_launch(operands: CellOperands, x, h_prev, valid, *, mode,
     return launch, out
 
 
+def occupancy(operands: CellOperands, bsz: int, chunk: int) -> dict:
+    """What a launch of ``operands`` on B = ``bsz`` rows and ``chunk``
+    positions would run, from the C launcher's own grid and shared memory
+    and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (and, for the
+    tensor-core body's clusters, ``cudaOccupancyMaxActiveClusters``):
+    {"body", "blocks_per_sm", "grid_blocks", "sms", "cluster" (blocks per
+    cluster), "clusters_resident", "waves"}.  Launches nothing."""
+    lib = _lib()
+    dx, dh = operands.dims
+    ptrs = list(operands.ptrs) + [0, 0, 0]
+    res = (ctypes.c_int * 5)()
+    with torch.cuda.device(operands.device):
+        rc = lib.repro_cell_occupancy(
+            int(operands.cell == "minlstm"), kl.DTYPES[operands.dtype],
+            BODIES.index(operands.body), bsz, chunk, dx, dh,
+            (ctypes.c_void_p * _N_PTRS)(*ptrs), res)
+    kl.raise_on_error(lib, f"{operands.cell} cell occupancy", rc)
+    per_sm, blocks, sms, cluster, clusters = list(res)
+    # with clusters, a wave is the clusters resident at once
+    n_waves = (waves(blocks // cluster, clusters, 1) if cluster > 1
+               else waves(blocks, per_sm, sms))
+    return {"body": operands.body, "blocks_per_sm": per_sm,
+            "grid_blocks": blocks, "sms": sms, "cluster": cluster,
+            "clusters_resident": clusters, "waves": n_waves}
+
+
 def _launch(name, operands, x, h_prev, valid, *, mode, normalize=True):
     launch, out = prepare_launch(operands, x, h_prev, valid, mode=mode,
                                  normalize=normalize)
     kl.raise_on_error(_lib(), name, launch())
     LAUNCHES[name] += 1
+    LAUNCHES[f"{name}/{operands.body}"] += 1
     return out
 
 

@@ -150,6 +150,55 @@ def test_saturated_minlstm_gates_stay_finite(scale):
 
 
 # ---------------------------------------------------------------------------
+# the kernel body a bound cell runs, and the per-body launch counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cell,dtype,dx,dh,aligned,body", [
+    ("mingru", torch.bfloat16, 768, 1536, True, "tc"),       # mingru-lm
+    ("mingru", torch.bfloat16, 2048, 2048, True, "tc"),      # gemma-2b-mingru
+    ("mingru", torch.bfloat16, 40, 72, True, "tc"),          # K, Dh tails
+    ("mingru", torch.bfloat16, 4096, 8, True, "tc"),         # widest Dx
+    ("mingru", torch.bfloat16, 4104, 1536, True, "cuda_core"),
+    ("mingru", torch.bfloat16, 37, 72, True, "cuda_core"),   # Dx % 8
+    ("mingru", torch.bfloat16, 64, 70, True, "cuda_core"),   # Dh % 8
+    ("mingru", torch.bfloat16, 768, 1536, False, "cuda_core"),
+    ("mingru", torch.float32, 768, 1536, True, "cuda_core"),  # exact path
+    ("minlstm", torch.bfloat16, 768, 1536, True, "cuda_core"),
+    ("minlstm", torch.float32, 2048, 2048, True, "cuda_core")])
+def test_cell_body_routes_by_cell_dtype_widths_and_alignment(
+        cell, dtype, dx, dh, aligned, body):
+    """The tensor-core body takes bf16 minGRU whose widths are multiples
+    of 8 (Dx up to the shared-memory limit) and whose weights allow
+    16-byte copies; everything else runs on the CUDA cores.  The rule
+    reads neither x nor C."""
+    assert pt_ops.cell_body(cell, dtype, dx, dh, aligned) == body
+    assert pt_ops.TC_MAX_DX == 4096
+
+
+def test_launch_counts_name_each_kernel_and_body():
+    assert set(pt_ops.LAUNCHES) == set(pt_ops.KERNELS) | {
+        f"{k}/{b}" for k in pt_ops.KERNELS for b in ("tc", "cuda_core")}
+    assert pt_ops.BODIES == ("cuda_core", "tc")     # the C launcher's codes
+    pt_ops.LAUNCHES["mingru_step_kernel/tc"] = 3
+    pt_ops.reset_launches()
+    assert set(pt_ops.LAUNCHES.values()) == {0}
+
+
+def test_cpu_calls_run_the_plain_versions_and_count_nothing():
+    x, xc, h, ws, bs = _inputs(4)
+    tx, txc, th, tv = _torch(x, xc, h, VALID)
+    tws, tbs = _torch(*ws), _torch(*bs)
+    pt_ops.reset_launches()
+    for cell in ("mingru", "minlstm"):
+        _call(pt_ops, cell, False, True, tx, th, tws, tbs, "log")
+        _call(pt_ops, cell, True, True, txc, th, tws, tbs, "log", tv)
+    assert set(pt_ops.LAUNCHES.values()) == {0}
+    assert pt_ops._LIB is None
+    with pytest.raises(ValueError, match="CUDA"):
+        pt_ops.CellOperands("mingru", tws[:2], tbs[:2])
+
+
+# ---------------------------------------------------------------------------
 # the cells' decode forms under "auto"
 # ---------------------------------------------------------------------------
 

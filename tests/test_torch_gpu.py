@@ -329,24 +329,44 @@ def _cell_fns(cell, normalize):
             getattr(step_ref, f"{cell}_chunk_ref"), kw)
 
 
+_CELL_VALID = [4, 1, 3, 2, 4, 1, 4, 3, 2, 1, 4]
+
+
+def _tc_body(cell, dtype, dx, dh):
+    """The body the wrappers' operands route to (weights fresh from the
+    allocator, so 16-byte aligned)."""
+    return "tc" if cell == "mingru" and dtype == torch.bfloat16 \
+        and dx % 8 == 0 and dh % 8 == 0 else "cuda_core"
+
+
 @pytest.mark.parametrize("cell,normalize", [("mingru", True),
                                             ("minlstm", True),
                                             ("minlstm", False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(11, 64, 128), (3, 200, 72),
-                                   (3, 37, 70), (2, 2048, 48)])
+                                   (3, 37, 70), (2, 2048, 48),
+                                   (1, 40, 72), (11, 768, 72)])
+@pytest.mark.parametrize("chunk", [1, 4, 8, 16])
 def test_decode_step_kernels_match_plain_and_chunk_equals_steps(
-        cell, normalize, dtype, shape, cuda_device):
-    """Smoke width with two batch tiles; a ragged case (Dx 200 off the 64
-    k-lanes, Dh 72 off the 16-column units); odd widths, whose rows allow
-    no 16-byte loads; gemma's Dx, where the fp32 weight tiles (and bf16
-    minLSTM's three) do not fit in shared memory and stream instead."""
+        cell, normalize, dtype, shape, chunk, cuda_device):
+    """Smoke width with two batch tiles (B 11); a ragged case (Dx 200 off
+    the 64 k-lanes and the tensor-core body's 8-warp K split, Dh 72 off
+    the 16-column units); odd widths, whose rows allow no 16-byte loads
+    (the CUDA-core body in bf16 too); gemma's Dx, where the fp32 weight
+    tiles (and bf16 minLSTM's three) do not fit in shared memory and
+    stream instead; B 1 with Dx 40 (three k16 steps: five of the eight
+    warps own none); mingru-lm's Dx, where the tensor-core body runs C 8
+    in one pass on one block per unit (both gates) and C 4 / C 16 on
+    pairs of blocks (one gate each).  C 1 to 16: one position up to
+    several passes of positions in the tensor-core body."""
     bsz, dx, dh = shape
-    chunk = 4
     gen = torch.Generator().manual_seed(5)
     x, h, *wb = _cell_case(gen, cell, dtype, cuda_device, bsz, dx, dh, chunk)
     step, chunk_fn, step_plain, chunk_plain, kw = _cell_fns(cell, normalize)
-    valid = torch.tensor([4, 1, 3, 2, 4, 1, 4, 3, 2, 1, 4][:bsz],
+    # the lengths 4, 1, 3, 2, ... at C 4, and the same edges at every C:
+    # full, frozen right after the first token, 2, and one short of full
+    edge = {1: 1, 2: min(2, chunk), 3: max(1, chunk - 1), 4: chunk}
+    valid = torch.tensor([edge[v] for v in _CELL_VALID[:bsz]],
                          dtype=torch.int32, device=cuda_device)
     step_ops.reset_launches()
     got = step(x[:, 0], *wb, h, **kw)
@@ -361,11 +381,111 @@ def test_decode_step_kernels_match_plain_and_chunk_equals_steps(
         assert torch.equal(hs[:, t], s)
     # a row's result does not depend on B
     assert torch.equal(step(x[:1, 0], *wb, h[:1], **kw), got[:1])
-    assert step_ops.LAUNCHES[f"{cell}_step_kernel"] == 2 + chunk
-    assert step_ops.LAUNCHES[f"{cell}_chunk_kernel"] == 1
+    # every launch took the body the operands route to, by its own count
+    body = _tc_body(cell, dtype, dx, dh)
+    for form, n in (("step", 2 + chunk), ("chunk", 1)):
+        name = f"{cell}_{form}_kernel"
+        assert step_ops.LAUNCHES[name] == n
+        assert step_ops.LAUNCHES[f"{name}/{body}"] == n
     # h_prev in fp32 beside bf16 x: read as it is, as the reference does
     _close(step(x[:, 0], *wb, h.float(), **kw),
            step_plain(x[:, 0], *wb, h.float(), **kw), dtype)
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` that starts 2 bytes past a 16-byte line."""
+    off = torch.empty(t.numel() + 1, dtype=t.dtype,
+                      device=t.device)[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    return off
+
+
+def test_decode_step_misaligned_bf16_weight_takes_cuda_core_body(
+        cuda_device):
+    """bf16 minGRU at widths the tensor-core body takes, but a weight 2
+    bytes off a 16-byte line: bound to the CUDA-core body, for the step
+    and the chunk alike, and still equal to the plain version."""
+    gen = torch.Generator().manual_seed(8)
+    x, h, wz, bz, wh, bh = _cell_case(gen, "mingru", torch.bfloat16,
+                                      cuda_device, 3, 64, 72, 4)
+    operands = step_ops.CellOperands("mingru", [wz, _offset(wh)], [bz, bh])
+    assert operands.body == "cuda_core"
+    valid = torch.tensor([4, 2, 1], dtype=torch.int32, device=cuda_device)
+    step_ops.reset_launches()
+    got = step_ops.fused_mingru_step(x[:, 0], *operands.args, h,
+                                     operands=operands)
+    hs = step_ops.fused_mingru_chunk(x, *operands.args, h, valid,
+                                     operands=operands)
+    assert step_ops.LAUNCHES["mingru_step_kernel/cuda_core"] == 1
+    assert step_ops.LAUNCHES["mingru_chunk_kernel/cuda_core"] == 1
+    assert step_ops.LAUNCHES["mingru_step_kernel/tc"] == 0
+    _close(got, step_ref.mingru_step_ref(x[:, 0], wz, bz, wh, bh, h),
+           torch.bfloat16)
+    _close(hs, step_ref.mingru_chunk_ref(x, wz, bz, wh, bh, h, valid),
+           torch.bfloat16)
+    assert step_ops.occupancy(operands, 3, 4)["body"] == "cuda_core"
+
+
+@pytest.mark.parametrize("dx,chunk", [(200, 3), (768, 8)])
+def test_decode_step_tc_body_ignores_x_alignment(dx, chunk, cuda_device):
+    """The body never depends on x: an x 2 bytes off a 16-byte line runs
+    the tensor-core body too (the wrapper hands the kernel an aligned
+    copy) and gives the same bits as an aligned x, on pairs of blocks
+    (C 3) and on one block per unit (mingru-lm's Dx, C 8)."""
+    gen = torch.Generator().manual_seed(9)
+    x, h, *wb = _cell_case(gen, "mingru", torch.bfloat16, cuda_device, 5,
+                           dx, 72, chunk)
+    valid = torch.tensor([chunk, 1, 2, chunk, 3], dtype=torch.int32,
+                         device=cuda_device)
+    step_ops.reset_launches()
+    want = step_ops.fused_mingru_chunk(x, *wb, h, valid)
+    got = step_ops.fused_mingru_chunk(_offset(x), *wb, h, valid)
+    assert step_ops.LAUNCHES["mingru_chunk_kernel/tc"] == 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,chunk,cols,per_sm,cluster", [
+    ((768, 1536), 1, 8, 2, 2), ((768, 1536), 8, 16, 1, 4),
+    ((2048, 2048), 1, 8, 2, 2)])
+def test_decode_step_tc_body_runs_in_one_wave(shape, chunk, cols, per_sm,
+                                              cluster, cuda_device):
+    """bf16 minGRU at mingru-lm's and gemma-2b-mingru's widths, B 8: the
+    tensor-core body in one wave; steps on pairs of blocks (one block per
+    gate and 16 Dh columns, two per SM, a cluster each), mingru-lm's C 8
+    chunk on one block per 16 columns (both gates, one per SM) in
+    clusters of four."""
+    dx, dh = shape
+    gen = torch.Generator().manual_seed(10)
+    _, _, wz, bz, wh, bh = _cell_case(gen, "mingru", torch.bfloat16,
+                                      cuda_device, 8, dx, dh, chunk)
+    occ = step_ops.occupancy(step_ops.CellOperands("mingru", [wz, wh],
+                                                   [bz, bh]), 8, chunk)
+    assert occ["body"] == "tc"
+    assert occ["grid_blocks"] == dh // cols and occ["cluster"] == cluster
+    assert occ["blocks_per_sm"] >= per_sm and occ["waves"] == 1
+
+
+def test_decode_step_long_chunk_beyond_one_wave_stays_on_pairs(cuda_device):
+    """mingru-lm's widths at B 16, C 8: one block per unit would take two
+    waves, so the chunk runs on pairs of blocks in two passes, and still
+    equals its C step launches bit for bit."""
+    gen = torch.Generator().manual_seed(11)
+    x, h, wz, bz, wh, bh = _cell_case(gen, "mingru", torch.bfloat16,
+                                      cuda_device, 16, 768, 1536, 8)
+    operands = step_ops.CellOperands("mingru", [wz, wh], [bz, bh])
+    assert step_ops.occupancy(operands, 16, 8)["cluster"] == 2
+    valid = torch.tensor([8, 1, 7, 2] * 4, dtype=torch.int32,
+                         device=cuda_device)
+    hs = step_ops.fused_mingru_chunk(x, *operands.args, h, valid,
+                                     operands=operands)
+    _close(hs, step_ref.mingru_chunk_ref(x, wz, bz, wh, bh, h, valid),
+           torch.bfloat16)
+    s = h
+    for t in range(8):
+        s = torch.where((t < valid)[:, None], step_ops.fused_mingru_step(
+            x[:, t].contiguous(), *operands.args, s, operands=operands), s)
+        assert torch.equal(hs[:, t], s)
 
 
 def test_saturated_minlstm_kernel_stays_finite(cuda_device):
