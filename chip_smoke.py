@@ -19,11 +19,12 @@ Phases (any failed check exits non-zero before the result line):
      mixed valid), gemma-2b-mingru's (B 8, 2048 x 2048, step) and a ragged
      case (B 3, Dx 200, Dh 72), fp32 and bf16: kernel vs plain version, a
      chunk == C step launches bit for bit, a row independent of B, the
-     body every launch took (bf16 minGRU: the tensor-core body) and the
-     occupancy query's blocks per SM, clusters and waves (one wave at both
-     full widths), kernel / plain / one torch.matmul of the projections
-     (the yardstick) and the bound, kernel and yardstick timed both as
-     eager calls and as a CUDA graph;
+     body every launch took (bf16: the tensor-core body, fp32: the
+     CUDA-core body) and the occupancy query's blocks per SM, clusters and
+     waves (one wave at every full width), minLSTM also without
+     normalize, kernel / plain / one torch.matmul of the projections (the
+     yardstick) and the bound, kernel and yardstick timed both as eager
+     calls and as a CUDA graph;
   3. training kernels at the training shapes (B 8, T 256, Dx 768,
      Dh 1536; T 250 for a ragged edge; h0 given and not): the fused
      minGRU / minLSTM kernels and the linear / log-space scans, forward
@@ -44,10 +45,9 @@ Phases (any failed check exits non-zero before the result line):
      (fuse_block "off") serves the same traffic, C in {1, 8}, and
      minlstm-lm at C 8: streams equal across C and to ``generate_one``,
      one cell launch per layer per round, step / chunk split as the
-     rounds were, every minGRU launch on the tensor-core body and every
-     minLSTM launch on the CUDA-core body; the streams and first-round
-     logits set beside the
-     block tier's; a device profile of one window and the rates.
+     rounds were, every minGRU and minLSTM launch on the tensor-core body;
+     the streams and first-round logits set beside the block tier's; a
+     device profile of one window per model and the rates.
      gemma-2b-mingru at full width (bf16, drawn on the card): 8 slots, 8
      prompts of 8 seeded token ids, 32 new tokens, K 4, C 1: streams
      equal ``generate_one``, 18 mingru_step_kernel launches per round,
@@ -481,8 +481,9 @@ def cell_kernel_phase(gen):
     """The four decode_step kernels against their plain versions; returns
     the main numbers: mingru_step_kernel at gemma-2b-mingru's width (every
     decode round of that model), the others at mingru-lm / minlstm-lm's,
-    all bf16, B 8.  Also the body each launch took (bf16 minGRU: the
-    tensor-core body), its occupancy (one wave at the full widths), and
+    all bf16, B 8.  Also the body each launch took (bf16: the tensor-core
+    body; fp32: the CUDA-core body), its occupancy (one wave at the full
+    widths), minLSTM without normalize against its plain version, and
     device times of the kernel and the library call as CUDA graphs."""
     rows, occ_lines, main = [], [], {}
     for cell in ("mingru", "minlstm"):
@@ -504,8 +505,8 @@ def cell_kernel_phase(gen):
                 sets = [cell_operands(gen, cell, dtype, dx, dh)
                         for _ in range(n_sets)]
                 body = sets[0].body
-                if cell == "mingru" and dtype == torch.bfloat16:
-                    check(body == "tc", f"{tag}: bound to the {body} body")
+                want_body = "tc" if dtype == torch.bfloat16 else "cuda_core"
+                check(body == want_body, f"{tag}: bound to the {body} body")
                 x = torch.randn((bsz, C, dx), generator=gen).to(dtype).to(DEV)
                 h = (0.5 * torch.randn((bsz, dh), generator=gen)).to(dtype) \
                     .to(DEV)
@@ -585,6 +586,27 @@ def cell_kernel_phase(gen):
                             t_chunk_lib_dev, b_chunk[0], e_chunk]
                 else:
                     row += [float("nan")] * 7
+                if cell == "minlstm":
+                    # without normalize: plain sigmoids, the same body
+                    nkw = {"normalize": False}
+                    max_err(step_fn(x0, *sets[0].args, h, operands=sets[0],
+                                    **nkw),
+                            step_plain(x0, *sets[0].args, h, **nkw), dtype,
+                            f"{tag} step, normalize off")
+                    if chunked:
+                        hs = chunk_fn(x, *sets[0].args, h, valid,
+                                      operands=sets[0], **nkw)
+                        max_err(hs, chunk_plain(x, *sets[0].args, h, valid,
+                                                **nkw),
+                                dtype, f"{tag} chunk, normalize off")
+                        s_h = h
+                        for t in range(C):
+                            st = step_fn(x[:, t].contiguous(), *sets[0].args,
+                                         s_h, operands=sets[0], **nkw)
+                            s_h = torch.where((t < valid)[:, None], st, s_h)
+                            check(torch.equal(hs[:, t], s_h),
+                                  f"{tag}: normalize off, chunk position "
+                                  f"{t} != step launches")
                 # every launch above took the body the weights were bound to
                 for form in ("step", "chunk"):
                     name = f"{cell}_{form}_kernel"
@@ -834,7 +856,8 @@ def serve_profile(cfg, params, prompts, label):
               "elementwise, reductions, copies": 0.0}
     for e in events:
         if any(k_ in e.key for k_ in ("cell_kernel", "cell_tc_kernel",
-                                      "cell_tc_joint_kernel")):
+                                      "cell_tc_joint_kernel",
+                                      "cell_tc_lstm_chunk_kernel")):
             groups["cell kernel"] += dev_us(e) / 1e3
         elif "block_kernel" in e.key:
             groups["block kernel"] += dev_us(e) / 1e3
@@ -880,11 +903,10 @@ def cell_serve_phase(gen, cfg, params, block_streams):
     launches = {k: v for k, v in step_ops.LAUNCHES.items() if "/" not in k}
     check(set(ops.LAUNCHES.values()) == {0},
           f"the cell tier launched block kernels: {ops.LAUNCHES}")
-    # every full-width bf16 minGRU launch on the tensor-core body, every
-    # minLSTM launch on the CUDA-core body
+    # every full-width bf16 launch on the tensor-core body, minGRU and
+    # minLSTM alike
     bodies = cell_body_launches()
-    want_bodies = {f"{k}/{b}": (launches[k] if (b == "tc")
-                                == k.startswith("mingru") else 0)
+    want_bodies = {f"{k}/{b}": (launches[k] if b == "tc" else 0)
                    for k in launches for b in ("tc", "cuda_core")}
     check(bodies == want_bodies,
           f"cell tier launches by body {bodies} != {want_bodies}")
@@ -937,6 +959,7 @@ def cell_serve_phase(gen, cfg, params, block_streams):
           f"{TOL[torch.bfloat16][1]})")
     rate_spread(off, params)
     serve_profile(off, params, PROMPTS, "cell tier mingru-lm")
+    serve_profile(lstm_off, lstm_params, PROMPTS, "cell tier minlstm-lm")
     return launches
 
 

@@ -36,19 +36,23 @@
 // launcher, which runs that body or refuses the launch; it never picks
 // another.  So a layer's steps and its chunks run the same body.
 //
-// * tc::cell_tc_kernel, the tensor-core body: minGRU in bf16 with Dx and
-//   Dh multiples of 8, Dx <= 4096 and 16-byte aligned weights.  A unit is
-//   16 Dh columns of one batch tile (8 rows), every position of the chunk;
-//   it is a pair of blocks in one cluster, rank 0 owning W_z's 16
-//   columns, rank 1 W_h's: one whole 32-byte sector per weight row
-//   (8-column units with both gates read half sectors, so every sector
-//   crossed L2 twice, and streamed W markedly slower).  192 blocks at
-//   mingru-lm's width, 256 at gemma-2b-mingru's, two resident per SM: one
-//   wave on the 132 SMs.
+// * The tensor-core body: bf16 minGRU and minLSTM with Dx and Dh
+//   multiples of 8, Dx <= 4096 and 16-byte aligned weights.  A unit is 16
+//   Dh columns of one batch tile (8 rows), every position of the chunk.
+//   tc::cell_tc_kernel runs it on G gate blocks in one cluster (G = 2
+//   for minGRU: W_z, W_h; G = 3 for minLSTM: W_f, W_i, W_h), each owning
+//   its gate's 16 columns: one whole 32-byte sector per weight row
+//   (8-column units with all gates read part sectors, so every sector
+//   crossed L2 more than once, and streamed W markedly slower).  The last
+//   block of the cluster, the h~ block, runs the recurrence.  minGRU: 192
+//   blocks at mingru-lm's width, 256 at gemma-2b-mingru's, two resident
+//   per SM.  minLSTM: 288 blocks at minlstm-lm's width; its gate blocks
+//   take one position per pass, which keeps them in the registers and
+//   shared memory of three blocks per SM.  One wave on the 132 SMs.
 //   1. x (B x C x Dx, read by every block; 16-byte aligned, which the
 //      wrapper ensures and the launcher checks) comes by bulk copies
-//      multicast to both blocks of the pair: one L2 read per unit, not per
-//      block.  It is issued first, by warp 0, once the cluster has
+//      multicast to every block of the cluster: one L2 read per unit, not
+//      per block.  It is issued first, by warp 0, once the cluster has
 //      arrived at its first barrier.
 //   2. The block's whole W tile (Dx x 16 bf16, 24 KB / 64 KB) stays in
 //      shared memory for the launch, in the caller's (Dx, Dh) layout: one
@@ -56,34 +60,39 @@
 //      two halves of a row trade places every 4 rows, against ldmatrix
 //      bank conflicts).  Each of the 8 warps owns a fixed slice of the
 //      k16 steps and streams it in cp.async groups (8 at gemma's Dx, 4 at
-//      mingru-lm's), two ahead of its multiplies, so the multiplies
-//      overlap the stream (a warp that issued its whole slice at once sat
-//      blocked in the issue for most of the stream; two producer warps
-//      feeding eight consumers could not issue fast enough).
+//      mingru-lm's and for minLSTM), two ahead of its multiplies, so the
+//      multiplies overlap the stream (a warp that issued its whole slice
+//      at once sat blocked in the issue for most of the stream; two
+//      producer warps feeding eight consumers could not issue fast
+//      enough).
 //   3. mma.sync.m16n8k16, bf16 in, fp32 accumulate, with W^T as the m16
 //      operand (the unit's 16 columns, ldmatrix.trans of the resident
 //      tile) and x^T as the n8 operand (one position's 8 batch rows): one
 //      mma per k16 step and position, no padding rows.  Positions go in
-//      passes of up to 8, as many as shared memory holds beside W for two
-//      blocks per SM (4 at mingru-lm's Dx, 1 at gemma's); between passes
-//      a cluster barrier, then the next pass's x comes in while the gates
-//      and the recurrence run.  A chunk that would take more than one
-//      pass and fits one with both gates in a block (mingru-lm's C 8)
-//      runs instead on one block per unit, one per SM (96 blocks), x for
-//      every position multicast to clusters of four units, no hand-off
-//      (tc::cell_tc_joint_kernel): each SM then takes in W and x once.
-//      Where that grid is more than one wave, the chunk stays on pairs.
+//      passes (minGRU: up to 8, as many as shared memory holds beside W
+//      for two blocks per SM, 4 at mingru-lm's Dx, 1 at gemma's; minLSTM:
+//      1); between passes a cluster barrier, then the next pass's x comes
+//      in while the gates and the recurrence run.  A chunk that would
+//      take more than one pass and fits one with every gate in a block
+//      (mingru-lm's and minlstm-lm's C 8) runs instead on one block per
+//      unit, one per SM (96 blocks), x for every position multicast to
+//      clusters of four units, no hand-off (tc::cell_tc_joint_kernel):
+//      each SM then takes in W and x once.  Where that grid is more than
+//      one wave, the chunk stays on gate blocks.
 //   4. The warps' partial sums meet in shared memory; all threads add them
-//      and the bias and compute the gate, which does not depend on h: the
-//      z block writes z = sigmoid into the h~ block's shared memory and
-//      arrives on its mbarrier for the pass's parity (release, cluster
-//      scope); the h~ block keeps h~ = g(v) (or v).
+//      and the bias and compute what of the gate depends neither on h nor
+//      on another gate (minGRU z = sigmoid; minLSTM softplus(-k) under
+//      normalize, else sigmoid(k)), write it into the h~ block's shared
+//      memory and arrive on its mbarrier for the pass's parity (release,
+//      cluster scope); the h~ block keeps h~ = g(v) (or v).
 //   5. The h~ block's thread that owns (batch row, column) walks the
-//      pass's positions in order: h = (1 - z) h + z h~ in fp32, rounded to
-//      bf16 per token, frozen at t >= valid[b].
+//      pass's positions in order: minGRU h = (1 - z) h + z h~; minLSTM
+//      f', i' from the two terms (the stable f / (f + i) under normalize),
+//      h = f' h + i' h~; in fp32, rounded to bf16 per token, frozen at
+//      t >= valid[b].
 // * cell_kernel, the CUDA-core body: fp32 (the exact path, held to 1e-4,
-//   which TF32 would break), minLSTM, and bf16 that the tensor-core body
-//   cannot take.  Block (u, bt) owns a unit of 16 Dh columns for batch
+//   which TF32 would break) and bf16 that the tensor-core body cannot
+//   take.  Block (u, bt) owns a unit of 16 Dh columns for batch
 //   tile bt.  When the unit's G weight tiles (G * Dx * 16 elements) fit in
 //   shared memory with the x tile -- every bf16 width the LMs use, and
 //   fp32 up to minlstm-lm's -- the block stages them once (plain 16-byte
@@ -103,7 +112,7 @@
 //   order, the 8 k-lanes of a warp are combined by a fixed xor butterfly,
 //   then the 8 warps in order 0..7 (the order of block_step.cu).
 // The batch tile, the chunk length, the pass, the cp.async grouping, the
-// launch shape (pairs or one block per unit), a row's place in its mma
+// launch shape (gate blocks or one block per unit), a row's place in its mma
 // tile and the grid change only WHERE a row is computed, never the
 // arithmetic.  So a C-token chunk equals C step launches bit
 // for bit, and a row's result does not depend on B.
@@ -382,7 +391,7 @@ int smem_bytes(int Dx, int G, int elem, bool staged) {
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body (minGRU, bf16)
+// The tensor-core body (bf16 minGRU and minLSTM)
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -409,29 +418,26 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBT = 8;                  // batch rows per tile: one n8 tile
 constexpr int kTN = 16;                 // Dh columns per unit: one m16 tile
 constexpr int kMaxPos = 8;              // positions per pass
-constexpr int kPair = 2;                // blocks per cluster on pairs
 constexpr int kJointCluster = 4;        // units per cluster, one block each
-// the row stride of the joint kernel's partial sums (2 kTN columns),
-// padded so that the mma fragments' stores (rows 2 tq apart) fall into
-// distinct banks
-constexpr int kRedJoint = 2 * kTN + 4;
 // W streams through each warp's slice in kGroups cp.async groups, two
-// groups ahead of the multiplies on pairs: 8 groups when a warp's slice
-// has 16 k16 steps or more (gemma's Dx), else 4 (mingru-lm's: 6 steps);
-// always 4 on one block per unit, where they are issued all at once
+// groups ahead of the multiplies on gate blocks: 8 groups when a warp's
+// slice has 16 k16 steps or more (gemma's Dx), else 4 (mingru-lm's: 6
+// steps); always 4 for minLSTM's gate blocks (kLstmGroups) and on one
+// block per unit, where they are issued all at once
 constexpr int kManyGroupsSteps = 16;
 constexpr int kJointGroups = 4;
+constexpr int kLstmGroups = 4;
 constexpr int kMaxDx = 4096;            // W's tile must fit shared memory
 // a block's shared memory when two are to be resident on an SM (228 KB
 // per SM, 1 KB of it reserved per block)
 constexpr int kPairBytes = 112 * 1024;
 
-// Shared memory of one block: W [16 nk][kTN] bf16 (its gate's tile; the
-// two 16-byte halves of row k swapped when bit 2 of k is set, so that
+// Shared memory of one gate block: W [16 nk][kTN] bf16 (its gate's tile;
+// the two 16-byte halves of row k swapped when bit 2 of k is set, so that
 // ldmatrix is free of bank conflicts), x [pos kBT][xs] bf16, the warps'
-// partial sums [kWarps][pos kBT][kTN] fp32, the gates [2 (pass
-// parity)][2 (z, h~)][pos kBT][kTN] fp32 (rank 1's are read), the bias
-// [kTN] fp32, the mbarriers of x and of z's arrival [2 (pass parity)].
+// partial sums [kWarps][pos kBT][kTN] fp32, the gate buffers [2 (pass
+// parity)][G][pos kBT][kTN] fp32 (the h~ block's are read), the bias
+// [kTN] fp32, the mbarriers of x and of the hand-off [2 (pass parity)].
 struct Layout {
   int nk;       // k16 steps
   int xs;       // x row stride, elements
@@ -439,24 +445,34 @@ struct Layout {
   int x_off, red_off, gate_off, bias_off, bar_off, bytes;
 };
 
-__host__ __device__ __forceinline__ Layout layout(int Dx, int C) {
+// G gates (2 minGRU, 3 minLSTM), at most max_pos positions per pass
+__host__ __device__ __forceinline__ Layout layout(int Dx, int C, int G,
+                                                  int max_pos) {
   Layout L;
   L.nk = (Dx + 15) / 16;
   L.xs = 16 * L.nk + 8;                 // +16 bytes: no bank conflicts
   const int w_bytes = 16 * L.nk * kTN * 2;
-  const int per_pos = kBT * L.xs * 2 + (kWarps + 4) * kBT * kTN * 4;
+  const int per_pos = kBT * L.xs * 2 + (kWarps + 2 * G) * kBT * kTN * 4;
   const int tail = kTN * 4 + 24;       // bias, three mbarriers
   int pos = (kPairBytes - w_bytes - tail) / per_pos;
-  pos = pos < 1 ? 1 : (pos > kMaxPos ? kMaxPos : pos);
+  pos = pos < 1 ? 1 : (pos > max_pos ? max_pos : pos);
   if (pos > C) pos = C;
   L.pos = pos;
   L.x_off = w_bytes;
   L.red_off = L.x_off + pos * kBT * L.xs * 2;
   L.gate_off = L.red_off + kWarps * pos * kBT * kTN * 4;
-  L.bias_off = L.gate_off + 4 * pos * kBT * kTN * 4;
+  L.bias_off = L.gate_off + 2 * G * pos * kBT * kTN * 4;
   L.bar_off = L.bias_off + kTN * 4;
   L.bytes = L.bar_off + 24;
   return L;
+}
+
+// the positions a pass of a G-gate block takes at most: minLSTM's gate
+// blocks run one position per pass, in few enough registers (and shared
+// memory) for three blocks per SM, so that a step's 3 Dh / 16 blocks are
+// one wave; minGRU's up to kMaxPos, two blocks per SM
+__host__ __device__ constexpr int max_pos_of(int G) {
+  return G == 3 ? 1 : kMaxPos;
 }
 
 // element offset of the 16-byte half `c` of W tile row k
@@ -464,10 +480,39 @@ __device__ __forceinline__ int w_at(int k, int c) {
   return k * kTN + ((c ^ (k >> 2)) & 1) * 8;
 }
 
-// h after one token: (1 - z) h + z h~, its rounding spelled out so that
-// both tensor-core kernels compute it alike
+// h after one token, its rounding spelled out so that every tensor-core
+// kernel computes it alike.  minGRU: (1 - z) h + z h~.
 __device__ __forceinline__ float gru_update(float z, float h, float ht) {
   return __fmaf_rn(1.0f - z, h, __fmul_rn(z, ht));
+}
+// minLSTM: f' h + (i' h~), where i' h~ is `iht`
+__device__ __forceinline__ float lstm_update(float f, float h, float iht) {
+  return __fmaf_rn(f, h, iht);
+}
+// minLSTM's forget / input gate pre-activation k, as a term of one gate:
+// softplus(-k) under normalize (f' = sigmoid(-d), i' = sigmoid(d), d =
+// softplus(-kf) - softplus(-ki), the stable f / (f + i)), else sigmoid(k)
+__device__ __forceinline__ float lstm_term(float k, int normalize) {
+  return normalize ? softplusf_(-k) : sigmoidf_(k);
+}
+// f' and i' from the two gates' terms
+__device__ __forceinline__ void lstm_gates(float tf, float ti, int normalize,
+                                           float* f, float* i) {
+  if (normalize) {
+    const float d = tf - ti;
+    *f = sigmoidf_(-d);
+    *i = sigmoidf_(d);
+  } else {
+    *f = tf;
+    *i = ti;
+  }
+}
+
+// one of G pointers by a run-time index, without indexing the kernel's
+// parameters dynamically
+template <int G>
+__device__ __forceinline__ const void* pick(const void* const* v, int g) {
+  return G == 3 && g == 2 ? v[2] : (g == 1 ? v[1] : v[0]);
 }
 
 // cp_async_wait<n> for a run-time n in [0, 1]
@@ -486,30 +531,34 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
   }
 }
 
-template <int kGroups>
-__global__ void __cluster_dims__(kPair, 1, 1)
-__launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
+// A unit's G gate blocks, one cluster: rank g owns gate g's W (minGRU z,
+// h~; minLSTM f, i, h~), rank G - 1 the recurrence.  At most kMaxP
+// positions per pass; at least kMinBlocks blocks resident per SM.
+template <int G, int kGroups, int kMaxP, int kMinBlocks>
+__global__ void __cluster_dims__(G, 1, 1)
+__launch_bounds__(kThreads, kMinBlocks) cell_tc_kernel(Params p) {
+  constexpr int kH = G - 1;                     // the h~ block's rank
   extern __shared__ __align__(128) unsigned char smem[];
   const int Dx = p.Dx, Dh = p.Dh, C = p.C, B = p.B;
-  const Layout L = layout(Dx, C);
+  const Layout L = layout(Dx, C, G, kMaxP);
   bf16* ws = reinterpret_cast<bf16*>(smem);
   bf16* xs = reinterpret_cast<bf16*>(smem + L.x_off);
   float* red = reinterpret_cast<float*>(smem + L.red_off);
   float* gate = reinterpret_cast<float*>(smem + L.gate_off);
   float* bias = reinterpret_cast<float*>(smem + L.bias_off);
   uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar_off);
-  // in the h~ block, z of the passes of each parity has arrived: one
-  // mbarrier per parity, so that the z block, which may run a pass ahead,
-  // never completes a phase the h~ block has yet to test
-  uint64_t* zbar = xbar + 1;
+  // in the h~ block, the other gates of the passes of each parity have
+  // arrived: one mbarrier per parity, so that a gate block, which may run
+  // a pass ahead, never completes a phase the h~ block has yet to test
+  uint64_t* hbar = xbar + 1;
   cg::cluster_group cluster = cg::this_cluster();
   const int g = (int)cluster.block_rank();      // the gate this block owns
-  // the h~ block of this unit (rank 1), where the z block puts z
-  float* gate_h = cluster.map_shared_rank(gate, 1);
+  // the h~ block of this unit, where the other gate blocks put theirs
+  float* gate_h = cluster.map_shared_rank(gate, kH);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, tq = lane & 3;     // mma fragment coordinates
-  const int j0 = (blockIdx.x >> 1) * kTN, b0 = blockIdx.y * kBT;
+  const int j0 = (blockIdx.x / G) * kTN, b0 = blockIdx.y * kBT;
   const int nb = min(kBT, B - b0);              // batch rows in the tile
   const int rows = L.pos * kBT;                 // x rows of a full pass
   const int gsize = rows * kTN;                 // one gate buffer
@@ -522,17 +571,17 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
 
   if (tid == 0) {
     mbar_init(xbar, 1);
-    mbar_init(zbar, kThreads);       // every thread of the z block
-    mbar_init(zbar + 1, kThreads);
+    mbar_init(hbar, (G - 1) * kThreads);   // every thread of the others
+    mbar_init(hbar + 1, (G - 1) * kThreads);
     fence_mbar_init();
   }
-  // no block writes into another's shared memory (x, z) before every
+  // no block writes into another's shared memory (x, gates) before every
   // block of the cluster has arrived here
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   // W group q of this warp's slice: two 16-byte halves (one 32-byte
   // sector) per row; rows past Dx and columns past Dh are zeros
-  const bf16* w = static_cast<const bf16*>(g ? p.w[1] : p.w[0]);
+  const bf16* w = static_cast<const bf16*>(pick<G>(p.w, g));
   auto issue_w = [&](int q) {
     const int k0 = 16 * step_of(q), n = 32 * (step_of(q + 1) - step_of(q));
     for (int i = lane; i < n; i += 32) {
@@ -544,18 +593,18 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
     cp_async_commit();
   };
   // x rows of positions t0 .. t0 + npos - 1 (row r: position t0 + r / kBT,
-  // batch row b0 + r % kBT), each block of the pair issuing every other
-  // row to both; by warp 0
+  // batch row b0 + r % kBT), each block of the cluster issuing every G-th
+  // row to all; by warp 0
   auto issue_x = [&](int t0, int npos) {
     if (lane == 0)
       mbar_arrive_expect_tx(xbar, (uint32_t)(npos * nb * Dx * 2));
     __syncwarp();
     for (int r = lane; r < npos * kBT; r += 32) {
-      if (r % kBT >= nb || r % kPair != g) continue;
+      if (r % kBT >= nb || r % G != g) continue;
       const int b = b0 + r % kBT, t = t0 + r / kBT;
       bulk_copy_multicast(xs + (size_t)r * L.xs, x + ((size_t)b * C + t) * Dx,
                           (uint32_t)(Dx * 2), xbar,
-                          (uint16_t)((1 << kPair) - 1));
+                          (uint16_t)((1 << G) - 1));
     }
   };
 
@@ -582,11 +631,11 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
   // oj) whose thread carries h across t
   const float bias_v = tid < kTN && j0 + tid < Dh
       ? __bfloat162float(static_cast<const bf16*>(
-            g ? p.b[1] : p.b[0])[j0 + tid])
+            pick<G>(p.b, g))[j0 + tid])
       : 0.0f;
   const int rb = tid / kTN, rc = tid % kTN;
   const int ob = b0 + rb, oj = j0 + rc;
-  const bool owner = g == 1 && tid < kBT * kTN && ob < B && oj < Dh;
+  const bool owner = g == kH && tid < kBT * kTN && ob < B && oj < Dh;
   float h = 0.0f;
   int vlen = C;
   if (owner) {
@@ -607,9 +656,9 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
     // batch rows b0 + 2 tq (e 0, 2) and b0 + 2 tq + 1 (e 1, 3), position
     // t0 + i: the m16 tile is the unit's columns (A = W^T), the n8 tile a
     // position's batch rows (B = x^T)
-    float acc[kMaxPos][4];
+    float acc[kMaxP][4];
 #pragma unroll
-    for (int i = 0; i < kMaxPos; ++i)
+    for (int i = 0; i < kMaxP; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
 
@@ -626,9 +675,9 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
                                        (lane >> 3) & 1));
         const bf16* xk = xs + 16 * s + ((lane >> 3) & 1) * 8;
 #pragma unroll
-        for (int i = 0; i < kMaxPos; i += 2) {
+        for (int i = 0; i < kMaxP; i += 2) {
           if (i >= npos) break;
-          if (i + 1 < npos) {
+          if (i + 1 < kMaxP && i + 1 < npos) {
             uint32_t b[4];
             ldmatrix_x4(b, xk + (size_t)((i + (lane >> 4)) * kBT + (lane & 7)) * L.xs);
             mma_bf16(acc[i], a, b[0], b[1]);
@@ -644,7 +693,7 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
     if (pass == 0 && tid < kTN) bias[tid] = bias_v;
     // this warp's partial sums: red[warp][position * kBT + batch row][col]
 #pragma unroll
-    for (int i = 0; i < kMaxPos; ++i) {
+    for (int i = 0; i < kMaxP; ++i) {
       if (i >= npos) break;
       float* d = red + ((size_t)warp * rows + i * kBT + 2 * tq) * kTN + grp;
       d[0] = acc[i][0];
@@ -655,10 +704,10 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
     __syncthreads();
     if (pass == 0 && warp != 0)
       asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    // both blocks are done with this pass's x: the next pass's may come
-    // in while the gates and the recurrence run; after the last pass, only
-    // arrive (the wait is at the end: no block exits while a multicast
-    // copy may still land in it)
+    // every block is done with this pass's x: the next pass's may come
+    // in while the gates and the recurrence run; after the last pass,
+    // only arrive (the wait is at the end: no block exits while a
+    // multicast copy may still land in it)
     const bool last = t0 + L.pos >= C;
     if (!last) {
       cluster.sync();
@@ -667,12 +716,13 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
       asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
     }
     // pre-activations: the warps' partials in order 0..7, then the bias;
-    // then the gate, which does not depend on h: the z block puts z into
-    // the h~ block's shared memory and arrives on its mbarrier, the h~
-    // block keeps h~ (buffers alternate by pass, so a pass never
+    // then what of the gate does not depend on h or on another gate: a
+    // gate block puts it (minGRU z = sigmoid; minLSTM lstm_term) into the
+    // h~ block's shared memory and arrives on its mbarrier, the h~ block
+    // keeps h~ = g(v) (or v) (buffers alternate by pass, so a pass never
     // overwrites what may still be read of the one before)
-    float* gz = gate_h + (size_t)(2 * (pass & 1)) * gsize;
-    float* gh = gate + (size_t)(2 * (pass & 1) + 1) * gsize;
+    float* gput = (g == kH ? gate : gate_h) +
+                  (size_t)(G * (pass & 1) + g) * gsize;
     const int n_el = npos * kBT * kTN;
     for (int e = tid; e < n_el; e += kThreads) {
       float s = red[e];
@@ -680,27 +730,35 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
       for (int w_ = 1; w_ < kWarps; ++w_)
         s += red[(size_t)w_ * rows * kTN + e];
       const float v = s + bias[e % kTN];
-      if (g == 0)
-        gz[e] = sigmoidf_(v);
+      if (g == kH)
+        gput[e] = p.log_mode ? g_(v) : v;
       else
-        gh[e] = p.log_mode ? g_(v) : v;
+        gput[e] = G == 2 ? sigmoidf_(v) : lstm_term(v, p.normalize);
     }
-    // red is read; in the h~ block, h~ is in, and then z: the passes of
-    // one parity complete zbar[parity]'s phases in turn, and the cluster
-    // barrier between passes keeps the z block within a pass of the h~
-    // block, so it never arrives twice on a barrier the h~ block has yet
-    // to pass
+    // red is read; in the h~ block, h~ is in, and then the other gates:
+    // the passes of one parity complete hbar[parity]'s phases in turn, and
+    // the cluster barrier between passes keeps every gate block within a
+    // pass of the h~ block, so none arrives twice on a barrier the h~
+    // block has yet to pass
     __syncthreads();
-    if (g == 0)
-      mbar_arrive_remote(zbar + (pass & 1), 1);
+    if (g != kH)
+      mbar_arrive_remote(hbar + (pass & 1), kH);
     else
-      mbar_wait_cluster(zbar + (pass & 1), (uint32_t)((pass >> 1) & 1));
+      mbar_wait_cluster(hbar + (pass & 1), (uint32_t)((pass >> 1) & 1));
     if (owner) {
-      const float* lz = gate + (size_t)(2 * (pass & 1)) * gsize;
+      const float* lg = gate + (size_t)(G * (pass & 1)) * gsize;
       for (int i = 0; i < npos; ++i) {
         const int t = t0 + i, e = (i * kBT + rb) * kTN + rc;
-        const float z = lz[e], ht = gh[e];
-        if (t < vlen) h = rnd<bf16>(gru_update(z, h, ht));
+        const float ht = lg[(size_t)kH * gsize + e];
+        float hn;
+        if (G == 2) {
+          hn = gru_update(lg[e], h, ht);
+        } else {
+          float f, i_;
+          lstm_gates(lg[e], lg[gsize + e], p.normalize, &f, &i_);
+          hn = lstm_update(f, h, __fmul_rn(i_, ht));
+        }
+        if (t < vlen) h = rnd<bf16>(hn);
         out[((size_t)ob * C + t) * Dh + oj] = __float2bfloat16_rn(h);
       }
     }
@@ -708,51 +766,58 @@ __launch_bounds__(kThreads, 2) cell_tc_kernel(Params p) {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// ---- long chunks: one block per unit, both gates ----------------------
+// ---- long chunks: one block per unit, every gate ----------------------
 //
-// A chunk whose positions the pair layout above would run in more than
-// one pass (x for C 8 at mingru-lm's Dx, 99 KB, does not fit beside W
-// with two blocks per SM) runs here in one: one block per unit with
-// both gates' W tiles, one block per SM (96 blocks at mingru-lm's
-// width), x for every position multicast to a cluster of units.  The
-// arithmetic is the pair layout's, step for step: the same K split over
-// the same 8 warps, the same mma per k16 step, the warps' partials added
-// in order 0..7, the same gate and update code; so a chunk here equals
-// its C step launches there, bit for bit.
+// A chunk whose positions the gate blocks above would run in more than
+// one pass (x for C 8 at mingru-lm's Dx, 97 KB, does not fit beside W
+// with two blocks per SM; minLSTM's gate blocks take one position a
+// pass) runs here in one: one block per unit with all G gates' W tiles,
+// one block per SM (96 blocks at mingru-lm's and minlstm-lm's width), x
+// for every position multicast to a cluster of units.  The arithmetic is
+// the gate blocks', step for step: the same K split over the same 8
+// warps, the same mma per k16 step, the warps' partials added in order
+// 0..7, the same gate and update code; so a chunk here equals its C step
+// launches there, bit for bit.
 
-// Shared memory: W [2][16 nk][kTN] bf16, x [C kBT][xs] bf16 (the warps'
-// partial sums [kWarps][C kBT][kRedJoint] fp32 overwrite it once the
-// multiplies are done, or follow it when x is the smaller), the gates
-// [2][C kBT][kTN] fp32, the biases [2][kTN] fp32, x's mbarrier.
+// Shared memory: W [G][16 nk][kTN] bf16, x [C kBT][xs] bf16 (the warps'
+// partial sums [kWarps][C kBT][red_stride(G)] fp32 overwrite it once the
+// multiplies are done, and extend past it when they are the larger), the
+// values the recurrence reads [2][C kBT][kTN] fp32 (minGRU z, h~;
+// minLSTM f', i' h~), the biases [G][kTN] fp32, x's mbarrier.
 struct JointLayout {
   int nk, xs, x_off, red_off, gate_off, bias_off, bar_off, bytes;
 };
 
-__host__ __device__ __forceinline__ JointLayout joint_layout(int Dx, int C) {
+// the row stride of the partial sums (G kTN columns), padded so that the
+// mma fragments' stores (rows 2 tq apart) fall into distinct banks
+__host__ __device__ constexpr int red_stride(int G) { return G * kTN + 4; }
+
+__host__ __device__ __forceinline__ JointLayout joint_layout(int Dx, int C,
+                                                             int G) {
   JointLayout L;
   L.nk = (Dx + 15) / 16;
   L.xs = 16 * L.nk + 8;
   const int rows = C * kBT;
   const int x_bytes = rows * L.xs * 2;
-  const int red_bytes = kWarps * rows * kRedJoint * 4;
-  L.x_off = 2 * 16 * L.nk * kTN * 2;
-  L.red_off = red_bytes <= x_bytes ? L.x_off : L.x_off + x_bytes;
-  const int end = L.red_off == L.x_off ? L.x_off + x_bytes
-                                       : L.red_off + red_bytes;
-  L.gate_off = end;
+  const int red_bytes = kWarps * rows * red_stride(G) * 4;
+  L.x_off = G * 16 * L.nk * kTN * 2;
+  L.red_off = L.x_off;
+  L.gate_off = L.x_off + (red_bytes > x_bytes ? red_bytes : x_bytes);
   L.bias_off = L.gate_off + 2 * rows * kTN * 4;
-  L.bar_off = L.bias_off + 2 * kTN * 4;
+  L.bar_off = L.bias_off + G * kTN * 4;
   L.bytes = L.bar_off + 16;
   return L;
 }
 
+template <int G>
 __global__ void __cluster_dims__(kJointCluster, 1, 1)
 __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
   constexpr int kGroups = kJointGroups;
+  constexpr int kRedJoint = red_stride(G);
   extern __shared__ __align__(128) unsigned char smem[];
   const int Dx = p.Dx, Dh = p.Dh, C = p.C, B = p.B;
-  const JointLayout L = joint_layout(Dx, C);
-  bf16* ws = reinterpret_cast<bf16*>(smem);          // [2][16 nk][kTN]
+  const JointLayout L = joint_layout(Dx, C, G);
+  bf16* ws = reinterpret_cast<bf16*>(smem);          // [G][16 nk][kTN]
   bf16* xs = reinterpret_cast<bf16*>(smem + L.x_off);
   float* red = reinterpret_cast<float*>(smem + L.red_off);
   float* gate = reinterpret_cast<float*>(smem + L.gate_off);
@@ -776,15 +841,13 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
   }
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  const bf16* w0 = static_cast<const bf16*>(p.w[0]);
-  const bf16* w1 = static_cast<const bf16*>(p.w[1]);
-  // W group q of this warp's slice, both gates: per row two 32-byte
+  // W group q of this warp's slice, every gate: per row G 32-byte
   // sectors, one of each matrix
   auto issue_w = [&](int q) {
     const int k0 = 16 * step_of(q), n = 32 * (step_of(q + 1) - step_of(q));
-    for (int i = lane; i < 2 * n; i += 32) {
+    for (int i = lane; i < G * n; i += 32) {
       const int g = i / n, k = k0 + (i % n) / 2, c = i % 2;
-      const bf16* w = g ? w1 : w0;
+      const bf16* w = static_cast<const bf16*>(pick<G>(p.w, g));
       const bool ok = k < Dx && j0 + 8 * c < Dh;
       cp_async16(ws + g * wsize + w_at(k, c),
                  ok ? w + (size_t)k * Dh + j0 + 8 * c : w, ok);
@@ -817,9 +880,9 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
     }
   }
   float bias_v = 0.0f;
-  if (tid < 2 * kTN && j0 + tid % kTN < Dh)
+  if (tid < G * kTN && j0 + tid % kTN < Dh)
     bias_v = __bfloat162float(static_cast<const bf16*>(
-        tid < kTN ? p.b[0] : p.b[1])[j0 + tid % kTN]);
+        pick<G>(p.b, tid / kTN))[j0 + tid % kTN]);
   const int rb = tid / kTN, rc = tid % kTN;
   const int ob = b0 + rb, oj = j0 + rc;
   const bool owner = tid < kBT * kTN && ob < B && oj < Dh;
@@ -837,10 +900,10 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
   for (int q = 1; q < kGroups; ++q) issue_w(q);
   mbar_wait(xbar, 0u);
 
-  // acc[g][i]: gate g, laid out as the pair layout's acc[i]
-  float acc[2][kMaxPos][4];
+  // acc[g][i]: gate g, laid out as the gate blocks' acc[i]
+  float acc[G][kMaxPos][4];
 #pragma unroll
-  for (int g = 0; g < 2; ++g)
+  for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int i = 0; i < kMaxPos; ++i)
 #pragma unroll
@@ -850,10 +913,11 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
     __syncwarp();
     const int end = step_of(q + 1);
     for (int s = step_of(q); s < end; ++s) {
-      uint32_t a[2][4];
+      uint32_t a[G][4];
       const int k = 16 * s + (lane & 7) + ((lane >> 4) << 3);
-      ldmatrix_x4_trans(a[0], ws + w_at(k, (lane >> 3) & 1));
-      ldmatrix_x4_trans(a[1], ws + wsize + w_at(k, (lane >> 3) & 1));
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        ldmatrix_x4_trans(a[g], ws + g * wsize + w_at(k, (lane >> 3) & 1));
       const bf16* xk = xs + 16 * s + ((lane >> 3) & 1) * 8;
 #pragma unroll
       for (int i = 0; i < kMaxPos; i += 2) {
@@ -862,7 +926,7 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
           uint32_t b[4];
           ldmatrix_x4(b, xk + (size_t)((i + (lane >> 4)) * kBT + (lane & 7)) * L.xs);
 #pragma unroll
-          for (int g = 0; g < 2; ++g) {
+          for (int g = 0; g < G; ++g) {
             mma_bf16(acc[g][i], a[g], b[0], b[1]);
             mma_bf16(acc[g][i + 1], a[g], b[2], b[3]);
           }
@@ -870,12 +934,12 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
           uint32_t b0_, b1_;
           ldmatrix_x2(b0_, b1_, xk + (size_t)(i * kBT + (lane & 7)) * L.xs);
 #pragma unroll
-          for (int g = 0; g < 2; ++g) mma_bf16(acc[g][i], a[g], b0_, b1_);
+          for (int g = 0; g < G; ++g) mma_bf16(acc[g][i], a[g], b0_, b1_);
         }
       }
     }
   }
-  if (tid < 2 * kTN) bias[tid] = bias_v;
+  if (tid < G * kTN) bias[tid] = bias_v;
   if (warp != 0)
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   // no block exits while a multicast copy may still land in it: x has
@@ -887,7 +951,7 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
   for (int i = 0; i < kMaxPos; ++i) {
     if (i >= C) break;
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
+    for (int g = 0; g < G; ++g) {
       float* d = red + ((size_t)warp * rows + i * kBT + 2 * tq) * kRedJoint +
                  g * kTN + grp;
       d[0] = acc[g][i][0];
@@ -898,20 +962,30 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
   }
   __syncthreads();
   // pre-activations: the warps' partials in order 0..7, then the bias;
-  // then the gates
+  // then the gates, as the gate blocks compute them
 #pragma unroll 4
   for (int e = tid; e < rows * kTN; e += kThreads) {
     const int r = e / kTN, c = e % kTN;
+    float v[G];
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
+    for (int g = 0; g < G; ++g) {
       const int at = r * kRedJoint + g * kTN + c;
       float s = red[at];
 #pragma unroll
       for (int w_ = 1; w_ < kWarps; ++w_)
         s += red[w_ * rows * kRedJoint + at];
-      const float v = s + bias[g * kTN + c];
-      gate[(size_t)g * rows * kTN + e] =
-          g == 0 ? sigmoidf_(v) : (p.log_mode ? g_(v) : v);
+      v[g] = s + bias[g * kTN + c];
+      if (G == 2)
+        gate[(size_t)g * rows * kTN + e] =
+            g == 0 ? sigmoidf_(v[g]) : (p.log_mode ? g_(v[g]) : v[g]);
+    }
+    if (G == 3) {
+      float f, i_;
+      lstm_gates(lstm_term(v[0], p.normalize), lstm_term(v[1], p.normalize),
+                 p.normalize, &f, &i_);
+      gate[e] = f;
+      gate[(size_t)rows * kTN + e] =
+          __fmul_rn(i_, p.log_mode ? g_(v[2]) : v[2]);
     }
   }
   __syncthreads();
@@ -919,8 +993,9 @@ __launch_bounds__(kThreads, 1) cell_tc_joint_kernel(Params p) {
     bf16* out = static_cast<bf16*>(p.out);
     for (int t = 0; t < C; ++t) {
       const int e = (t * kBT + rb) * kTN + rc;
-      const float z = gate[e], ht = gate[(size_t)rows * kTN + e];
-      if (t < vlen) h = rnd<bf16>(gru_update(z, h, ht));
+      const float a0 = gate[e], a1 = gate[(size_t)rows * kTN + e];
+      const float hn = G == 2 ? gru_update(a0, h, a1) : lstm_update(a0, h, a1);
+      if (t < vlen) h = rnd<bf16>(hn);
       out[((size_t)ob * C + t) * Dh + oj] = __float2bfloat16_rn(h);
     }
   }
@@ -940,9 +1015,9 @@ constexpr int kBodyTC = 1;
 // Whether the tensor-core body can run these operands (the wrapper's
 // choice is checked against it, never replaced by it).
 bool tc_can_run(int lstm, int bf16, const Params& p) {
-  if (lstm || !bf16 || p.Dx % 8 != 0 || p.Dh % 8 != 0 || p.Dx > tc::kMaxDx)
+  if (!bf16 || p.Dx % 8 != 0 || p.Dh % 8 != 0 || p.Dx > tc::kMaxDx)
     return false;
-  for (int g = 0; g < 2; ++g)
+  for (int g = 0; g < (lstm ? 3 : 2); ++g)
     if (reinterpret_cast<uintptr_t>(p.w[g]) % 16 != 0) return false;
   return true;
 }
@@ -1041,20 +1116,23 @@ int resident_clusters(const void* fn, int cluster, int smem, int* out) {
   return 0;
 }
 
-// The tensor-core body's launch: a pair of blocks per unit (one gate
-// each, one cluster); or, for a chunk the pairs would run in more than
-// one pass, a block per unit (both gates) in clusters of four units, where
-// its one pass fits shared memory and its grid one wave.  The arithmetic
-// is the same in both shapes.
-int choose_tc(const Params& p, Choice* c) {
+// The tensor-core body's launch: G gate blocks per unit (one gate each,
+// one cluster: a pair for minGRU, three for minLSTM); or, for a chunk the
+// gate blocks would run in more than one pass, a block per unit (every
+// gate) in clusters of four units, where its one pass fits shared memory
+// and its grid one wave.  The arithmetic is the same in both shapes.
+int choose_tc(int lstm, const Params& p, Choice* c) {
+  const int G = lstm ? 3 : 2;
   const int units = (p.Dh + tc::kTN - 1) / tc::kTN;
   const int tiles = (p.B + tc::kBT - 1) / tc::kBT;
-  const tc::Layout L = tc::layout(p.Dx, p.C);
+  const tc::Layout L = tc::layout(p.Dx, p.C, G, tc::max_pos_of(G));
   c->threads = tc::kThreads;
   c->carveout = true;
-  const int joint_smem = tc::joint_layout(p.Dx, p.C).bytes;
+  const int joint_smem = tc::joint_layout(p.Dx, p.C, G).bytes;
   if (L.pos < p.C && p.C <= tc::kMaxPos && joint_smem <= kSmemCap) {
-    const void* joint = reinterpret_cast<const void*>(tc::cell_tc_joint_kernel);
+    const void* joint =
+        lstm ? reinterpret_cast<const void*>(tc::cell_tc_joint_kernel<3>)
+             : reinterpret_cast<const void*>(tc::cell_tc_joint_kernel<2>);
     int resident = 0;
     const int err = resident_clusters(joint, tc::kJointCluster, joint_smem,
                                       &resident);
@@ -1072,11 +1150,19 @@ int choose_tc(const Params& p, Choice* c) {
   }
   c->smem = L.bytes;
   if (c->smem > kSmemCap) return (int)cudaErrorInvalidValue;
-  c->fn = L.nk / tc::kWarps >= tc::kManyGroupsSteps
-      ? reinterpret_cast<const void*>(tc::cell_tc_kernel<8>)
-      : reinterpret_cast<const void*>(tc::cell_tc_kernel<4>);
-  c->cluster = tc::kPair;
-  c->grid = dim3(tc::kPair * units, tiles);
+  using tc::cell_tc_kernel;
+  using tc::max_pos_of;
+  if (lstm)       // one position a pass, three blocks per SM
+    c->fn = reinterpret_cast<const void*>(
+        cell_tc_kernel<3, tc::kLstmGroups, max_pos_of(3), 3>);
+  else if (L.nk / tc::kWarps >= tc::kManyGroupsSteps)
+    c->fn = reinterpret_cast<const void*>(
+        cell_tc_kernel<2, 8, max_pos_of(2), 2>);
+  else
+    c->fn = reinterpret_cast<const void*>(
+        cell_tc_kernel<2, 4, max_pos_of(2), 2>);
+  c->cluster = G;
+  c->grid = dim3(G * units, tiles);
   return 0;
 }
 
@@ -1086,7 +1172,7 @@ int choose(int lstm, int bf16, int body, const Params& p, Choice* c) {
     return (int)cudaErrorInvalidValue;
   if (body == kBodyTC) {
     if (!tc_can_run(lstm, bf16, p)) return (int)cudaErrorInvalidValue;
-    return choose_tc(p, c);
+    return choose_tc(lstm, p, c);
   }
   if (body != kBodyCudaCore) return (int)cudaErrorInvalidValue;
   if (bf16)

@@ -20,8 +20,8 @@ call given ``operands=`` then checks and binds only its activations; a
 call without binds its weights for itself.
 
 Binding also picks the kernel body (:func:`cell_body`): the tensor-core
-body for minGRU in bf16 at widths and addresses it takes, the CUDA-core
-body for everything else.  The choice rests on the bound weights alone,
+body for minGRU and minLSTM in bf16 at widths and addresses it takes, the
+CUDA-core body for fp32 and any other bf16.  The choice rests on the bound weights alone,
 never on x or C, so a layer's steps and chunks run one body; the C
 launcher runs the body it is given or refuses the launch.  Each body's
 launches are counted beside the kernel's total
@@ -86,12 +86,14 @@ def _lib():
 def cell_body(cell: str, dtype: torch.dtype, dx: int, dh: int,
               aligned: bool) -> str:
     """The kernel body a cell bound with these weights runs: "tc" (tensor
-    cores) for minGRU in bf16 whose Dx and Dh are multiples of 8, Dx at
-    most ``TC_MAX_DX``, and whose weights start on 16-byte boundaries
-    (``aligned``); "cuda_core" for fp32 (the exact path), minLSTM and any
-    other bf16."""
-    tc = (cell == "mingru" and dtype == torch.bfloat16 and dx % 8 == 0
-          and dh % 8 == 0 and dx <= TC_MAX_DX and aligned)
+    cores) for minGRU or minLSTM in bf16 whose Dx and Dh are multiples of
+    8, Dx at most ``TC_MAX_DX``, and whose weights (every gate's) start on
+    16-byte boundaries (``aligned``); "cuda_core" for fp32 (the exact
+    path) and any other bf16."""
+    if cell not in GATES:
+        raise ValueError(f"unknown cell {cell!r}")
+    tc = (dtype == torch.bfloat16 and dx % 8 == 0 and dh % 8 == 0
+          and dx <= TC_MAX_DX and aligned)
     return "tc" if tc else "cuda_core"
 
 

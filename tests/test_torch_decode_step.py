@@ -163,16 +163,24 @@ def test_saturated_minlstm_gates_stay_finite(scale):
     ("mingru", torch.bfloat16, 64, 70, True, "cuda_core"),   # Dh % 8
     ("mingru", torch.bfloat16, 768, 1536, False, "cuda_core"),
     ("mingru", torch.float32, 768, 1536, True, "cuda_core"),  # exact path
-    ("minlstm", torch.bfloat16, 768, 1536, True, "cuda_core"),
+    ("minlstm", torch.bfloat16, 768, 1536, True, "tc"),      # minlstm-lm
+    ("minlstm", torch.bfloat16, 764, 1536, True, "cuda_core"),  # Dx % 8
+    ("minlstm", torch.bfloat16, 768, 1536, False, "cuda_core"),
+    ("minlstm", torch.float32, 768, 1536, True, "cuda_core"),  # exact path
     ("minlstm", torch.float32, 2048, 2048, True, "cuda_core")])
 def test_cell_body_routes_by_cell_dtype_widths_and_alignment(
         cell, dtype, dx, dh, aligned, body):
-    """The tensor-core body takes bf16 minGRU whose widths are multiples
-    of 8 (Dx up to the shared-memory limit) and whose weights allow
-    16-byte copies; everything else runs on the CUDA cores.  The rule
-    reads neither x nor C."""
+    """The tensor-core body takes bf16 minGRU and minLSTM whose widths
+    are multiples of 8 (Dx up to the shared-memory limit) and whose
+    weights allow 16-byte copies; everything else runs on the CUDA
+    cores.  The rule reads neither x nor C."""
     assert pt_ops.cell_body(cell, dtype, dx, dh, aligned) == body
     assert pt_ops.TC_MAX_DX == 4096
+
+
+def test_cell_body_refuses_an_unknown_cell():
+    with pytest.raises(ValueError, match="unknown cell"):
+        pt_ops.cell_body("gru", torch.bfloat16, 768, 1536, True)
 
 
 def test_launch_counts_name_each_kernel_and_body():

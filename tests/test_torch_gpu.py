@@ -334,9 +334,10 @@ _CELL_VALID = [4, 1, 3, 2, 4, 1, 4, 3, 2, 1, 4]
 
 def _tc_body(cell, dtype, dx, dh):
     """The body the wrappers' operands route to (weights fresh from the
-    allocator, so 16-byte aligned)."""
-    return "tc" if cell == "mingru" and dtype == torch.bfloat16 \
-        and dx % 8 == 0 and dh % 8 == 0 else "cuda_core"
+    allocator, so 16-byte aligned; every Dx here is at most 4096): the
+    tensor cores for bf16 minGRU and minLSTM alike."""
+    return "tc" if dtype == torch.bfloat16 and dx % 8 == 0 \
+        and dh % 8 == 0 else "cuda_core"
 
 
 @pytest.mark.parametrize("cell,normalize", [("mingru", True),
@@ -353,12 +354,13 @@ def test_decode_step_kernels_match_plain_and_chunk_equals_steps(
     the 64 k-lanes and the tensor-core body's 8-warp K split, Dh 72 off
     the 16-column units); odd widths, whose rows allow no 16-byte loads
     (the CUDA-core body in bf16 too); gemma's Dx, where the fp32 weight
-    tiles (and bf16 minLSTM's three) do not fit in shared memory and
-    stream instead; B 1 with Dx 40 (three k16 steps: five of the eight
-    warps own none); mingru-lm's Dx, where the tensor-core body runs C 8
-    in one pass on one block per unit (both gates) and C 4 / C 16 on
-    pairs of blocks (one gate each).  C 1 to 16: one position up to
-    several passes of positions in the tensor-core body."""
+    tiles do not fit in shared memory and stream instead; B 1 with Dx 40
+    (three k16 steps: five of the eight warps own none); mingru-lm's Dx,
+    where the tensor-core body runs C 8 in one pass on one block per unit
+    (every gate) and C 4 / C 16 on gate blocks (one gate each, a cluster
+    per unit).  C 1 to 16: one position up to several passes of positions
+    in the tensor-core body (minLSTM's gate blocks take one position a
+    pass), for minLSTM with and without normalize."""
     bsz, dx, dh = shape
     gen = torch.Generator().manual_seed(5)
     x, h, *wb = _cell_case(gen, cell, dtype, cuda_device, bsz, dx, dh, chunk)
@@ -488,6 +490,82 @@ def test_decode_step_long_chunk_beyond_one_wave_stays_on_pairs(cuda_device):
         assert torch.equal(hs[:, t], s)
 
 
+@pytest.mark.parametrize("chunk,blocks,per_sm,cluster", [
+    (1, 288, 3, 3), (8, 96, 1, 4)])
+def test_decode_step_minlstm_tc_body_runs_in_one_wave(
+        chunk, blocks, per_sm, cluster, cuda_device):
+    """bf16 minLSTM at minlstm-lm's widths, B 8: the tensor-core body in
+    one wave; the step on three gate blocks per 16 Dh columns (f, i, h~,
+    a cluster each, three blocks per SM), the C 8 chunk on one block per
+    16 columns (every gate, one per SM) in clusters of four."""
+    gen = torch.Generator().manual_seed(12)
+    _, _, *wb = _cell_case(gen, "minlstm", torch.bfloat16, cuda_device, 8,
+                           768, 1536, chunk)
+    occ = step_ops.occupancy(step_ops.CellOperands("minlstm", wb[0::2],
+                                                   wb[1::2]), 8, chunk)
+    assert occ["body"] == "tc"
+    assert occ["grid_blocks"] == blocks and occ["cluster"] == cluster
+    assert occ["blocks_per_sm"] >= per_sm and occ["waves"] == 1
+
+
+def test_decode_step_minlstm_long_chunk_beyond_one_wave_stays_on_gate_blocks(
+        cuda_device):
+    """minlstm-lm's widths at B 16, C 8: one block per unit would take two
+    waves, so the chunk runs on three gate blocks per unit, one position a
+    pass (eight passes, the hand-off's mbarriers alternating by parity),
+    and still equals its C step launches bit for bit."""
+    gen = torch.Generator().manual_seed(13)
+    x, h, *wb = _cell_case(gen, "minlstm", torch.bfloat16, cuda_device, 16,
+                           768, 1536, 8)
+    operands = step_ops.CellOperands("minlstm", wb[0::2], wb[1::2])
+    assert step_ops.occupancy(operands, 16, 8)["cluster"] == 3
+    valid = torch.tensor([8, 1, 7, 2] * 4, dtype=torch.int32,
+                         device=cuda_device)
+    for normalize in (True, False):
+        hs = step_ops.fused_minlstm_chunk(x, *wb, h, valid,
+                                          normalize=normalize,
+                                          operands=operands)
+        _close(hs, step_ref.minlstm_chunk_ref(x, *wb, h, valid,
+                                              normalize=normalize),
+               torch.bfloat16)
+        s = h
+        for t in range(8):
+            s = torch.where((t < valid)[:, None], step_ops.fused_minlstm_step(
+                x[:, t].contiguous(), *wb, s, normalize=normalize,
+                operands=operands), s)
+            assert torch.equal(hs[:, t], s)
+
+
+def test_decode_step_misaligned_minlstm_third_weight_takes_cuda_core_body(
+        cuda_device):
+    """bf16 minLSTM at widths the tensor-core body takes, W_f and W_i
+    aligned but W_h 2 bytes off a 16-byte line: bound to the CUDA-core
+    body (the rule checks all three weights), step and chunk alike, and
+    still equal to the plain version."""
+    gen = torch.Generator().manual_seed(14)
+    x, h, wf, bf, wi, bi, wh, bh = _cell_case(
+        gen, "minlstm", torch.bfloat16, cuda_device, 3, 64, 72, 4)
+    operands = step_ops.CellOperands("minlstm", [wf, wi, _offset(wh)],
+                                     [bf, bi, bh])
+    assert operands.body == "cuda_core"
+    assert step_ops.CellOperands("minlstm", [wf, wi, wh],
+                                 [bf, bi, bh]).body == "tc"
+    valid = torch.tensor([4, 2, 1], dtype=torch.int32, device=cuda_device)
+    step_ops.reset_launches()
+    got = step_ops.fused_minlstm_step(x[:, 0], *operands.args, h,
+                                      operands=operands)
+    hs = step_ops.fused_minlstm_chunk(x, *operands.args, h, valid,
+                                      operands=operands)
+    assert step_ops.LAUNCHES["minlstm_step_kernel/cuda_core"] == 1
+    assert step_ops.LAUNCHES["minlstm_chunk_kernel/cuda_core"] == 1
+    assert step_ops.LAUNCHES["minlstm_step_kernel/tc"] == 0
+    args = (wf, bf, wi, bi, wh, bh)
+    _close(got, step_ref.minlstm_step_ref(x[:, 0], *args, h), torch.bfloat16)
+    _close(hs, step_ref.minlstm_chunk_ref(x, *args, h, valid),
+           torch.bfloat16)
+    assert step_ops.occupancy(operands, 3, 4)["body"] == "cuda_core"
+
+
 def test_saturated_minlstm_kernel_stays_finite(cuda_device):
     gen = torch.Generator().manual_seed(6)
     x, h, *wb = _cell_case(gen, "minlstm", torch.float32, cuda_device, 4, 64,
@@ -496,6 +574,28 @@ def test_saturated_minlstm_kernel_stays_finite(cuda_device):
     hs = step_ops.fused_minlstm_chunk(x, *wb, h, valid)
     assert bool(torch.isfinite(hs).all())
     _close(hs, step_ref.minlstm_chunk_ref(x, *wb, h, valid), torch.float32)
+
+
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_saturated_minlstm_tc_body_stays_finite(chunk, cuda_device):
+    """bf16 minLSTM with |k| in the hundreds on the tensor-core body (the
+    step on gate blocks; the C 8 chunk on one block per unit, the C 16
+    chunk, more positions than one block per unit takes, on gate blocks):
+    the stable normalised gates stay finite where the naive f/(f+i) is
+    0/0, and agree with the plain version."""
+    gen = torch.Generator().manual_seed(7)
+    x, h, *wb = _cell_case(gen, "minlstm", torch.bfloat16, cuda_device, 4,
+                           768, 64, chunk, scale=200.0)
+    valid = torch.tensor([chunk, 1, 2, chunk], dtype=torch.int32,
+                         device=cuda_device)
+    step_ops.reset_launches()
+    hs = step_ops.fused_minlstm_chunk(x, *wb, h, valid)
+    got = step_ops.fused_minlstm_step(x[:, 0], *wb, h)
+    assert step_ops.LAUNCHES["minlstm_chunk_kernel/tc"] == 1
+    assert step_ops.LAUNCHES["minlstm_step_kernel/tc"] == 1
+    assert bool(torch.isfinite(hs).all()) and bool(torch.isfinite(got).all())
+    _close(hs, step_ref.minlstm_chunk_ref(x, *wb, h, valid), torch.bfloat16)
+    _close(got, step_ref.minlstm_step_ref(x[:, 0], *wb, h), torch.bfloat16)
 
 
 @pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
