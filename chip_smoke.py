@@ -13,8 +13,13 @@ Phases (any failed check exits non-zero before the result line):
      (one nvcc each), with each source's ptxas report;
   2. block kernels at mingru-lm widths (Dx 768, Dh 1536, Dm 3072, K 4),
      B = 8, C = 8, both cells, fp32 and bf16: kernel vs plain version,
-     chunk == C steps bit for bit, a row independent of B, kernel / plain
-     times and the bound; then the cell-only decode kernels at mingru-lm /
+     chunk == C steps bit for bit, a row independent of B, the launcher's
+     plan (the body: bf16 "split", each phase's K split, units and the
+     most weight bytes one block holds, within 1.25x of the phase's
+     share per SM; fp32 "streamed"; the grid co-resident), kernel / plain
+     times and the bound, the kernel also as a CUDA graph (device ms),
+     and block 0's per-phase trace; then the cell-only decode kernels at
+     mingru-lm /
      minlstm-lm widths (B 8, Dx 768, Dh 1536; step and chunk C 8 with
      mixed valid), gemma-2b-mingru's (B 8, 2048 x 2048, step) and a ragged
      case (B 3, Dx 200, Dh 72), fp32 and bf16: kernel vs plain version, a
@@ -332,8 +337,38 @@ def traced_phases(bound, x, st, valid, reps=20):
     return total
 
 
+def check_plan(tag, pl, dtype):
+    """The block kernel's plan at full width: the grid co-resident; bf16
+    on the split body, every phase split over K, and in every phase the
+    most weight bytes one block holds within 1.25x of the phase's bytes
+    over the SMs (that ratio is kept in the phase's "share_ratio"); fp32,
+    whose slices do not fit, on the streamed body."""
+    check(pl["grid"] <= pl["blocks_per_sm"] * pl["sms"],
+          f"{tag}: grid {pl['grid']} exceeds {pl['blocks_per_sm']} x "
+          f"{pl['sms']} resident blocks")
+    want = "split" if dtype == torch.bfloat16 else "streamed"
+    check(pl["body"] == want, f"{tag}: body {pl['body']}, expected {want}")
+    e = torch.tensor([], dtype=dtype).element_size()
+    for ph in pl["phases"]:
+        share = ph["K"] * ph["N"] * ph["gates"] * e / pl["sms"]
+        ph["share_ratio"] = ph["max_block_bytes"] / share
+        if want == "split":
+            check(ph["S"] > 1 and ph["share_ratio"] <= 1.25,
+                  f"{tag}: phase {ph['name']} unbalanced: {ph}")
+
+
+def block_graph_ms(bound, x, st, valid):
+    """Device ms per launch from a CUDA graph of launches rotating over the
+    ``bound`` weight sets (the graph captures the cooperative launch).
+    Each call binds its launch to the stream current when it runs, the
+    capture's."""
+    def run(b):
+        raw(ops.prepare_launch(b, x, st, valid, mode="log")[0])()
+    return graph_ms(rotating([lambda b=b: run(b) for b in bound]))
+
+
 def kernel_phase(gen):
-    rows, traces = [], []
+    rows, traces, plans = [], [], []
     main = {}
     valid = torch.tensor([8, 1, 3, 8, 5, 2, 8, 7], dtype=torch.int32,
                          device=DEV)
@@ -402,6 +437,11 @@ def kernel_phase(gen):
             check(torch.equal(y3, y[:3]) and torch.equal(s3["h"], s1["h"][:3]),
                   f"{tag}: rows changed with the batch size")
 
+            # the plan the launches run
+            pl = ops.plan(bound[0])
+            check_plan(tag, pl, dtype)
+            plans.append((tag, pl))
+
             # times: kernel (raw launches), plain version, bound
             step_l = [ops.prepare_launch(b, xs[0][:, None], st, None,
                                          mode="log")[0] for b in bound]
@@ -409,6 +449,8 @@ def kernel_phase(gen):
                        for b in bound]
             t_step = time_ms([raw(f) for f in step_l], 200)
             t_chunk = time_ms([raw(f) for f in chunk_l], 100)
+            d_step = block_graph_ms(bound, xs[0][:, None], st, None)
+            d_chunk = block_graph_ms(bound, x, st, valid)
             # the wrapper as the engine calls it: weights bound once
             t_step_wrap = time_ms([lambda p=p, b=b: ops.fused_block_step(
                 p, xs[0], st, compute_dtype=dtype, operands=b, **kw)
@@ -421,25 +463,39 @@ def kernel_phase(gen):
                       "chunk": traced_phases(bound, x, st, valid)}
             b_step = bound_ms(cell, dtype, B, 1)
             b_chunk = bound_ms(cell, dtype, B, C)
-            rows.append((tag, step_l[0].grid.value, t_step, t_step_wrap,
-                         t_step_plain, b_step[0], e_step, t_chunk,
-                         t_chunk_plain, b_chunk[0], e_chunk))
+            rows.append((tag, step_l[0].grid.value, t_step, d_step,
+                         t_step_wrap, t_step_plain, b_step[0], e_step,
+                         t_chunk, d_chunk, t_chunk_plain, b_chunk[0],
+                         e_chunk))
             traces.append((tag, phases))
             if cell == "mingru" and dtype == torch.bfloat16:
                 main = {"block_step_kernel": (e_step, t_step, t_step_plain,
                                               b_step),
                         "block_chunk_kernel": (e_chunk, t_chunk,
                                                t_chunk_plain, b_chunk)}
+                DEVICE_MS["block_step_kernel"] = d_step
+                DEVICE_MS["block_chunk_kernel"] = d_chunk
             del sets, kp, bound, step_l, chunk_l
             torch.cuda.empty_cache()
     print(f"kernels at Dx {DX} Dh {DH} Dm {DM} K {K}, B {B}, chunk C {C} "
-          f"(ms per launch; weights rotate over 4 sets, > L2):")
-    print("  cell/dtype      grid  step_ms  step_wrapper_ms  step_plain_ms "
-          " step_bound_ms  step_err  chunk_ms  chunk_plain_ms  "
-          "chunk_bound_ms  chunk_err")
+          f"(ms per launch; weights rotate over 4 sets, > L2; ms: eager "
+          f"launches, device_ms: a CUDA graph of them):")
+    print("  cell/dtype      grid  step_ms  step_device_ms  step_wrapper_ms  "
+          "step_plain_ms  step_bound_ms  step_err  chunk_ms  chunk_device_ms"
+          "  chunk_plain_ms  chunk_bound_ms  chunk_err")
     for r in rows:
-        print("  {:<15} {:>4}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3g}  "
-              "{:.5f}  {:.5f}  {:.5f}  {:.3g}".format(*r))
+        print("  {:<15} {:>4}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  "
+              "{:.3g}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3g}".format(*r))
+    print("block kernel plans (any B, C; per phase: S x slice rows, units, "
+          "most jobs / bytes of one block, that over the phase's bytes per "
+          "SM):")
+    for tag, pl in plans:
+        print(f"  {tag:<15} grid {pl['grid']} on {pl['sms']} SMs, "
+              f"{pl['blocks_per_sm']} block(s)/SM, smem {pl['smem']} B, body "
+              f"{pl['body']}, ring {pl['ring_bytes']} B: " + "; ".join(
+                  f"{ph['name']} {ph['S']}x{ph['slice_rows']}, {ph['units']} "
+                  f"units, {ph['max_block_jobs']} / {ph['max_block_bytes']} B"
+                  f" = {ph['share_ratio']:.3f}x" for ph in pl["phases"]))
     print("phase times per launch (us, block 0's %globaltimer; sync_X = "
           "wait at the barrier after phase X):")
     for tag, phases in traces:

@@ -16,6 +16,25 @@ multiples of 16 (the kernel's column tile); there is no padding.
 
 The step form is the chunk form at C = 1 with every position valid: one
 kernel, so "a C-token chunk equals C steps" holds by construction.
+
+The C launcher picks one of two bodies from the dims, the element type
+and the card (never from B, C or the data), so a row's bits depend on
+neither B nor C.  "split", where one block's weight slices for a position
+fit in its shared memory (bf16 at mingru-lm / minlstm-lm width), splits
+each phase's contraction into K slices chosen from the dims alone, keeps
+the slices resident for the launch, and reduces them through fp32
+partials and per-column-tile arrival counters in device memory.  Both
+are bound with the weights (:class:`BlockOperands`): the counters are
+zeroed once there and every launch leaves them zero again, so one
+binding runs on one stream at a time (the engine's layers do).
+"streamed" (every other shape, e.g. fp32 at those widths) streams each
+16-column unit's weights over the whole contraction from global memory
+and stages 8 rows of the widest input in fp32 in shared memory: so
+max(Dx, Dh, Dm) is at most 7120 there, and binding a shape that neither
+body takes raises.
+:func:`plan` reports what a launch runs: the body, each phase's split,
+units and the most weight bytes one block streams, the grid, blocks per
+SM and shared memory.
 """
 
 from __future__ import annotations
@@ -36,7 +55,13 @@ LAUNCHES = {"block_step_kernel": 0, "block_chunk_kernel": 0}
 _GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
 _DTYPES = kl.DTYPES
 _TILE = 16
-_N_PTRS = 25
+_N_PTRS = 27
+_PHASES = ("A", "B", "C", "D")
+_PLAN_HEAD = ("n_phases", "body", "grid", "blocks_per_sm", "sms", "smem",
+              "ring_bytes", "partials_per_tile", "counters")
+_BODIES = ("streamed", "split")
+_PLAN_PHASE = ("K", "N", "gates", "S", "slice_rows", "units",
+               "max_block_jobs", "job_bytes")
 _LIB = None
 
 
@@ -55,6 +80,9 @@ def _lib():
             + [ctypes.c_void_p, ctypes.c_void_p,
                ctypes.POINTER(ctypes.c_int)])
         lib.repro_block_launch.restype = ctypes.c_int
+        lib.repro_block_plan.argtypes = [ctypes.c_int] * 8 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.repro_block_plan.restype = ctypes.c_int
         kl.declare_error_string(lib)
         _LIB = lib
     return _LIB
@@ -103,7 +131,13 @@ class BlockOperands:
     does, and it reads the params as they were when bound: whoever owns
     the params binds them (``blocks.bind``, ``lm.bind_layers``) and binds
     again after replacing a leaf.  A decode round then checks and binds
-    only its activations."""
+    only its activations.
+
+    It also holds the split body's scratch: the arrival counters (zeroed
+    here; every launch leaves them zero) and the fp32 partials (grown to
+    the largest batch seen).  So a binding serves one stream at a time.
+    ``body`` is the body the launches run (:func:`plan`); binding raises
+    where no body takes the shape."""
 
     def __init__(self, params, *, cell, compute_dtype, use_conv, use_mlp):
         if cell not in _GATES:
@@ -156,6 +190,21 @@ class BlockOperands:
         self.dims = (dx, dh, dm, ksize)
         self.ptrs = ptrs
         self._keep = keep
+        layout = plan(self)
+        self.body = layout["body"]
+        self._part_per_tile = layout["partials_per_tile"]
+        self._cnt = torch.zeros((layout["counters"],), dtype=torch.int32,
+                                device=dev)
+        self._part = torch.empty((0,), dtype=torch.float32, device=dev)
+        ptrs[26] = self._cnt.data_ptr()
+
+    def partials(self, bsz: int) -> torch.Tensor:
+        """The fp32 partial-sum scratch for a launch on ``bsz`` rows."""
+        need = -(-bsz // 8) * self._part_per_tile
+        if self._part.numel() < need:
+            self._part = torch.empty((need,), dtype=torch.float32,
+                                     device=self.device)
+        return self._part
 
 
 def _operands(params, operands, cell, compute_dtype, use_conv, use_mlp):
@@ -170,11 +219,44 @@ def _operands(params, operands, cell, compute_dtype, use_conv, use_mlp):
     return operands
 
 
+def plan(operands: BlockOperands) -> dict:
+    """What every launch of ``operands`` runs (any B, any C), from the C
+    launcher's own plan (``repro_block_plan``, the same code and cache the
+    launch uses) and the occupancy query; launches nothing.  {"body"
+    ("split": K-split phases, each block's weight slices resident in
+    shared memory, ``ring_bytes`` of them; "streamed": a unit per 16
+    columns over all of K, S 1), "grid", "blocks_per_sm", "sms", "smem",
+    "ring_bytes", "partials_per_tile", "counters", "phases": [{"name",
+    "K", "N", "gates", "S", "slice_rows", "units", "max_block_jobs",
+    "job_bytes", "max_block_bytes"}, ...]}."""
+    lib = _lib()
+    dx, dh, dm, ksize = operands.dims
+    out = (ctypes.c_int * (len(_PLAN_HEAD) + 4 * len(_PLAN_PHASE)))()
+    with torch.cuda.device(operands.device):
+        rc = lib.repro_block_plan(
+            int(operands.cell == "minlstm"), _DTYPES[operands.dtype],
+            int(operands.use_conv), int(operands.use_mlp), dx, dh, dm, ksize,
+            out)
+    kl.raise_on_error(lib, "block plan", rc)
+    vals = list(out)
+    res = dict(zip(_PLAN_HEAD, vals))
+    res["body"] = _BODIES[res["body"]]
+    phases = []
+    for x in range(res.pop("n_phases")):
+        o = len(_PLAN_HEAD) + x * len(_PLAN_PHASE)
+        ph = dict(zip(_PLAN_PHASE, vals[o:o + len(_PLAN_PHASE)]))
+        ph["max_block_bytes"] = ph["max_block_jobs"] * ph["job_bytes"]
+        phases.append({"name": _PHASES[x], **ph})
+    res["phases"] = phases
+    return res
+
+
 def prepare_launch(operands: BlockOperands, x, state, valid, *, mode,
                    trace=None):
     """Check the activations, allocate the outputs and bind the C call.
     Returns ``(launch, (ys, hs, wins))``: ``launch()`` issues the kernel on
     the current stream and returns its CUDA status; it does not count.
+    ``launch.args`` are its ``repro_block_launch`` arguments.
     x: (B, C, Dx) on CUDA -> ys (B, C, Dx), hs (B, C, Dh), wins
     (B, C, K-1, Dx) or None.  ``trace``, an int64 (1 + 7 C,) CUDA tensor,
     receives block 0's ``%globaltimer`` (ns) at launch and, per position,
@@ -217,7 +299,9 @@ def prepare_launch(operands: BlockOperands, x, state, valid, *, mode,
         m = torch.empty((bsz, dm), dtype=dt, device=dev)
         ptrs[22], ptrs[23] = xr.data_ptr(), m.data_ptr()
         keep += [xr, m]
-    keep += [ys, hs, wins]
+    part = operands.partials(bsz)
+    ptrs[25] = part.data_ptr()
+    keep += [ys, hs, wins, part]
 
     lib = _lib()
     grid = ctypes.c_int(0)
@@ -231,13 +315,16 @@ def prepare_launch(operands: BlockOperands, x, state, valid, *, mode,
         return lib.repro_block_launch(*args)
 
     launch.grid = grid
+    launch.args = args      # the C call's arguments (``ab.py`` times them)
     return launch, (ys, hs, wins)
 
 
 def phase_times(trace: torch.Tensor, use_mlp: bool = True) -> dict:
     """Microseconds per phase and per barrier wait, summed over the
-    positions of one traced launch, from block 0's clock (its own work
-    plus its waits for the slowest block)."""
+    positions of one traced launch, from block 0's clock: "A" is block
+    0's own units of phase A (on the split body also its arrivals and the
+    epilogues it completes), "sync_A" its wait for the slowest block at
+    the barrier after it."""
     ticks = trace.cpu().tolist()
     names = ("A", "sync_A", "B", "sync_B", "C", "sync_C", "D")
     out = {n: 0.0 for n in (names if use_mlp else names[:3])}

@@ -48,21 +48,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _params(gen, cell, dtype, dev):
+def _params(gen, cell, dtype, dev, dx=DX, dh=DH, dm=DM):
     def w(shape):
         return (torch.randn(shape, generator=gen) / shape[0] ** 0.5).to(dtype)
 
     def v(n):
         return (0.1 * torch.randn(n, generator=gen)).to(dtype)
 
-    p = {"norm_rnn": {"scale": (1.0 + v(DX)).to(dtype)},
-         "rnn": {g: {"kernel": w((DX, DH)), "bias": v(DH)}
+    p = {"norm_rnn": {"scale": (1.0 + v(dx)).to(dtype)},
+         "rnn": {g: {"kernel": w((dx, dh)), "bias": v(dh)}
                  for g in GATES[cell]},
-         "down": {"kernel": w((DH, DX))},
-         "conv": {"kernel": w((K, DX)), "bias": v(DX)},
-         "norm_mlp": {"scale": (1.0 + v(DX)).to(dtype)},
-         "mlp_in": {"kernel": w((DX, DM)), "bias": v(DM)},
-         "mlp_out": {"kernel": w((DM, DX)), "bias": v(DX)}}
+         "down": {"kernel": w((dh, dx))},
+         "conv": {"kernel": w((K, dx)), "bias": v(dx)},
+         "norm_mlp": {"scale": (1.0 + v(dx)).to(dtype)},
+         "mlp_in": {"kernel": w((dx, dm)), "bias": v(dm)},
+         "mlp_out": {"kernel": w((dm, dx)), "bias": v(dx)}}
     return lm.tree_to(p, dev)
 
 
@@ -103,6 +103,179 @@ def test_kernels_match_plain_and_chunk_equals_steps(cell, dtype,
                 assert torch.equal(y[b], ys[b, t])
                 assert torch.equal(s["h"][b], pos["h"][b, t])
                 assert torch.equal(s["conv"][b], pos["conv"][b, t])
+
+
+# (Dx, Dh, Dm): mingru-lm's width, where the split body splits every
+# phase's K (S 4, 8, 2, 8) in bf16 and fp32 takes the streamed body; a
+# ragged one whose last K slices are short in every phase (split); and a
+# wide one whose weight slices fit no block's shared memory (streamed)
+BLOCK_SHAPES = {"mingru-lm": (768, 1536, 3072), "ragged": (208, 80, 336),
+                "wide": (1536, 3072, 6144)}
+BLOCK_BODY = {("mingru-lm", torch.float32): "streamed",
+              ("mingru-lm", torch.bfloat16): "split",
+              ("ragged", torch.float32): "split",
+              ("ragged", torch.bfloat16): "split",
+              ("wide", torch.float32): "streamed",
+              ("wide", torch.bfloat16): "streamed"}
+
+
+def _block_case(gen, cell, dtype, dev, shape, bsz, chunk):
+    dx, dh, dm = BLOCK_SHAPES[shape]
+    params = _params(gen, cell, dtype, dev, dx, dh, dm)
+    x = torch.randn((bsz, chunk, dx), generator=gen).to(dtype).to(dev)
+    st = {"h": (0.5 * torch.randn((bsz, dh), generator=gen)).to(dtype)
+          .to(dev),
+          "conv": torch.randn((bsz, K - 1, dx), generator=gen).to(dtype)
+          .to(dev)}
+    return params, x, st
+
+
+def _bound(params, cell, dtype):
+    return ops.BlockOperands(params, cell=cell, compute_dtype=dtype,
+                             use_conv=True, use_mlp=True)
+
+
+def _raw(operands, x, st, valid):
+    """One raw launch; raises on a CUDA error; returns (ys, hs, wins)."""
+    launch, outs = ops.prepare_launch(operands, x, st, valid, mode="log")
+    rc = launch()
+    if rc != 0:
+        raise RuntimeError(f"block kernel launch returned {rc}")
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("shape", list(BLOCK_SHAPES))
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernels_match_plain_and_chunk_equals_steps_per_body(
+        shape, cell, dtype, cuda_device):
+    """Both bodies, each where the plan picks it (``BLOCK_BODY``)."""
+    gen = torch.Generator().manual_seed(1)
+    bsz, chunk = 5, 4
+    params, x, st = _block_case(gen, cell, dtype, cuda_device, shape, bsz,
+                                chunk)
+    kp = ops.kernel_params(params, cell, dtype, True, True)
+    kw = dict(cell=cell, mode="log", use_conv=True, use_mlp=True,
+              compute_dtype=dtype)
+    bound = _bound(params, cell, dtype)
+    assert bound.body == BLOCK_BODY[(shape, dtype)]
+    valid = torch.tensor([4, 1, 3, 4, 2], dtype=torch.int32,
+                         device=cuda_device)
+    ys, _, pos = ops.fused_block_chunk(params, x, st, valid, operands=bound,
+                                       return_positions=True, **kw)
+    ys_r, _, pos_r = ref.block_chunk_ref(kp, x, st, valid, **kw)
+    _close(ys, ys_r, dtype)
+    _close(pos["h"], pos_r["h"], dtype)
+    _close(pos["conv"], pos_r["conv"], dtype)
+    s = st
+    for t in range(chunk):
+        y, s = ops.fused_block_step(params, x[:, t].contiguous(), s,
+                                    operands=bound, **kw)
+        for b in range(bsz):
+            if t < int(valid[b]):
+                assert torch.equal(y[b], ys[b, t])
+                assert torch.equal(s["h"][b], pos["h"][b, t])
+                assert torch.equal(s["conv"][b], pos["conv"][b, t])
+
+
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernel_row_independent_of_batch(cell, dtype, cuda_device):
+    """B 1..16 (B > 8 is two batch tiles): each row's bits are B's own."""
+    gen = torch.Generator().manual_seed(2)
+    params, x, st = _block_case(gen, cell, dtype, cuda_device, "mingru-lm",
+                                16, 2)
+    bound = _bound(params, cell, dtype)
+    full = _raw(bound, x, st, None)
+    for bsz in (1, 3, 8, 11):
+        sub = _raw(bound, x[:bsz].contiguous(),
+                   {k: v[:bsz].contiguous() for k, v in st.items()}, None)
+        for got, want in zip(sub, full):
+            assert torch.equal(got, want[:bsz]), bsz
+
+
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernel_launches_bit_identical(cell, dtype, cuda_device):
+    """Two launches give the same bits: which block arrives last
+    changes, never the order of a sum."""
+    gen = torch.Generator().manual_seed(3)
+    params, x, st = _block_case(gen, cell, dtype, cuda_device, "mingru-lm",
+                                8, 3)
+    bound = _bound(params, cell, dtype)
+    valid = torch.tensor([3, 1, 2, 3, 3, 2, 1, 3], dtype=torch.int32,
+                         device=cuda_device)
+    first = _raw(bound, x, st, valid)
+    again = _raw(bound, x, st, valid)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_plan_balanced_and_co_resident(arch, dtype, cuda_device):
+    """At the LMs' full width the plan's grid fits the card at once.
+    bf16 runs the split body: every phase split over K, a block's slices
+    resident in shared memory, and in every phase the most weight bytes
+    one block holds within 1.25x of the phase's bytes over the SMs.  fp32,
+    whose slices do not fit, runs the streamed body: one unit per 16
+    columns over all of K."""
+    cfg = archs.get(arch)
+    cell = cfg.minrnn.cell
+    dx, dm = cfg.d_model, cfg.d_ff
+    dh = int(dx * cfg.minrnn.expansion)
+    gen = torch.Generator().manual_seed(4)
+    params = _params(gen, cell, dtype, cuda_device, dx, dh, dm)
+    pl = ops.plan(_bound(params, cell, dtype))
+    assert pl["grid"] <= pl["blocks_per_sm"] * pl["sms"]
+    assert pl["smem"] <= 232448
+    assert [p["name"] for p in pl["phases"]] == ["A", "B", "C", "D"]
+    elem = torch.tensor([], dtype=dtype).element_size()
+    if dtype == torch.float32:
+        assert pl["body"] == "streamed"
+        assert all(p["S"] == 1 for p in pl["phases"]), pl
+        return
+    assert pl["body"] == "split"
+    for p in pl["phases"]:
+        assert p["S"] > 1, p
+        share = p["K"] * p["N"] * p["gates"] * elem / pl["sms"]
+        assert p["max_block_bytes"] <= 1.25 * share, p
+    assert pl["ring_bytes"] == sum(p["max_block_bytes"]
+                                   for p in pl["phases"])
+
+
+def test_block_kernel_after_refused_launch(cuda_device):
+    """A launch the C launcher refuses (here a chunk of no positions; it
+    never runs) leaves the bound counters as they were: the next launch
+    gives the same bits."""
+    gen = torch.Generator().manual_seed(5)
+    cell, dtype = "minlstm", torch.bfloat16
+    params, x, st = _block_case(gen, cell, dtype, cuda_device, "mingru-lm",
+                                8, 2)
+    bound = _bound(params, cell, dtype)
+    assert bound.body == "split"
+    before = _raw(bound, x, st, None)
+    launch, _ = ops.prepare_launch(bound, x[:, :0], st, None, mode="log")
+    assert launch() != 0
+    after = _raw(bound, x, st, None)
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)
+    assert int(bound._cnt.abs().sum()) == 0
+
+
+def test_block_binding_refuses_beyond_both_bodies(cuda_device):
+    """Weights too large for the split body's shared memory and a width
+    above the streamed body's 7120 (8 rows of Dm 8192 in fp32 exceed a
+    block's shared memory): binding raises, before any launch."""
+    gen = torch.Generator().manual_seed(6)
+    params = _params(gen, "mingru", torch.bfloat16, cuda_device, 1024, 2048,
+                     8192)
+    with pytest.raises(RuntimeError, match="block plan"):
+        _bound(params, "mingru", torch.bfloat16)
+    narrower = _params(gen, "mingru", torch.bfloat16, cuda_device, 1024,
+                       2048, 7120)
+    assert _bound(narrower, "mingru", torch.bfloat16).body == "streamed"
 
 
 def test_smoke_engine_streams_on_gpu(cuda_device):
