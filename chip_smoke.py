@@ -40,7 +40,15 @@ Phases (any failed check exits non-zero before the result line):
      kernel / plain times, the bound, and the unfused yardstick (one bf16
      torch.matmul of the projections + the gates as torch ops + the
      port's linear scan, held to the bf16 tolerance), the kernel and the
-     yardstick timed both as eager calls and as a CUDA graph;
+     yardstick timed both as eager calls and as a CUDA graph; for the
+     scans (forward and reversed linear, log from h0 = 0 and given, fp32
+     and bf16) each kernel's plan and the occupancy query's blocks per SM
+     and waves, two launches and a row launched alone bit for bit, both
+     scans bit for bit with their segmented renderings, eager and
+     CUDA-graph times rotating over input
+     sets larger than the L2, the Heinsen composition of torch.cumsum /
+     torch.logcumsumexp as a yardstick line, and the same checks at
+     B 3, T 1100 (five T-tiles), D 70;
   4. serving: full-width mingru-lm (bf16, seeded init), 8 slots, 8 byte
      prompts, 32 new tokens, K = 4, C in {1, 8}: greedy streams equal
      across C and to ``generate_one``, launches == layers x rounds;
@@ -71,7 +79,6 @@ Phases (any failed check exits non-zero before the result line):
 
 from __future__ import annotations
 
-import itertools
 import json
 import math
 import os
@@ -104,6 +111,8 @@ from repro_torch.kernels.fused_minlstm import ops as lstm_ops  # noqa: E402
 from repro_torch.kernels.fused_minlstm import ref as lstm_ref  # noqa: E402
 from repro_torch.kernels.scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.scan import ref as scan_ref  # noqa: E402
+from repro_torch.kernels.timing import (  # noqa: E402
+    eager_ms, graph_ms, rotating)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
@@ -157,6 +166,9 @@ LIBRARY_MS = {}
 # every kernel's does; and the cell kernels' library call's
 DEVICE_MS = {}
 LIBRARY_DEVICE_MS = {}
+# input sets a timed scan rotates over: 18.9 to 37.7 MB each (inputs and
+# output), more than the 50 MB L2 together in every case
+SCAN_SETS = 4
 TRAIN_KERNELS = ("fused_mingru_kernel", "fused_minlstm_kernel",
                  "linear_scan_kernel", "log_scan_kernel")
 
@@ -240,23 +252,6 @@ def max_err(got, want, dtype, what):
     return float(err.max())
 
 
-def time_ms(fns, iters):
-    """Device time per call over ``iters`` calls, rotating over ``fns``
-    (separate weight sets, together larger than the 50 MB L2, so each
-    call streams its weights from HBM as a 12-layer stack does)."""
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def host_ms(fns, iters):
     """Host time per call to issue ``iters`` calls, rotating over ``fns``,
     without waiting for the device (the queue does not fill at these
@@ -273,53 +268,12 @@ def host_ms(fns, iters):
     return (t1 - t0) * 1e3 / iters
 
 
-_GRAPH_SIDE = []
-
-
-def graph_ms(fn, n=20, reps=5):
-    """Device time per call of ``fn``: ``n`` calls captured in a CUDA graph
-    and replayed ``reps`` times.  A kernel shorter than its wrapper's host
-    time would otherwise time the host's enqueue, not the device.  The
-    warm-up runs on one side stream for every call: each stream that runs
-    a cuBLAS call keeps a cuBLAS workspace for the rest of the process,
-    which the serving phases' peak memory would count."""
-    fn()
-    if not _GRAPH_SIDE:
-        _GRAPH_SIDE.append(torch.cuda.Stream())
-    side = _GRAPH_SIDE[0]
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):       # warm the allocator off the graph
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (n * reps)
-
-
 def raw(launch):
     def run():
         rc = launch()
         if rc != 0:
             fail(f"raw kernel launch returned CUDA error {rc}")
     return run
-
-
-def rotating(fns):
-    """A call that runs the next of ``fns`` each time (captured into a CUDA
-    graph, the calls rotate over the weight sets as eager calls do)."""
-    it = itertools.cycle(fns)
-    return lambda: next(it)()
 
 
 def traced_phases(bound, x, st, valid, reps=20):
@@ -447,17 +401,17 @@ def kernel_phase(gen):
                                          mode="log")[0] for b in bound]
             chunk_l = [ops.prepare_launch(b, x, st, valid, mode="log")[0]
                        for b in bound]
-            t_step = time_ms([raw(f) for f in step_l], 200)
-            t_chunk = time_ms([raw(f) for f in chunk_l], 100)
+            t_step = eager_ms([raw(f) for f in step_l], 200)
+            t_chunk = eager_ms([raw(f) for f in chunk_l], 100)
             d_step = block_graph_ms(bound, xs[0][:, None], st, None)
             d_chunk = block_graph_ms(bound, x, st, valid)
             # the wrapper as the engine calls it: weights bound once
-            t_step_wrap = time_ms([lambda p=p, b=b: ops.fused_block_step(
+            t_step_wrap = eager_ms([lambda p=p, b=b: ops.fused_block_step(
                 p, xs[0], st, compute_dtype=dtype, operands=b, **kw)
                 for p, b in zip(sets, bound)], 100)
-            t_step_plain = time_ms([lambda k_=k_: ref.block_step_ref(
+            t_step_plain = eager_ms([lambda k_=k_: ref.block_step_ref(
                 k_, xs[0], st, compute_dtype=dtype, **kw) for k_ in kp], 50)
-            t_chunk_plain = time_ms([lambda k_=k_: ref.block_chunk_ref(
+            t_chunk_plain = eager_ms([lambda k_=k_: ref.block_chunk_ref(
                 k_, x, st, valid, compute_dtype=dtype, **kw) for k_ in kp], 20)
             phases = {"step": traced_phases(bound, xs[0][:, None], st, None),
                       "chunk": traced_phases(bound, x, st, valid)}
@@ -594,17 +548,17 @@ def cell_kernel_phase(gen):
                 step_l = [raw(step_ops.prepare_launch(
                     s_, x0[:, None], h, None, mode="log", **kw)[0])
                     for s_ in sets]
-                t_step = time_ms(step_l, 200)
+                t_step = eager_ms(step_l, 200)
                 t_step_host = host_ms(step_l, 200)
                 # launches bound inside the capture, on its stream
                 t_step_dev = graph_ms(rotating([
                     lambda s_=s_: raw(step_ops.prepare_launch(
                         s_, x0[:, None], h, None, mode="log", **kw)[0])()
                     for s_ in sets]))
-                t_step_plain = time_ms([lambda s_=s_: step_plain(
+                t_step_plain = eager_ms([lambda s_=s_: step_plain(
                     x0, *s_.args, h, **kw) for s_ in sets], 50)
                 lib_step = [lambda w=w: x0 @ w for w in w_cat]
-                t_step_lib = time_ms(lib_step, 200)
+                t_step_lib = eager_ms(lib_step, 200)
                 t_step_lib_dev = graph_ms(rotating(lib_step))
                 b_step = cell_bound_ms(n_g, dtype, bsz, 1, dx, dh)
                 row = [tag, body, t_step, t_step_host, t_step_dev,
@@ -624,18 +578,18 @@ def cell_kernel_phase(gen):
                         s_h = torch.where((t < valid)[:, None], st, s_h)
                         check(torch.equal(hs[:, t], s_h),
                               f"{tag}: chunk position {t} != step launches")
-                    t_chunk = time_ms([raw(step_ops.prepare_launch(
+                    t_chunk = eager_ms([raw(step_ops.prepare_launch(
                         s_, x, h, valid, mode="log", **kw)[0])
                         for s_ in sets], 100)
                     t_chunk_dev = graph_ms(rotating([
                         lambda s_=s_: raw(step_ops.prepare_launch(
                             s_, x, h, valid, mode="log", **kw)[0])()
                         for s_ in sets]))
-                    t_chunk_plain = time_ms([lambda s_=s_: chunk_plain(
+                    t_chunk_plain = eager_ms([lambda s_=s_: chunk_plain(
                         x, *s_.args, h, valid, **kw) for s_ in sets], 20)
                     x2 = x.reshape(-1, dx)
                     lib_chunk = [lambda w=w: x2 @ w for w in w_cat]
-                    t_chunk_lib = time_ms(lib_chunk, 200)
+                    t_chunk_lib = eager_ms(lib_chunk, 200)
                     t_chunk_lib_dev = graph_ms(rotating(lib_chunk))
                     b_chunk = cell_bound_ms(n_g, dtype, bsz, C, dx, dh)
                     row += [t_chunk, t_chunk_dev, t_chunk_plain, t_chunk_lib,
@@ -1225,14 +1179,14 @@ def fused_checks(gen):
                         f"{occ['blocks_per_sm']} block(s)/SM, "
                         f"{occ['grid_blocks']} blocks on {occ['sms']} SMs, "
                         f"{occ['waves']} wave(s)")
-                    t_k = time_ms([lambda: raw_launch(*args, h0z)], 20)
+                    t_k = eager_ms([lambda: raw_launch(*args, h0z)], 20)
                     t_kd = graph_ms(lambda: raw_launch(*args, h0z))
-                    t_p = time_ms([lambda: plain(*args, h0z)], 3)
+                    t_p = eager_ms([lambda: plain(*args, h0z)], 3)
                     if dtype == torch.bfloat16:
                         u = unfused(cell, args[0], args[1:], h0z)
                         u_err = max_err(u, want, dtype,
                                         f"{tag} unfused yardstick")
-                        t_u = time_ms([lambda: unfused(
+                        t_u = eager_ms([lambda: unfused(
                             cell, args[0], args[1:], h0z)], 20)
                         t_ud = graph_ms(lambda: unfused(
                             cell, args[0], args[1:], h0z))
@@ -1267,49 +1221,137 @@ def fused_checks(gen):
     return main
 
 
-def scan_checks(gen):
-    rows, main = [], {}
-    shape = (TB, TT, DH)
+def heinsen(la, lb):
+    """The log scan from h0 = 0 as PyTorch's own scan primitives compose
+    it (Heinsen): cumsum of log_a, logcumsumexp of log_b - that, exp.  A
+    yardstick, never on the port's path."""
+    a_star = torch.cumsum(la.float(), 1)
+    return torch.exp(a_star + torch.logcumsumexp(lb.float() - a_star, 1))
+
+
+def scan_case(kind, reverse):
+    """(kernel wrapper, plain version, segmented rendering) of a scan."""
+    if kind == "linear":
+        return (lambda x, y, c: scan_ops.linear_scan_kernel(x, y, c,
+                                                            reverse),
+                lambda x, y, c: scan_ref.linear_scan_ref(x, y, c, reverse),
+                lambda x, y, c: scan_ref.linear_scan_segmented(x, y, c,
+                                                               reverse))
+    return (scan_ops.log_scan_kernel, scan_ref.log_scan_ref,
+            scan_ref.log_scan_segmented)
+
+
+def scan_edge_checks(gen):
+    """Multi-tile ragged T and ragged D, both kinds, directions and
+    dtypes: the kernel against the plain version, and bit for bit with
+    the segmented rendering, with a second launch and with a row
+    alone."""
+    shape = (3, 1100, 70)
     for dtype in (torch.float32, torch.bfloat16):
-        a = (0.05 + 0.9 * torch.rand(shape, generator=gen)).to(dtype).to(DEV)
-        b = torch.randn(shape, generator=gen).to(dtype).to(DEV)
-        h0 = torch.randn((TB, DH), generator=gen).to(DEV)
+        for kind, variant in (("linear", False), ("linear", True),
+                              ("log", False), ("log", True)):
+            rev = kind == "linear" and variant
+            ins = scan_ref.inputs(gen, kind, dtype, shape,
+                                 kind == "linear" or variant, DEV)
+            fn, plain, seg = scan_case(kind, rev)
+            tag = f"{kind}/{str(dtype).split('.')[-1]}/T1100/D70" + (
+                "/reverse" if rev else "") + ("/h0" if kind == "log" and
+                                              variant else "")
+            got = fn(*ins)
+            max_err(got, plain(*ins), dtype if kind == "linear"
+                    else torch.float32, tag)
+            check(torch.equal(got, fn(*ins)), f"{tag}: two launches differ")
+            check(torch.equal(got[1:2], fn(*(v[1:2].contiguous()
+                                              for v in ins))),
+                  f"{tag}: row 1 alone differs from row 1 of B 3")
+            check(torch.equal(got, seg(*ins)),
+                  f"{tag}: differs from the segmented rendering")
+    print("scan edge cases (B 3, T 1100: 5 T-tiles, the last ragged; D 70: "
+          "a ragged column tile; both kinds, directions, dtypes): within "
+          "tolerance of the plain versions, two launches and a row alone "
+          "bit for bit, bit for bit with the segmented renderings")
+
+
+def scan_checks(gen):
+    """The scans at the training shape: plan and occupancy, the kernel
+    against the plain version and the segmented rendering, repeat
+    launches and a row alone bit for bit, eager and CUDA-graph times
+    rotating over SCAN_SETS input sets (together more than the L2)."""
+    rows, main, occ_lines, yard = [], {}, [], []
+    shape = (TB, TT, DH)
+    for kind in ("linear", "log"):
+        for dtype in (torch.float32, torch.bfloat16):
+            occ = scan_ops.occupancy(kind, dtype, *shape)
+            occ_lines.append(
+                f"  {kind}/{str(dtype).split('.')[-1]:<9} S {occ['seg']}, W "
+                f"{occ['warps']} ({occ['threads']} threads), {occ['cols']} "
+                f"columns a block, {occ['tiles']} T-tile(s), grid "
+                f"{occ['grid']} = {occ['blocks']} blocks, "
+                f"{occ['blocks_per_sm']} block(s)/SM on {occ['sms']} SMs, "
+                f"{occ['waves']} wave(s)")
+    for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split('.')[-1]
-        for reverse in (False, True):
-            got = scan_ops.linear_scan_kernel(a, b, h0, reverse=reverse)
-            want = scan_ref.linear_scan_ref(a, b, h0, reverse=reverse)
-            err = max_err(got, want, dtype, f"linear {tag} rev={reverse}")
-            t_k = time_ms([lambda: scan_ops.linear_scan_kernel(
-                a, b, h0, reverse=reverse)], 50)
-            t_p = time_ms([lambda: scan_ref.linear_scan_ref(
-                a, b, h0, reverse=reverse)], 3)
-            e = a.element_size()
-            b_ms, b_by = scan_bound_ms(e, e)
-            rows.append((f"linear/{tag}/" + ("reverse" if reverse
-                                              else "forward"),
-                         t_k, t_p, b_ms, err))
-            if dtype == torch.float32 and reverse:
-                # the main path's use: the backward of every layer, fp32
-                main["linear_scan_kernel"] = (err, t_k, t_p, (b_ms, b_by))
-        k = 3 * torch.randn(shape, generator=gen)
-        la = (-torch.nn.functional.softplus(k)).to(dtype).to(DEV)
-        lb = (-torch.nn.functional.softplus(-k)
-              + 0.3 * torch.randn(shape, generator=gen)).to(dtype).to(DEV)
-        for lh0 in (torch.full((TB, DH), float("-inf"), device=DEV),
-                    0.3 * torch.randn((TB, DH), generator=gen).to(DEV)):
-            got = scan_ops.log_scan_kernel(la, lb, lh0)
-            want = scan_ref.log_scan_ref(la, lb, lh0)
-            neg = bool(torch.isinf(lh0).all())
-            err = max_err(got, want, torch.float32,
-                          f"log {tag} h0={'0' if neg else 'given'}")
-            t_k = time_ms([lambda: scan_ops.log_scan_kernel(la, lb, lh0)],
-                          50)
-            t_p = time_ms([lambda: scan_ref.log_scan_ref(la, lb, lh0)], 3)
-            b_ms, b_by = scan_bound_ms(la.element_size(), 4)
-            rows.append((f"log/{tag}/h0=" + ("0" if neg else "given"), t_k,
-                         t_p, b_ms, err))
-            if dtype == torch.float32 and neg:
-                main["log_scan_kernel"] = (err, t_k, t_p, (b_ms, b_by))
+        for kind, variant in (("linear", False), ("linear", True),
+                              ("log", False), ("log", True)):
+            rev = kind == "linear" and variant
+            h0_given = kind == "linear" or variant
+            sets = [scan_ref.inputs(gen, kind, dtype, shape, h0_given, DEV)
+                    for _ in range(SCAN_SETS)]
+            fn, plain, seg = scan_case(kind, rev)
+            ins = sets[0]
+            form = (("reverse" if rev else "forward") if kind == "linear"
+                    else "h0=" + ("given" if variant else "0"))
+            what = f"{kind}/{tag}/{form}"
+            got = fn(*ins)
+            err = max_err(got, plain(*ins), dtype if kind == "linear"
+                          else torch.float32, what)
+            check(torch.equal(got, fn(*ins)), f"{what}: two launches differ")
+            check(torch.equal(got[3:4], fn(*(v[3:4].contiguous()
+                                              for v in ins))),
+                  f"{what}: row 3 alone differs from row 3 of B {TB}")
+            check(torch.equal(got, seg(*ins)),
+                  f"{what}: differs from the segmented rendering")
+            calls = [lambda s=s: fn(*s) for s in sets]
+            t_k = eager_ms(calls, 200)
+            t_kd = graph_ms(rotating(calls))
+            t_p = eager_ms([lambda: plain(*ins)], 3)
+            e = ins[0].element_size()
+            b_ms, b_by = scan_bound_ms(e, e if kind == "linear" else 4)
+            rows.append((what, t_k, t_kd, t_p, b_ms, b_ms / t_kd, err))
+            name = f"{kind}_scan_kernel"
+            if dtype == torch.float32 and (rev or (kind == "log"
+                                                   and not variant)):
+                # the main path's use: the backward of every layer, and
+                # the pallas strategy's forward from h0 = 0
+                main[name] = (err, t_k, t_p, (b_ms, b_by))
+                DEVICE_MS[name] = t_kd
+            if kind == "log" and not variant and dtype == torch.float32:
+                h_err = float((heinsen(*ins[:2]) - plain(*ins)).abs().max())
+                hcalls = [lambda s=s: heinsen(*s[:2]) for s in sets]
+                yard.append((eager_ms(hcalls, 50), graph_ms(rotating(hcalls)),
+                             h_err))
+            del sets, calls
+    print(f"scan kernels at B {TB} T {TT} D {DH} (ms per launch; kernel_ms: "
+          f"200 eager wrapper calls rotating over {SCAN_SETS} input sets, "
+          f"together more than the 50 MB L2, as every kernel is timed; "
+          f"device_ms: the same calls, 20 in a CUDA graph replayed 5 times;"
+          f" plain: 3 eager calls; share: bound over device_ms; two "
+          f"launches, row 3 alone and the segmented rendering bit for bit "
+          f"in every row):")
+    print("  scan/dtype/form          kernel_ms  device_ms  plain_ms  "
+          "bound_ms  share  max_err")
+    for r in rows:
+        print("  {:<24} {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3f}  {:.3g}"
+              .format(*r))
+    for t_h, t_hd, h_err in yard:
+        print(f"  yardstick, log/float32/h0=0 as torch.cumsum + "
+              f"torch.logcumsumexp + torch.exp (Heinsen; never on the "
+              f"port's path): {t_h:.5f} ms eager, {t_hd:.5f} ms device, "
+              f"max abs err {h_err:.3g} against the plain version")
+    print("scan plan and occupancy (ops.occupancy: the C launcher's "
+          "constants and cudaOccupancyMaxActiveBlocksPerMultiprocessor):")
+    for line in occ_lines:
+        print(line)
     # the Functions' gradients (reversed linear scan inside), fp32
     a = (0.05 + 0.9 * torch.rand(shape, generator=gen)).to(DEV)
     b = torch.randn(shape, generator=gen).to(DEV)
@@ -1328,13 +1370,9 @@ def scan_checks(gen):
     g2 = max(rel_err(g, w, f"log_space_scan grad {i}",
                      GRAD_TOL[torch.float32])
              for i, (g, w) in enumerate(zip(got, want)))
-    print(f"scan kernels at B {TB} T {TT} D {DH} (ms per launch):")
-    print("  scan/dtype/form          kernel_ms  plain_ms  bound_ms  "
-          "max_err")
-    for r in rows:
-        print("  {:<24} {:.5f}  {:.5f}  {:.5f}  {:.3g}".format(*r))
-    print(f"  Function grads vs plain autograd (fp32, relative): "
+    print(f"scan Function grads vs plain autograd (fp32, relative): "
           f"linear_scan {g1:.3g}, log_space_scan {g2:.3g}")
+    scan_edge_checks(gen)
     return main
 
 

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.block_step import ops
+from repro_torch.kernels.timing import eager_ms, graph_ms
 from repro_torch.models import lm
 
 DX, DH, DM, K, B, C = 768, 1536, 3072, 4, 8, 8
@@ -52,42 +53,6 @@ def _params(gen, cell, dtype, dev):
          "mlp_in": {"kernel": w((DX, DM)), "bias": v(DM)},
          "mlp_out": {"kernel": w((DM, DX)), "bias": v(DX)}}
     return lm.tree_to(p, dev)
-
-
-def _eager_ms(calls, iters):
-    for f in calls:
-        f()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        calls[i % len(calls)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _graph_ms(fn, n=20, reps=5):
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (n * reps)
 
 
 def _check(rc):
@@ -149,11 +114,11 @@ def main(argv=None):
                         calls = [lambda args=launch.args, lib=lib:
                                  lib.repro_block_launch(*args)
                                  for launch, _ in prepared]
-                        eager[name].append(_eager_ms(calls, iters))
+                        eager[name].append(eager_ms(calls, iters))
                         if r == 0:
                             outs[name] = [t.clone() for t in prepared[0][1]
                                           if t is not None]
-                        graph[name].append(_graph_ms(
+                        graph[name].append(graph_ms(
                             lambda lib=lib: captured(lib)))
                 same = all(torch.equal(o, n)
                            for o, n in zip(outs["old"], outs["new"]))

@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.kernels import launch as kl
 from repro_torch.kernels.decode_step import ref
-from repro_torch.kernels.fused_cell import waves
+from repro_torch.kernels.launch import waves
 from repro_torch.kernels.scan.ops import call_with_flat_lead
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_step.cu"

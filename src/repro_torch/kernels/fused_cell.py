@@ -24,18 +24,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import launch as kl
+from repro_torch.kernels.launch import waves
 from repro_torch.kernels.scan import ops as scan_ops
 
 
 # the kernel's bodies, by the C launcher's number (1: tensor cores)
 BODIES = ("cuda_core", "tc")
-
-
-def waves(blocks: int, per_sm: int, sms: int) -> int:
-    """How many rounds of resident blocks a grid needs."""
-    if per_sm < 1:
-        raise ValueError(f"no block fits on an SM (per_sm={per_sm})")
-    return -(-blocks // (per_sm * sms))
 
 
 def declare(lib, fn_name: str):

@@ -1,6 +1,6 @@
 """What every ctypes kernel wrapper of the port shares: the operand checks
-made before a pointer is handed to C, the current stream, and turning a
-returned CUDA status into an exception.  Nothing here touches a GPU at
+made before a pointer is handed to C, the current stream, turning a
+returned CUDA status into an exception, and the waves a grid needs.  Nothing here touches a GPU at
 import time."""
 
 from __future__ import annotations
@@ -52,3 +52,10 @@ def raise_on_error(lib, name: str, rc: int):
 def declare_error_string(lib):
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+
+
+def waves(blocks: int, per_sm: int, sms: int) -> int:
+    """How many rounds of resident blocks a grid needs."""
+    if per_sm < 1:
+        raise ValueError(f"no block fits on an SM (per_sm={per_sm})")
+    return -(-blocks // (per_sm * sms))

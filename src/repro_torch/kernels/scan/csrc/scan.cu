@@ -1,7 +1,8 @@
 // First-order linear scans for Hopper (sm_90a): linear and log-space.
 //
 // Replaces the Pallas TPU kernels linear_scan_kernel and log_scan_kernel
-// (src/repro/kernels/scan/kernel.py, _scan_kernel and _log_scan_kernel):
+// (src/repro/kernels/scan/kernel.py:94 and :153, bodies _scan_kernel and
+// _log_scan_kernel):
 //
 //   linear:  h_t = a_t * h_{t-1} + b_t          fp32 carry, out in T
 //   log:     log_h_t = logaddexp(log_a_t + log_h_{t-1}, log_b_t)
@@ -13,24 +14,59 @@
 // fused layer and of the log-space scan (g_t = dh_t + a_{t+1} g_{t+1}).
 //
 // Bound.  Elementwise: each input element is read once and each output
-// written once, a couple of flops per element.  At the training shapes
-// (B 8, T 256, D 1536, fp32) that is 37.7 MB, about 11 us at 3.35 TB/s:
-// bound by bytes.
+// written once.  At the training shapes (B 8, T 256, D 1536, fp32) that
+// is 37.7 MB, about 11.3 us at 3.35 TB/s: bound by bytes.  The log scan
+// also spends about 50 instructions an element (a logaddexp with precise
+// expf and log1pf, two precise expf in the fix-up): some 5 us of issue
+// on 132 SMs (derived).
 //
-// Design.  The TPU kernel walks time chunks on a sequential grid axis
-// with a VMEM carry and a Kogge-Stone ladder inside each chunk.  Here the
-// time loop is inside the thread: one thread owns one (b, d) column and
-// walks T in order, so the carry is a register and nothing crosses
-// blocks.  Neighbouring threads own neighbouring d, so every load and
-// store of a warp is one contiguous segment.  The recurrence is a chain
-// of dependent FMAs; the loads of the next kUnroll steps are issued
-// before the chain consumes them, so the chain waits on memory once per
-// kUnroll steps, not once per step.  Blocks of 64 threads give B * D / 64
-// blocks (192 at the training shapes), which still under-fills 132 SMs
-// four warps deep: a first design, simple and right.
+// Design: a segmented two-level scan, one block per (batch row, tile of
+// kCols = 32 columns), kWarps = 8 warps.  The TPU kernel walks 256-step
+// chunks on a sequential grid axis; here the time loop is inside the
+// block, and a block's kWarps segments expose the parallel work:
+//   * Warp w owns the kSeg = 32 steps [w S, (w+1) S) of a kTile = 256-step
+//     T-tile for the block's 32 columns; lane j owns column j, so every
+//     warp load or store is one 128-byte line (fp32) or 64 bytes (bf16).
+//   * Phase 1: each thread issues all 2 S loads of its segment before it
+//     uses one (64 loads in flight a thread, the whole input in flight at
+//     once across the grid), then scans the segment in order, keeping
+//     each step's prefix (A_t, B_t) in the registers the loads came into
+//     (step 0's prefix is the step itself; the identity, (1, 0) linear
+//     and (0, -inf) log, stands in for steps past T), and leaves the
+//     segment's aggregate in shared memory.
+//   * Phase 2, after one barrier: each thread folds, in order, the
+//     aggregates of the segments before its own onto the tile's carry-in
+//     (h0 / log_h0 for the first tile, the previous tile's last state
+//     after it): at most kWarps - 1 combines.
+//   * Phase 3: h_t = A_t carry + B_t, stored; log: out_t = exp(B_t) +
+//     exp(A_t + carry), which is exp(logaddexp(B_t, A_t + carry)) without
+//     its log1pf and never forms inf - inf.  The last warp leaves the
+//     tile's last state (log: in log space) for the next tile.
+// The grid is B x ceil(D / 32) blocks of 256 threads (384 at the training
+// shapes), 3 blocks a SM (__launch_bounds__; 80 registers a thread, a few
+// bytes spilled in three of the four instances): one wave of 24 warps a
+// SM where the parent ran 2.9.  Any T runs (the block loops over T-tiles
+// with the carry in shared memory); a ragged last tile, segment or column
+// tile is masked.  reverse maps step t onto row T-1-t by index
+// arithmetic.  Measured on the card while the design was chosen: loads
+// masked step by step everywhere (no unmasked path for full segments)
+// spilled up to 152 bytes a thread and ran the linear scan 1.4x slower; 16-step segments with
+// the next T-tile's loads issued ahead, and the log scan's segment
+// scanned as two interleaved halves, both ran slower: once its loads
+// land, the log scan is bound by instruction issue (about 50 an element),
+// not by the latency of its chain.
+//
+// Fixed order.  Every combine's order is set by (T, kSeg, kWarps) alone,
+// never by B, D or the grid, and the linear combines are a rounded
+// multiply then a rounded add (__fmul_rn / __fadd_rn, never contracted
+// to an FMA): two launches agree bit for bit, a row's result does not
+// depend on B, and ref.linear_scan_segmented / log_scan_segmented render
+// the same arithmetic in PyTorch ops (bit for bit on the card, where
+// torch's exp and log1p are CUDA's expf and log1pf).
 //
 // logaddexp(-inf, -inf) is -inf here, as jnp.logaddexp gives: the max is
-// tested first, so -inf - (-inf) = NaN is never formed.
+// tested first, so -inf - (-inf) = NaN is never formed.  expf / log1pf
+// are the precise forms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,8 +75,12 @@
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kUnroll = 8;
+constexpr int kSeg = 32;                 // S: steps a warp owns in a tile
+constexpr int kWarps = 8;                // W: segments a tile
+constexpr int kCols = 32;                // columns a block, one per lane
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = kSeg * kWarps;     // steps a T-tile
+constexpr int kBlocksPerSm = 3;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -61,74 +101,150 @@ __device__ __forceinline__ float logaddexp(float x, float y) {
   return m + log1pf(expf(-fabsf(x - y)));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-linear_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                   const float* __restrict__ h0, T* __restrict__ out, int B,
-                   int T_, int D, int reverse) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const int row = blockIdx.y;
-  if (d >= D) return;
-  const long long step = reverse ? -(long long)D : (long long)D;
-  const long long first =
-      (long long)row * T_ * D + d + (reverse ? (long long)(T_ - 1) * D : 0);
-  float h = h0[(long long)row * D + d];
-  for (int t0 = 0; t0 < T_; t0 += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
+// The map h -> a h + b.  (A, B) after (a, b): h -> a (A h + B) + b.
+struct Linear {
+  __device__ __forceinline__ static float id_a() { return 1.0f; }
+  __device__ __forceinline__ static float id_b() { return 0.0f; }
+  __device__ __forceinline__ static void then(float& A, float& B, float a,
+                                              float b) {
+    A = __fmul_rn(A, a);
+    B = __fadd_rn(__fmul_rn(a, B), b);
+  }
+  __device__ __forceinline__ static float apply(float A, float B, float h) {
+    return __fadd_rn(__fmul_rn(A, h), B);
+  }
+  __device__ __forceinline__ static float out(float A, float B, float h) {
+    return apply(A, B, h);
+  }
+};
+
+// The map lh -> logaddexp(la + lh, lb), in log space.
+struct Log {
+  __device__ __forceinline__ static float id_a() { return 0.0f; }
+  __device__ __forceinline__ static float id_b() { return -INFINITY; }
+  __device__ __forceinline__ static void then(float& A, float& B, float a,
+                                              float b) {
+    A = A + a;
+    B = logaddexp(a + B, b);
+  }
+  __device__ __forceinline__ static float apply(float A, float B, float lh) {
+    return logaddexp(A + lh, B);
+  }
+  __device__ __forceinline__ static float out(float A, float B, float lh) {
+    return expf(B) + expf(A + lh);
+  }
+};
+
+// Loads one warp's segment (steps s0 .. s0 + kSeg - 1) into registers,
+// every load issued before any is used; steps past T and columns past D
+// are the identity.
+template <class Op, typename In>
+__device__ __forceinline__ void load_segment(float (&p)[kSeg],
+                                             float (&q)[kSeg],
+                                             const In* __restrict__ x,
+                                             const In* __restrict__ y,
+                                             long long first,
+                                             long long stride, int s0, int T,
+                                             bool live) {
+  if (live && s0 + kSeg <= T) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < T_) {
-        const long long i = first + (t0 + u) * step;
-        av[u] = to_f(a[i]);
-        bv[u] = to_f(b[i]);
-      }
+    for (int s = 0; s < kSeg; ++s) {
+      const long long i = first + (long long)(s0 + s) * stride;
+      p[s] = to_f(x[i]);
+      q[s] = to_f(y[i]);
     }
+  } else {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < T_) {
-        h = fmaf(av[u], h, bv[u]);
-        out[first + (t0 + u) * step] = from_f<T>(h);
+    for (int s = 0; s < kSeg; ++s) {
+      if (live && s0 + s < T) {
+        const long long i = first + (long long)(s0 + s) * stride;
+        p[s] = to_f(x[i]);
+        q[s] = to_f(y[i]);
+      } else {
+        p[s] = Op::id_a();
+        q[s] = Op::id_b();
       }
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-log_scan_kernel(const T* __restrict__ la, const T* __restrict__ lb,
-                const float* __restrict__ lh0, float* __restrict__ out,
-                int B, int T_, int D) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
+template <class Op, typename In, typename Out>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+scan_kernel(const In* __restrict__ x, const In* __restrict__ y,
+            const float* __restrict__ c0, Out* __restrict__ out, int T,
+            int D, int reverse) {
+  __shared__ float agg_a[kWarps][kCols];
+  __shared__ float agg_b[kWarps][kCols];
+  __shared__ float carry_in[kCols];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
   const int row = blockIdx.y;
-  if (d >= D) return;
-  const long long first = (long long)row * T_ * D + d;
-  float lh = lh0[(long long)row * D + d];
-  for (int t0 = 0; t0 < T_; t0 += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
+  const int d = blockIdx.x * kCols + lane;
+  const bool live = d < D;
+  const long long stride = reverse ? -(long long)D : (long long)D;
+  const long long first =
+      (long long)row * T * D + d + (reverse ? (long long)(T - 1) * D : 0);
+  if (w == 0) carry_in[lane] = live ? c0[(long long)row * D + d] : 0.0f;
+
+  // the loads of the next T-tile are issued at the end of this one: the
+  // same schedule with the loads at the loop's top spilled more and ran
+  // the log scan 7% slower on the card
+  float p[kSeg], q[kSeg];
+  load_segment<Op>(p, q, x, y, first, stride, w * kSeg, T, live);
+  for (int t0 = 0; t0 < T; t0 += kTile) {
+    const int s0 = t0 + w * kSeg;
+    // phase 1: the segment's prefixes, in place (step 0's is itself)
+    float A = p[0], B = q[0];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < T_) {
-        const long long i = first + (long long)(t0 + u) * D;
-        av[u] = to_f(la[i]);
-        bv[u] = to_f(lb[i]);
-      }
+    for (int s = 1; s < kSeg; ++s) {
+      Op::then(A, B, p[s], q[s]);
+      p[s] = A;
+      q[s] = B;
     }
+    agg_a[w][lane] = A;
+    agg_b[w][lane] = B;
+    __syncthreads();
+    // phase 2: the segments before this one, in order
+    float carry = carry_in[lane];
+    for (int k = 0; k < w; ++k)
+      carry = Op::apply(agg_a[k][lane], agg_b[k][lane], carry);
+    // phase 3
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < T_) {
-        lh = logaddexp(av[u] + lh, bv[u]);
-        out[first + (long long)(t0 + u) * D] = expf(lh);
-      }
+    for (int s = 0; s < kSeg; ++s) {
+      if (live && s0 + s < T)
+        out[first + (long long)(s0 + s) * stride] =
+            from_f<Out>(Op::out(p[s], q[s], carry));
+    }
+    if (t0 + kTile < T) {
+      __syncthreads();              // every warp has read carry_in, agg
+      if (w == kWarps - 1) carry_in[lane] = Op::apply(A, B, carry);
+      load_segment<Op>(p, q, x, y, first, stride, s0 + kTile, T, live);
     }
   }
 }
 
 dim3 grid_for(int B, int D) {
-  return dim3((unsigned)((D + kThreads - 1) / kThreads), (unsigned)B);
+  return dim3((unsigned)((D + kCols - 1) / kCols), (unsigned)B);
 }
 
 bool bad_dims(int B, int T, int D) {
   return B < 1 || T < 1 || D < 1 || B > 65535;
+}
+
+template <class Op, typename In, typename Out>
+int launch(int B, int T, int D, const void* x, const void* y,
+           const void* c0, void* out, int reverse, cudaStream_t s) {
+  scan_kernel<Op, In, Out><<<grid_for(B, D), kThreads, 0, s>>>(
+      static_cast<const In*>(x), static_cast<const In*>(y),
+      static_cast<const float*>(c0), static_cast<Out*>(out), T, D,
+      reverse);
+  return (int)cudaGetLastError();
+}
+
+template <class Op, typename In, typename Out>
+int blocks_per_sm(int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, scan_kernel<Op, In, Out>, kThreads, 0);
 }
 
 }  // namespace
@@ -143,18 +259,10 @@ int repro_linear_scan(int bf16, int reverse, int B, int T, int D,
                       void* out, void* stream) {
   if (bad_dims(B, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* h0f = static_cast<const float*>(h0);
-  if (bf16) {
-    linear_scan_kernel<__nv_bfloat16><<<grid_for(B, D), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b), h0f,
-        static_cast<__nv_bfloat16*>(out), B, T, D, reverse);
-  } else {
-    linear_scan_kernel<float><<<grid_for(B, D), kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), h0f,
-        static_cast<float*>(out), B, T, D, reverse);
-  }
-  return (int)cudaGetLastError();
+  return bf16 ? launch<Linear, __nv_bfloat16, __nv_bfloat16>(
+                    B, T, D, a, b, h0, out, reverse, s)
+              : launch<Linear, float, float>(B, T, D, a, b, h0, out,
+                                             reverse, s);
 }
 
 // h = exp(log-space scan of (log_a, log_b) from log_h0), out in float32.
@@ -163,18 +271,36 @@ int repro_log_scan(int bf16, int B, int T, int D, const void* la,
                    void* stream) {
   if (bad_dims(B, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* lh0f = static_cast<const float*>(lh0);
-  float* o = static_cast<float*>(out);
-  if (bf16) {
-    log_scan_kernel<__nv_bfloat16><<<grid_for(B, D), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(la),
-        static_cast<const __nv_bfloat16*>(lb), lh0f, o, B, T, D);
-  } else {
-    log_scan_kernel<float><<<grid_for(B, D), kThreads, 0, s>>>(
-        static_cast<const float*>(la), static_cast<const float*>(lb), lh0f,
-        o, B, T, D);
-  }
-  return (int)cudaGetLastError();
+  return bf16 ? launch<Log, __nv_bfloat16, float>(B, T, D, la, lb, lh0,
+                                                  out, 0, s)
+              : launch<Log, float, float>(B, T, D, la, lb, lh0, out, 0, s);
+}
+
+// The launch a (B, T, D) scan runs, without launching: out[0] kSeg,
+// out[1] kWarps, out[2] kCols, out[3] T-tiles, out[4] grid blocks,
+// out[5] resident blocks per SM (the occupancy query), out[6] the
+// device's SMs.  log_mode / bf16 pick the kernel instance.
+int repro_scan_plan(int log_mode, int bf16, int B, int T, int D, int* out) {
+  if (bad_dims(B, T, D)) return (int)cudaErrorInvalidValue;
+  int per_sm = 0, dev = 0, sms = 0;
+  int e = log_mode ? (bf16 ? blocks_per_sm<Log, __nv_bfloat16, float>(&per_sm)
+                           : blocks_per_sm<Log, float, float>(&per_sm))
+                   : (bf16 ? blocks_per_sm<Linear, __nv_bfloat16,
+                                           __nv_bfloat16>(&per_sm)
+                           : blocks_per_sm<Linear, float, float>(&per_sm));
+  if (e == 0) e = (int)cudaGetDevice(&dev);
+  if (e == 0)
+    e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
+  const dim3 g = grid_for(B, D);
+  out[0] = kSeg;
+  out[1] = kWarps;
+  out[2] = kCols;
+  out[3] = (T + kTile - 1) / kTile;
+  out[4] = (int)(g.x * g.y);
+  out[5] = per_sm;
+  out[6] = sms;
+  return e;
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -20,6 +20,16 @@ cell layer too.
 ``linear_scan_kernel`` / ``log_scan_kernel`` are the raw wrappers: a CPU
 tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises.  Nothing falls back.
+
+The kernels run a segmented two-level scan (``csrc/scan.cu``): one block
+of ``WARPS`` warps per (batch row, ``COLS`` columns); each warp scans its
+own ``SEG``-step segment of a T-tile, folds the earlier segments'
+aggregates onto the tile's carry in order, and fixes its prefixes up.
+``plan`` gives that launch's shape for a (B, T, D) without a card,
+``occupancy`` adds the card's resident blocks per SM and waves;
+``ref.linear_scan_segmented`` / ``ref.log_scan_segmented`` render
+its order in PyTorch ops.  The order depends on T alone, so two launches
+agree bit for bit and a row does not depend on B.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from repro_torch.kernels import launch as kl
 from repro_torch.kernels.scan import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "scan.cu"
+# csrc/scan.cu's kSeg, kWarps, kCols
+SEG, WARPS, COLS = ref.SEG, ref.WARPS, 32
 
 # launches per kernel: a plain count, reset by whoever reads it
 LAUNCHES = {"linear_scan_kernel": 0, "log_scan_kernel": 0}
@@ -56,9 +68,46 @@ def _lib():
         lib.repro_linear_scan.restype = ctypes.c_int
         lib.repro_log_scan.argtypes = [ctypes.c_int] * 4 + [ptr] * 5
         lib.repro_log_scan.restype = ctypes.c_int
+        lib.repro_scan_plan.argtypes = [ctypes.c_int] * 5 + [ptr]
+        lib.repro_scan_plan.restype = ctypes.c_int
         kl.declare_error_string(lib)
         _LIB = lib
     return _LIB
+
+
+def plan(bsz: int, t: int, d: int) -> dict:
+    """The launch either scan kernel runs on (B, T, D) inputs: ``seg``
+    steps a warp owns, ``warps`` segments (warps) a block, ``cols``
+    columns a block, the ``tiles`` of seg x warps steps a block walks, and
+    the ``grid`` (column tiles, B) of ``blocks``."""
+    grid = (-(-d // COLS), bsz)
+    return {"seg": SEG, "warps": WARPS, "threads": 32 * WARPS,
+            "cols": COLS, "tiles": -(-t // (SEG * WARPS)), "grid": grid,
+            "blocks": grid[0] * grid[1]}
+
+
+def occupancy(kind: str, dtype: torch.dtype, bsz: int, t: int, d: int,
+              device=None) -> dict:
+    """``plan`` with the card's ``blocks_per_sm`` (the occupancy query for
+    the kernel of ``kind`` "linear" or "log" and ``dtype``), ``sms`` and
+    ``waves``; raises if the C launcher's constants differ from
+    ``plan``'s.  Launches nothing."""
+    out = plan(bsz, t, d)
+    lib = _lib()
+    res = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        rc = lib.repro_scan_plan(int(kind == "log"), kl.DTYPES[dtype],
+                                 bsz, t, d, res)
+    kl.raise_on_error(lib, "scan plan", rc)
+    seg, warps, cols, tiles, blocks, per_sm, sms = list(res)
+    c_plan = {"seg": seg, "warps": warps, "cols": cols, "tiles": tiles,
+              "blocks": blocks}
+    if any(out[k] != v for k, v in c_plan.items()):
+        raise RuntimeError(f"scan plan: the C launcher runs {c_plan}, "
+                           f"ops.plan says {out}")
+    out.update(blocks_per_sm=per_sm, sms=sms,
+               waves=kl.waves(blocks, per_sm, sms))
+    return out
 
 
 def _check_scan(name, x, y, h0):

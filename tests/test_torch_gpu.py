@@ -341,6 +341,87 @@ def test_log_scan_kernel_matches_plain_and_neg_inf(cuda_device):
     assert bool(torch.isfinite(out).all())
 
 
+# (B, T, D): the training shape (one T-tile), five T-tiles with a ragged
+# last one, a ragged column tile
+SCAN_SHAPES = [(8, 256, 1536), (2, 1100, 96), (3, 300, 70)]
+
+
+def _scan_fns(kind, variant):
+    """(kernel, plain version, segmented rendering); linear's variant is
+    ``reverse``."""
+    if kind == "linear":
+        return (lambda *v: scan_ops.linear_scan_kernel(*v, reverse=variant),
+                lambda *v: scan_ref.linear_scan_ref(*v, reverse=variant),
+                lambda *v: scan_ref.linear_scan_segmented(*v,
+                                                          reverse=variant))
+    return (scan_ops.log_scan_kernel, scan_ref.log_scan_ref,
+            scan_ref.log_scan_segmented)
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+@pytest.mark.parametrize("variant", [False, True])
+@pytest.mark.parametrize("kind", ["linear", "log"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_match_plain_and_segmented(kind, dtype, variant, shape,
+                                                cuda_device):
+    """The segmented kernels against the sequential plain versions at the
+    stated tolerances, and equal to their segmented renderings bit for
+    bit: the same operations in the same order, each rounded once (the
+    linear combine a rounded multiply and a rounded add; torch's exp and
+    log1p on the card are CUDA's expf and log1pf)."""
+    gen = torch.Generator().manual_seed(11)
+    ins = scan_ref.inputs(gen, kind, dtype, shape, variant, cuda_device)
+    fn, plain, seg = _scan_fns(kind, variant)
+    scan_ops.reset_launches()
+    got = fn(*ins)
+    assert scan_ops.LAUNCHES[f"{kind}_scan_kernel"] == 1
+    _close(got, plain(*ins), dtype if kind == "linear" else torch.float32)
+    assert got.dtype == (dtype if kind == "linear" else torch.float32)
+    assert torch.equal(got, seg(*ins))
+
+
+@pytest.mark.parametrize("variant", [False, True])
+@pytest.mark.parametrize("kind", ["linear", "log"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_launches_bit_identical_and_rows_independent_of_batch(
+        kind, dtype, variant, cuda_device):
+    """The order is fixed by T alone: two launches agree bit for bit, and
+    each row of a B 8 launch equals that row launched at B 1."""
+    gen = torch.Generator().manual_seed(12)
+    ins = scan_ref.inputs(gen, kind, dtype, (8, 600, 200), variant,
+                         cuda_device)
+    fn, _, _ = _scan_fns(kind, variant)
+    one = fn(*ins)
+    assert torch.equal(one, fn(*ins))
+    for r in range(8):
+        alone = fn(*(v[r:r + 1].contiguous() for v in ins))
+        assert torch.equal(one[r:r + 1], alone)
+
+
+@pytest.mark.parametrize("kind", ["linear", "log"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_training_shape_runs_in_one_wave(kind, dtype, cuda_device):
+    """B 8, T 256, D 1536: the C launcher's constants are ops.plan's, 384
+    blocks of 256 threads, 3 resident a SM: one wave on 132 SMs."""
+    occ = scan_ops.occupancy(kind, dtype, 8, 256, 1536)
+    assert occ["blocks"] == 384 and occ["tiles"] == 1
+    assert occ["blocks_per_sm"] >= 3
+    assert occ["waves"] == 1
+
+
+def test_log_scan_kernel_neg_inf_prefix_across_tiles(cuda_device):
+    """log_b = -inf over 600 steps (three T-tiles) from h0 = 0: exact
+    zeros there, then finite and positive."""
+    gen = torch.Generator().manual_seed(13)
+    la, lb, lh0 = scan_ref.inputs(gen, "log", torch.float32, (2, 700, 40),
+                                 False, cuda_device)
+    lb[:, :600] = float("-inf")
+    got = scan_ops.log_scan_kernel(la, lb, lh0)
+    assert torch.equal(got[:, :600], torch.zeros_like(got[:, :600]))
+    assert bool(torch.isfinite(got).all()) and bool((got[:, 600:] > 0).all())
+    _close(got, scan_ref.log_scan_ref(la, lb, lh0), torch.float32)
+
+
 def _fused_case(gen, cell, dtype, dev, bsz=2, t=70, dx=40, dh=72):
     n = 2 if cell == "mingru" else 3
     x = torch.randn((bsz, t, dx), generator=gen)

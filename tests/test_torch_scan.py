@@ -2,6 +2,9 @@
 ``repro.core.scan``, and the scan kernels' wrappers (``linear_scan`` /
 ``log_space_scan``, forward and VJP) against the JAX Pallas ops run in
 interpret mode.  The port runs the kernels' plain versions (CPU tensors).
+The kernels' segmented order (``ref.linear_scan_segmented`` /
+``ref.log_scan_segmented``) is held against the sequential plain versions
+and the JAX ops too, and ``ops.plan`` against the launch it describes.
 
 Inputs come from numpy seeds.  Tolerance: fp32 at atol = rtol = 1e-5 --
 the same recurrence, summed in another order (a sequential walk against
@@ -21,6 +24,7 @@ from repro.core import scan as jax_scan
 from repro.kernels.scan import ops as jax_scan_ops
 from repro_torch.core import scan as pt_scan
 from repro_torch.kernels.scan import ops as pt_scan_ops
+from repro_torch.kernels.scan import ref as pt_scan_ref
 
 TOL = 1e-5
 
@@ -179,3 +183,106 @@ def test_reverse_scan_grads_matches_jax():
     got = pt_scan_ops.reverse_scan_grads(*_t(a, dh, h, h0))
     for j, p in zip(want, got):
         _close(j, p)
+
+
+# (B, T, D): several T-tiles with a ragged last one and a ragged column
+# tile; one short ragged tile; exactly one tile
+SEGMENTED_SHAPES = [(2, 600, 70), (3, 37, 5), (1, 256, 33)]
+
+
+@pytest.mark.parametrize("shape", SEGMENTED_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_linear_segmented_matches_sequential_and_jax(shape, reverse):
+    """The kernel's order (segments of SEG steps, WARPS a tile, tiles over
+    T, reversed by index) gives the sequential scan and the JAX kernel's
+    result within fp32 rounding, in both directions."""
+    a, b, h0 = _linear_case(13, shape)
+    got = pt_scan_ref.linear_scan_segmented(*_t(a, b, h0), reverse=reverse)
+    _close(pt_scan_ref.linear_scan_ref(*_t(a, b, h0), reverse=reverse)
+           .numpy(), got)
+    flip = (lambda x: np.flip(x, -2)) if reverse else (lambda x: x)
+    want = flip(np.asarray(jax_scan_ops.linear_scan(flip(a), flip(b), h0)))
+    _close(want, got)
+
+
+@pytest.mark.parametrize("shape", SEGMENTED_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_log_segmented_matches_sequential_and_jax(shape, with_h0):
+    la, lb, lh0 = _log_case(14, shape)
+    if not with_h0:
+        lh0 = np.full_like(lh0, -np.inf)
+    got = pt_scan_ref.log_scan_segmented(*_t(la, lb, lh0))
+    assert got.dtype == torch.float32
+    _close(pt_scan_ref.log_scan_ref(*_t(la, lb, lh0)).numpy(), got)
+    _close(jax_scan_ops.log_space_scan(la, lb, lh0), got)
+
+
+def test_segmented_neg_inf_prefix_gives_exact_zeros():
+    """log_b = -inf over a prefix that crosses segments and a tile, from
+    h0 = 0: h is exactly 0 there (no NaN from -inf - -inf), then finite."""
+    la, lb, _ = _log_case(15, (2, 300, 9))
+    lb[:, :270] = -np.inf
+    lh0 = np.full((2, 9), -np.inf, np.float32)
+    got = pt_scan_ref.log_scan_segmented(*_t(la, lb, lh0))
+    assert torch.equal(got[:, :270], torch.zeros_like(got[:, :270]))
+    assert bool(torch.isfinite(got).all()) and bool((got[:, 270:] > 0).all())
+    _close(jax_scan_ops.log_space_scan(la, lb, lh0), got)
+
+
+def test_segmented_saturated_gates_stay_finite():
+    """|preact| 40 over several tiles: the log-space prefixes and carry
+    stay finite where products of a_t underflow."""
+    k = np.full((1, 600, 8), 40.0, np.float32)
+    log_a = (-np.logaddexp(0, k)).astype(np.float32)
+    log_b = (-np.logaddexp(0, -k) + 0.3).astype(np.float32)
+    lh0 = np.zeros((1, 8), np.float32)
+    got = pt_scan_ref.log_scan_segmented(*_t(log_a, log_b, lh0))
+    assert bool(torch.isfinite(got).all())
+    _close(jax_scan_ops.log_space_scan(log_a, log_b, lh0), got)
+    a = np.exp(log_a)
+    b = np.exp(log_b)
+    lin = pt_scan_ref.linear_scan_segmented(*_t(a, b, np.ones((1, 8),
+                                                              np.float32)))
+    assert bool(torch.isfinite(lin).all())
+
+
+def test_segmented_order_is_the_kernels_and_independent_of_batch():
+    """A row's result does not depend on the other rows (bit for bit), and
+    the identity padding of a ragged tile is exact."""
+    a, b, h0 = _linear_case(16, (4, 300, 6))
+    full = pt_scan_ref.linear_scan_segmented(*_t(a, b, h0))
+    row = pt_scan_ref.linear_scan_segmented(*_t(a[2:3], b[2:3], h0[2:3]))
+    assert torch.equal(full[2:3], row)
+    cut = pt_scan_ref.linear_scan_segmented(*_t(a[:, :257], b[:, :257], h0))
+    assert torch.equal(cut, full[:, :257])
+    la, lb, lh0 = _log_case(17, (4, 300, 6))
+    full = pt_scan_ref.log_scan_segmented(*_t(la, lb, lh0))
+    assert torch.equal(full[1:2], pt_scan_ref.log_scan_segmented(
+        *_t(la[1:2], lb[1:2], lh0[1:2])))
+
+
+def test_segmented_bf16_rounds_once_at_the_output():
+    """bf16 inputs: fp32 prefixes and carry, the output rounded to bf16
+    once, as the sequential plain version rounds it."""
+    a, b, h0 = _linear_case(18, (2, 300, 40))
+    ta, tb = (torch.from_numpy(x).to(torch.bfloat16) for x in (a, b))
+    got = pt_scan_ref.linear_scan_segmented(ta, tb, torch.from_numpy(h0),
+                                            reverse=True)
+    assert got.dtype == torch.bfloat16
+    want = pt_scan_ref.linear_scan_ref(ta, tb, torch.from_numpy(h0),
+                                       reverse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=6e-2,
+                               rtol=2e-2)
+
+
+def test_scan_plan_at_the_training_shape():
+    """B 8, T 256, D 1536 (mingru-lm's training scans): one T-tile of 8
+    segments of 32 steps, 32 columns a block, 48 x 8 = 384 blocks of 256
+    threads; a ragged (B, T, D) rounds its tiles up."""
+    assert pt_scan_ops.plan(8, 256, 1536) == {
+        "seg": 32, "warps": 8, "threads": 256, "cols": 32, "tiles": 1,
+        "grid": (48, 8), "blocks": 384}
+    p = pt_scan_ops.plan(3, 1100, 70)
+    assert (p["tiles"], p["grid"], p["blocks"]) == (5, (3, 3), 9)
+    assert (pt_scan_ops.SEG, pt_scan_ops.WARPS) == (pt_scan_ref.SEG,
+                                                    pt_scan_ref.WARPS)
