@@ -1,10 +1,12 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernels from source,
 holds each against its plain PyTorch version at full model width, serves
 full-width mingru-lm (and a short minlstm-lm run) through the port's
-ServingEngine on the block-fused and on the cell-fused tier, serves
-full-width gemma-2b-mingru, then trains full-width mingru-lm / minlstm-lm
-through the port's train step, and checks that every layer of every
-device round and every training step went through the kernels.
+ServingEngine on the block-fused and on the cell-fused tier, serves and
+prefills full-width gemma-2b-mingru, prefills the minRNN LMs in parallel,
+serves with speculative decoding on both tiers, then trains full-width
+mingru-lm / minlstm-lm through the port's train step, and checks that
+every layer of every device round, prefill and training step went
+through the kernels.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -13,7 +15,9 @@ Phases (any failed check exits non-zero before the result line):
      (one nvcc each), with each source's ptxas report;
   2. block kernels at mingru-lm widths (Dx 768, Dh 1536, Dm 3072, K 4),
      B = 8, C = 8, both cells, fp32 and bf16: kernel vs plain version,
-     chunk == C steps bit for bit, a row independent of B, the launcher's
+     chunk == C steps bit for bit, the same at the verify width C 5 with
+     mixed valid (per-position states too; frozen rows re-emit their
+     last state), a row independent of B, the launcher's
      plan (the body: bf16 "split", each phase's K split, units and the
      most weight bytes one block holds, within 1.25x of the phase's
      share per SM; fp32 "streamed"; the grid co-resident), kernel / plain
@@ -21,9 +25,10 @@ Phases (any failed check exits non-zero before the result line):
      and block 0's per-phase trace; then the cell-only decode kernels at
      mingru-lm /
      minlstm-lm widths (B 8, Dx 768, Dh 1536; step and chunk C 8 with
-     mixed valid), gemma-2b-mingru's (B 8, 2048 x 2048, step) and a ragged
-     case (B 3, Dx 200, Dh 72), fp32 and bf16: kernel vs plain version, a
-     chunk == C step launches bit for bit, a row independent of B, the
+     mixed valid, and C 5), gemma-2b-mingru's (B 8, 2048 x 2048, step)
+     and a ragged case (B 3, Dx 200, Dh 72), fp32 and bf16: kernel vs
+     plain version, a chunk == C step launches bit for bit, a row
+     independent of B, the
      body every launch took (bf16: the tensor-core body, fp32: the
      CUDA-core body) and the occupancy query's blocks per SM, clusters and
      waves (one wave at every full width), minLSTM also without
@@ -34,6 +39,9 @@ Phases (any failed check exits non-zero before the result line):
      Dh 1536; T 250 for a ragged edge; h0 given and not): the fused
      minGRU / minLSTM kernels and the linear / log-space scans, forward
      and each autograd Function's gradients against the plain versions;
+     the fused kernels also at the prefill's shapes (bf16, B 8 x T 1024
+     right-padded, and T 512 resumed from a bf16 h0) against the plain
+     versions;
      for the fused kernels the body each launch takes (bf16: the
      tensor-core body) and the occupancy query's blocks per SM, grid
      blocks and waves (bf16: one wave), two launches equal bit for bit;
@@ -66,7 +74,31 @@ Phases (any failed check exits non-zero before the result line):
      equal ``generate_one``, 18 mingru_step_kernel launches per round,
      all on the tensor-core body,
      tok/s over 5 windows, peak device memory, a device profile, and one
-     short sampled window;
+     short sampled window; then its prefill, B 8 x T 512 (18
+     fused_mingru_kernel launches at Dx 2048 / Dh 2048 on the tensor-core
+     body, the occupancy query, the kernel against its plain version at
+     that width, peak memory, 16 decode steps after it, the logits against
+     the step path's, ms and prompt tokens/s);
+  4b. prefill: full-width mingru-lm and minlstm-lm, one ``lm.prefill`` of
+     B 8 prompts right-padded to 1024 (lengths 1 to 1024), and mingru-lm
+     under scan_strategy "pallas" fresh and resumed: one fused-cell launch
+     per layer per prefill, all on the tensor-core body (24 log scans for
+     "pallas"); outside the count, each padded row against its own
+     prefill, a prefill resumed at 512 and the sequential path
+     (``decode_chunk``) against one pass, to the bf16 limit, and the two
+     routes' ms at B 8 x T 1024; fp32 prefill
+     + 16 ``decode_step`` streams equal ``generate_one``; prefill ms and
+     prompt tokens/s at T 256 / 1024 and the Fig. 3 shape (prefill + 16
+     decode rounds).  Speculative serving: full-width mingru-lm, n-gram
+     drafts S 4, 8 prompts repeating one seeded 16-byte phrase, 32 new
+     tokens, K 4, C in {1, 8}, on the block and the cell tier: one verify
+     chunk launch per layer per round (cell tier on the tensor-core
+     body); outside the count, streams equal the non-speculative
+     engine's, the oracle draft accepts every draft (launches by formula),
+     the fixed source rolls back, a seeded sampled window and minlstm-lm
+     unchanged, gemma-2b-mingru refuses; speculative against plain tok/s,
+     host round-trips per token and accepted drafts per round in turns,
+     and a device profile of one verify window per tier;
   5. training: full-width mingru-lm (bf16, remat "full") 10 AdamW steps
      of B 8 x T 256 on the corpus, minlstm-lm 3 steps, mingru-lm under
      scan_strategy "pallas" 3 steps; launches == the stated formulas,
@@ -117,7 +149,8 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
 from repro_torch.training import train_step as ts_lib  # noqa: E402
-from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch.serving import draft as draft_lib  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import ServingEngine, generate_one  # noqa
 
@@ -131,6 +164,10 @@ PEAK_FLOPS = {torch.float32: 67e12,  # fp32 outside the tensor cores
 # neighbouring bf16 value (2^-8 relative) and carry through the next cast.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 2e-2)}
 DX, DH, DM, K, B, C = 768, 1536, 3072, 4, 8, 8
+# the speculative traffic's S drafts a round; a verify chunk at C 1 is
+# S + 1 wide
+SPEC_S = 4
+W_VERIFY = SPEC_S + 1
 GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
 REPLACES = {"block_step_kernel": "src/repro/kernels/block_step/kernel.py:298",
             "block_chunk_kernel": "src/repro/kernels/block_step/kernel.py:349",
@@ -322,11 +359,12 @@ def block_graph_ms(bound, x, st, valid):
 
 
 def kernel_phase(gen):
-    rows, traces, plans = [], [], []
+    rows, traces, plans, verify = [], [], [], []
     main = {}
     valid = torch.tensor([8, 1, 3, 8, 5, 2, 8, 7], dtype=torch.int32,
                          device=DEV)
     full = torch.full((B,), C, dtype=torch.int32, device=DEV)
+    valid_w = valid.clamp(max=W_VERIFY)
     for cell in ("mingru", "minlstm"):
         for dtype in (torch.float32, torch.bfloat16):
             kw = dict(cell=cell, mode="log", use_conv=True, use_mlp=True)
@@ -366,7 +404,22 @@ def kernel_phase(gen):
                           max_err(pos["conv"], pos_ref["conv"], dtype,
                                   f"{tag} chunk windows"))
 
-            # chunk == C step launches, bit for bit; frozen rows too
+            # the verify width at C 1 (W = S + 1 = 5), mixed valid lengths
+            x5 = x[:, :W_VERIFY].contiguous()
+            ys5, _, pos5 = ops.fused_block_chunk(
+                sets[0], x5, st, valid_w, compute_dtype=dtype,
+                return_positions=True, **kw)
+            ys5_ref, _, pos5_ref = ref.block_chunk_ref(
+                kp[0], x5, st, valid_w, compute_dtype=dtype, **kw)
+            e_chunk = max(e_chunk,
+                          max_err(ys5, ys5_ref, dtype, f"{tag} chunk W5 ys"),
+                          max_err(pos5["h"], pos5_ref["h"], dtype,
+                                  f"{tag} chunk W5 hs"),
+                          max_err(pos5["conv"], pos5_ref["conv"], dtype,
+                                  f"{tag} chunk W5 windows"))
+
+            # chunk == C step launches, bit for bit; frozen rows too (C 8
+            # and the verify width)
             ys_full, _, pos_full = ops.fused_block_chunk(
                 sets[0], x, st, full, compute_dtype=dtype,
                 return_positions=True, **kw)
@@ -383,6 +436,17 @@ def kernel_phase(gen):
                         check(torch.equal(ys[b, t], y_t[b])
                               and torch.equal(pos["h"][b, t], s["h"][b]),
                               f"{tag}: varlen row {b} position {t} != step")
+                    if t < int(valid_w[b]):
+                        check(torch.equal(ys5[b, t], y_t[b])
+                              and torch.equal(pos5["h"][b, t], s["h"][b])
+                              and torch.equal(pos5["conv"][b, t],
+                                              s["conv"][b]),
+                              f"{tag}: W5 row {b} position {t} != step")
+                    elif t < W_VERIFY:
+                        last = int(valid_w[b]) - 1
+                        check(torch.equal(pos5["h"][b, t],
+                                          pos5["h"][b, last]),
+                              f"{tag}: W5 frozen row {b} position {t}")
             # a row's result does not depend on B
             y3, s3 = ops.fused_block_step(
                 sets[0], x[:3, 0].contiguous(),
@@ -405,6 +469,10 @@ def kernel_phase(gen):
             t_chunk = eager_ms([raw(f) for f in chunk_l], 100)
             d_step = block_graph_ms(bound, xs[0][:, None], st, None)
             d_chunk = block_graph_ms(bound, x, st, valid)
+            chunk5_l = [ops.prepare_launch(b, x5, st, valid_w, mode="log")[0]
+                        for b in bound]
+            verify.append((tag, eager_ms([raw(f) for f in chunk5_l], 100),
+                           block_graph_ms(bound, x5, st, valid_w)))
             # the wrapper as the engine calls it: weights bound once
             t_step_wrap = eager_ms([lambda p=p, b=b: ops.fused_block_step(
                 p, xs[0], st, compute_dtype=dtype, operands=b, **kw)
@@ -433,13 +501,19 @@ def kernel_phase(gen):
             torch.cuda.empty_cache()
     print(f"kernels at Dx {DX} Dh {DH} Dm {DM} K {K}, B {B}, chunk C {C} "
           f"(ms per launch; weights rotate over 4 sets, > L2; ms: eager "
-          f"launches, device_ms: a CUDA graph of them):")
+          f"launches, device_ms: a CUDA graph of them; chunk_err also over "
+          f"the verify width C {W_VERIFY}, valid {valid_w.tolist()}, whose "
+          f"positions equal step launches bit for bit):")
     print("  cell/dtype      grid  step_ms  step_device_ms  step_wrapper_ms  "
           "step_plain_ms  step_bound_ms  step_err  chunk_ms  chunk_device_ms"
           "  chunk_plain_ms  chunk_bound_ms  chunk_err")
     for r in rows:
         print("  {:<15} {:>4}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  "
               "{:.3g}  {:.5f}  {:.5f}  {:.5f}  {:.5f}  {:.3g}".format(*r))
+    print(f"block chunk kernel at the verify width C {W_VERIFY}, valid "
+          f"{valid_w.tolist()} (ms per launch, as the chunk above): "
+          + "; ".join(f"{tag} {t:.5f}, device {d:.5f}"
+                      for tag, t, d in verify))
     print("block kernel plans (any B, C; per phase: S x slice rows, units, "
           "most jobs / bytes of one block, that over the phase's bytes per "
           "SM):")
@@ -570,7 +644,16 @@ def cell_kernel_phase(gen):
                     e_chunk = max_err(hs, chunk_plain(x, *sets[0].args, h,
                                                       valid, **kw),
                                       dtype, f"{tag} chunk")
-                    # a chunk equals C step launches, bit for bit
+                    # the verify width at C 1 (W = S + 1), mixed valid
+                    x5 = x[:, :W_VERIFY].contiguous()
+                    v5 = valid.clamp(max=W_VERIFY)
+                    hs5 = chunk_fn(x5, *sets[0].args, h, v5,
+                                   operands=sets[0], **kw)
+                    e_chunk = max(e_chunk, max_err(
+                        hs5, chunk_plain(x5, *sets[0].args, h, v5, **kw),
+                        dtype, f"{tag} chunk W{W_VERIFY}"))
+                    # a chunk equals C step launches, bit for bit (C 8 and
+                    # the verify width)
                     s_h = h
                     for t in range(C):
                         st = step_fn(x[:, t].contiguous(), *sets[0].args,
@@ -578,6 +661,10 @@ def cell_kernel_phase(gen):
                         s_h = torch.where((t < valid)[:, None], st, s_h)
                         check(torch.equal(hs[:, t], s_h),
                               f"{tag}: chunk position {t} != step launches")
+                        if t < W_VERIFY:
+                            check(torch.equal(hs5[:, t], s_h),
+                                  f"{tag}: W{W_VERIFY} position {t} != "
+                                  f"step launches")
                     t_chunk = eager_ms([raw(step_ops.prepare_launch(
                         s_, x, h, valid, mode="log", **kw)[0])
                         for s_ in sets], 100)
@@ -644,9 +731,11 @@ def cell_kernel_phase(gen):
                 torch.cuda.empty_cache()
     step_ops.reset_launches()
     print(f"cell-only decode kernels, chunk C {C} with valid {CELL_VALID} "
-          f"(ms per launch; weight sets rotate, > L2 where they fit in "
-          f"16; ms: eager launches, device_ms: the same launches captured "
-          f"in a CUDA graph, 20 per graph replayed 5 times; host_ms: the "
+          f"(chunk_err also over the verify width C {W_VERIFY}, valid "
+          f"clamped to it, bit for bit with step launches too; ms per "
+          f"launch; weight sets rotate, > L2 where they fit in 16; ms: "
+          f"eager launches, device_ms: the same launches captured in a "
+          f"CUDA graph, 20 per graph replayed 5 times; host_ms: the "
           f"host's time to issue one eager launch; library = one "
           f"torch.matmul of x against the concatenated projections, timed "
           f"both ways; every launch on the body named; a row independent "
@@ -699,13 +788,19 @@ def tokens_of(p):
 
 
 def serve(cfg, params, chunk, prompts, max_new, k=4, label="serve",
-          quiet=False, **submit_kw):
+          quiet=False, spec=None, **submit_kw):
     """One closed batch through a fresh engine; returns the streams and
     {"rounds", "launches" (this run's, per kernel), "rate" (decoded
-    tok/s)}; ``quiet`` prints nothing.  Checks one decode kernel launch
-    per layer per device round."""
+    tok/s), "stats" (the snapshot)}; ``quiet`` prints nothing.  ``spec``:
+    the engine's speculative options.  Checks one decode kernel launch
+    per layer per device round (speculation: one verify chunk; a model
+    draft adds S draft steps and one draft commit chunk)."""
     eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
-                        decode_block=k, prompt_chunk=chunk, device=DEV)
+                        decode_block=k, prompt_chunk=chunk, device=DEV,
+                        **(spec or {}))
+    per_round = 1
+    if isinstance(eng.draft, draft_lib.ModelDraft):
+        per_round += eng.draft.draft_len + 1
     before = serve_launches()
     rids = [eng.submit(tokens_of(p), max_new=max_new, **submit_kw)
             for p in prompts]
@@ -717,19 +812,22 @@ def serve(cfg, params, chunk, prompts, max_new, k=4, label="serve",
     delta = {n: v - before[n] for n, v in serve_launches().items()}
     launched = sum(delta.values())
     rounds = eng.stats.decode_steps
-    check(launched == cfg.n_layers * rounds,
+    check(launched == cfg.n_layers * rounds * per_round,
           f"{cfg.name} C={chunk}: {launched} kernel launches for "
-          f"{cfg.n_layers} layers x {rounds} rounds")
+          f"{cfg.n_layers} layers x {rounds} rounds x {per_round}")
     check(eng.stats.completed == len(prompts)
           and eng.stats.shard_identities_ok(),
           f"{cfg.name} C={chunk}: engine stats {eng.stats.snapshot()}")
     snap = eng.stats.snapshot()
     n_tok = snap["decode_tokens"]
     streams = [tuple(outs[r]) for r in rids]
-    info = {"rounds": rounds, "launches": delta, "rate": n_tok / dt}
+    info = {"rounds": rounds, "launches": delta, "rate": n_tok / dt,
+            "stats": snap}
     if quiet:
         return streams, info
-    print(f"{label} {cfg.name} [{eng.kernel_tier}] K={k} C={chunk}: "
+    what = "" if eng.draft is None else \
+        f" {type(eng.draft).__name__} S={eng.draft.draft_len}"
+    print(f"{label} {cfg.name} [{eng.kernel_tier}]{what} K={k} C={chunk}: "
           f"{n_tok} tokens in {dt:.3f}s "
           f"({n_tok / dt:.1f} decoded tok/s, "
           f"{snap['tokens_per_second']:.1f} tok/s incl. prompt), "
@@ -839,16 +937,16 @@ def serve_phase(gen):
     return launches, (cfg, params, streams[1])
 
 
-def serve_profile(cfg, params, prompts, label):
+def serve_profile(cfg, params, prompts, label, spec=None, chunk=1):
     """Where one window's device time goes: ``torch.profiler`` over one
-    K 4, C 1 window (after the warm-ups), device kernels by group and the
+    K 4 window (after the warm-ups), device kernels by group and the
     device-busy share of the window's wall time (the profiler's own host
     cost inflates the wall time, so the share is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(cfg, params, 1, prompts, 8, quiet=True)
+        serve(cfg, params, chunk, prompts, 8, quiet=True, spec=spec)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -878,7 +976,8 @@ def serve_profile(cfg, params, prompts, label):
             groups["elementwise, reductions, copies"] += dev_us(e) / 1e3
     busy = sum(groups.values())
     print(f"{label} profile, one window of {len(prompts)} requests x 8 "
-          f"tokens (K 4, C 1): wall {wall_ms:.2f} ms under the profiler, "
+          f"tokens (K 4, C {chunk}): wall {wall_ms:.2f} ms under the "
+          f"profiler, "
           f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%); "
           + ", ".join(f"{k_} {v:.2f} ms" for k_, v in groups.items())
           + f"; {sum(e.count for e in events)} device events")
@@ -1040,10 +1139,415 @@ def gemma_phase():
           f"(K 4, T 0.8, top-k 40, top-p 0.95): {t_window:.2f}s, decoded "
           f"tok/s {s_info['rate']:.1f}; one host Gumbel table (8 slots x 4 "
           f"x {cfg.padded_vocab}) {t_table * 1e3:.1f} ms")
+    merge(launches, gemma_prefill(cfg, params))
     del params
     torch.cuda.empty_cache()
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# 4b. prefill and speculative serving
+# ---------------------------------------------------------------------------
+
+def merge(launches, new):
+    for name, n in new.items():
+        launches[name] = launches.get(name, 0) + n
+
+
+# the prefill traffic: 8 prompts right-padded to 1024, across the fused
+# kernel's 128-row T chunks (1, one chunk and a bit, ragged, 8 whole)
+PREFILL_LENS = (1, 17, 64, 127, 128, 300, 513, 1024)
+# two prefill routes against each other (padded / unpadded, resumed /
+# single pass, parallel / sequential, the two scan strategies): logits as
+# the largest |difference| over the largest |logit|, states elementwise
+# at TOL.  bf16: cuBLAS may sum the down / MLP products of another row
+# count in another order, and the sequential path rounds h to bf16 after
+# every step where the fused scan carries it in fp32: a few bf16 ulps
+# through 12 layers.  fp32: the same arithmetic in another order.
+PREFILL_REL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+
+
+def padded_prompts(gen, lens, vocab, t=None):
+    """Seeded token ids (B, T) right-padded with 0 past ``lens``, on the
+    card, and the lengths."""
+    t = t or max(lens)
+    toks = torch.randint(1, vocab, (len(lens), t), generator=gen,
+                         dtype=torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    toks[torch.arange(t)[None] >= lengths[:, None]] = 0
+    return toks.to(DEV), lengths.to(DEV)
+
+
+def synced_ms(fn, reps=5):
+    """Host ms of ``fn()`` ending in a synchronise: sorted over ``reps``."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def prefill_checks(cfg, params, toks, lens, logits, cache, gen):
+    """Outside the count: each padded row against its own unpadded
+    prefill; the full-length batch resumed at 512 against one pass and
+    against the sequential path (``decode_chunk``, 128 tokens a call)."""
+    dt = cfg.cdtype
+    worst = {"row": 0.0, "resume": 0.0, "sequential": 0.0}
+    for b, n in enumerate(PREFILL_LENS):
+        l1, c1 = lm.prefill(params, cfg, toks[b:b + 1, :n], 2048)
+        check(int(cache["pos"][b]) == n, f"pos of row {b}")
+        worst["row"] = max(worst["row"], rel_err(
+            logits[b], l1[0], f"{cfg.name} padded row {b} logits",
+            PREFILL_REL[dt]))
+        for k_ in ("h", "conv"):
+            max_err(cache[k_][:, b], c1[k_][:, 0], dt,
+                    f"{cfg.name} padded row {b} {k_}")
+    full = torch.randint(1, cfg.vocab_size, (8, 1024), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    l_one, c_one = lm.prefill(params, cfg, full, 2048)
+    l_res, c_res = lm.prefill(params, cfg, full[:, :512], 2048)
+    l_res, c_res = lm.prefill(params, cfg, full[:, 512:], 2048, cache=c_res)
+    worst["resume"] = rel_err(l_res, l_one, f"{cfg.name} resumed at 512",
+                              PREFILL_REL[dt])
+    for k_ in ("h", "conv"):
+        max_err(c_res[k_], c_one[k_], dt, f"{cfg.name} resumed {k_}")
+    layers = lm.bind_layers(params, cfg)
+    valid = torch.full((8,), 128, dtype=torch.int32, device=DEV)
+
+    def sequential():
+        c_seq = lm.init_cache(cfg, 8, 2048, DEV)
+        for off in range(0, 1024, 128):
+            l_seq, c_seq = lm.decode_chunk(params, cfg,
+                                           full[:, off:off + 128], valid,
+                                           c_seq, layers=layers)
+        return l_seq, c_seq
+
+    l_seq, c_seq = sequential()
+    worst["sequential"] = rel_err(l_one, l_seq, f"{cfg.name} parallel vs "
+                                  f"sequential", PREFILL_REL[dt])
+    e_h = max_err(c_one["h"], c_seq["h"], dt, f"{cfg.name} parallel vs "
+                  f"sequential h")
+    # both routes timed on the same B 8 x T 1024 prompts (synchronised)
+    ms = {"parallel": synced_ms(lambda: lm.prefill(params, cfg, full, 2048),
+                                reps=3)[1],
+          "sequential": synced_ms(sequential, reps=3)[1]}
+    return worst, e_h, ms
+
+
+def prefill_phase(gen):
+    """mingru-lm and minlstm-lm at full width: one padded prefill each
+    (B 8, lengths PREFILL_LENS), then mingru-lm under scan_strategy
+    "pallas" fresh and resumed: the counted main path.  Then, outside the
+    count, the prefill checks, fp32 prefill + 16 decode steps against
+    ``generate_one`` and the numbers."""
+    cfgs = {n: archs.get(n) for n in ("mingru-lm", "minlstm-lm")}
+    params = {n: lm.init_params(gen, c, device=DEV) for n, c in cfgs.items()}
+    toks, lens = padded_prompts(gen, PREFILL_LENS, 256)
+    pallas = cfgs["mingru-lm"].replace(scan_strategy="pallas")
+    for n, c in list(cfgs.items()) + [("pallas", pallas)]:   # first use
+        lm.prefill(params["mingru-lm" if n == "pallas" else n], c,
+                   toks[:, :8], 64)
+    torch.cuda.synchronize()
+
+    reset_train_launches()
+    out = {}
+    for n, c in cfgs.items():
+        out[n] = lm.prefill(params[n], c, toks, 2048, lengths=lens)
+    lp, cp = lm.prefill(params["mingru-lm"], pallas, toks[:, :512], 2048)
+    lp, cp = lm.prefill(params["mingru-lm"], pallas, toks[:, 512:], 2048,
+                        cache=cp)
+    torch.cuda.synchronize()
+    launches = train_launches()
+    bodies = body_launches()
+    layers = cfgs["mingru-lm"].n_layers
+    want = {"fused_mingru_kernel": layers, "fused_minlstm_kernel": layers,
+            "log_scan_kernel": 2 * layers, "linear_scan_kernel": 0}
+    check(launches == want, f"prefill launches {launches} != {want}")
+    check(bodies["fused_mingru_kernel/tc"] == layers
+          and bodies["fused_minlstm_kernel/tc"] == layers,
+          f"prefill launches by body {bodies}")
+    print(f"prefill: launches on the main path {launches} == {want} (one "
+          f"fused-cell launch per layer per prefill, by body {bodies}; the "
+          f"pallas prefill and its resume one log scan per layer each)")
+
+    for n, c in cfgs.items():
+        worst, e_h, ms = prefill_checks(c, params[n], toks, lens, *out[n],
+                                        gen)
+        print(f"prefill {n} (bf16, B 8, lengths {list(PREFILL_LENS)}): "
+              f"logits relative error, padded row vs its own prefill "
+              f"{worst['row']:.3g}, resumed at 512 vs one pass "
+              f"{worst['resume']:.3g}, parallel vs sequential "
+              f"{worst['sequential']:.3g} (limit "
+              f"{PREFILL_REL[c.cdtype]}); h parallel vs sequential max abs "
+              f"err {e_h:.3g}; padded and resumed h / conv within "
+              f"the bf16 tolerance")
+        print(f"rate prefill {n} B 8 x T 1024, median of 3: parallel "
+              f"(lm.prefill) {ms['parallel']:.3f} ms, sequential "
+              f"(decode_chunk C 128, {lm.kernel_tier(c)} tier) "
+              f"{ms['sequential']:.3f} ms: "
+              f"{ms['sequential'] / ms['parallel']:.1f}x")
+    l_auto, _ = lm.prefill(params["mingru-lm"], cfgs["mingru-lm"],
+                           toks, 2048)
+    e_p = rel_err(lp, l_auto, "pallas vs fused prefill",
+                  PREFILL_REL[torch.bfloat16])
+    print(f"prefill mingru-lm under scan_strategy pallas, resumed at 512 "
+          f"(log scan, h0 given): logits relative error against the fused "
+          f"prefill {e_p:.3g}")
+
+    # fp32 at full width (the CUDA-core bodies): prefill + 16 decode steps
+    # against generate_one
+    cfg32 = cfgs["mingru-lm"].replace(param_dtype="float32",
+                                      compute_dtype="float32")
+    p32 = tree_map(lambda a: a.float(), params["mingru-lm"])
+    layers32 = lm.bind_layers(p32, cfg32)
+    for i, p in enumerate(PROMPTS[:3]):
+        prompt = tokens_of(p * (i + 1))
+        lg, cache = lm.prefill(p32, cfg32, torch.tensor(
+            [prompt], dtype=torch.int32, device=DEV), 256)
+        par = [int(lg[0, :cfg32.vocab_size].argmax())]
+        for _ in range(16):
+            lg, cache = lm.decode_step(
+                p32, cfg32, torch.tensor(par[-1:], dtype=torch.int32,
+                                         device=DEV), cache,
+                layers=layers32)
+            par.append(int(lg[0, :cfg32.vocab_size].argmax()))
+        seq = generate_one(cfg32, p32, prompt, max_new=17, max_len=256,
+                           device=DEV)
+        check(par == seq, f"fp32 prefill + decode stream for {p!r} != "
+              f"generate_one: {par} vs {seq}")
+    print("prefill fp32 mingru-lm (CUDA-core bodies): 3 streams of prefill "
+          "+ 16 decode_step equal generate_one's")
+
+    # numbers, outside the count
+    cfg, prm = cfgs["mingru-lm"], params["mingru-lm"]
+    lay = lm.bind_layers(prm, cfg)
+    for t in (256, 1024):
+        x = torch.randint(1, 256, (8, t), generator=gen,
+                          dtype=torch.int32).to(DEV)
+        ms = synced_ms(lambda: lm.prefill(prm, cfg, x, 2048))
+        print(f"rate prefill mingru-lm B 8 x T {t}: ms min {ms[0]:.3f} "
+              f"median {ms[2]:.3f} max {ms[-1]:.3f}; prompt tokens/s "
+              f"median {8 * t / ms[2] * 1e3:.0f}")
+
+    def fig3():
+        lg, cache = lm.prefill(prm, cfg, x, 2048)
+        tok = lg.argmax(-1).to(torch.int32)
+        for _ in range(16):
+            lg, cache = lm.decode_step(prm, cfg, tok, cache, layers=lay)
+            tok = lg.argmax(-1).to(torch.int32)
+
+    ms = synced_ms(fig3)
+    print(f"rate Fig. 3 shape, mingru-lm B 8 x T 1024 prefill + 16 "
+          f"decode_step rounds: ms min {ms[0]:.3f} median {ms[2]:.3f} max "
+          f"{ms[-1]:.3f}")
+    return launches
+
+
+def gemma_prefill(cfg, params):
+    """gemma-2b-mingru, B 8 x T 512: one prefill, 18 fused_mingru_kernel
+    launches at Dx 2048 / Dh 2048 on the tensor-core body (the counted
+    path); then the kernel against its plain version at that width (B 2),
+    16 decode steps after the prefill, and the step path's logits."""
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    lm.prefill(params, cfg, toks[:, :16], 1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    logits, cache = lm.prefill(params, cfg, toks, 1024)
+    torch.cuda.synchronize()
+    launches = train_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["fused_mingru_kernel"] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers,
+          f"gemma prefill launches {launches}")
+    check(gru_ops.LAUNCHES["fused_mingru_kernel/tc"] == cfg.n_layers,
+          f"gemma prefill launches by body {body_launches()}")
+    # the kernel at gemma width against its plain version, layer 0's
+    # weights, B 2 x T 512
+    p0 = params["layers"]["blocks"]["mixer"]["rnn"]
+    wz, bz = p0["wz"]["kernel"][0], p0["wz"]["bias"][0]
+    wh, bh = p0["wh"]["kernel"][0], p0["wh"]["bias"][0]
+    x = torch.randn((2, 512, cfg.d_model), generator=gen).to(
+        torch.bfloat16).to(DEV)
+    h0 = torch.zeros((2, wz.shape[1]), dtype=torch.bfloat16, device=DEV)
+    occ = gru_ops.occupancy(x, wz, bz, wh, bh, h0)
+    e_k = max_err(gru_ops.launch(x, wz, bz, wh, bh, h0),
+                  gru_ref.fused_mingru_ref(x, wz, bz, wh, bh, h0),
+                  torch.bfloat16, "fused_mingru_kernel at gemma width")
+    x8 = torch.randn((8, 512, cfg.d_model), generator=gen).to(
+        torch.bfloat16).to(DEV)
+    h08 = torch.zeros((8, wz.shape[1]), dtype=torch.bfloat16, device=DEV)
+    k_ms = eager_ms([lambda: gru_ops.launch(x8, wz, bz, wh, bh, h08)], 20)
+    k_bound = 2 * 2 * 8 * 512 * cfg.d_model * wz.shape[1] \
+        / PEAK_FLOPS[torch.bfloat16] * 1e3
+    # 16 decode steps after the prefill
+    layers = lm.bind_layers(params, cfg)
+    tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    streams = [tok]
+    for _ in range(16):
+        lg, cache = lm.decode_step(params, cfg, tok, cache, layers=layers)
+        check(bool(torch.isfinite(lg).all()), "gemma decode after prefill")
+        tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        streams.append(tok)
+    streams = torch.stack(streams, 1)
+    check(bool(((streams >= 0) & (streams < cfg.vocab_size)).all()),
+          "malformed gemma stream after prefill")
+    # the step path over the same prompts
+    c_seq = lm.init_cache(cfg, 8, 1024, DEV)
+    for t in range(512):
+        l_seq, c_seq = lm.decode_step(params, cfg, toks[:, t], c_seq,
+                                      layers=layers)
+    e_l = rel_err(logits, l_seq, "gemma prefill vs the step path",
+                  PREFILL_REL[torch.bfloat16])
+    same = int((l_seq[:, :cfg.vocab_size].argmax(-1)
+                == streams[:, 0]).sum())
+    occ8 = gru_ops.occupancy(x8, wz, bz, wh, bh, h08)
+    ms = synced_ms(lambda: lm.prefill(params, cfg, toks, 1024), reps=3)
+    print(f"prefill gemma-2b-mingru B 8 x T 512: fused_mingru_kernel "
+          f"launches {launches['fused_mingru_kernel']} == {cfg.n_layers} "
+          f"layers, all on the tensor-core body; occupancy at B 8 {occ8}, "
+          f"at B 2 {occ}; kernel vs plain version at Dx {cfg.d_model} / "
+          f"Dh {wz.shape[1]} (B 2 x T 512) max abs err {e_k:.3g}, at B 8 "
+          f"x T 512 {k_ms:.4f} ms eager (operation bound {k_bound:.4f} "
+          f"ms); logits "
+          f"vs the step path relative error {e_l:.3g} (limit "
+          f"{PREFILL_REL[torch.bfloat16]}), first tokens equal on {same} "
+          f"of 8 rows; 16 decode steps after it well-formed; peak device "
+          f"memory of the prefill {peak / 2**30:.2f} GiB; ms min "
+          f"{ms[0]:.2f} median {ms[1]:.2f} max {ms[-1]:.2f}, prompt "
+          f"tokens/s median {8 * 512 / ms[1] * 1e3:.0f}")
+    return launches
+
+
+def spec_prompts(gen):
+    """The speculative traffic: 8 prompts that repeat one seeded 16-byte
+    phrase after a byte of their own, so n-grams recur."""
+    phrase = torch.randint(32, 127, (16,), generator=gen).tolist()
+    return [[65 + i] + phrase * 3 for i in range(8)]
+
+
+def spec_phase(gen):
+    """Speculative serving, full-width mingru-lm, n-gram drafts S 4, both
+    tiers, C 1 and 8: the counted main path.  Then, outside the count,
+    streams against the non-speculative engine, the oracle and the
+    fixed source, a sampled window, minlstm-lm, gemma's refusal, rates
+    and a profile."""
+    cfg = archs.get("mingru-lm")
+    params = lm.init_params(gen, cfg, device=DEV)
+    off = cfg.replace(fuse_block="off")
+    prompts = spec_prompts(gen)
+    ngram = {"speculative": "ngram", "draft_len": SPEC_S}
+    tiers = {"block": cfg, "cell": off}
+    for c_ in tiers.values():
+        for c in (1, 8):
+            serve(c_, params, c, prompts, 4, quiet=True, spec=ngram)
+    layers = cfg.n_layers
+
+    reset_serve_launches()
+    runs = {(t, c): serve(c_, params, c, prompts, 32, label="spec",
+                          spec=ngram)
+            for t, c_ in tiers.items() for c in (1, 8)}
+    launches = serve_launches()
+    bodies = cell_body_launches()
+    rounds = {t: sum(runs[(t, c)][1]["rounds"] for c in (1, 8))
+              for t in tiers}
+    want = {"block_step_kernel": 0, "block_chunk_kernel":
+            layers * rounds["block"], "mingru_step_kernel": 0,
+            "mingru_chunk_kernel": layers * rounds["cell"],
+            "minlstm_step_kernel": 0, "minlstm_chunk_kernel": 0}
+    check(launches == want, f"speculative launches {launches} != {want}")
+    check(bodies["mingru_chunk_kernel/tc"] == want["mingru_chunk_kernel"],
+          f"speculative cell launches by body {bodies}")
+    print(f"spec: launches on the main path {launches} == {want}: one "
+          f"verify chunk (W {W_VERIFY} / 8) per layer per round, "
+          f"{rounds} rounds; every cell chunk launch on the tensor-core body")
+
+    # outside the count: every stream as the non-speculative engine's
+    for (t, c), (streams, info) in runs.items():
+        base = serve(tiers[t], params, c, prompts, 32, quiet=True)[0]
+        check(streams == base, f"{t} tier C={c}: speculative streams != "
+              f"non-speculative, first diverging positions "
+              f"{[first_divergence(a, b) for a, b in zip(streams, base)]}")
+        st = info["stats"]
+        check(st["decode_tokens"] == st["draft_accepted"]
+              + st["non_spec_tokens"], f"spec stats {st}")
+        check(st["draft_proposed"] > 0, f"{t} C={c}: no drafts proposed")
+    oracle = draft_lib.ModelDraft(cfg, params, draft_len=SPEC_S)
+    o_streams, o_info = serve(cfg, params, 1, prompts, 32, label="spec",
+                              spec={"speculative": oracle})
+    st = o_info["stats"]
+    check(o_streams == runs[("block", 1)][0], "oracle streams differ")
+    check(st["draft_accepted"] == st["draft_proposed"] > 0,
+          f"the oracle draft did not accept every draft: {st}")
+    d = o_info["launches"]
+    check(d["block_step_kernel"] == layers * SPEC_S * o_info["rounds"]
+          and d["block_chunk_kernel"] == 2 * layers * o_info["rounds"],
+          f"oracle launches {d} for {o_info['rounds']} rounds")
+    f_streams, f_info = serve(cfg, params, 1, prompts, 32, quiet=True,
+                              spec={"speculative":
+                                    draft_lib.FixedDraft(0, SPEC_S)})
+    st = f_info["stats"]
+    check(f_streams == runs[("block", 1)][0] and st["draft_accepted"] == 0
+          and st["draft_proposed"] > 0,
+          f"the fixed source did not roll back cleanly: {st}")
+    kw = dict(temperature=0.8, top_k=40, top_p=0.95)
+    s_spec = serve(cfg, params, 1, prompts, 32, quiet=True, spec=ngram,
+                   **kw)[0]
+    s_base = serve(cfg, params, 1, prompts, 32, quiet=True, **kw)[0]
+    check(s_spec == s_base, "sampled speculative streams != non-speculative")
+    lstm_cfg = archs.get("minlstm-lm")
+    lstm_params = lm.init_params(gen, lstm_cfg, device=DEV)
+    l_spec = serve(lstm_cfg, lstm_params, 8, prompts[:4], 8, quiet=True,
+                   spec=ngram)[0]
+    l_base = serve(lstm_cfg, lstm_params, 8, prompts[:4], 8, quiet=True)[0]
+    check(l_spec == l_base, "minlstm-lm speculative streams differ")
+    try:
+        ServingEngine(archs.get("gemma-2b-mingru"), None, device=DEV,
+                      speculative="ngram")
+        fail("speculation on gemma-2b-mingru did not raise")
+    except ValueError:
+        pass
+    print(f"spec: streams equal the non-speculative engine's on both tiers "
+          f"at C 1 and 8; the oracle accepted every draft with streams "
+          f"unchanged (launches {d}); the fixed source rolled back every "
+          f"draft; a seeded sampled window and minlstm-lm C 8 unchanged; "
+          f"gemma-2b-mingru refuses speculation")
+
+    # rates: speculative against non-speculative, in turns, at C 8 (the
+    # prompts packed, so decode rounds dominate); 5 windows on the block
+    # tier, 3 on the cell tier (a speculative window there takes seconds)
+    for t, c_ in tiers.items():
+        rows = {"plain": [], "ngram": []}
+        for i in range(5 if t == "block" else 3):
+            for kind in (("plain", "ngram") if i % 2 == 0
+                         else ("ngram", "plain")):
+                info = serve(c_, params, 8, prompts, 32, quiet=True,
+                             spec=ngram if kind == "ngram" else None)[1]
+                rows[kind].append(info)
+        for kind, infos in rows.items():
+            rates = sorted(i["rate"] for i in infos)
+            st = infos[0]["stats"]
+            n = len(rates)
+            rt = st["decode_calls"] / max(st["decode_tokens"], 1)
+            per = st["draft_accepted"] / max(st["non_spec_tokens"], 1)
+            print(f"rate spec {cfg.name} [{t}] K=4 C=8 {kind}, {n} windows "
+                  f"of 8 requests x 32 tokens: decoded tok/s min "
+                  f"{rates[0]:.1f} median {rates[n // 2]:.1f} max "
+                  f"{rates[-1]:.1f}; host round-trips per decoded token "
+                  f"{rt:.4f}; accepted drafts per emitting slot-round "
+                  f"{per:.3f}; {st['decode_steps']} rounds")
+    serve_profile(cfg, params, prompts, "spec block tier mingru-lm", ngram,
+                  chunk=8)
+    serve_profile(off, params, prompts, "spec cell tier mingru-lm", ngram,
+                  chunk=8)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1376,8 +1880,52 @@ def scan_checks(gen):
     return main
 
 
+def fused_prefill_checks():
+    """Both fused kernels at the prefill's shapes against their plain
+    versions, bf16, mingru-lm / minlstm-lm widths: B 8 x T 1024 with rows
+    right-padded past PREFILL_LENS (one pad vector repeated, as a pad
+    token's embedding would be), and the prefill resumed at 512 from the
+    first half's last h in bf16.  Outside the counted main path."""
+    gen = torch.Generator().manual_seed(3)
+    dtype, t = torch.bfloat16, 1024
+    lens = torch.tensor(PREFILL_LENS, dtype=torch.int32)
+    pad = torch.arange(t)[None] >= lens[:, None]
+    out = []
+    for cell, fn, plain, mod in (
+            ("mingru", gru_ops.fused_mingru, gru_ref.fused_mingru_ref,
+             gru_ops),
+            ("minlstm", lstm_ops.fused_minlstm, lstm_ref.fused_minlstm_ref,
+             lstm_ops)):
+        wb, _ = fused_inputs(gen, cell, dtype, 1, False)
+        x = torch.randn((TB, t, DX), generator=gen)
+        x[pad] = torch.randn((DX,), generator=gen)
+        x = x.to(dtype).to(DEV)
+        before = dict(mod.LAUNCHES)
+        with torch.no_grad():
+            y = fn(x, *wb[1:], None)
+            e_pad = max_err(y, plain(x, *wb[1:], None), dtype,
+                            f"fused_{cell} B 8 x T 1024 padded")
+            h0 = y[:, 511]
+            y2 = fn(x[:, 512:].contiguous(), *wb[1:], h0)
+            e_res = max_err(y2, plain(x[:, 512:].contiguous(), *wb[1:], h0),
+                            dtype, f"fused_{cell} resumed at 512, bf16 h0")
+            e_one = max_err(y2, y[:, 512:], dtype,
+                            f"fused_{cell} resumed vs one pass")
+        name = f"fused_{cell}_kernel"
+        ran = {k: mod.LAUNCHES[k] - before[k] for k in mod.LAUNCHES}
+        check(ran[name] == 2 and ran[f"{name}/tc"] == 2,
+              f"fused_{cell} prefill shapes: launches {ran}")
+        out.append(f"{cell} padded {e_pad:.3g}, resumed {e_res:.3g} "
+                   f"(resumed vs one pass {e_one:.3g})")
+    print(f"fused cell kernels at the prefill's shapes (bf16, B 8 x T 1024 "
+          f"right-padded past {list(PREFILL_LENS)}; T 512 resumed from a "
+          f"bf16 h0), max abs err against the plain versions, every launch "
+          f"on the tensor-core body: " + "; ".join(out))
+
+
 def train_kernel_phase(gen):
     main = fused_checks(gen)
+    fused_prefill_checks()
     main.update(scan_checks(gen))
     torch.cuda.empty_cache()
     return main
@@ -1648,9 +2196,11 @@ def main():
     launches.update(cell_serve_phase(gen, cfg, params, block_streams))
     del params
     torch.cuda.empty_cache()
-    for name, n in gemma_phase().items():
-        launches[name] = launches.get(name, 0) + n
-    launches.update(train_phase(gen))
+    merge(launches, gemma_phase())
+    merge(launches, prefill_phase(gen))
+    merge(launches, spec_phase(gen))
+    torch.cuda.empty_cache()
+    merge(launches, train_phase(gen))
 
     entries = []
     for name in REPLACES:

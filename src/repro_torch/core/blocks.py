@@ -92,31 +92,53 @@ def init(gen: torch.Generator, cfg: MinRNNBlockConfig, *,
 def apply(params, cfg: MinRNNBlockConfig, x: torch.Tensor, *,
           h0: Optional[torch.Tensor] = None, state0=None, lengths=None,
           compute_dtype=None, scan_strategy: Optional[str] = None,
-          return_state: bool = False) -> torch.Tensor:
-    """x: (..., T, d_model) parallel (training) form, from ``h0`` (or the
-    zero state).  ``scan_strategy`` overrides ``cfg.scan_strategy``.
+          return_state: bool = False):
+    """x: (..., T, d_model) parallel (training / prefill) form, from
+    ``h0`` (or the zero state).  ``scan_strategy`` overrides
+    ``cfg.scan_strategy``.
 
-    The prefill branches of the reference -- ``return_state``,
-    ``lengths`` and ``state0`` -- wait for ``lm.prefill`` (ROADMAP.md queue
-    1); block dropout is not ported (the LM configs never set it)."""
-    if return_state or lengths is not None or state0 is not None:
-        raise NotImplementedError(
-            "blocks.apply's prefill branches (return_state, lengths, "
-            "state0) are not ported yet (ROADMAP.md queue 1, item 6)")
+    ``return_state`` also returns the decode-ready state {"h"[, "conv"]}
+    (the final h and conv window), so a prefill hands off to ``step``.
+    ``lengths`` (B,) takes that state at each row's last real position of
+    a right-padded batch (every mixer is causal, so the pad never reaches
+    it).  ``state0`` (an earlier ``return_state`` dict) resumes from a
+    carried (h, conv window): the chunked-prefill path.  Block dropout is
+    not ported (the LM configs never set it)."""
     if scan_strategy is None:
         scan_strategy = cfg.scan_strategy
     cell = _CELLS[cfg.cell]
     y = nn.norm_apply(cfg.norm, params["norm_rnn"], x)
+    state = {}
+    if state0 is not None:
+        h0 = state0["h"]
+    conv0 = state0.get("conv") if (state0 is not None and cfg.use_conv) \
+        else None
     if cfg.use_conv:
-        y = nn.causal_conv_apply(params["conv"], y)
+        if return_state:
+            width = cfg.conv_kernel - 1
+            if lengths is not None or conv0 is not None:
+                lens = lengths if lengths is not None else torch.full(
+                    y.shape[:1], y.shape[-2], dtype=torch.int32,
+                    device=y.device)
+                state["conv"] = nn.gather_conv_window(y, lens, width,
+                                                      prefix=conv0)
+            else:
+                pad = max(width - y.shape[-2], 0)
+                win = y[..., -width:, :]
+                if pad:
+                    win = torch.cat([y.new_zeros(
+                        y.shape[:-2] + (pad, y.shape[-1])), win], dim=-2)
+                state["conv"] = win
+        y = nn.causal_conv_apply(params["conv"], y, prefix=conv0)
     h = cell.parallel(params["rnn"], y, h0, mode=cfg.mode,
                       scan_strategy=scan_strategy,
                       compute_dtype=compute_dtype)
-    x = x + nn.dense_apply(params["down"], h, compute_dtype)
-    if cfg.use_mlp:
-        y = nn.norm_apply(cfg.norm, params["norm_mlp"], x)
-        y = nn.gelu(nn.dense_apply(params["mlp_in"], y, compute_dtype))
-        x = x + nn.dense_apply(params["mlp_out"], y, compute_dtype)
+    if return_state:
+        state["h"] = nn.gather_last(h, lengths) if lengths is not None \
+            else h[..., -1, :]
+    x = _tail(params, cfg, x, h, compute_dtype)
+    if return_state:
+        return x, state
     return x
 
 
@@ -178,30 +200,17 @@ def step(params, cfg: MinRNNBlockConfig, x_t: torch.Tensor, state, *,
                   compute_dtype=compute_dtype, scan_strategy=scan_strategy,
                   operands=operands)
     new_state["h"] = h
+    return _tail(params, cfg, x_t, h, compute_dtype), new_state
+
+
+def _tail(params, cfg: MinRNNBlockConfig, x_t, h, compute_dtype):
+    """The block after its cell: x + Down(h), then the MLP sub-block."""
     x_t = x_t + nn.dense_apply(params["down"], h, compute_dtype)
     if cfg.use_mlp:
         y = nn.norm_apply(cfg.norm, params["norm_mlp"], x_t)
         y = nn.gelu(nn.dense_apply(params["mlp_in"], y, compute_dtype))
         x_t = x_t + nn.dense_apply(params["mlp_out"], y, compute_dtype)
-    return x_t, new_state
-
-
-def _conv_chunk(p, y, window, valid, *, return_windows: bool = False):
-    """Varlen chunked causal conv: ``causal_conv_step`` per position with
-    row b's window frozen once ``t >= valid[b]``.  y: (B, C, D), window:
-    (B, K-1, D).  ``return_windows`` also stacks the window after every
-    position, (B, C, K-1, D)."""
-    outs, wins = [], []
-    win = window
-    for t in range(y.shape[1]):
-        out, win_new = nn.causal_conv_step(p, y[:, t], win)
-        win = torch.where((t < valid)[:, None, None], win_new, win)
-        outs.append(out)
-        wins.append(win)
-    outs = torch.stack(outs, dim=1)
-    if return_windows:
-        return outs, win, torch.stack(wins, dim=1)
-    return outs, win
+    return x_t
 
 
 def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
@@ -223,28 +232,34 @@ def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
             use_conv=cfg.use_conv, use_mlp=cfg.use_mlp,
             compute_dtype=compute_dtype, return_positions=return_positions,
             operands=operands)
+    # cell-fused or unfused: the cell over the chunk in one call (one
+    # kernel launch on the cell tier); every other op one position at a
+    # time, with the shapes ``step`` gives it -- a reduction's or a matrix
+    # product's summation order may depend on its row count (cuBLAS picks
+    # a kernel by shape), and a chunk must equal C steps bit for bit
     cell = _CELLS[cfg.cell]
-    y = nn.norm_apply(cfg.norm, params["norm_rnn"], x)
-    new_state = dict(state)
-    pos_states = {}
-    if cfg.use_conv:
-        if return_positions:
-            y, new_state["conv"], pos_states["conv"] = _conv_chunk(
-                params["conv"], y, state["conv"], valid,
-                return_windows=True)
-        else:
-            y, new_state["conv"] = _conv_chunk(params["conv"], y,
-                                               state["conv"], valid)
-    hs = cell.step_chunk(params["rnn"], y, state["h"], valid,
-                         mode=cfg.mode, compute_dtype=compute_dtype,
+    chunk = x.shape[1]
+    xs = [x[:, t].contiguous() for t in range(chunk)]
+    ys, wins = [], []
+    win = state.get("conv")
+    for t in range(chunk):
+        y = nn.norm_apply(cfg.norm, params["norm_rnn"], xs[t])
+        if cfg.use_conv:
+            y, win_new = nn.causal_conv_step(params["conv"], y, win)
+            win = torch.where((t < valid)[:, None, None], win_new, win)
+            wins.append(win)
+        ys.append(y)
+    hs = cell.step_chunk(params["rnn"], torch.stack(ys, dim=1), state["h"],
+                         valid, mode=cfg.mode, compute_dtype=compute_dtype,
                          scan_strategy=scan_strategy, operands=operands)
+    new_state = dict(state)
     new_state["h"] = hs[:, -1]          # frozen rows: == hs[:, valid-1]
-    pos_states["h"] = hs
-    x = x + nn.dense_apply(params["down"], hs, compute_dtype)
-    if cfg.use_mlp:
-        y = nn.norm_apply(cfg.norm, params["norm_mlp"], x)
-        y = nn.gelu(nn.dense_apply(params["mlp_in"], y, compute_dtype))
-        x = x + nn.dense_apply(params["mlp_out"], y, compute_dtype)
+    pos_states = {"h": hs}
+    if cfg.use_conv:
+        new_state["conv"] = win
+        pos_states["conv"] = torch.stack(wins, dim=1)
+    x = torch.stack([_tail(params, cfg, xs[t], hs[:, t].contiguous(),
+                           compute_dtype) for t in range(chunk)], dim=1)
     if return_positions:
         return x, new_state, pos_states
     return x, new_state

@@ -135,6 +135,23 @@ def gather_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return x[rows, lengths.long() - 1]
 
 
+def gather_conv_window(x: torch.Tensor, lengths: torch.Tensor, width: int,
+                       prefix: torch.Tensor = None) -> torch.Tensor:
+    """Trailing ``width`` inputs after consuming ``lengths[b]`` tokens.
+
+    x: (B, T, D) -> (B, width, D): rows [len - width, len - 1] of
+    ``concat(prefix, x)``, where ``prefix`` (default zeros) holds the
+    ``width`` inputs that preceded ``x`` (the carried conv window on
+    resume)."""
+    bsz = x.shape[0]
+    if prefix is None:
+        prefix = x.new_zeros((bsz, width) + tuple(x.shape[2:]))
+    ext = torch.cat([prefix.to(x.dtype), x], dim=1)
+    idx = lengths.long()[:, None] + torch.arange(width, device=x.device)
+    rows = torch.arange(bsz, device=x.device)[:, None]
+    return ext[rows, idx]
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ Strategies (the reference's names):
 
 Array convention: time axis ``axis`` (default -2), shapes ``(..., T, D)``;
 ``h0`` is ``(..., D)``.  The sequence-parallel scan waits for
-``torch.distributed`` (ROADMAP.md queue 4).
+``torch.distributed`` (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations

@@ -12,6 +12,13 @@ completions, the kernel tier, the superstep / latency lines and the
 engine stats snapshot.  ``--device cpu`` runs the plain PyTorch versions
 of the kernels.  On the card the weights are drawn there, from the
 seed.
+
+``--speculative ngram --draft-len S`` serves with n-gram self-drafting:
+decoding rows propose up to S tokens a round, verified in one chunk pass
+per layer (streams unchanged).  ``--prefill`` runs the prompts through
+``lm.prefill`` instead (one parallel pass, right-padded, one fused-cell
+kernel launch per layer), then greedy ``decode_step`` rounds, and prints
+the prefill time.
 """
 
 from __future__ import annotations
@@ -25,6 +32,33 @@ from repro_torch.configs import archs
 from repro_torch.data.lm_corpus import decode_bytes
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServingEngine
+
+
+def prefill_and_decode(cfg, params, prompts, max_new: int, max_len: int,
+                       device):
+    """The prompts right-padded into one ``lm.prefill``, then greedy
+    ``decode_step`` rounds for the whole batch.  Returns the streams and
+    the prefill's seconds (synchronised)."""
+    lens = [len(p) for p in prompts]
+    toks = torch.zeros((len(prompts), max(lens)), dtype=torch.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    toks = toks.to(device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    layers = lm.bind_layers(params, cfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, cfg, toks, max_len, lengths=lengths)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_prefill = time.perf_counter() - t0
+    outs = [logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)]
+    for _ in range(max_new - 1):
+        logits, cache = lm.decode_step(params, cfg, outs[-1], cache,
+                                       layers=layers)
+        outs.append(logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32))
+    return torch.stack(outs, dim=1).tolist(), t_prefill
 
 
 def main(argv=None):
@@ -50,6 +84,16 @@ def main(argv=None):
                     help="decode tier of the minRNN LMs: 'auto' / 'on' "
                          "run each layer as one whole-block kernel, 'off' "
                          "keeps the cell-only kernel tier")
+    ap.add_argument("--speculative", default=None, choices=["ngram"],
+                    help="speculative decoding draft source: decoding "
+                         "rows propose up to --draft-len tokens a round, "
+                         "verified in one chunk pass (streams unchanged)")
+    ap.add_argument("--draft-len", type=int, default=4,
+                    help="most draft tokens proposed per round (S)")
+    ap.add_argument("--prefill", action="store_true",
+                    help="prefill the prompts in one parallel pass "
+                         "(lm.prefill), then decode greedily with "
+                         "decode_step, instead of the engine")
     ap.add_argument("--priority", type=int, default=1)
     ap.add_argument("--deadline-rounds", type=int, default=None)
     ap.add_argument("--max-queue", type=int, default=0)
@@ -63,13 +107,32 @@ def main(argv=None):
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(gen, cfg, device=device)
+    if args.prefill:
+        prompts = [list(p.encode()) for p in args.prompts]
+        t0 = time.time()
+        outs, t_prefill = prefill_and_decode(cfg, params, prompts,
+                                             args.max_new, args.max_len,
+                                             device)
+        dt = time.time() - t0
+        for p, toks in zip(args.prompts, outs):
+            print(f"--- [{p!r}] -> {decode_bytes(toks)!r}")
+        n_prompt = sum(len(p) for p in prompts)
+        print(f"prefill: {len(prompts)} prompts, {n_prompt} tokens in one "
+              f"parallel pass in {t_prefill * 1e3:.2f} ms "
+              f"({n_prompt / max(t_prefill, 1e-9):.1f} prompt tok/s), "
+              f"then {args.max_new - 1} decode_step rounds; "
+              f"{len(prompts) * args.max_new} tokens in {dt:.2f}s, device "
+              f"{device}")
+        return
     engine = ServingEngine(cfg, params, max_batch=args.max_batch,
                            max_len=args.max_len, seed=args.seed,
                            decode_block=args.decode_block,
                            prompt_chunk=args.prompt_chunk,
                            max_queue=args.max_queue,
                            max_retries=args.max_retries,
-                           fuse_block=args.fuse_block, device=device)
+                           fuse_block=args.fuse_block, device=device,
+                           speculative=args.speculative,
+                           draft_len=args.draft_len)
     rids = {}
     for p in args.prompts:
         rid = engine.submit(list(p.encode()), max_new=args.max_new,
@@ -104,6 +167,12 @@ def main(argv=None):
           f"{snap['ttft_rounds_mean']:.1f} device rounds), "
           f"inter-token {snap['itl_s_mean'] * 1e3:.1f}ms "
           f"({snap['itl_rounds_mean']:.2f} rounds/token)")
+    if engine.draft is not None:
+        print(f"speculative {args.speculative} S={args.draft_len}: "
+              f"{snap['draft_accepted']} of {snap['draft_proposed']} drafts "
+              f"accepted ({snap['accept_rate']:.1%}); "
+              f"{snap['non_spec_tokens']} emitting slot-rounds for "
+              f"{snap['decode_tokens']} tokens")
     print("engine stats: " + ", ".join(
         f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in sorted(snap.items())))

@@ -13,21 +13,27 @@ floating leaves are ``nn.Parameter``s (``.to(device)``, ``state_dict``,
 Training runs ``forward`` / ``loss_fn``: the layer stack of
 ``blocks.apply`` (the fused CUDA cell kernel in every layer under the
 default strategy), each layer under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"``.
+``cfg.remat == "full"``.  ``prefill`` runs the same parallel form over a
+prompt (right-padded batches, resumable from a cache) and hands a cache
+to the decode functions: one fused-cell launch per layer.
 
-Serving drives the step forms only: ``superstep`` runs K rounds of
+Serving drives the step forms: ``superstep`` runs K rounds of
 re-admission -> token select -> ``decode_step`` (or ``decode_chunk`` for
 packed prefill) -> sample-or-teacher-force -> retire over device-resident
-per-slot state (``init_slot_state``).  The reference runs those rounds in
-one ``lax.scan``; here they are a Python loop of eager device ops.  Each
-minRNN layer of each round is ONE launch of the whole-block CUDA kernel,
-or, on the cell-fused tier (``fuse_block="off"``) and in every layer of
-the attention trunk, one launch of the cell-only CUDA kernel between
-PyTorch norms, projections and MLPs.
+per-slot state (``init_slot_state``); with a draft source it runs the
+speculative rounds instead (``_superstep_spec``: propose, one
+``decode_verify`` chunk pass, accept, roll back by a gather).  The
+reference runs those rounds in one ``lax.scan``; here they are a Python
+loop of eager device ops.  Each minRNN layer of each round is ONE launch
+of the whole-block CUDA kernel, or, on the cell-fused tier
+(``fuse_block="off"``) and in every layer of the attention trunk, one
+launch of the cell-only CUDA kernel between PyTorch norms, projections
+and MLPs.
 Whoever owns the params binds them once (``bind_layers``) and passes the
-binding as ``layers=``; without it, each call binds its own.  The decode
-functions run under ``torch.no_grad()``: they build no graph, whether or
-not the params require grad.
+binding as ``layers=``; without it, each call binds its own.  The prefill
+and decode functions run under ``torch.no_grad()``: they build no graph
+(the fused cells save nothing), whether or not the params require
+grad.
 """
 
 from __future__ import annotations
@@ -292,8 +298,8 @@ def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     if _attn_minrnn(cfg):
         raise NotImplementedError(
             "training the attention trunk (gemma-2b-mingru's forward / "
-            "loss_fn) is not ported yet (ROADMAP.md queue 1, item 5); it "
-            "serves through decode_step")
+            "loss_fn) is not ported yet (ROADMAP.md queue 1, item 4); it "
+            "serves through prefill and decode_step")
     bc = _minrnn_block_cfg(cfg)
 
     def body(x_, p_l):
@@ -471,6 +477,126 @@ def decode_chunk(params, cfg, tokens: torch.Tensor, valid: torch.Tensor,
     return _final(params, cfg, x_last), new_cache
 
 
+@torch.no_grad()
+def decode_verify(params, cfg, tokens: torch.Tensor, valid: torch.Tensor,
+                  cache: Dict[str, Any], *, layers=None):
+    """Speculative-verify pass: tokens (B, W), valid (B,) int32 in [1, W]
+    -> (logits (B, W, V), per-position states {"h": (L, B, W, Dh)[,
+    "conv": (L, B, W, K-1, D)]}).
+
+    ``decode_chunk``'s sibling: the same masked varlen replay, one chunk
+    kernel launch per layer, per token identical to ``valid[b]``
+    sequential ``decode_step`` calls, keeping what verification needs --
+    the logits at every position and the state after every position.
+    The caller commits ``valid_eff[b] <= valid[b]`` positions by
+    gathering the states at ``valid_eff[b] - 1``; positions at or past
+    ``valid[b]`` re-emit the frozen state, so any index in
+    ``[valid_eff - 1, W)`` is safe.  ``cache`` is left as it is."""
+    if cfg.block_kind != "minrnn":
+        raise NotImplementedError(
+            f"decode_verify requires a constant-size recurrent state "
+            f"(block_kind='minrnn'), got {cfg.block_kind!r}")
+    bc = _minrnn_block_cfg(cfg)
+    if layers is None:
+        layers = bind_layers(params, cfg)
+    x = _embed(params, cfg, tokens)                    # (B, W, D)
+    pos = {"h": []}
+    if bc.use_conv:
+        pos["conv"] = []
+    for i, (p_l, operands) in enumerate(layers):
+        state = {k: cache[k][i] for k in pos}
+        x, _, pos_l = minrnn_blocks.step_chunk(
+            p_l, bc, x, state, valid, compute_dtype=cfg.cdtype,
+            return_positions=True, operands=operands)
+        for k in pos:
+            pos[k].append(pos_l[k])
+    # the final norm and logits a position at a time, as decode_step runs
+    # them (see blocks.step_chunk): the logits equal the steps' bit for bit
+    logits = torch.stack([_final(params, cfg, x[:, t].contiguous())
+                          for t in range(x.shape[1])], dim=1)
+    return logits, {k: torch.stack(v) for k, v in pos.items()}
+
+
+# ===========================================================================
+# Prefill: one parallel pass over the prompt that seeds the decode cache
+# ===========================================================================
+
+def supports_chunked_prefill(cfg) -> bool:
+    """True when ``prefill`` can resume from a carried cache: the whole
+    decode state is a constant-size recurrence (the minRNN trunk)."""
+    return cfg.block_kind == "minrnn"
+
+
+def _attn_block_prefill(p, cfg, x, *, lengths=None):
+    """The attention trunk's block over the prompt with its minRNN mixer:
+    the cell's parallel form (the fused kernel under the default
+    strategy), the down product, the MLP.  Returns (x, the mixer's h at
+    each row's last real position)."""
+    nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
+    y = nn.norm_apply(cfg.norm, p["norm1"], x, **nk)
+    cell = _MIN_CELLS[cfg.seq_mixer]
+    mode = cfg.minrnn.mode if cfg.minrnn else "log"
+    h = cell.parallel(p["mixer"]["rnn"], y, mode=mode,
+                      compute_dtype=cfg.cdtype,
+                      scan_strategy=cfg.scan_strategy)
+    x = x + nn.dense_apply(p["mixer"]["down"], h, cfg.cdtype)
+    y = nn.norm_apply(cfg.norm, p["norm2"], x, **nk)
+    out = mlp_lib.mlp_apply(p["mlp"], y, activation=cfg.mlp_activation,
+                            compute_dtype=cfg.cdtype)
+    h_last = h[:, -1] if lengths is None else nn.gather_last(h, lengths)
+    return x + out, h_last
+
+
+@torch.no_grad()
+def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
+            lengths: Optional[torch.Tensor] = None,
+            cache: Optional[Dict[str, Any]] = None):
+    """Parallel prompt processing: tokens (B, T) -> (last-token logits
+    (B, V), a cache ``decode_step`` / ``superstep`` take as it is).  The
+    prompt is one parallel scan per layer -- one fused-cell kernel launch
+    under the default strategy -- not T sequential cell evaluations.
+
+    ``lengths`` (B,) int32: right-padded prompts, row b's logits and
+    state taken at its position ``lengths[b] - 1``.  ``cache``: resume
+    from an earlier prefill's cache (chunked prefill; the minRNN trunk
+    only).  ``pos`` advances by the tokens consumed.  ``max_len`` is the
+    reference's (it sizes KV caches, which the ported trunks have
+    none of)."""
+    _check_cfg(cfg)
+    if cache is not None and not supports_chunked_prefill(cfg):
+        raise NotImplementedError(
+            f"chunked prefill resume not supported for block_kind="
+            f"{cfg.block_kind!r}")
+    x = _embed(params, cfg, tokens)
+    bsz, t = x.shape[0], x.shape[1]
+    consumed = torch.full((bsz,), t, dtype=torch.int32, device=x.device) \
+        if lengths is None else lengths.to(torch.int32)
+    new_cache: Dict[str, Any] = {
+        "pos": consumed if cache is None else cache["pos"] + consumed}
+    if _attn_minrnn(cfg):
+        hs = []
+        for p_l in _layer_params(params):
+            x, h = _attn_block_prefill(p_l, cfg, x, lengths=lengths)
+            hs.append(h)
+        new_cache["h"] = torch.stack(hs)
+    else:
+        bc = _minrnn_block_cfg(cfg)
+        keys = ("h", "conv") if bc.use_conv else ("h",)
+        states = {k: [] for k in keys}
+        for i, p_l in enumerate(_layer_params(params)):
+            state0 = None if cache is None else {k: cache[k][i]
+                                                 for k in keys}
+            x, st = minrnn_blocks.apply(
+                p_l, bc, x, state0=state0, lengths=lengths,
+                compute_dtype=cfg.cdtype, scan_strategy=cfg.scan_strategy,
+                return_state=True)
+            for k in keys:
+                states[k].append(st[k])
+        new_cache.update({k: torch.stack(v) for k, v in states.items()})
+    x_last = x[:, -1] if lengths is None else nn.gather_last(x, lengths)
+    return _final(params, cfg, x_last), new_cache
+
+
 # ===========================================================================
 # Superstep: prefill + decode + sampling + re-admission, K rounds
 # ===========================================================================
@@ -483,13 +609,18 @@ _ARM_FIELDS = ("prompt_len", "rid", "remaining", "eos", "temperature",
 
 
 def init_slot_state(cfg, batch: int, max_len: int, *, seed: int = 0,
-                    device="cuda") -> Dict[str, Any]:
+                    draft=None, device="cuda") -> Dict[str, Any]:
     """Device-resident per-slot serving state for ``superstep`` (layout of
     the reference's ``init_slot_state``).  The per-slot PRNG key data
     ``keys`` (B, 2) lives on the host as int64 holding uint32 values;
     ``key_lag`` (on the device) counts each slot's emissions since those
     keys were last advanced -- the chain is caught up lazily, only when a
-    sampled request needs it (``serving.sampling``)."""
+    sampled request needs it (``serving.sampling``).
+
+    ``draft`` (a ``serving.draft`` source) adds the speculative state:
+    ``n_out`` (tokens emitted, appended to the prompt buffer as drafting
+    history) and the source's own per-slot state
+    (``draft.extra_state``, e.g. the draft model's decode cache)."""
     from repro_torch.serving import sampling
 
     dev = resolve_device(device)
@@ -506,7 +637,7 @@ def init_slot_state(cfg, batch: int, max_len: int, *, seed: int = 0,
     def prompt():
         return torch.zeros((batch, max_len), dtype=torch.int32, device=dev)
 
-    return {
+    state = {
         "cache": init_cache(cfg, batch, max_len, dev),
         "tok": iv(), "alive": bv(),
         "keys": sampling.make_keys(seed, batch), "key_lag": iv(),
@@ -518,6 +649,10 @@ def init_slot_state(cfg, batch: int, max_len: int, *, seed: int = 0,
         "s_eos": iv(-1), "s_temperature": fv(0.0), "s_top_k": iv(),
         "s_top_p": fv(1.0),
     }
+    if draft is not None:
+        state["n_out"] = iv()
+        state.update(draft.extra_state(batch, max_len, dev))
+    return state
 
 
 def _reset_slot_rows(cache: Dict[str, Any], mask: torch.Tensor):
@@ -537,7 +672,8 @@ def _reset_slot_rows(cache: Dict[str, Any], mask: torch.Tensor):
 def superstep(params, cfg, state: Dict[str, Any], n: int, *,
               prompt_chunk: int = 1, layers=None,
               sampled: Optional[bool] = None,
-              chunk_rounds: Optional[Sequence[bool]] = None):
+              chunk_rounds: Optional[Sequence[bool]] = None,
+              draft=None, draft_params=None):
     """Run ``n`` rounds of the unified serving loop (see the reference's
     ``lm.superstep`` for the full contract).  Per round, for every slot:
     re-admission from staging, token select (next prompt token(s) or the
@@ -557,12 +693,27 @@ def superstep(params, cfg, state: Dict[str, Any], n: int, *,
     C-token chunk kernel; None reads whether any row is prefilling (the
     reference's ``lax.cond``).  A row prefilling in a round not marked
     takes one prompt token, so a wrong guess costs speed, never tokens:
-    the chunk at valid 1 and the step are one kernel, bit for bit."""
+    the chunk at valid 1 and the step are one kernel, bit for bit.
+
+    ``draft`` (a ``serving.draft`` source; its weights, if any, as
+    ``draft_params``) switches to speculative decoding
+    (:func:`_superstep_spec`): ``tokens`` / ``rids`` become (B, n,
+    draft_len + 1) and the counters gain ``draft_proposed``,
+    ``draft_accepted`` and ``emit_rounds``."""
     from repro_torch.serving import sampling
 
     if prompt_chunk > 1 and not supports_prompt_packing(cfg):
         raise NotImplementedError(
             f"prompt_chunk={prompt_chunk} requires block_kind='minrnn'")
+    if draft is not None:
+        if not supports_prompt_packing(cfg):
+            raise NotImplementedError(
+                f"speculative decoding requires a recurrent-state arch "
+                f"(block_kind='minrnn'), got block_kind={cfg.block_kind!r}")
+        return _superstep_spec(params, cfg, state, n,
+                               prompt_chunk=prompt_chunk, draft=draft,
+                               draft_params=draft_params, layers=layers,
+                               sampled=sampled)
     st = dict(state)
     batch = st["tok"].shape[0]
     p_cap = st["prompt"].shape[1]
@@ -589,16 +740,7 @@ def superstep(params, cfg, state: Dict[str, Any], n: int, *,
     emitted, emit_rids, nonfinite = [], [], []
     for r in range(n):
         # 1. re-admission from the staging buffer
-        arm = ~st["alive"] & st["s_valid"]
-        for f in _ARM_FIELDS:
-            st[f] = torch.where(arm, st["s_" + f], st[f])
-        st["prompt"] = torch.where(arm[:, None], st["s_prompt"],
-                                   st["prompt"])
-        st["prompt_pos"] = torch.where(arm, 0, st["prompt_pos"])
-        st["alive"] = st["alive"] | arm
-        st["s_valid"] = st["s_valid"] & ~arm
-        st["cache"] = _reset_slot_rows(st["cache"], arm)
-
+        _arm(st)
         alive = st["alive"]
         waste_ct = waste_ct + (~alive).sum(dtype=torch.int32)
         prefilling = alive & (st["prompt_pos"] < st["prompt_len"])
@@ -668,3 +810,201 @@ def superstep(params, cfg, state: Dict[str, Any], n: int, *,
                 "nonfinite": torch.stack(nonfinite, dim=1)}
     return (torch.stack(emitted, dim=1).to(torch.int32),
             torch.stack(emit_rids, dim=1).to(torch.int32), st, counters)
+
+
+def _arm(st: Dict[str, Any]) -> torch.Tensor:
+    """Re-admission: dead rows with a staged request arm it (request
+    fields swapped in, prompt position and recurrent state zeroed).
+    Updates ``st`` in place; returns the armed-row mask."""
+    arm = ~st["alive"] & st["s_valid"]
+    for f in _ARM_FIELDS:
+        st[f] = torch.where(arm, st["s_" + f], st[f])
+    st["prompt"] = torch.where(arm[:, None], st["s_prompt"], st["prompt"])
+    st["prompt_pos"] = torch.where(arm, 0, st["prompt_pos"])
+    st["alive"] = st["alive"] | arm
+    st["s_valid"] = st["s_valid"] & ~arm
+    st["cache"] = _reset_slot_rows(st["cache"], arm)
+    return arm
+
+
+def _superstep_spec(params, cfg, state: Dict[str, Any], n: int, *,
+                    prompt_chunk: int, draft, draft_params, layers=None,
+                    sampled: Optional[bool] = None):
+    """The speculative form of :func:`superstep` (the reference's
+    ``_superstep_spec``).  Per round, for every slot:
+
+      1. re-admission, also zeroing the drafting history (``n_out``) and
+         the source's own per-slot state;
+      2. propose: up to S draft tokens per row, kept on decoding rows
+         only and capped at ``remaining - 1`` (the round's own token
+         covers the rest);
+      3. verify: ONE ``decode_verify`` of width W = max(C, S + 1) for the
+         whole batch -- decoding rows ``[tok, d_1..d_S]``, prefilling rows
+         their next C prompt tokens, dead rows valid 1;
+      4. accept: position i's exact token x_i (greedy, or sampled with
+         the slot's i-th chained key) against draft d_{i+1}; the row
+         commits e = leading matches + 1 tokens, cut after an emitted EOS;
+      5. commit: the state gathered at position e - 1 (prefilling rows:
+         their take; dead rows: 1), ``pos += e``, the source's ``commit``;
+      6. EOS / length retire, as the plain loop.
+
+    Acceptance stays on the device; the host reads nothing per round.
+    Sampled rows take their noise from a table of the next
+    n (S + 1) chain positions per slot, drawn once, gathered by each
+    slot's on-device emission count (``key_lag``)."""
+    from repro_torch.serving import sampling
+
+    st = dict(state)
+    batch = st["tok"].shape[0]
+    p_cap = st["prompt"].shape[1]
+    chunk = int(prompt_chunk)
+    s_len = int(draft.draft_len)
+    n_planes = s_len + 1                        # E: emit planes per round
+    width = max(chunk, n_planes)                # W: verify width
+    dev = st["tok"].device
+    rows = torch.arange(batch, device=dev)
+    plane = torch.arange(n_planes, device=dev)[None]
+    i32 = torch.int32
+    if layers is None:
+        layers = bind_layers(params, cfg)
+    if sampled is None:
+        sampled = bool(((st["temperature"] > 0)
+                        | (st["s_valid"] & (st["s_temperature"] > 0))).any())
+    noise = None
+    if sampled:
+        st["keys"] = sampling.advance_keys(st["keys"], st["key_lag"].cpu())
+        st["key_lag"] = torch.zeros_like(st["key_lag"])
+        noise = sampling.gumbel_table(st["keys"], n * n_planes,
+                                      cfg.padded_vocab).to(dev)
+    ct = {k: torch.zeros((), dtype=i32, device=dev) for k in (
+        "prefill_steps", "prefill_rounds", "wasted_slot_steps",
+        "draft_proposed", "draft_accepted", "emit_rounds",
+        "nonfinite_decode_rounds")}
+
+    emitted, emit_rids, nonfinite = [], [], []
+    for _ in range(n):
+        # 1. re-admission
+        arm = _arm(st)
+        st["n_out"] = torch.where(arm, 0, st["n_out"])
+        if "draft_cache" in st:
+            st["draft_cache"] = _reset_slot_rows(st["draft_cache"], arm)
+        alive = st["alive"]
+        ct["wasted_slot_steps"] += (~alive).sum(dtype=i32)
+        prefilling = alive & (st["prompt_pos"] < st["prompt_len"])
+        decoding = alive & ~prefilling
+        ct["prefill_rounds"] += prefilling.sum(dtype=i32)
+        left = st["prompt_len"] - st["prompt_pos"]
+        take = torch.where(prefilling, torch.clamp(left, max=chunk),
+                           0).to(i32)
+        ct["prefill_steps"] += take.sum(dtype=i32)
+
+        # 2. proposal, decoding rows only, within the length budget
+        drafts, n_draft = draft.propose(draft_params, st)
+        n_draft = torch.where(
+            decoding, torch.clamp(torch.minimum(n_draft, st["remaining"] - 1),
+                                  0, s_len), 0).to(i32)
+        ct["draft_proposed"] += n_draft.sum(dtype=i32)
+
+        # 3. one verify pass for the whole batch
+        idx = st["prompt_pos"][:, None] \
+            + torch.arange(width, device=dev)[None]
+        gathered = torch.gather(st["prompt"], 1,
+                                idx.clamp(0, p_cap - 1).long())
+        dec_blk = torch.cat([st["tok"][:, None], drafts.to(i32)], dim=1)
+        if width > n_planes:
+            dec_blk = torch.cat([dec_blk, dec_blk.new_zeros(
+                (batch, width - n_planes))], dim=1)
+        tok_blk = torch.where(prefilling[:, None], gathered, dec_blk)
+        valid_in = torch.where(prefilling, torch.clamp(take, min=1),
+                               1 + n_draft).to(i32)
+        logits_all, pstates = decode_verify(params, cfg, tok_blk, valid_in,
+                                            st["cache"], layers=layers)
+
+        # 3b. health guard over the logits and every per-position state
+        ok = torch.isfinite(logits_all).flatten(1).all(dim=1)
+        ok = ok & torch.isfinite(pstates["h"]).transpose(0, 1) \
+            .reshape(batch, -1).all(dim=1)
+        bad = alive & ~ok
+        ct["nonfinite_decode_rounds"] += (bad & ~prefilling).sum(dtype=i32)
+
+        # 4a. the exact token at every position under the chained keys;
+        # a prefilling row emits at most its first token, from the logits
+        # at its last prompt position with the slot's current key
+        gum = None
+        if noise is not None:
+            gidx = (st["key_lag"][:, None] + plane).clamp(
+                max=n * n_planes - 1).long()
+            gum = noise[rows[:, None], gidx]            # (B, E, V)
+        x_toks = sampling.chain_tokens(
+            logits_all[:, :n_planes], gum, st["temperature"], st["top_k"],
+            st["top_p"])
+        last_logits = logits_all[rows, (valid_in - 1).long()]
+        tok_first = sampling.sample_tokens(
+            last_logits, None if gum is None else gum[:, 0],
+            st["temperature"], st["top_k"], st["top_p"])
+
+        # 4b. acceptance: the leading run of matching drafts + 1, cut
+        # after the first emitted EOS
+        m = (x_toks[:, :s_len] == tok_blk[:, 1:n_planes]) \
+            & (plane[:, :s_len] < n_draft[:, None])
+        lead = torch.cumprod(m.to(i32), dim=1).sum(dim=1, dtype=i32)
+        is_eos = (st["eos"] >= 0)[:, None] & (x_toks == st["eos"][:, None])
+        first_eos = torch.where(is_eos, plane, n_planes).amin(dim=1)
+        e = torch.minimum(lead + 1, first_eos + 1).to(i32)
+        ct["draft_accepted"] += torch.where(decoding & ~bad, e - 1,
+                                            0).sum(dtype=i32)
+        pos_next = st["prompt_pos"] + take
+        pf_emit = prefilling & (pos_next >= st["prompt_len"])
+        emitting = (pf_emit | decoding) & ~bad
+        ct["emit_rounds"] += emitting.sum(dtype=i32)
+        n_emit = torch.where(bad, 0, torch.where(decoding, e,
+                                                 pf_emit.to(i32))).to(i32)
+
+        # 4c. the emit planes: -1 past each row's committed length
+        emit_tok = torch.where(decoding[:, None], x_toks, tok_first[:, None])
+        live_plane = plane < n_emit[:, None]
+        emit = torch.where(live_plane, emit_tok, -1)
+        emitted.append(emit)
+        emit_rids.append(torch.where(live_plane, st["rid"][:, None], -1))
+        nonfinite.append(bad)
+
+        # the key chain advances one split per emitted token; tok becomes
+        # the last one
+        st["key_lag"] = st["key_lag"] + n_emit
+        kidx = torch.clamp(n_emit - 1, 0, n_planes - 1).long()
+        last_tok = emit_tok[rows, kidx]
+        st["tok"] = torch.where(emitting, last_tok, st["tok"])
+
+        # drafting history: the emitted tokens appended to the prompt
+        # buffer; writes past its end (only a request's final token)
+        # land in a scratch column and are dropped
+        hist = st["prompt_len"] + st["n_out"]
+        w_idx = torch.where(live_plane, hist[:, None] + plane, p_cap) \
+            .clamp(max=p_cap).long()
+        buf = torch.cat([st["prompt"], st["prompt"].new_zeros((batch, 1))],
+                        dim=1)
+        buf.scatter_(1, w_idx, torch.clamp(emit, min=0).to(buf.dtype))
+        st["prompt"] = buf[:, :p_cap]
+        st["n_out"] = st["n_out"] + n_emit
+
+        # 5. commit: each row's state at its last committed position
+        valid_eff = torch.where(prefilling, torch.clamp(take, min=1),
+                                torch.where(decoding, e, 1)).to(i32)
+        g_idx = (valid_eff - 1).long()
+        new_cache = dict(st["cache"])
+        for k, v in pstates.items():
+            new_cache[k] = v[:, rows, g_idx].contiguous()
+        new_cache["pos"] = st["cache"]["pos"] + valid_eff
+        st["cache"] = new_cache
+        st.update(draft.commit(draft_params, st, tok_blk, valid_eff))
+
+        # 6. EOS / length retire (an emitted EOS is the last plane)
+        st["remaining"] = st["remaining"] - n_emit
+        hit_eos = emitting & (st["eos"] >= 0) & (last_tok == st["eos"])
+        died = hit_eos | (emitting & (st["remaining"] <= 0))
+        st["alive"] = alive & ~(died | bad)
+        st["prompt_pos"] = pos_next
+
+    ct["nonfinite"] = torch.stack(nonfinite, dim=1)
+    return (torch.stack(emitted, dim=1).to(i32),
+            torch.stack(emit_rids, dim=1).to(i32), st, ct)

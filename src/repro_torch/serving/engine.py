@@ -13,9 +13,18 @@ Greedy streams equal the single-request ``generate_one`` reference token
 for token, under any admission order, mid-flight arrival, slot reuse and
 ``prompt_chunk``.
 
+With ``speculative`` set (a ``serving.draft`` source, or ``"ngram"``),
+decoding rows propose up to ``draft_len`` tokens a round and the
+superstep verifies them in one chunk pass per layer
+(``lm.decode_verify``), rolling the recurrent state back to the last
+accepted position with one gather; the drain planes grow to (B, K, S+1).
+Streams stay identical to the non-speculative engine's, greedy and
+seeded.  A rolling accept-rate floor (``spec_accept_floor``) turns
+drafting off when it stops paying (``_adapt_speculation``).
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md entry): speculative decoding, serving meshes, fault injection,
-crash recovery (``recover_dir`` / ``restore``) and autotune plans.
+ROADMAP.md entry): serving meshes, fault injection, crash recovery
+(``recover_dir`` / ``restore``) and autotune plans.
 ``fuse_block="off"`` serves on the cell-only kernel tier; the attention
 trunk with a minRNN mixer (gemma-2b-mingru) always does.
 """
@@ -32,6 +41,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.serving import draft as draft_lib
 from repro_torch.serving import sampling
 from repro_torch.serving.scheduler import (ADMITTED, REJECTED_QUEUE_FULL,
                                            AdmissionScheduler, EngineStats,
@@ -85,6 +95,12 @@ _STAGE_FIELDS = ("s_valid", "s_prompt", "s_prompt_len", "s_rid",
                  "s_top_p")
 
 
+# the superstep's scalar counters the host reads after every call
+_COUNTERS = ("prefill_steps", "prefill_rounds", "wasted_slot_steps",
+             "nonfinite_decode_rounds")
+_SPEC_COUNTERS = ("draft_proposed", "draft_accepted", "emit_rounds")
+
+
 def _not_ported(what: str, entry: str):
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch engine yet (ROADMAP.md "
@@ -100,20 +116,35 @@ class ServingEngine:
                  low_watermark: float = 0.5, aging_rounds: int = 64,
                  max_retries: int = 1, retry_backoff: int = 8,
                  fuse_block: Optional[str] = None, device="cuda",
-                 speculative=None, mesh=None, faults=None, tune=None,
+                 speculative=None, draft_len: int = 4, draft_params=None,
+                 spec_accept_floor: Optional[float] = None,
+                 spec_window: int = 8, spec_cooldown: int = 0,
+                 mesh=None, faults=None, tune=None,
                  recover_dir: Optional[str] = None):
-        if speculative is not None:
-            _not_ported("speculative decoding", "queue 1, item 4")
         if mesh is not None:
-            _not_ported("mesh-sharded serving", "queue 1, item 4")
+            _not_ported("mesh-sharded serving", "queue 1, item 6")
         if faults is not None:
-            _not_ported("fault injection", "queue 1, item 4")
+            _not_ported("fault injection", "queue 1, item 3")
         if recover_dir is not None:
-            _not_ported("crash recovery", "queue 1, item 4")
+            _not_ported("crash recovery", "queue 1, item 3")
         if tune is not None:
-            _not_ported("autotune plans", "queue 1, item 4")
+            _not_ported("autotune plans", "queue 1, item 3")
         if fuse_block is not None and fuse_block != cfg.fuse_block:
             cfg = cfg.replace(fuse_block=fuse_block)
+        self.decode_block = max(1, int(decode_block or 1))
+        self.prompt_chunk = max(1, int(prompt_chunk or 1))
+        if self.prompt_chunk > 1 and not lm.supports_prompt_packing(cfg):
+            raise ValueError(
+                f"prompt_chunk={self.prompt_chunk} requires a recurrent-"
+                f"state arch (block_kind='minrnn')")
+        # speculative decoding: a draft source name ("ngram") or instance
+        if isinstance(speculative, str):
+            speculative = draft_lib.make(speculative, draft_len)
+        if speculative is not None and not lm.supports_prompt_packing(cfg):
+            raise ValueError(
+                f"speculative decoding requires a recurrent-state arch "
+                f"(block_kind='minrnn'); {cfg.name} has "
+                f"block_kind={cfg.block_kind!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = lm.tree_to(params, self.device)
@@ -123,14 +154,21 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.seed = int(seed)
-        self.decode_block = max(1, int(decode_block or 1))
-        self.prompt_chunk = max(1, int(prompt_chunk or 1))
-        if self.prompt_chunk > 1 and not lm.supports_prompt_packing(cfg):
-            raise ValueError(
-                f"prompt_chunk={self.prompt_chunk} requires a recurrent-"
-                f"state arch (block_kind='minrnn')")
+        self.draft = speculative
+        self.draft_params = draft_params if draft_params is not None \
+            else getattr(speculative, "params", None)
+        if self.draft_params is not None:
+            self.draft_params = lm.tree_to(self.draft_params, self.device)
+            if hasattr(self.draft, "bind"):     # its own kernel binding
+                self.draft.bind(self.draft_params)
+        self.spec_accept_floor = spec_accept_floor
+        self.spec_window = max(1, int(spec_window))
+        self.spec_cooldown = max(0, int(spec_cooldown))
+        self._spec_active = True
+        self._spec_hist: List = []      # (proposed, accepted) per call
+        self._spec_off_calls = 0
         self.state = lm.init_slot_state(cfg, max_batch, max_len, seed=seed,
-                                        device=self.device)
+                                        draft=self.draft, device=self.device)
         self.scheduler = AdmissionScheduler(SchedulerConfig(
             max_batch=max_batch, max_queue=max_queue,
             high_watermark=high_watermark, low_watermark=low_watermark,
@@ -163,12 +201,18 @@ class ServingEngine:
     @classmethod
     def restore(cls, *args, **kwargs):
         _not_ported("crash recovery (ServingEngine.restore)",
-                    "queue 1, item 4")
+                    "queue 1, item 3")
 
     def _service_rounds(self, req: Request) -> int:
+        """Rounds a request holds a row: packed prefill plus decode, less
+        the round where both meet.  Under speculation an upper bound (a
+        round commits at least one token)."""
         return -(-len(req.prompt) // self.prompt_chunk) + req.max_new - 1
 
     def _est_finish_round(self, req: Request) -> int:
+        """The device round by which ``req`` could finish, the work ahead
+        of it placed on the soonest-freeing rows; an upper bound under
+        speculation, used only to shed deadlines it cannot meet."""
         etas = [self._row_eta(s) for s in range(self.max_batch)]
         for i in range(self.max_batch):
             if self.staged[i] is not None:
@@ -240,6 +284,10 @@ class ServingEngine:
     # Staging
     # ------------------------------------------------------------------
     def _row_eta(self, slot: int) -> int:
+        """Rounds until this row frees (0 when idle): the prompt tokens the
+        device has not consumed yet (the synced ``prompt_pos`` mirror), C
+        a round, plus the tokens still to emit -- an upper bound under
+        speculation, where a round commits one token or more."""
         req = self.current[slot]
         if req is None:
             return 0
@@ -429,6 +477,36 @@ class ServingEngine:
                      + -(-len(parked.prompt) // c))
         return marked
 
+    def _adapt_speculation(self, proposed: int, accepted: int):
+        """Rolling accept-rate floor: when a window of ``spec_window``
+        drafting calls accepts below ``spec_accept_floor`` of what they
+        proposed, drafting turns off (the plain superstep runs) instead
+        of paying an (S+1)-wide verify for about one token a round.  With
+        ``spec_cooldown > 0`` it probes again after that many calls.
+        Streams are the same either way."""
+        if self.draft is None or self.spec_accept_floor is None:
+            return
+        if not self._spec_active:
+            self._spec_off_calls += 1
+            if self.spec_cooldown and \
+                    self._spec_off_calls >= self.spec_cooldown:
+                self._spec_active = True
+                self._spec_off_calls = 0
+                self._spec_hist = []
+            return
+        if proposed <= 0:
+            return
+        self._spec_hist.append((proposed, accepted))
+        if len(self._spec_hist) > self.spec_window:
+            self._spec_hist.pop(0)
+        if len(self._spec_hist) == self.spec_window:
+            tp = sum(p for p, _ in self._spec_hist)
+            ta = sum(a for _, a in self._spec_hist)
+            if ta < self.spec_accept_floor * tp:
+                self._spec_active = False
+                self._spec_hist = []
+                self.stats.spec_disabled += 1
+
     def step(self, n_tokens: Optional[int] = None) -> int:
         """Sweep deadlines, stage, run ONE superstep of ``n_tokens``
         (default ``decode_block``) device rounds, drain.  Returns the
@@ -444,47 +522,54 @@ class ServingEngine:
 
         live = [r for r in self.current + self.staged if r is not None]
         sampled = any(r.temperature > 0 for r in live)
-        chunk_rounds = self._chunk_rounds(k) if self.prompt_chunk > 1 \
-            else None
+        spec = self.draft is not None and self._spec_active
+        chunk_rounds = self._chunk_rounds(k) \
+            if self.prompt_chunk > 1 and not spec else None
+        names = _COUNTERS + (_SPEC_COUNTERS if spec else ())
 
         with self.stats.timed("decode"):
             toks, rids, self.state, counters = lm.superstep(
                 self.params, self.cfg, self.state, k,
                 prompt_chunk=self.prompt_chunk, layers=self.layers,
-                sampled=sampled, chunk_rounds=chunk_rounds)
+                sampled=sampled, chunk_rounds=chunk_rounds,
+                draft=self.draft if spec else None,
+                draft_params=self.draft_params)
             # one device-to-host copy for everything the host reads
-            scal = torch.stack([counters[c] for c in (
-                "prefill_steps", "prefill_rounds", "wasted_slot_steps",
-                "nonfinite_decode_rounds")])
+            scal = torch.stack([counters[c] for c in names])
             flat = torch.cat([toks.flatten(), rids.flatten(),
                               counters["nonfinite"].flatten().to(torch.int32),
                               self.state["s_valid"].to(torch.int32),
                               self.state["prompt_pos"], self.state["rid"],
                               scal.to(torch.int32)]).cpu().numpy()
+        planes = toks.shape[2] if toks.dim() == 3 else 1
         toks_np, rids_np, nf_np, s_valid_np, pos_np, rid_np, scal_np = \
-            np.split(flat, np.cumsum([bsz * k, bsz * k, bsz * k, bsz, bsz,
-                                      bsz]))
-        toks_np = toks_np.reshape(bsz, k)
-        rids_np = rids_np.reshape(bsz, k)
+            np.split(flat, np.cumsum([bsz * k * planes, bsz * k * planes,
+                                      bsz * k, bsz, bsz, bsz]))
+        toks_np = toks_np.reshape(bsz, k, planes)
+        rids_np = rids_np.reshape(bsz, k, planes)
         nf_np = nf_np.reshape(bsz, k).astype(bool)
         s_valid_np = s_valid_np.astype(bool)
         self._prompt_pos[:] = pos_np
         self._rid_dev[:] = rid_np
-        pf_steps, pf_rounds, wasted, nf_rounds = (int(v) for v in scal_np)
+        cnt = dict(zip(names, (int(v) for v in scal_np)))
 
         base_round = self.stats.decode_steps
         self.stats.decode_calls += 1
         self.stats.decode_steps += k
         self.stats.slot_steps += k * bsz
-        self.stats.prefill_tokens += pf_steps
-        self.stats.prefill_rounds += pf_rounds
-        self.stats.wasted_slot_steps += wasted
-        self.stats.nonfinite_decode_rounds += nf_rounds
+        self.stats.prefill_tokens += cnt["prefill_steps"]
+        self.stats.prefill_rounds += cnt["prefill_rounds"]
+        self.stats.wasted_slot_steps += cnt["wasted_slot_steps"]
+        self.stats.nonfinite_decode_rounds += cnt["nonfinite_decode_rounds"]
+        self.stats.draft_proposed += cnt.get("draft_proposed", 0)
+        self.stats.draft_accepted += cnt.get("draft_accepted", 0)
         sh = self.stats.shards[0]
         sh.slot_steps += k * bsz
-        sh.prefill_rounds += pf_rounds
-        sh.wasted_slot_steps += wasted
-        sh.nonfinite_decode_rounds += nf_rounds
+        sh.prefill_rounds += cnt["prefill_rounds"]
+        sh.wasted_slot_steps += cnt["wasted_slot_steps"]
+        sh.nonfinite_decode_rounds += cnt["nonfinite_decode_rounds"]
+        self._adapt_speculation(cnt.get("draft_proposed", 0),
+                                cnt.get("draft_accepted", 0))
 
         now = time.perf_counter()
         dirty = set(self._dirty_slots)
@@ -493,34 +578,38 @@ class ServingEngine:
             for j in range(k):
                 if nf_np[slot, j]:
                     self._quarantine(slot, base_round + j, s_valid_np, dirty)
-                rid = int(rids_np[slot, j])
-                if rid < 0:
-                    continue
-                req = self.current[slot]
-                if req is None or req.rid != rid:
-                    req = self._promote(slot)     # armed mid-superstep
-                    assert req.rid == rid, (req.rid, rid)
-                t = int(toks_np[slot, j])
-                if not req.out:
-                    req.first_token_s = now
-                    req.first_round = base_round + j
-                    self.stats.record_first_token(
-                        now - req.submitted_s,
-                        base_round + j + 1 - req.submit_round)
-                    sh.first_tokens += 1
-                req.out.append(t)
-                drained += 1
-                if (req.eos is not None and t == req.eos) or \
-                        len(req.out) >= req.max_new:
-                    self._finish(req, now, base_round + j)
+                for c in range(planes):
+                    rid = int(rids_np[slot, j, c])
+                    if rid < 0:
+                        continue
+                    req = self.current[slot]
+                    if req is None or req.rid != rid:
+                        req = self._promote(slot)   # armed mid-superstep
+                        assert req.rid == rid, (req.rid, rid)
+                    t = int(toks_np[slot, j, c])
+                    if not req.out:
+                        req.first_token_s = now
+                        req.first_round = base_round + j
+                        self.stats.record_first_token(
+                            now - req.submitted_s,
+                            base_round + j + 1 - req.submit_round)
+                        sh.first_tokens += 1
+                    req.out.append(t)
+                    drained += 1
+                    if (req.eos is not None and t == req.eos) or \
+                            len(req.out) >= req.max_new:
+                        self._finish(req, now, base_round + j)
             # armed without emitting yet (still prefilling at call end)
             if self.staged[slot] is not None and not s_valid_np[slot] \
                     and slot not in dirty:
                 self._promote(slot)
+        # non_spec_tokens: the tokens the non-speculative path would have
+        # emitted in these rounds, one per emitting slot-round
+        non_spec = cnt["emit_rounds"] if spec else drained
         self.stats.decode_tokens += drained
-        self.stats.non_spec_tokens += drained
+        self.stats.non_spec_tokens += non_spec
         sh.decode_tokens += drained
-        sh.non_spec_tokens += drained
+        sh.non_spec_tokens += non_spec
         self._smirror["s_valid"][:] = s_valid_np
         return (sum(r is not None for r in self.current)
                 + sum(r is not None for r in self.staged)

@@ -14,7 +14,10 @@ key chains are bit-identical to JAX's (the installed JAX's default,
 partitionable, counter layout).  Because a key advances only when its
 slot emits, the noise of the next n chain positions can be drawn ahead on
 the host (``gumbel_table``); the device round then just gathers the row
-at the slot's emission count.
+at the slot's emission count.  Under speculation a slot may emit up to
+S + 1 tokens a round, so the table covers n (S + 1) positions and a
+round gathers S + 1 consecutive planes from the slot's count
+(``chain_tokens``); ``sample_chain`` is the reference's chained sampler.
 """
 
 from __future__ import annotations
@@ -118,18 +121,25 @@ def gumbel(use_keys: torch.Tensor, vocab: int) -> torch.Tensor:
     return -torch.log(-torch.log(uniform(use_keys, vocab)))
 
 
-def gumbel_table(keys: torch.Tensor, n: int, vocab: int) -> torch.Tensor:
-    """Noise of the next ``n`` chain positions per slot: (B, n, vocab).
-    Position e uses ``split(chain[e])[1]`` where chain[0] = keys and
-    chain[e + 1] = ``split(chain[e])[0]`` -- the key a slot's (e+1)-th
-    emission of the coming rounds samples with."""
-    uses = []
+def _chain(keys: torch.Tensor, n: int):
+    """The next ``n`` positions of each slot's chain: (use keys, keys
+    after), each (B, n, 2).  Position e samples with ``split(chain[e])[1]``
+    and leaves ``chain[e + 1] = split(chain[e])[0]``, chain[0] = keys."""
+    uses, after = [], []
     k = keys
     for _ in range(n):
         s = split(k)
         uses.append(s[..., 1, :])
         k = s[..., 0, :]
-    return gumbel(torch.stack(uses, dim=1), vocab)
+        after.append(k)
+    return torch.stack(uses, dim=1), torch.stack(after, dim=1)
+
+
+def gumbel_table(keys: torch.Tensor, n: int, vocab: int) -> torch.Tensor:
+    """Noise of the next ``n`` chain positions per slot: (B, n, vocab),
+    position e the noise a slot's (e+1)-th emission of the coming rounds
+    samples with."""
+    return gumbel(_chain(keys, n)[0], vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -167,3 +177,29 @@ def sample_tokens(logits: torch.Tensor, gumbel_noise, temperature,
     scaled = _support_mask(scaled, top_k, top_p)
     sampled = torch.argmax(scaled + gumbel_noise, dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def chain_tokens(logits: torch.Tensor, gumbel_noise, temperature, top_k,
+                 top_p) -> torch.Tensor:
+    """logits (B, W, V); gumbel_noise (B, W, V) or None when no row
+    samples -> (B, W) int32: position i sampled as the i-th of W
+    sequential :func:`sample_tokens` calls, with noise plane i."""
+    if gumbel_noise is None:
+        return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+    return torch.stack([
+        sample_tokens(logits[:, i], gumbel_noise[:, i], temperature, top_k,
+                      top_p) for i in range(logits.shape[1])], dim=1)
+
+
+def sample_chain(logits: torch.Tensor, keys: torch.Tensor, temperature,
+                 top_k, top_p):
+    """Chained per-position sampling for speculative verify, as the
+    reference's ``sample_chain``: logits (B, W, V), keys (B, 2) ->
+    (tokens (B, W) int32, keys_after (B, W, 2)).  Position i is sampled
+    as the i-th of W sequential ``sample_tokens`` rounds would be, and
+    ``keys_after[:, i]`` is the key after i + 1 splits.  The keys live on
+    the host (int64 holding uint32); the noise moves to the logits'
+    device."""
+    uses, after = _chain(keys, logits.shape[1])
+    noise = gumbel(uses, logits.shape[-1]).to(logits.device)
+    return chain_tokens(logits, noise, temperature, top_k, top_p), after

@@ -5,7 +5,7 @@ loss -> grads (``torch.autograd.grad`` over the params' floating leaves)
 eagerly on the params' device; the AdamW update is in place
 (``optimizer.apply``).  The reference's ``make_dp_compressed_step``
 (bf16 gradient all-reduce over a data-parallel mesh) waits for
-``torch.distributed`` (ROADMAP.md queue 1, item 4).
+``torch.distributed`` (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.configs import archs
+from repro_torch.core import blocks
 from repro_torch.kernels.block_step import ops, ref
 from repro_torch.kernels.decode_step import ops as step_ops
 from repro_torch.kernels.decode_step import ref as step_ref
@@ -30,6 +31,7 @@ from repro_torch.kernels.fused_minlstm import ref as lstm_ref
 from repro_torch.kernels.scan import ops as scan_ops
 from repro_torch.kernels.scan import ref as scan_ref
 from repro_torch.models import lm
+from repro_torch.serving import draft as draft_lib
 from repro_torch.serving.engine import ServingEngine, generate_one
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training import train_step as ts_lib
@@ -901,3 +903,176 @@ def test_gemma_mingru_smoke_streams_on_gpu(cuda_device):
     for p, r in zip(prompts, rids):
         assert res[r] == generate_one(cfg, params, p, max_new=5, max_len=32,
                                       device=cuda_device)
+
+
+# ---------------------------------------------------------------------------
+# Prefill and speculative decoding
+# ---------------------------------------------------------------------------
+
+# (B, T, Dx, Dh): gemma-2b-mingru's width (22 column tiles of 96, the last
+# 32 wide) and the LMs' width, at prompt lengths off the 128-row T chunk
+PREFILL_SHAPES = [(2, 300, 2048, 2048), (3, 127, 768, 1536),
+                  (2, 513, 768, 1536)]
+
+
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+def test_fused_kernels_prefill_shapes_with_bf16_h0(cell, shape, cuda_device):
+    """The prefill's launches: bf16 on the tensor-core body, h0 given in
+    bf16 (a resumed prefill reads it from the cache), against the plain
+    version."""
+    gen = torch.Generator().manual_seed(17)
+    bsz, t, dx, dh = shape
+    ins = [v.detach() for v in _fused_case(gen, cell, torch.bfloat16,
+                                           cuda_device, bsz, t, dx, dh)]
+    fn, plain, mod = _fused_fns(cell, "log")
+    name = next(iter(mod.LAUNCHES))
+    mod.reset_launches()
+    with torch.no_grad():
+        out = fn(*ins)
+    assert mod.LAUNCHES[f"{name}/tc"] == mod.LAUNCHES[name] == 1
+    _close(out, plain(*ins), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dims", [(DX, DH, DM), (768, 1536, 3072)])
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_chunk_at_odd_width_states_equal_steps(cell, dtype, dims,
+                                                     cuda_device):
+    """The verify pass's chunk, C = 5: the per-position tables equal the
+    block step's state after each position bit for bit, and a frozen row
+    re-emits its final state."""
+    gen = torch.Generator().manual_seed(19)
+    dx, dh, dm = dims
+    params = _params(gen, cell, dtype, cuda_device, dx, dh, dm)
+    bsz, chunk = 8, 5
+    x = torch.randn((bsz, chunk, dx), generator=gen).to(dtype).to(cuda_device)
+    st = {"h": (0.5 * torch.randn((bsz, dh), generator=gen)).to(dtype)
+          .to(cuda_device),
+          "conv": torch.randn((bsz, K - 1, dx), generator=gen).to(dtype)
+          .to(cuda_device)}
+    valid = torch.tensor([5, 1, 3, 2, 5, 4, 1, 5], dtype=torch.int32,
+                         device=cuda_device)
+    kw = dict(cell=cell, use_conv=True, use_mlp=True)
+    bound = ops.BlockOperands(params, compute_dtype=None, **kw)
+    kw["mode"] = "log"
+    ops.reset_launches()
+    ys, _, pos = ops.fused_block_chunk(params, x, st, valid,
+                                       return_positions=True, operands=bound,
+                                       **kw)
+    assert ops.LAUNCHES["block_chunk_kernel"] == 1
+    cur = st
+    for t in range(chunk):
+        y_t, nxt = ops.fused_block_step(params, x[:, t].contiguous(), cur,
+                                        operands=bound,
+                                        **kw)
+        keep = (t < valid)
+        for k in ("h", "conv"):
+            want = torch.where(keep.view((-1,) + (1,) * (nxt[k].dim() - 1)),
+                               nxt[k], cur[k])
+            assert torch.equal(pos[k][:, t], want), (k, t)
+        assert torch.equal(ys[keep, t], y_t[keep])
+        cur = {k: pos[k][:, t].contiguous() for k in ("h", "conv")}
+
+
+@pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
+@pytest.mark.parametrize("fuse_block", ["auto", "off"])
+def test_prefill_and_decode_verify_on_gpu_match_cpu(arch, fuse_block,
+                                                    cuda_device):
+    """fp32 smoke width: ``lm.prefill`` (one fused-cell launch per layer)
+    and ``lm.decode_verify`` (one chunk launch per layer) on the card
+    against the same calls on the CPU's plain path."""
+    cfg = archs.smoke(arch).replace(fuse_block=fuse_block)
+    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = lm.tree_to(cpu, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, 256, (4, 9), generator=gen, dtype=torch.int32)
+    lens = torch.tensor([9, 1, 5, 7], dtype=torch.int32)
+    drafts = torch.randint(1, 256, (4, 5), generator=gen, dtype=torch.int32)
+    valid = torch.tensor([5, 1, 3, 2], dtype=torch.int32)
+    cell = cfg.minrnn.cell
+    fused = gru_ops if cell == "mingru" else lstm_ops
+    fused.reset_launches()
+    ops.reset_launches()
+    step_ops.reset_launches()
+    lg, cg = lm.prefill(gpu, cfg, toks.to(cuda_device), 32,
+                        lengths=lens.to(cuda_device))
+    assert fused.LAUNCHES[f"fused_{cell}_kernel"] == cfg.n_layers
+    vg, sg = lm.decode_verify(gpu, cfg, drafts.to(cuda_device),
+                              valid.to(cuda_device), cg)
+    chunk_launches = ops.LAUNCHES["block_chunk_kernel"] if fuse_block == \
+        "auto" else step_ops.LAUNCHES[f"{cell}_chunk_kernel"]
+    assert chunk_launches == cfg.n_layers
+    lc, cc = lm.prefill(cpu, cfg, toks, 32, lengths=lens)
+    vc, sc = lm.decode_verify(cpu, cfg, drafts, valid, cc)
+    for got, want in [(lg, lc), (vg, vc)] + [(cg[k], cc[k]) for k in cc] \
+            + [(sg[k], sc[k]) for k in sc]:
+        _close(got.cpu(), want, torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
+@pytest.mark.parametrize("fuse_block", ["auto", "off"])
+def test_speculative_engine_streams_on_gpu(arch, fuse_block, cuda_device):
+    """fp32 smoke width, both tiers: n-gram and oracle speculation stream
+    as the non-speculative engine; one chunk launch per layer per verify
+    round (the oracle's own commits add as many again)."""
+    cfg = archs.smoke(arch).replace(fuse_block=fuse_block)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device=cuda_device)
+    phrase = [5, 6, 7, 8, 9]
+    prompts = [phrase * 3, [1, 2] * 4, phrase + [3]]
+    cell = cfg.minrnn.cell
+
+    def run(**kw):
+        ops.reset_launches()
+        step_ops.reset_launches()
+        eng = ServingEngine(cfg, params, max_batch=2, max_len=48,
+                            decode_block=3, device=cuda_device, **kw)
+        rids = [eng.submit(p, max_new=8) for p in prompts]
+        res = eng.run_to_completion()
+        chunk = ops.LAUNCHES["block_chunk_kernel"] if fuse_block == "auto" \
+            else step_ops.LAUNCHES[f"{cell}_chunk_kernel"]
+        return [res[r] for r in rids], eng, chunk
+
+    base, _, _ = run()
+    spec, eng, chunk = run(speculative="ngram", draft_len=4)
+    assert spec == base
+    assert eng.stats.draft_proposed > 0
+    assert chunk == cfg.n_layers * eng.stats.decode_steps
+    oracle, eng, chunk = run(
+        speculative=draft_lib.ModelDraft(cfg, params, draft_len=3))
+    assert oracle == base
+    assert eng.stats.draft_accepted == eng.stats.draft_proposed > 0
+    assert chunk == 2 * cfg.n_layers * eng.stats.decode_steps
+
+
+@pytest.mark.parametrize("arch", ["mingru-lm", "minlstm-lm"])
+@pytest.mark.parametrize("chunk", [5, 8])
+def test_cell_tier_chunk_equals_steps_at_full_width(arch, chunk,
+                                                    cuda_device):
+    """bf16 at the LMs' width, the cell tier: ``blocks.step_chunk`` (the
+    chunk kernel, the tail a position at a time) equals ``chunk``
+    ``blocks.step`` calls bit for bit, outputs and states.  cuBLAS sums
+    the 3072-deep MLP product of 40 rows in another order than of 8."""
+    cfg = archs.get(arch).replace(fuse_block="off")
+    gen = torch.Generator().manual_seed(23)
+    params = lm.init_params(gen, cfg, device=cuda_device)
+    p0, o0 = lm.bind_layers(params, cfg)[0]
+    bc = lm._minrnn_block_cfg(cfg)
+    x = torch.randn((8, chunk, cfg.d_model), generator=gen).to(
+        torch.bfloat16).to(cuda_device)
+    st = {"h": torch.rand((8, bc.d_hidden), generator=gen).to(
+              torch.bfloat16).to(cuda_device),
+          "conv": torch.randn((8, 3, cfg.d_model), generator=gen).to(
+              torch.bfloat16).to(cuda_device)}
+    valid = torch.full((8,), chunk, dtype=torch.int32, device=cuda_device)
+    ys, _, pos = blocks.step_chunk(p0, bc, x, st, valid,
+                                   compute_dtype=torch.bfloat16,
+                                   return_positions=True, operands=o0)
+    cur = st
+    for t in range(chunk):
+        y_t, cur = blocks.step(p0, bc, x[:, t].contiguous(), cur,
+                               compute_dtype=torch.bfloat16, operands=o0)
+        assert torch.equal(y_t, ys[:, t]), t
+        for k in ("h", "conv"):
+            assert torch.equal(cur[k], pos[k][:, t]), (k, t)

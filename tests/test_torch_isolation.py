@@ -36,6 +36,8 @@ def _need_no_cuda():
 
 
 def test_importing_the_port_loads_no_jax():
+    assert {"repro_torch.serving.draft", "repro_torch.models.lm",
+            "repro_torch.serving.engine"} <= set(MODULES)
     code = ("import sys, importlib\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -127,7 +129,7 @@ def test_cpu_serving_launches_no_kernel():
 
 
 @pytest.mark.parametrize("kw", [
-    {"speculative": "ngram"}, {"mesh": "2x1"}, {"faults": object()},
+    {"mesh": "1x2"}, {"mesh": "2x1"}, {"faults": object()},
     {"recover_dir": "x"}, {"tune": "auto"}])
 def test_left_out_features_raise_not_implemented(kw):
     cfg = archs.smoke("mingru-lm")
