@@ -3,10 +3,12 @@ holds each against its plain PyTorch version at full model width, serves
 full-width mingru-lm (and a short minlstm-lm run) through the port's
 ServingEngine on the block-fused and on the cell-fused tier, serves and
 prefills full-width gemma-2b-mingru, prefills the minRNN LMs in parallel,
-serves with speculative decoding on both tiers, then trains full-width
-mingru-lm / minlstm-lm through the port's train step, and checks that
-every layer of every device round, prefill and training step went
-through the kernels.
+serves with speculative decoding on both tiers, trains full-width
+mingru-lm / minlstm-lm through the port's train step, then serves under
+injected faults, kills and restores the engine (in this process and a
+serving process sent SIGKILL) and serves under the card's tune plans,
+and checks that every layer of every device round, prefill and training
+step went through the kernels.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -106,7 +108,28 @@ Phases (any failed check exits non-zero before the result line):
      loss finite and falling; outside the count, the first 3 losses
      against the same run on the plain versions, a checkpoint restore +
      resumed step 6, and ms per step over 5 repeats;
-  6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  6. the robustness layer, full width, bf16, weights seeded on the card.
+     Faults on mingru-lm (block tier and cell tier) and minlstm-lm
+     (block tier), K 4, C 8: an injector armed at rate 0 gives the plain
+     run's streams and round counters, dropped uploads (rate 0.3) its
+     streams, NaN poured into two slots' state is quarantined and
+     retried and every stream equals the plain run's, the chaos trace
+     (NaN, drops, stragglers, deadlines, a bounded queue) ends with
+     every request terminal and the identities holding; one decode
+     kernel launch per layer per round.  Crash recovery on mingru-lm
+     (block tier, again with n-gram drafts, again with bit-rot in the
+     newest snapshot, and the cell tier; 24 requests, greedy and
+     seeded-sampled): killed mid-trace, restored, streams and round clock
+     equal the uninterrupted run's; a serving process
+     (``repro_torch.launch.serve --snapshot-dir``) sent SIGKILL after 12
+     step records, restored here and matched against an uninterrupted
+     run; outside the count, decoded tok/s with and without the journal
+     in turns, the snapshot's bytes and ms.  Tune plans: the autotuner's
+     first 2 points into a scratch directory; ``"auto"``
+     resolves the committed plans of this card for both LMs (never the
+     JAX package's CPU plans); a ``tune="auto"`` engine streams as K 1 /
+     C 1 on the plan's tier; the two in turns;
+  7. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -122,6 +145,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 if not torch.cuda.is_available():
@@ -150,9 +174,12 @@ from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
 from repro_torch.training import train_step as ts_lib  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch.serving import autotune, recovery, tuning  # noqa: E402
 from repro_torch.serving import draft as draft_lib  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
-from repro_torch.serving.engine import ServingEngine, generate_one  # noqa
+from repro_torch.serving.engine import (  # noqa: E402
+    TERMINAL_STATUSES, ServingEngine, generate_one, replay_trace)
+from repro_torch.serving.faults import FaultInjector  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
@@ -2171,6 +2198,507 @@ def train_phase(gen):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 4c. the robustness layer: faults, crash recovery, tune plans
+# ---------------------------------------------------------------------------
+
+# journals, snapshots and plans of this run (under build/, which git
+# ignores; removed at the end)
+SCRATCH = os.path.join(HERE, "build", "chip_smoke")
+# what two runs must agree on, exactly: the round clock, not the wall
+ROUND_COUNTERS = ("completed", "cancelled", "timed_out", "failed", "shed",
+                  "rejected", "quarantined", "retried", "slot_steps",
+                  "prefill_rounds", "prefill_tokens", "decode_tokens",
+                  "decode_steps", "decode_calls", "wasted_slot_steps",
+                  "nonfinite_decode_rounds")
+RATE_WINDOWS = 5
+
+
+def scratch_dir(name):
+    path = os.path.join(SCRATCH, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def round_counters(eng):
+    return {c: getattr(eng.stats, c) for c in ROUND_COUNTERS}
+
+
+def identities_ok(eng):
+    """The slot-step identity and the terminal accounting of a drained
+    engine, every request terminal."""
+    s = eng.stats
+    tokens = s.non_spec_tokens if eng.draft is not None else s.decode_tokens
+    return (s.slot_steps == s.prefill_rounds + tokens - len(s.ttft_rounds)
+            + s.wasted_slot_steps + s.nonfinite_decode_rounds
+            and s.submitted == s.completed + s.cancelled + s.timed_out
+            + s.failed + s.shed + s.rejected
+            and all(r.status in TERMINAL_STATUSES
+                    for r in eng.requests.values())
+            and s.shard_identities_ok())
+
+
+class Rounds:
+    """Device rounds x layers of every engine a counted phase runs: the
+    launches that phase must show (one decode kernel per layer per
+    round)."""
+
+    def __init__(self):
+        self.want = 0
+
+    def add(self, eng):
+        self.want += eng.cfg.n_layers * eng.stats.decode_steps
+        return eng
+
+
+def closed_batch(cfg, params, max_new=32, chunk=8, rounds=None, **kw):
+    """PROMPTS through a fresh engine at K 4; (streams, engine)."""
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+                        decode_block=4, prompt_chunk=chunk, device=DEV, **kw)
+    rids = [eng.submit(tokens_of(p), max_new=max_new) for p in PROMPTS]
+    outs = eng.run_to_completion()
+    if rounds is not None:
+        rounds.add(eng)
+    return [tuple(outs[r]) for r in rids], eng
+
+
+def chaos_run(cfg, params, rounds):
+    """``tests/test_faults.py``'s chaos trace at full width: NaN, dropped
+    uploads and stragglers at once, deadlines on a quarter of the
+    requests, a bounded queue; every request must end terminal."""
+    rng = np.random.default_rng(7)
+    inj = FaultInjector(seed=5, nan_rate=0.01, drop_rate=0.1,
+                        straggler_rate=0.1, straggler_s=0.001)
+    eng = ServingEngine(cfg, params, max_batch=4, max_len=128,
+                        decode_block=4, prompt_chunk=8, device=DEV,
+                        faults=inj, max_retries=2, retry_backoff=2,
+                        max_queue=8)
+    for i in range(24):
+        prompt = [int(t) for t in
+                  rng.integers(1, 250, size=int(rng.integers(2, 9)))]
+        kw = {}
+        if i % 4 == 0:
+            kw["deadline"] = 2 * (len(prompt) + 12)
+        eng.submit(prompt, max_new=int(rng.integers(4, 13)),
+                   priority=int(rng.integers(0, 3)), **kw)
+        if i % 3 == 2:
+            eng.step()
+    eng.run_to_completion(max_steps=2000)
+    rounds.add(eng)
+    return eng, inj
+
+
+def robustness_checks(tag, cfg, params, rounds):
+    """Faults on one model and tier, C 8, K 4: (1) an injector armed at
+    rate 0 gives the plain run's streams and round counters; (2)
+    dropped uploads (rate 0.3) the same streams; (3) NaN into two slots'
+    state at round 4: both requests quarantined, retried, completed, and
+    every stream -- theirs too -- the plain run's; (4) the chaos trace."""
+    base, eng0 = closed_batch(cfg, params, rounds=rounds)
+    armed, eng1 = closed_batch(cfg, params, rounds=rounds,
+                               faults=FaultInjector(seed=0))
+    check(armed == base and round_counters(eng1) == round_counters(eng0),
+          f"{tag}: an injector at rate 0 changed the run: "
+          f"{round_counters(eng1)} != {round_counters(eng0)}")
+    drop_inj = FaultInjector(seed=3, drop_rate=0.3)
+    drop, eng2 = closed_batch(cfg, params, rounds=rounds, faults=drop_inj)
+    check(drop_inj.counts()["drop_upload"] > 0, f"{tag}: no upload dropped")
+    check(drop == base and identities_ok(eng2),
+          f"{tag}: dropped uploads changed the streams")
+    nan_inj = FaultInjector(nan_at=((4, 2), (4, 5)))
+    nan, eng3 = closed_batch(cfg, params, rounds=rounds, faults=nan_inj,
+                             max_retries=2, retry_backoff=2)
+    hit = sorted(r.rid for r in eng3.requests.values() if r.retries)
+    check(nan_inj.counts()["corrupt_state"] == 2 and len(hit) == 2
+          and eng3.stats.quarantined == 2 and eng3.stats.retried == 2
+          and eng3.stats.completed == len(PROMPTS) and identities_ok(eng3),
+          f"{tag}: NaN quarantine: events {nan_inj.events}, stats "
+          f"{round_counters(eng3)}")
+    bad = [i for i, (a, b) in enumerate(zip(nan, base)) if a != b]
+    check(not bad, f"{tag}: streams {bad} differ after the NaN "
+          f"quarantine (hit requests {hit}); first diverging positions "
+          f"{[first_divergence(nan[i], base[i]) for i in bad]}")
+    chaos, inj = chaos_run(cfg, params, rounds)
+    counts = inj.counts()
+    check(len(chaos.finished) == 24 and identities_ok(chaos)
+          and chaos.stats.completed > 0
+          and sum(v > 0 for v in counts.values()) >= 2,
+          f"{tag}: chaos trace: {counts}, {round_counters(chaos)}")
+    st = chaos.stats
+    print(f"faults {tag} K=4 C=8: rate-0 injector and faults=None equal "
+          f"(streams, {len(ROUND_COUNTERS)} round counters); "
+          f"{drop_inj.counts()['drop_upload']} dropped uploads, streams "
+          f"equal; NaN at round 4 into slots 2 and 5 hit requests {hit}: "
+          f"quarantined {eng3.stats.quarantined}, retried "
+          f"{eng3.stats.retried}, {eng3.stats.nonfinite_decode_rounds} "
+          f"non-finite rounds, all 8 streams equal the plain run's; chaos "
+          f"trace (24 requests, 4 slots): injected {counts}, completed "
+          f"{st.completed}, timed out {st.timed_out}, failed {st.failed}, "
+          f"shed {st.shed}, rejected {st.rejected}, quarantined "
+          f"{st.quarantined}; identities hold")
+
+
+def robustness_phase(gen):
+    """Faults at full width on mingru-lm (block tier and cell tier) and
+    minlstm-lm (block tier): the counted main path of this phase."""
+    cfg = archs.get("mingru-lm")
+    params = lm.init_params(gen, cfg, device=DEV)
+    lstm_cfg = archs.get("minlstm-lm")
+    lstm_params = lm.init_params(gen, lstm_cfg, device=DEV)
+    cases = [("mingru-lm block tier", cfg, params),
+             ("mingru-lm cell tier", cfg.replace(fuse_block="off"), params),
+             ("minlstm-lm block tier", lstm_cfg, lstm_params)]
+    for _, c_, p_ in cases:                  # first-use allocations
+        closed_batch(c_, p_, max_new=4)
+    reset_serve_launches()
+    rounds = Rounds()
+    for tag, c_, p_ in cases:
+        robustness_checks(tag, c_, p_, rounds)
+    launches = serve_launches()
+    check(sum(launches.values()) == rounds.want,
+          f"robustness launches {launches}: {sum(launches.values())} != "
+          f"layers x rounds = {rounds.want}")
+    for name in ("block_step_kernel", "block_chunk_kernel",
+                 "mingru_step_kernel", "mingru_chunk_kernel"):
+        check(launches[name] > 0, f"{name} not launched under faults")
+    check(cell_body_launches()["mingru_step_kernel/tc"]
+          == launches["mingru_step_kernel"], "cell launches off the "
+          "tensor-core body under faults")
+    print(f"faults: launches on the main path {launches} == layers x "
+          f"rounds ({rounds.want})")
+    del lstm_params
+    return launches, (cfg, params)
+
+
+def trace_submitter(eng):
+    """The recovery traffic: seeded prompts, greedy and seeded-sampled in
+    turns."""
+    def fn(i, r):
+        eng.submit(autotune.trace_prompt(i, r["prompt_len"]),
+                   max_new=r["max_new"],
+                   temperature=0.0 if i % 2 == 0 else 0.8,
+                   top_k=0 if i % 2 == 0 else 40)
+    return fn
+
+
+def finished_streams(eng):
+    return {rid: tuple(r.out) for rid, r in sorted(eng.finished.items())}
+
+
+def kill_restore(tag, cfg, params, rounds, corrupt=False, **kw):
+    """A journaled engine over the 24-request trace (K 4, C 8) abandoned
+    at half the uninterrupted run's rounds, restored from its directory
+    and finished: streams and round clock equal the uninterrupted run's.
+    ``corrupt``: bit-rot in the newest snapshot, which restore must fall
+    back past."""
+    trace = autotune.make_trace(24, 8)
+    knobs = dict(max_batch=8, max_len=160, seed=0, decode_block=4,
+                 prompt_chunk=8, device=DEV, **kw)
+    ref = ServingEngine(cfg, params, **knobs)
+    replay_trace(ref, trace, trace_submitter(ref))
+    rounds.add(ref)
+    total = ref.stats.decode_steps
+    d = scratch_dir(tag.replace(" ", "_"))
+    eng = ServingEngine(cfg, params, recover_dir=d, snapshot_every=8,
+                        **knobs)
+    # mid-way, one superstep past a snapshot: the journal has a tail
+    kill = total // 2 // 8 * 8 + 4
+    replay_trace(eng, trace, trace_submitter(eng),
+                 stop=lambda e: e.stats.decode_steps >= kill)
+    check(len(eng.finished) < len(trace), f"{tag}: nothing left to kill")
+    rounds.add(eng)
+    eng.journal.close()
+    del eng
+    skipped = []
+    if corrupt:
+        newest = recovery.list_snapshots(d)[-1]
+        with open(os.path.join(recovery.snapshot_path(d, newest),
+                               "arrays.npz"), "ab") as f:
+            f.write(b"bitrot")
+        skipped = [newest]
+    torch.cuda.synchronize()
+    rec = ServingEngine.restore(d, cfg, params, device=DEV)
+    rep = rec.recovery_report
+    before = rec.stats.decode_steps
+    check(rep["corrupt_snapshots_skipped"] == skipped
+          and rep["snapshot_round"] is not None,
+          f"{tag}: recovery report {rep}")
+    replay_trace(rec, trace, trace_submitter(rec), start=len(rec.requests))
+    rounds.want += cfg.n_layers * (rec.stats.decode_steps - before
+                                   + rep["replayed_rounds"])
+    check(finished_streams(rec) == finished_streams(ref)
+          and rec.stats.decode_steps == total
+          and rec.stats.completed == len(trace),
+          f"{tag}: restored run differs from the uninterrupted one")
+    print(f"recovery {tag}: killed at round {kill} of {total}, "
+          f"restored from the snapshot of round {rep['snapshot_round']}"
+          + (f" (fell past the corrupt one of round {skipped[0]})"
+             if skipped else "")
+          + f", {rep['replayed_records']} journal records "
+          f"({rep['replayed_rounds']} rounds) replayed; load "
+          f"{rep['load_s'] * 1e3:.2f} ms, replay "
+          f"{rep['replay_s'] * 1e3:.2f} ms; 24 streams (12 greedy, 12 "
+          f"seeded-sampled) and {total} rounds equal the uninterrupted "
+          f"run's")
+    return rep
+
+
+def sigkill_case(cfg, params):
+    """A real kill: ``python -m repro_torch.launch.serve --snapshot-dir``
+    serving 8 prompts x 256 new tokens at K 1 is sent SIGKILL once its
+    journal holds 12 step records; this process restores from the
+    directory with the same seeded weights, finishes, and matches an
+    uninterrupted run of the same prompts and knobs."""
+    import signal
+    d = scratch_dir("sigkill")
+    log_path = os.path.join(SCRATCH, "sigkill_child.log")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           cfg.name, "--device", "cuda", "--max-batch", "8", "--max-len",
+           "512", "--max-new", "256", "--decode-block", "1",
+           "--prompt-chunk", "1", "--seed", "0", "--snapshot-dir", d,
+           "--snapshot-every", "8", "--prompts", *PROMPTS]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    jpath = os.path.join(d, recovery.JOURNAL_NAME)
+    steps = 0
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log,
+                                 stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while steps < 12:
+                if child.poll() is not None:
+                    break
+                check(time.perf_counter() - t0 < 300,
+                      "the serving child wrote no 12 step records in 300 s")
+                if os.path.exists(jpath):
+                    steps = sum(r["kind"] == "step" for r in
+                                recovery.read_journal(jpath)[1])
+                time.sleep(0.02)
+            if child.poll() is None:
+                child.send_signal(signal.SIGKILL)
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    check(child.returncode == -signal.SIGKILL,
+          f"the serving child exited on its own (rc {child.returncode}) "
+          f"after {steps} step records: {tail}")
+    _, recs, dropped, _ = recovery.read_journal(jpath)
+    t0 = time.perf_counter()
+    rec = ServingEngine.restore(d, cfg, params, device=DEV)
+    t_restore = time.perf_counter() - t0
+    rep = rec.recovery_report
+    outs = rec.run_to_completion()
+    ref = ServingEngine(cfg, params, max_batch=8, max_len=512, seed=0,
+                        decode_block=1, prompt_chunk=1, device=DEV)
+    rids = [ref.submit(tokens_of(p), max_new=256) for p in PROMPTS]
+    want = ref.run_to_completion()
+    check([outs[r] for r in rids] == [want[r] for r in rids]
+          and rec.stats.decode_steps == ref.stats.decode_steps
+          and rec.stats.completed == len(PROMPTS),
+          "SIGKILL: the restored run differs from the uninterrupted one")
+    print(f"recovery SIGKILL: the serving child killed after "
+          f"{sum(r['kind'] == 'step' for r in recs)} step records "
+          f"({dropped} torn line(s) dropped); restored in "
+          f"{t_restore * 1e3:.1f} ms from the snapshot of round "
+          f"{rep['snapshot_round']} + {rep['replayed_rounds']} replayed "
+          f"rounds; 8 streams x 256 tokens and {ref.stats.decode_steps} "
+          f"rounds equal an uninterrupted run's")
+    return ref.stats.decode_steps + rec.stats.decode_steps \
+        - (rep["snapshot_round"] or 0)
+
+
+def durability_cost(cfg, params):
+    """Outside the count: decoded tok/s of the closed batch (C 8, K 4)
+    plain, journaled with a snapshot every 8 rounds, and journaled
+    without snapshots, in turns; one fsync'd journal record's ms; the
+    snapshot's bytes and ms, and the share of it that copies the slot
+    state to the host."""
+    kinds = {"plain": None, "journaled": 8, "journal only": 10 ** 9}
+    rates = {k: [] for k in kinds}
+    for i in range(RATE_WINDOWS):
+        order = list(kinds) if i % 2 == 0 else list(kinds)[::-1]
+        for kind in order:
+            extra = {} if kinds[kind] is None else {
+                "recover_dir": scratch_dir("rate"),
+                "snapshot_every": kinds[kind]}
+            rates[kind].append(serve(cfg, params, 8, PROMPTS, 32,
+                                     quiet=True, spec=extra)[1]["rate"])
+    for kind, r in rates.items():
+        r.sort()
+        print(f"rate recovery {cfg.name} [block-fused] K=4 C=8 {kind}, "
+              f"{RATE_WINDOWS} windows of 8 requests x 32 tokens: decoded "
+              f"tok/s min {r[0]:.1f} median {r[len(r) // 2]:.1f} max "
+              f"{r[-1]:.1f}")
+    d = scratch_dir("snap_cost")
+    journal = recovery.Journal.create(os.path.join(d, "bench.jsonl"), {})
+    rec_ms = []
+    for r in range(50):
+        t0 = time.perf_counter()
+        journal.record_step({"round": 4 * r, "k": 4,
+                             "emits": [[j, 65 + j] for j in range(32)],
+                             "digest": {"round": 4 * r + 4}})
+        rec_ms.append((time.perf_counter() - t0) * 1e3)
+    journal.close()
+    rec_ms.sort()
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+                        decode_block=4, prompt_chunk=8, device=DEV)
+    for p in PROMPTS:
+        eng.submit(tokens_of(p), max_new=32)
+    for _ in range(3):
+        eng.step()
+    total, to_host = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = recovery.save_snapshot(eng, d, keep=1)
+        t1 = time.perf_counter()
+        arrays, _ = recovery.snapshot_engine(eng)
+        ckpt_lib.pack_arrays(arrays)
+        total.append((t1 - t0) * 1e3)
+        to_host.append((time.perf_counter() - t1) * 1e3)
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    total.sort()
+    to_host.sort()
+    print(f"journal record (one step of 32 emissions, fsync'd): ms min "
+          f"{rec_ms[0]:.3f} median {rec_ms[25]:.3f} max {rec_ms[-1]:.3f} "
+          f"over 50")
+    print(f"snapshot {cfg.name} (8 slots, max_len 128, {cfg.n_layers} "
+          f"layers, {len(arrays)} arrays): {size} bytes, ms min "
+          f"{total[0]:.2f} median {total[2]:.2f} max {total[-1]:.2f} over "
+          f"5 writes; of which the state to the host (one copy an array) "
+          f"median {to_host[2]:.2f} ms")
+
+
+def recovery_phase(cfg, params):
+    """Kill and restore at full width: mingru-lm on the block tier, with
+    n-gram speculation, with a corrupted newest snapshot, on the cell
+    tier; then a real SIGKILL of a serving process (the counted main
+    path of this phase), and the durability cost."""
+    off = cfg.replace(fuse_block="off")
+    spec = {"speculative": "ngram", "draft_len": SPEC_S}
+    reset_serve_launches()
+    rounds = Rounds()
+    kill_restore("block tier", cfg, params, rounds)
+    kill_restore("block tier, corrupt newest snapshot", cfg, params, rounds,
+                 corrupt=True)
+    kill_restore("block tier, ngram S 4", cfg, params, rounds, **spec)
+    kill_restore("cell tier", off, params, rounds)
+    launches = serve_launches()
+    check(sum(launches.values()) == rounds.want,
+          f"recovery launches {launches}: {sum(launches.values())} != "
+          f"layers x rounds = {rounds.want}")
+    for name in ("block_step_kernel", "block_chunk_kernel",
+                 "mingru_step_kernel", "mingru_chunk_kernel"):
+        check(launches[name] > 0, f"{name} not launched under recovery")
+    print(f"recovery: launches on the main path {launches} == layers x "
+          f"rounds ({rounds.want})")
+    gen = torch.Generator(device=DEV).manual_seed(0)   # the launcher's
+    sig_params = lm.init_params(gen, cfg, device=DEV)
+    reset_serve_launches()
+    sig_rounds = sigkill_case(cfg, sig_params)
+    sig = serve_launches()
+    check(sig["block_step_kernel"] == cfg.n_layers * sig_rounds
+          and sum(sig.values()) == sig["block_step_kernel"],
+          f"SIGKILL case launches {sig} != {cfg.n_layers} x {sig_rounds}")
+    merge(launches, sig)
+    del sig_params
+    durability_cost(cfg, params)
+    return launches
+
+
+def window_rate(cfg, params, **kw):
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+                        device=DEV, **kw)
+    rids = [eng.submit(tokens_of(p), max_new=32) for p in PROMPTS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.run_to_completion()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return [tuple(outs[r]) for r in rids], eng.stats.decode_tokens / dt, eng
+
+
+def tuning_phase(gen):
+    """The autotuner's first 2 points at full width into a scratch
+    directory; ``"auto"`` resolves the committed plans for this card (and
+    never the JAX package's CPU-modelled plans); an engine with
+    ``tune="auto"`` streams as the untuned engine on the plan's tier, at
+    K 1 / C 1; the two in turns."""
+    d = scratch_dir("tune")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    env.pop("REPRO_TUNE_DIR", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serving.autotune", "--arch",
+         "mingru-lm", "--points", "2", "--out-dir", d], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"autotune --points 2 failed: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    for ln in proc.stdout.strip().splitlines():
+        print(f"  {ln}")
+    cfg = archs.get("mingru-lm")
+    name = tuning.tune_filename(cfg, DEV)
+    fresh = tuning.load_plan(os.path.join(d, name))
+    check(fresh["points_scored"] == 2 and fresh["card"] == card_line()
+          and fresh["config"]["device"] == tuning.device_name(DEV),
+          f"autotune --points 2 wrote {fresh}")
+    print(f"tune: autotune --points 2 for mingru-lm in "
+          f"{time.perf_counter() - t0:.1f}s wrote {name}")
+    check(os.path.exists(os.path.join(HERE, "TUNE_mingru-lm_L3_d64.json"))
+          and tuning.resolve_plan(archs.smoke("mingru-lm"), "auto", DEV)
+          is None, "a plan of another device resolved on the card")
+    launches = {}
+    for arch in ("mingru-lm", "minlstm-lm"):
+        a_cfg = archs.get(arch)
+        plan = tuning.resolve_plan(a_cfg, "auto", DEV)
+        want = os.path.join(HERE, tuning.tune_filename(a_cfg, DEV))
+        check(plan is not None
+              and os.path.realpath(plan["source"]) == os.path.realpath(want)
+              and plan["streams_identical_within_tier"],
+              f"{arch}: 'auto' resolved {plan and plan.get('source')}, "
+              f"not {want}")
+        a_params = lm.init_params(gen, a_cfg, device=DEV)
+        tier = plan["fuse_block"]
+        knobs = dict(decode_block=1, prompt_chunk=1, fuse_block=tier)
+        window_rate(a_cfg, a_params, tune="auto")          # warm-up
+        window_rate(a_cfg, a_params, **knobs)
+        reset_serve_launches()
+        tuned, _, eng = window_rate(a_cfg, a_params, tune="auto")
+        got = serve_launches()
+        check(sum(got.values()) == a_cfg.n_layers * eng.stats.decode_steps
+              and (eng.decode_block, eng.prompt_chunk, eng.cfg.fuse_block)
+              == (plan["decode_block"], plan["prompt_chunk"], tier),
+              f"{arch}: tune='auto' engine {got}, K {eng.decode_block} C "
+              f"{eng.prompt_chunk} tier {eng.cfg.fuse_block}")
+        merge(launches, got)
+        untuned = window_rate(a_cfg, a_params, **knobs)[0]
+        check(tuned == untuned, f"{arch}: tune='auto' streams differ from "
+              f"K 1 / C 1 on the {tier} tier")
+        rates = {"auto": [], "K1C1": []}
+        for i in range(RATE_WINDOWS):
+            for kind in (("auto", "K1C1") if i % 2 == 0
+                         else ("K1C1", "auto")):
+                kw = {"tune": "auto"} if kind == "auto" else knobs
+                rates[kind].append(window_rate(a_cfg, a_params, **kw)[1])
+        print(f"tune {arch}: plan {os.path.basename(plan['source'])} "
+              f"(fuse_block={tier}, K={plan['decode_block']}, "
+              f"C={plan['prompt_chunk']}, swept "
+              f"{plan['score_decode_tokens_per_s']:.1f} decoded tok/s); "
+              f"streams equal K 1 / C 1 on that tier")
+        for kind, r in rates.items():
+            r.sort()
+            print(f"rate tune {arch} {kind}, {RATE_WINDOWS} windows of 8 "
+                  f"requests x 32 tokens: decoded tok/s min {r[0]:.1f} "
+                  f"median {r[len(r) // 2]:.1f} max {r[-1]:.1f}")
+        del a_params
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     print(card_line())
@@ -2201,6 +2729,14 @@ def main():
     merge(launches, spec_phase(gen))
     torch.cuda.empty_cache()
     merge(launches, train_phase(gen))
+    torch.cuda.empty_cache()
+    rgen = torch.Generator().manual_seed(21)
+    robust, (cfg, params) = robustness_phase(rgen)
+    merge(launches, robust)
+    merge(launches, recovery_phase(cfg, params))
+    del params
+    merge(launches, tuning_phase(rgen))
+    shutil.rmtree(SCRATCH, ignore_errors=True)
 
     entries = []
     for name in REPLACES:

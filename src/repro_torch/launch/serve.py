@@ -19,6 +19,14 @@ per layer (streams unchanged).  ``--prefill`` runs the prompts through
 ``lm.prefill`` instead (one parallel pass, right-padded, one fused-cell
 kernel launch per layer), then greedy ``decode_step`` rounds, and prints
 the prefill time.
+
+``--tune-file PATH|auto|none`` serves under an autotuned plan measured on
+this device (``serving/tuning.py``): it fills K, C and the decode tier
+where the flags leave them open.  ``--snapshot-dir DIR`` arms crash
+recovery (a write-ahead journal and a snapshot every
+``--snapshot-every`` rounds); ``--restore DIR`` resumes a killed run from
+DIR bit-identically, given the same weights: the same ``--seed``, or the
+training checkpoint in ``--ckpt-dir``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from repro_torch.configs import archs
 from repro_torch.data.lm_corpus import decode_bytes
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.training import checkpoint as ckpt_lib
 
 
 def prefill_and_decode(cfg, params, prompts, max_new: int, max_len: int,
@@ -66,6 +75,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="mingru-lm", choices=archs.all_names())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest good training checkpoint in "
+                         "this directory instead of the seeded init")
     ap.add_argument("--prompts", nargs="*",
                     default=["To be, or not to be", "Friends, Romans"])
     ap.add_argument("--max-new", type=int, default=32)
@@ -74,16 +86,27 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
-    ap.add_argument("--decode-block", type=int, default=1,
-                    help="device rounds per host round-trip (K)")
-    ap.add_argument("--prompt-chunk", type=int, default=1,
+    ap.add_argument("--decode-block", type=int, default=None,
+                    help="device rounds per host round-trip (K; default: "
+                         "the --tune-file plan's K, else 1)")
+    ap.add_argument("--prompt-chunk", type=int, default=None,
                     help="prompt tokens a prefilling slot consumes per "
-                         "device round (C)")
-    ap.add_argument("--fuse-block", default="auto",
+                         "device round (C; default: the --tune-file "
+                         "plan's C, else 1)")
+    ap.add_argument("--fuse-block", default=None,
                     choices=["auto", "on", "off"],
                     help="decode tier of the minRNN LMs: 'auto' / 'on' "
                          "run each layer as one whole-block kernel, 'off' "
-                         "keeps the cell-only kernel tier")
+                         "keeps the cell-only kernel tier (default: the "
+                         "--tune-file plan's tier, else the config's)")
+    ap.add_argument("--tune-file", default=None, metavar="PATH|auto|none",
+                    help="autotune plan (python -m "
+                         "repro_torch.serving.autotune): a TUNE_*.json "
+                         "path (config and device checked, a mismatch "
+                         "raises), 'auto' for the discovery order "
+                         "($REPRO_TUNE_DIR, cwd, repo root; plans of "
+                         "other devices are skipped), or 'none'; fills "
+                         "K, C and the tier -- explicit flags win")
     ap.add_argument("--speculative", default=None, choices=["ngram"],
                     help="speculative decoding draft source: decoding "
                          "rows propose up to --draft-len tokens a round, "
@@ -98,8 +121,25 @@ def main(argv=None):
     ap.add_argument("--deadline-rounds", type=int, default=None)
     ap.add_argument("--max-queue", type=int, default=0)
     ap.add_argument("--max-retries", type=int, default=1)
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="arm crash recovery: journal every submit / "
+                         "cancel / step to DIR/journal.jsonl and "
+                         "snapshot the serving state every "
+                         "--snapshot-every rounds (starts a NEW journal "
+                         "epoch; resume a killed one with --restore DIR)")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="snapshot cadence in device rounds")
+    ap.add_argument("--restore", default=None, metavar="DIR",
+                    help="resume a killed serving run: rebuild the engine "
+                         "from DIR's newest good snapshot + journal-tail "
+                         "replay (the engine's knobs come from the "
+                         "journal, not the flags), finish its requests, "
+                         "then serve --prompts on top; keeps journaling "
+                         "into DIR")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.tune_file == "none":
+        args.tune_file = None
 
     cfg = archs.smoke(args.arch) if args.smoke else archs.get(args.arch)
     if cfg.vocab_size != 256:       # byte prompts, as the reference serves
@@ -107,6 +147,12 @@ def main(argv=None):
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(gen, cfg, device=device)
+    if args.ckpt_dir:
+        restored = ckpt_lib.CheckpointManager(
+            args.ckpt_dir, device=device).restore_latest()
+        if restored is not None:
+            step, params, _ = restored
+            print(f"loaded checkpoint step {step}")
     if args.prefill:
         prompts = [list(p.encode()) for p in args.prompts]
         t0 = time.time()
@@ -124,15 +170,31 @@ def main(argv=None):
               f"{len(prompts) * args.max_new} tokens in {dt:.2f}s, device "
               f"{device}")
         return
-    engine = ServingEngine(cfg, params, max_batch=args.max_batch,
-                           max_len=args.max_len, seed=args.seed,
-                           decode_block=args.decode_block,
-                           prompt_chunk=args.prompt_chunk,
-                           max_queue=args.max_queue,
-                           max_retries=args.max_retries,
-                           fuse_block=args.fuse_block, device=device,
-                           speculative=args.speculative,
-                           draft_len=args.draft_len)
+    if args.restore:
+        engine = ServingEngine.restore(args.restore, cfg, params,
+                                       device=device)
+        rep = engine.recovery_report
+        print(f"restored from {args.restore}: snapshot "
+              f"@{rep['snapshot_round']}, replayed "
+              f"{rep['replayed_records']} journal records "
+              f"({rep['replayed_rounds']} rounds) in "
+              f"{rep['recovery_s']:.2f}s"
+              + (f"; fell past corrupt snapshot(s) "
+                 f"{rep['corrupt_snapshots_skipped']}"
+                 if rep["corrupt_snapshots_skipped"] else ""))
+    else:
+        engine = ServingEngine(cfg, params, max_batch=args.max_batch,
+                               max_len=args.max_len, seed=args.seed,
+                               decode_block=args.decode_block,
+                               prompt_chunk=args.prompt_chunk,
+                               max_queue=args.max_queue,
+                               max_retries=args.max_retries,
+                               fuse_block=args.fuse_block, device=device,
+                               speculative=args.speculative,
+                               draft_len=args.draft_len,
+                               tune=args.tune_file,
+                               recover_dir=args.snapshot_dir,
+                               snapshot_every=args.snapshot_every)
     rids = {}
     for p in args.prompts:
         rid = engine.submit(list(p.encode()), max_new=args.max_new,
@@ -148,12 +210,19 @@ def main(argv=None):
     for rid, toks in sorted(outs.items()):
         req = engine.finished[rid]
         tag = "" if req.status == "COMPLETED" else f" [{req.status}]"
-        print(f"--- [{rids[rid]!r}]{tag} -> {decode_bytes(toks)!r}")
+        # a restored engine also finishes the killed run's requests,
+        # whose prompts came back from the journal
+        label = rids.get(rid, decode_bytes(req.prompt))
+        print(f"--- [{label!r}]{tag} -> {decode_bytes(toks)!r}")
     print(f"{n_tokens} tokens in {dt:.2f}s "
           f"({n_tokens / max(dt, 1e-9):.1f} tok/s, batched, "
           f"device {engine.device})")
     snap = engine.stats.snapshot()
-    print(f"kernel tier: {engine.kernel_tier}")
+    plan = engine.tune_plan
+    print(f"kernel tier: {engine.kernel_tier} (fuse_block="
+          f"{engine.cfg.fuse_block}"
+          + (f", plan {plan.get('source', '<dict>')}" if plan else
+             ", no tune plan") + ")")
     print(f"superstep K={engine.decode_block} C={engine.prompt_chunk}: "
           f"{snap['decode_calls']} host round-trips for "
           f"{snap['decode_tokens']} decoded tokens "
@@ -168,7 +237,8 @@ def main(argv=None):
           f"inter-token {snap['itl_s_mean'] * 1e3:.1f}ms "
           f"({snap['itl_rounds_mean']:.2f} rounds/token)")
     if engine.draft is not None:
-        print(f"speculative {args.speculative} S={args.draft_len}: "
+        print(f"speculative {type(engine.draft).__name__} "
+              f"S={engine.draft.draft_len}: "
               f"{snap['draft_accepted']} of {snap['draft_proposed']} drafts "
               f"accepted ({snap['accept_rate']:.1%}); "
               f"{snap['non_spec_tokens']} emitting slot-rounds for "

@@ -22,17 +22,37 @@ Streams stay identical to the non-speculative engine's, greedy and
 seeded.  A rolling accept-rate floor (``spec_accept_floor``) turns
 drafting off when it stops paying (``_adapt_speculation``).
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md entry): serving meshes, fault injection, crash recovery
-(``recover_dir`` / ``restore``) and autotune plans.
-``fuse_block="off"`` serves on the cell-only kernel tier; the attention
-trunk with a minRNN mixer (gemma-2b-mingru) always does.
+The robustness layer follows the reference's:
+
+  * ``tune`` resolves an autotuned plan (``serving/tuning.py``) measured
+    on this engine's device; it supplies ``fuse_block`` and the K / C
+    defaults, and explicit arguments win.
+  * ``faults`` (a ``serving.faults.FaultInjector``) injects NaN state
+    corruption, dropped staging uploads, straggler stalls and shard
+    crashes at the reference's points in ``step`` -- seeded, and fully
+    inert when None.  A row whose state goes non-finite is killed by the
+    superstep's health guard and its request re-enqueued under a bounded
+    retry budget (``_quarantine`` -> ``_requeue``).
+  * ``recover_dir`` journals every submit / cancel / step to a
+    write-ahead log and snapshots the serving state every
+    ``snapshot_every`` rounds; ``ServingEngine.restore`` resumes a killed
+    run with streams and round clock bit-identical to an uninterrupted
+    one (``serving/recovery.py``).
+
+With ``faults=None`` and ``recover_dir=None`` none of it runs: the same
+launches and the same host reads as without the layer.  Serving meshes
+are not in the port yet (``mesh=`` raises ``NotImplementedError`` naming
+its ROADMAP.md entry); the engine is one data shard, so a ``shard_crash``
+fault is a total outage.  ``fuse_block="off"`` serves on the cell-only
+kernel tier; the attention trunk with a minRNN mixer (gemma-2b-mingru)
+always does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -42,7 +62,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serving import draft as draft_lib
-from repro_torch.serving import sampling
+from repro_torch.serving import recovery, sampling, tuning
 from repro_torch.serving.scheduler import (ADMITTED, REJECTED_QUEUE_FULL,
                                            AdmissionScheduler, EngineStats,
                                            SchedulerConfig, ShardStats)
@@ -55,6 +75,8 @@ CANCELLED = "CANCELLED"
 TIMED_OUT = "TIMED_OUT"
 FAILED = "FAILED"
 SHED = "SHED"
+TERMINAL_STATUSES = frozenset(
+    {COMPLETED, CANCELLED, TIMED_OUT, FAILED, SHED})
 
 
 @dataclasses.dataclass
@@ -83,7 +105,9 @@ class Request:
 
 
 class EngineStallError(RuntimeError):
-    """``run_to_completion`` exceeded ``max_steps`` with work pending."""
+    """``run_to_completion`` exceeded ``max_steps`` with work still
+    pending.  ``.report`` carries the queue + per-slot occupancy snapshot
+    (``ServingEngine.occupancy_report``)."""
 
     def __init__(self, message: str, report: Dict[str, Any]):
         super().__init__(message)
@@ -120,15 +144,22 @@ class ServingEngine:
                  spec_accept_floor: Optional[float] = None,
                  spec_window: int = 8, spec_cooldown: int = 0,
                  mesh=None, faults=None, tune=None,
-                 recover_dir: Optional[str] = None):
+                 recover_dir: Optional[str] = None,
+                 snapshot_every: int = 8, snapshot_keep: int = 3):
         if mesh is not None:
             _not_ported("mesh-sharded serving", "queue 1, item 6")
-        if faults is not None:
-            _not_ported("fault injection", "queue 1, item 3")
-        if recover_dir is not None:
-            _not_ported("crash recovery", "queue 1, item 3")
-        if tune is not None:
-            _not_ported("autotune plans", "queue 1, item 3")
+        self.device = resolve_device(device)
+        # autotuned plan (serving/tuning.py): None (no plan), "auto"
+        # (discovery order), a path, or a plan dict, for this device.  It
+        # supplies the decode tier and the K / C defaults -- explicit
+        # arguments always win.
+        self.tune_plan = tuning.resolve_plan(cfg, tune, self.device)
+        if self.tune_plan is not None:
+            cfg = tuning.apply_plan(cfg, self.tune_plan)
+            if decode_block is None:
+                decode_block = self.tune_plan.get("decode_block")
+            if prompt_chunk is None:
+                prompt_chunk = self.tune_plan.get("prompt_chunk")
         if fuse_block is not None and fuse_block != cfg.fuse_block:
             cfg = cfg.replace(fuse_block=fuse_block)
         self.decode_block = max(1, int(decode_block or 1))
@@ -145,7 +176,6 @@ class ServingEngine:
                 f"speculative decoding requires a recurrent-state arch "
                 f"(block_kind='minrnn'); {cfg.name} has "
                 f"block_kind={cfg.block_kind!r}")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.params = lm.tree_to(params, self.device)
         # the engine owns the params for its lifetime: bind them for the
@@ -177,6 +207,13 @@ class ServingEngine:
                                  shards=[ShardStats()])
         self.max_retries = max(0, int(max_retries))
         self.retry_backoff = max(0, int(retry_backoff))
+        # chaos injector (None = fully inert)
+        self.faults = faults
+        # one data shard holding every row (no mesh): a scheduled
+        # shard_crash kills them all; dead rows never stage again
+        self.dp = 1
+        self._rows_per_shard = max_batch
+        self.dead_shards: set = set()
         self._next_rid = 0
         self.current: List[Optional[Request]] = [None] * max_batch
         self.staged: List[Optional[Request]] = [None] * max_batch
@@ -190,6 +227,24 @@ class ServingEngine:
         self._prompt_pos = np.zeros((max_batch,), np.int32)
         self._rid_dev = np.full((max_batch,), -1, np.int32)
 
+        # crash recovery (serving/recovery.py): with ``recover_dir`` set
+        # every submit / cancel / step goes to a write-ahead journal and
+        # the serving state is snapshotted every ``snapshot_every``
+        # device rounds.  Constructing with recover_dir starts a NEW
+        # journal epoch (truncating any prior one); resuming goes through
+        # ``restore``.
+        self.snapshot_every = max(1, int(snapshot_every))
+        self.snapshot_keep = max(1, int(snapshot_keep))
+        self.recover_dir = recover_dir
+        self._last_snapshot_round = 0
+        self.journal = None
+        self.recovery_report: Optional[Dict[str, Any]] = None
+        if recover_dir is not None:
+            os.makedirs(recover_dir, exist_ok=True)
+            self.journal = recovery.Journal.create(
+                os.path.join(recover_dir, recovery.JOURNAL_NAME),
+                recovery.engine_header(self))
+
     # ------------------------------------------------------------------
     @property
     def kernel_tier(self) -> str:
@@ -199,9 +254,18 @@ class ServingEngine:
         return lm.kernel_tier(self.cfg)
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        _not_ported("crash recovery (ServingEngine.restore)",
-                    "queue 1, item 3")
+    def restore(cls, recover_dir: str, cfg, params, *, speculative=None,
+                draft_params=None, device="cuda") -> "ServingEngine":
+        """Rebuild an engine from a crash-recovery directory on a fresh
+        process: newest good snapshot + journal-tail replay
+        (``serving.recovery.restore_engine``).  Its streams are
+        bit-identical to an uninterrupted run and it keeps journaling
+        and snapshotting where the dead process stopped;
+        ``engine.recovery_report`` says what recovery did."""
+        return recovery.restore_engine(recover_dir, cfg, params,
+                                       speculative=speculative,
+                                       draft_params=draft_params,
+                                       device=device)
 
     def _service_rounds(self, req: Request) -> int:
         """Rounds a request holds a row: packed prefill plus decode, less
@@ -212,11 +276,16 @@ class ServingEngine:
     def _est_finish_round(self, req: Request) -> int:
         """The device round by which ``req`` could finish, the work ahead
         of it placed on the soonest-freeing rows; an upper bound under
-        speculation, used only to shed deadlines it cannot meet."""
-        etas = [self._row_eta(s) for s in range(self.max_batch)]
-        for i in range(self.max_batch):
-            if self.staged[i] is not None:
-                etas[i] += self._service_rounds(self.staged[i])
+        speculation, used only to shed deadlines it cannot meet.  Rows of
+        a crashed shard never free up and are left out."""
+        live = [s for s in range(self.max_batch)
+                if s // self._rows_per_shard not in self.dead_shards]
+        if not live:
+            return 1 << 62      # total outage: nothing can ever finish
+        etas = [self._row_eta(s) for s in live]
+        for i, slot in enumerate(live):
+            if self.staged[slot] is not None:
+                etas[i] += self._service_rounds(self.staged[slot])
         heapq.heapify(etas)
         for ahead in self.scheduler.waiting:
             heapq.heappush(etas,
@@ -242,6 +311,18 @@ class ServingEngine:
             raise ValueError(f"deadline must be a positive device-round "
                              f"budget, got {deadline!r}")
         rid = self._next_rid
+        if self.journal is not None:
+            # write-ahead: durable BEFORE the engine mutates; the rid is
+            # deterministic, so the record can promise it
+            self.journal.record_submit({
+                "rid": rid, "round": self.stats.decode_steps,
+                "prompt": [int(t) for t in prompt],
+                "max_new": int(max_new),
+                "temperature": float(temperature), "top_k": int(top_k),
+                "top_p": float(top_p),
+                "eos": None if eos is None else int(eos),
+                "priority": int(priority),
+                "deadline": None if deadline is None else int(deadline)})
         self._next_rid += 1
         req = Request(rid, [int(t) for t in prompt], max_new, temperature,
                       top_k, top_p, eos, priority=priority)
@@ -265,6 +346,10 @@ class ServingEngine:
     def cancel(self, rid: int) -> bool:
         """Cancel a request wherever it is; an in-flight one keeps the
         tokens already drained.  True if it became CANCELLED."""
+        if self.journal is not None:
+            # journaled even when a no-op: replay re-executes the call
+            self.journal.record_cancel({"rid": int(rid),
+                                        "round": self.stats.decode_steps})
         req = self.requests.get(rid)
         if req is None or req.done:
             return False
@@ -302,8 +387,11 @@ class ServingEngine:
 
     def _stage(self):
         """Park queued requests into empty staging buffers in scheduler
-        order, soonest-freeing rows first."""
-        empty = [i for i in range(self.max_batch) if self.staged[i] is None]
+        order, soonest-freeing rows first; rows of a crashed shard never
+        stage."""
+        empty = [i for i in range(self.max_batch)
+                 if self.staged[i] is None
+                 and i // self._rows_per_shard not in self.dead_shards]
         now = self.stats.decode_steps
         group = self.scheduler.take(len(empty), now_round=now)
         if not group and self.scheduler.waiting \
@@ -340,18 +428,33 @@ class ServingEngine:
 
     def _upload_staging(self):
         """Push staged rows to the device: the (B,) control vectors whole,
-        the (B, max_len) prompt matrix only for the dirty rows."""
+        the (B, max_len) prompt matrix only for the dirty rows.
+
+        The ``drop_upload`` fault intercepts here: a dropped slot's
+        prompt row is not uploaded and its ``s_valid`` is masked False for
+        this call (the device must never arm a row whose prompt it does
+        not have); the slot stays dirty, so the next call retries and the
+        request arms one superstep late."""
         if not self._dirty_slots:
             return
         rows = sorted(set(self._dirty_slots))
-        idx = torch.as_tensor(rows, device=self.device)
-        self.state["s_prompt"][idx] = torch.as_tensor(
-            self._smirror["s_prompt"][rows]).to(self.device)
+        dropped: List[int] = []
+        if self.faults is not None:
+            rows, dropped = self.faults.drop_upload(
+                self.stats.decode_calls, rows)
+        if rows:
+            idx = torch.as_tensor(rows, device=self.device)
+            self.state["s_prompt"][idx] = torch.as_tensor(
+                self._smirror["s_prompt"][rows]).to(self.device)
+        s_valid = self._smirror["s_valid"]
+        if dropped:
+            s_valid = s_valid.copy()
+            s_valid[dropped] = False
         for k in _STAGE_FIELDS:
             if k != "s_prompt":
-                self.state[k] = torch.as_tensor(self._smirror[k]).to(
-                    self.device)
-        self._dirty_slots = []
+                src = s_valid if k == "s_valid" else self._smirror[k]
+                self.state[k] = torch.as_tensor(src).to(self.device)
+        self._dirty_slots = list(dropped)
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -395,9 +498,15 @@ class ServingEngine:
                                      last_round, req.first_token_s, now)
 
     def _kill_inflight(self, req: Request, status: str):
-        self.state["alive"] = self.state["alive"].clone()
-        self.state["alive"][req.slot] = False
+        self._kill_rows(req.slot, req.slot + 1)
         self._retire(req, status)
+
+    def _kill_rows(self, start: int, stop: int):
+        """Mark device rows [start, stop) dead between supersteps (a new
+        tensor: the superstep may still hold the old one)."""
+        alive = self.state["alive"].clone()
+        alive[start:stop] = False
+        self.state["alive"] = alive
 
     def _sweep_deadlines(self):
         now = self.stats.decode_steps
@@ -416,12 +525,89 @@ class ServingEngine:
                     and now >= req.deadline:
                 self._kill_inflight(req, TIMED_OUT)
 
+    def _corrupt_slots(self, slots: List[int]):
+        """The ``corrupt_state`` fault: NaN into the recurrent state rows
+        of ``slots`` (new tensors, never in place on one a bound kernel
+        may hold).  The superstep's health guard kills the poisoned rows
+        on their next round."""
+        cache = dict(self.state["cache"])
+        touched = False
+        for name in lm._RECURRENT_CACHE_KEYS:
+            leaf = cache.get(name)
+            if leaf is not None and leaf.is_floating_point():
+                leaf = leaf.clone()
+                leaf[:, torch.as_tensor(slots, device=leaf.device)] = \
+                    float("nan")
+                cache[name] = leaf
+                touched = True
+        if touched:
+            self.state["cache"] = cache
+
+    def _requeue(self, req: Request, round_: int, *, count_retry: bool,
+                 backoff: bool) -> bool:
+        """Re-enqueue a request whose slot died under it, or retire it if
+        it cannot be retried: the shared tail of quarantine (the health
+        guard's kill: ``count_retry`` -- the request's input may be the
+        poison, so it burns retry budget and backs off exponentially) and
+        shard failover (an infrastructure death: no budget, re-eligible
+        at once).  True if the request went back to QUEUED."""
+        if req.deadline is not None and round_ >= req.deadline:
+            self._retire(req, TIMED_OUT)
+            return False
+        if count_retry and req.retries >= self.max_retries:
+            self._retire(req, FAILED)
+            return False
+        verdict = self.scheduler.submit(req, now_round=round_)
+        req.verdict = verdict
+        if verdict != ADMITTED:
+            self._retire(req, FAILED)   # no queue room for the retry
+            return False
+        if count_retry:
+            req.retries += 1
+            self.stats.retried += 1
+        req.out = []        # the retry restarts the stream from scratch
+        req.status = QUEUED
+        req.not_before = round_ + (
+            self.retry_backoff * (2 ** (req.retries - 1))
+            if backoff else 0)
+        self.stats.observe_queue(len(self.scheduler))
+        return True
+
+    def _crash_shard(self, shard: int, round_: int):
+        """The ``shard_crash`` fault fired: mark ``shard``'s rows dead for
+        good and drain its staged and in-flight requests back through the
+        requeue path (no retry budget burned).  The dead rows keep
+        stepping as ``wasted_slot_steps``, so the slot-step identity
+        holds.  With one shard this is a total outage: the requests wait
+        in the queue and ``run_to_completion`` reports the stall."""
+        self.dead_shards.add(shard)
+        self.stats.shard_crashes += 1
+        rows = range(shard * self._rows_per_shard,
+                     (shard + 1) * self._rows_per_shard)
+        self._kill_rows(rows.start, rows.stop)
+        for slot in rows:
+            parked = self.staged[slot]
+            if parked is not None:
+                self._unstage(slot)
+                if self._requeue(parked, round_, count_retry=False,
+                                 backoff=False):
+                    self.stats.failover_requeued += 1
+            req = self.current[slot]
+            if req is not None and not req.done:
+                self.current[slot] = None
+                req.slot = None
+                if self._requeue(req, round_, count_retry=False,
+                                 backoff=False):
+                    self.stats.failover_requeued += 1
+
     def _quarantine(self, slot: int, round_: int, s_valid_np, dirty):
         """The non-finite guard killed this row: re-enqueue its request
         under the retry budget (exponential backoff) or retire it FAILED."""
         self.stats.quarantined += 1
         req = self.current[slot]
         if req is None or req.done:
+            # the victim armed mid-superstep from staging (it emitted
+            # nothing before the kill, so the drain never promoted it)
             if self.staged[slot] is not None and not s_valid_np[slot] \
                     and slot not in dirty:
                 req = self._promote(slot)
@@ -429,22 +615,7 @@ class ServingEngine:
                 return
         self.current[slot] = None
         req.slot = None
-        if req.deadline is not None and round_ >= req.deadline:
-            self._retire(req, TIMED_OUT)
-            return
-        if req.retries >= self.max_retries:
-            self._retire(req, FAILED)
-            return
-        req.verdict = self.scheduler.submit(req, now_round=round_)
-        if req.verdict != ADMITTED:
-            self._retire(req, FAILED)
-            return
-        req.retries += 1
-        self.stats.retried += 1
-        req.out = []
-        req.status = QUEUED
-        req.not_before = round_ + self.retry_backoff * (2 ** (req.retries - 1))
-        self.stats.observe_queue(len(self.scheduler))
+        self._requeue(req, round_, count_retry=True, backoff=True)
 
     # ------------------------------------------------------------------
     # The superstep
@@ -514,10 +685,27 @@ class ServingEngine:
         k = max(1, int(n_tokens)) if n_tokens is not None \
             else self.decode_block
         self._sweep_deadlines()
+        if self.faults is not None:
+            for s in self.faults.shard_crash(self.stats.decode_steps, k,
+                                             self.dp):
+                if s not in self.dead_shards:
+                    self._crash_shard(s, self.stats.decode_steps)
         self._stage()
         if not any(self.current) and not any(self.staged):
+            if self.journal is not None:
+                # every step() call is journaled, no-ops included: the
+                # replay must re-execute the exact call sequence
+                self.journal.record_step({
+                    "round": self.stats.decode_steps, "k": k,
+                    "noop": True})
+                self._maybe_snapshot()
             return len(self.scheduler)
         self._upload_staging()
+        if self.faults is not None:
+            slots = self.faults.corrupt_state(
+                self.stats.decode_steps, k, self.max_batch)
+            if slots:
+                self._corrupt_slots(slots)
         bsz = self.max_batch
 
         live = [r for r in self.current + self.staged if r is not None]
@@ -541,6 +729,10 @@ class ServingEngine:
                               self.state["s_valid"].to(torch.int32),
                               self.state["prompt_pos"], self.state["rid"],
                               scal.to(torch.int32)]).cpu().numpy()
+            if self.faults is not None:
+                stall = self.faults.straggler(self.stats.decode_calls)
+                if stall > 0:
+                    time.sleep(stall)
         planes = toks.shape[2] if toks.dim() == 3 else 1
         toks_np, rids_np, nf_np, s_valid_np, pos_np, rid_np, scal_np = \
             np.split(flat, np.cumsum([bsz * k * planes, bsz * k * planes,
@@ -574,6 +766,7 @@ class ServingEngine:
         now = time.perf_counter()
         dirty = set(self._dirty_slots)
         drained = 0
+        emits: List[List[int]] = []     # (rid, token) in drain order
         for slot in range(bsz):
             for j in range(k):
                 if nf_np[slot, j]:
@@ -595,11 +788,13 @@ class ServingEngine:
                             base_round + j + 1 - req.submit_round)
                         sh.first_tokens += 1
                     req.out.append(t)
+                    emits.append([rid, t])
                     drained += 1
                     if (req.eos is not None and t == req.eos) or \
                             len(req.out) >= req.max_new:
                         self._finish(req, now, base_round + j)
-            # armed without emitting yet (still prefilling at call end)
+            # armed without emitting yet (still prefilling at call end);
+            # a slot whose upload was dropped is still parked, not armed
             if self.staged[slot] is not None and not s_valid_np[slot] \
                     and slot not in dirty:
                 self._promote(slot)
@@ -610,10 +805,46 @@ class ServingEngine:
         self.stats.non_spec_tokens += non_spec
         sh.decode_tokens += drained
         sh.non_spec_tokens += non_spec
+        # re-sync the staging mirror with what the device consumed --
+        # except dirty slots (dropped uploads), whose parked requests the
+        # device never saw: their mirror rows stay authoritative
         self._smirror["s_valid"][:] = s_valid_np
+        for slot in dirty:
+            if self.staged[slot] is not None:
+                self._smirror["s_valid"][slot] = True
+        if self.journal is not None:
+            # after the drain: a crash mid-step replays the whole step
+            self.journal.record_step({"round": base_round, "k": k,
+                                      "emits": emits,
+                                      "digest": self._journal_digest()})
+            self._maybe_snapshot()
         return (sum(r is not None for r in self.current)
                 + sum(r is not None for r in self.staged)
                 + len(self.scheduler))
+
+    def _journal_digest(self) -> Dict[str, int]:
+        """Round-clock stats fingerprint written with every step record;
+        a replayed step must reproduce it exactly (wall-clock fields are
+        absent: they span processes)."""
+        st = self.stats
+        return {"round": st.decode_steps, "completed": st.completed,
+                "cancelled": st.cancelled, "timed_out": st.timed_out,
+                "failed": st.failed, "quarantined": st.quarantined,
+                "decode_tokens": st.decode_tokens,
+                "shard_crashes": st.shard_crashes}
+
+    def _maybe_snapshot(self):
+        """Snapshot the serving state every ``snapshot_every`` device
+        rounds (not while replaying a journal tail: replay re-executes
+        past work, it does not re-persist it)."""
+        if self.recover_dir is None or self.journal.replaying:
+            return
+        if self.stats.decode_steps - self._last_snapshot_round \
+                < self.snapshot_every:
+            return
+        recovery.save_snapshot(self, self.recover_dir,
+                               keep=self.snapshot_keep)
+        self._last_snapshot_round = self.stats.decode_steps
 
     # ------------------------------------------------------------------
     def occupancy_report(self) -> Dict[str, Any]:
@@ -626,14 +857,17 @@ class ServingEngine:
                     "rid": cur.rid, "status": cur.status,
                     "prompt_len": len(cur.prompt),
                     "prompt_pos": int(self._prompt_pos[i]),
-                    "out_tokens": len(cur.out)},
+                    "out_tokens": len(cur.out),
+                    "deadline": cur.deadline, "retries": cur.retries},
                 "staged": None if parked is None else {
-                    "rid": parked.rid, "status": parked.status}})
+                    "rid": parked.rid, "status": parked.status,
+                    "not_before": parked.not_before}})
         return {"decode_steps": self.stats.decode_steps,
                 "queue_depth": len(self.scheduler),
                 "queued": [r.rid for r in self.scheduler.waiting],
                 "in_flight": sum(r is not None for r in self.current),
                 "staged": sum(r is not None for r in self.staged),
+                "dead_shards": sorted(self.dead_shards),
                 "slots": slots}
 
     def run_to_completion(self, max_steps: int = 100_000
@@ -645,11 +879,55 @@ class ServingEngine:
             if steps >= max_steps:
                 report = self.occupancy_report()
                 raise EngineStallError(
-                    f"engine did not drain within {max_steps} steps "
-                    f"(see .report)", report)
+                    f"engine did not drain within {max_steps} steps: "
+                    f"{report['queue_depth']} queued, "
+                    f"{report['in_flight']} in flight, "
+                    f"{report['staged']} staged at round "
+                    f"{report['decode_steps']} (see .report)", report)
             self.step()
             steps += 1
         return {rid: r.out for rid, r in self.finished.items()}
+
+
+def replay_trace(engine: ServingEngine, trace: List[Dict[str, Any]],
+                 submit, max_steps: int = 100_000, start: int = 0,
+                 stop=None) -> int:
+    """Drive ``engine`` over an arrival trace until every request is
+    terminal.  The arrival clock is the engine's device-round counter:
+    request ``i`` is submitted via ``submit(i, trace[i])`` once
+    ``trace[i]["arrival"] <= stats.decode_steps`` -- or at once when the
+    engine is idle, so a gap in arrivals cannot stall the round clock.
+    Drain is judged on *terminal* requests (``engine.finished``), so
+    shed / failed / timed-out requests cannot hang the replay.
+
+    Crash-recovery hooks: ``start`` says how many leading trace entries
+    were already submitted (continue a restored engine with
+    ``start=len(engine.requests)``), and ``stop(engine)`` is checked
+    after every step -- True abandons the drive mid-trace.  Returns how
+    many trace entries have been submitted.  Submission is driven by the
+    round clock and terminal counts only, so a continued drive makes the
+    same submit-round decisions an uninterrupted one would."""
+    i, steps = start, 0
+    while i < len(trace) or len(engine.finished) < i:
+        due = i < len(trace) and \
+            trace[i]["arrival"] <= engine.stats.decode_steps
+        idle = len(engine.finished) == i
+        while i < len(trace) and (due or idle):
+            submit(i, trace[i])
+            i += 1
+            due = i < len(trace) and \
+                trace[i]["arrival"] <= engine.stats.decode_steps
+            idle = False
+        engine.step()
+        steps += 1
+        if stop is not None and stop(engine):
+            return i
+        if steps >= max_steps:
+            raise RuntimeError(
+                f"arrival trace did not drain within {max_steps} steps "
+                f"({len(engine.finished)}/{i} submitted requests "
+                f"terminal)")
+    return i
 
 
 def generate_one(cfg, params, prompt: List[int], max_new: int = 32,

@@ -1076,3 +1076,90 @@ def test_cell_tier_chunk_equals_steps_at_full_width(arch, chunk,
         assert torch.equal(y_t, ys[:, t]), t
         for k in ("h", "conv"):
             assert torch.equal(cur[k], pos[k][:, t]), (k, t)
+
+
+# ---------------------------------------------------------------------------
+# The robustness layer at full width: NaN quarantine, kill / restore
+# ---------------------------------------------------------------------------
+
+ROBUST_PROMPTS = [[(7 * i + j) % 250 + 1 for j in range(3 + i)]
+                  for i in range(8)]
+
+
+def _serve_full(cfg, params, device, prompts, max_new, **kw):
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+                        decode_block=4, device=device, **kw)
+    rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    outs = eng.run_to_completion()
+    return [outs[r] for r in rids], eng
+
+
+@pytest.mark.parametrize("fuse_block", ["auto", "off"])
+def test_full_width_nan_quarantine_leaves_other_rows_bit_identical(
+        fuse_block, cuda_device):
+    """bf16 mingru-lm at full width: NaN poured into two slots' h / conv
+    rows at round 4 is caught by the health guard, those two requests are
+    retried from scratch and every stream -- theirs after the retry, and
+    the six untouched rows' -- equals the fault-free run's bit for bit,
+    on the block and the cell tier."""
+    from repro_torch.serving.faults import FaultInjector
+    cfg = archs.get("mingru-lm")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(gen, cfg, device=cuda_device)
+    clean, _ = _serve_full(cfg, params, cuda_device, ROBUST_PROMPTS, 16,
+                           fuse_block=fuse_block)
+    inj = FaultInjector(nan_at=((4, 2), (4, 5)))
+    hit, eng = _serve_full(cfg, params, cuda_device, ROBUST_PROMPTS, 16,
+                           fuse_block=fuse_block, faults=inj,
+                           max_retries=2, retry_backoff=2)
+    assert inj.counts()["corrupt_state"] == 2
+    assert eng.stats.quarantined == 2 and eng.stats.retried == 2
+    assert eng.stats.completed == len(ROBUST_PROMPTS)
+    assert eng.stats.shard_identities_ok()
+    assert hit == clean
+
+
+def test_full_width_kill_restore_bit_identical(cuda_device, tmp_path):
+    """Block tier, bf16 mingru-lm at full width, greedy and seeded-sampled
+    requests: an engine abandoned mid-run and restored from its snapshot
+    + journal finishes with the uninterrupted run's streams and round
+    clock; every restored state leaf sits on the card in the fresh
+    engine's dtype, but the key chains, which live on the host."""
+    from repro_torch.serving import recovery
+    from repro_torch.training import checkpoint as ckpt
+    cfg = archs.get("mingru-lm")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(gen, cfg, device=cuda_device)
+
+    def submit_all(eng):
+        for i, p in enumerate(ROBUST_PROMPTS):
+            eng.submit(p, max_new=24, temperature=0.8 if i % 2 else 0.0,
+                       top_k=40 if i % 2 else 0)
+
+    ref = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+                        decode_block=4, device=cuda_device)
+    submit_all(ref)
+    want = ref.run_to_completion()
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+                        decode_block=4, device=cuda_device,
+                        recover_dir=str(tmp_path), snapshot_every=8)
+    submit_all(eng)
+    while eng.stats.decode_steps < 18:
+        eng.step()
+    eng.journal.close()
+    del eng
+    rec = ServingEngine.restore(str(tmp_path), cfg, params,
+                                device=cuda_device)
+    assert rec.recovery_report["snapshot_round"] == 16
+    assert rec.recovery_report["replayed_rounds"] == 4
+    fresh = ckpt.flatten_tree(ServingEngine(
+        cfg, params, max_batch=8, max_len=128, device=cuda_device).state,
+        "state")
+    for k, leaf in ckpt.flatten_tree(rec.state, "state").items():
+        assert leaf.dtype == fresh[k].dtype, k
+        assert leaf.device.type == ("cpu" if k == "state|keys" else "cuda"), k
+    assert rec.run_to_completion() == want
+    assert rec.stats.decode_steps == ref.stats.decode_steps
+    with pytest.raises(recovery.RecoveryError, match="device"):
+        ServingEngine.restore(str(tmp_path), cfg,
+                              lm.tree_to(params, "cpu"), device="cpu")
