@@ -1,8 +1,9 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernels from source,
 holds each against its plain PyTorch version at full model width, serves
 full-width mingru-lm (and a short minlstm-lm run) through the port's
-ServingEngine on the block-fused and on the cell-fused tier, serves and
-prefills full-width gemma-2b-mingru, prefills the minRNN LMs in parallel,
+ServingEngine on the block-fused and on the cell-fused tier, serves,
+prefills and trains full-width gemma-2b-mingru and gemma-2b (native GQA
+with RoPE and a KV cache), prefills the minRNN LMs in parallel,
 serves with speculative decoding on both tiers, trains full-width
 mingru-lm / minlstm-lm through the port's train step, then serves under
 injected faults, kills and restores the engine (in this process and a
@@ -80,7 +81,22 @@ Phases (any failed check exits non-zero before the result line):
      fused_mingru_kernel launches at Dx 2048 / Dh 2048 on the tensor-core
      body, the occupancy query, the kernel against its plain version at
      that width, peak memory, 16 decode steps after it, the logits against
-     the step path's, ms and prompt tokens/s);
+     the step path's, ms and prompt tokens/s); then 3 AdamW training
+     steps, B 8 x T 512 on one repeated corpus batch (108
+     fused_mingru_kernel launches, all on the tensor-core body, and 54
+     reversed linear scans; the loss finite and falling; ms a step,
+     tokens/s, peak memory), outside the count the same 3 steps on the
+     plain versions (losses within 1%), a profiled step, and the reversed
+     linear scan at that shape (D 2048) against its plain version, timed.
+     gemma-2b at full width (bf16, drawn on the card; no kernel of the
+     repo, every count stays 0): the same serving traffic with a KV cache
+     of 1024 (streams equal ``generate_one``, tok/s over 5 windows, peak
+     memory, a device profile, a sampled window), its prefill B 8 x T 512
+     (ms, prompt tokens/s, peak memory; the logits and a ``decode_step``
+     after it against the 512-step sequential route within 5e-2 of the
+     largest |logit|), the port's blocked attention against
+     ``scaled_dot_product_attention`` at that shape (a yardstick), and 3
+     training steps as gemma-2b-mingru's;
   4b. prefill: full-width mingru-lm and minlstm-lm, one ``lm.prefill`` of
      B 8 prompts right-padded to 1024 (lengths 1 to 1024), and mingru-lm
      under scan_strategy "pallas" fresh and resumed: one fused-cell launch
@@ -815,17 +831,18 @@ def tokens_of(p):
 
 
 def serve(cfg, params, chunk, prompts, max_new, k=4, label="serve",
-          quiet=False, spec=None, **submit_kw):
+          quiet=False, spec=None, max_len=128, **submit_kw):
     """One closed batch through a fresh engine; returns the streams and
     {"rounds", "launches" (this run's, per kernel), "rate" (decoded
     tok/s), "stats" (the snapshot)}; ``quiet`` prints nothing.  ``spec``:
     the engine's speculative options.  Checks one decode kernel launch
     per layer per device round (speculation: one verify chunk; a model
-    draft adds S draft steps and one draft commit chunk)."""
-    eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+    draft adds S draft steps and one draft commit chunk), none on the
+    unfused tier (native GQA)."""
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=max_len, seed=0,
                         decode_block=k, prompt_chunk=chunk, device=DEV,
                         **(spec or {}))
-    per_round = 1
+    per_round = 0 if eng.kernel_tier == "unfused" else 1
     if isinstance(eng.draft, draft_lib.ModelDraft):
         per_round += eng.draft.draft_len + 1
     before = serve_launches()
@@ -868,14 +885,16 @@ def serve(cfg, params, chunk, prompts, max_new, k=4, label="serve",
     return streams, info
 
 
-def rate_spread(cfg, params, reps=5, chunks=(1, 8), prompts=PROMPTS):
+def rate_spread(cfg, params, reps=5, chunks=(1, 8), prompts=PROMPTS,
+                max_len=128):
     """Decoded tok/s over ``reps`` windows of the serving traffic per C:
     min / median / max, since one window of 8 requests is short and the
     host clock varies."""
     tier = lm.kernel_tier(cfg)
     for c in chunks:
-        rates = sorted(serve(cfg, params, c, prompts, 32, quiet=True)[1]
-                       ["rate"] for _ in range(reps))
+        rates = sorted(serve(cfg, params, c, prompts, 32, quiet=True,
+                             max_len=max_len)[1]["rate"]
+                       for _ in range(reps))
         print(f"rate {cfg.name} [{tier}] K=4 C={c}, {reps} windows of 8 "
               f"requests x 32 tokens: decoded tok/s min {rates[0]:.1f} "
               f"median {rates[reps // 2]:.1f} max {rates[-1]:.1f}")
@@ -964,7 +983,8 @@ def serve_phase(gen):
     return launches, (cfg, params, streams[1])
 
 
-def serve_profile(cfg, params, prompts, label, spec=None, chunk=1):
+def serve_profile(cfg, params, prompts, label, spec=None, chunk=1,
+                  max_len=128):
     """Where one window's device time goes: ``torch.profiler`` over one
     K 4 window (after the warm-ups), device kernels by group and the
     device-busy share of the window's wall time (the profiler's own host
@@ -973,7 +993,8 @@ def serve_profile(cfg, params, prompts, label, spec=None, chunk=1):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(cfg, params, chunk, prompts, 8, quiet=True, spec=spec)
+        serve(cfg, params, chunk, prompts, 8, quiet=True, spec=spec,
+              max_len=max_len)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -1149,24 +1170,27 @@ def gemma_phase():
           f"while serving {serve_peak / 2**30:.2f} GiB")
     rate_spread(cfg, params, chunks=(1,), prompts=prompts)
     serve_profile(cfg, params, prompts, "gemma-2b-mingru")
-    # sampled: the Gumbel table is drawn on the host, vocab 256,000 wide
+    # sampled: the Gumbel table is drawn on the host, vocab 256,000 wide;
+    # one superstep (2-token prompts, 2 new tokens: one table)
     keys = sampling.make_keys(0, 8)
     t0 = time.perf_counter()
     table = sampling.gumbel_table(keys, 4, cfg.padded_vocab)
     t_table = time.perf_counter() - t0
     check(bool(torch.isfinite(table).all()), "non-finite Gumbel table")
     t0 = time.perf_counter()
-    s_streams, s_info = serve(cfg, params, 1, prompts, 8, quiet=True,
-                              temperature=0.8, top_k=40, top_p=0.95)
+    s_streams, s_info = serve(cfg, params, 1, [p[:2] for p in prompts], 2,
+                              quiet=True, temperature=0.8, top_k=40,
+                              top_p=0.95)
     t_window = time.perf_counter() - t0
     for s_ in s_streams:
-        check(len(s_) == 8 and all(0 <= t < cfg.vocab_size for t in s_),
+        check(len(s_) == 2 and all(0 <= t < cfg.vocab_size for t in s_),
               "malformed sampled gemma stream")
-    print(f"sampled gemma-2b-mingru, one window of 8 requests x 8 tokens "
-          f"(K 4, T 0.8, top-k 40, top-p 0.95): {t_window:.2f}s, decoded "
-          f"tok/s {s_info['rate']:.1f}; one host Gumbel table (8 slots x 4 "
+    print(f"sampled gemma-2b-mingru, one window of 8 requests x 2 tokens "
+          f"(K 4, T 0.8, top-k 40, top-p 0.95): {t_window:.2f}s, "
+          f"{s_info['rounds']} rounds; one host Gumbel table (8 slots x 4 "
           f"x {cfg.padded_vocab}) {t_table * 1e3:.1f} ms")
     merge(launches, gemma_prefill(cfg, params))
+    merge(launches, attn_train(cfg, params, plain_check=True))
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2030,7 +2054,7 @@ class plain_kernels:
         return False
 
 
-def train_profile(cfg, params, batches, ocfg, top=20):
+def train_profile(cfg, params, batches, ocfg, top=20, shape=(TB, TT)):
     """Where one training step's device time goes: ``torch.profiler``
     over one step (after a warm one), kernels by self device time, and
     the device-busy share of the step's wall time (the profiler's own
@@ -2072,7 +2096,8 @@ def train_profile(cfg, params, batches, ocfg, top=20):
             groups["cuBLAS matmuls"] += dev_us(e) / 1e3
         else:
             groups["elementwise, reductions, copies"] += dev_us(e) / 1e3
-    print(f"train profile, one mingru-lm step (B {TB} x T {TT}): wall "
+    print(f"train profile, one {cfg.name} step (B {shape[0]} x T "
+          f"{shape[1]}): wall "
           f"{wall_ms:.2f} ms under the profiler, device busy "
           f"{total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}% of the "
           f"wall); " + ", ".join(f"{k} {v:.2f} ms" for k, v in
@@ -2196,6 +2221,283 @@ def train_phase(gen):
           f"ms per step min {times[0]:.2f} median {times[2]:.2f} max "
           f"{times[-1]:.2f}; tokens/s median {tok / times[2] * 1e3:.1f}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 5b. the attention trunk at full width: gemma-2b (native GQA, a KV cache),
+#     and training gemma-2b-mingru
+# ---------------------------------------------------------------------------
+
+# training traffic of the attention trunk: one repeated corpus batch
+AB, AT = 8, 512
+# gemma-2b's serving and prefill cache length
+GEMMA_MAX_LEN = 1024
+# the first 3 steps of a warmup over 10 to lr 1e-4: at 2.5 B parameters
+# AdamW's sign-like first steps move every weight by ~lr, and a fan-in of
+# 16384 sums them coherently (lr 3e-4 without warmup took gemma-2b-mingru's
+# loss from 13.8 to 22.1); below lr ~1e-5 bf16 weights would not move
+ATTN_OPT = opt_lib.AdamWConfig(lr=1e-4, warmup_steps=10, total_steps=1000)
+
+
+def timed_steps(cfg, params, batch, ocfg, n):
+    """``n`` train steps on one batch from ``params`` (updated in place):
+    the per-step losses and host ms (each step ends in the loss's read)."""
+    step = ts_lib.make_train_step(cfg, ocfg)
+    state = opt_lib.init(ocfg, params)
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, times
+
+
+def attn_train(cfg, params, plain_check):
+    """3 AdamW steps of full-width ``cfg`` (bf16, remat "full") at B 8 x T
+    512 on one repeated corpus batch, from ``params`` (updated in place):
+    launches against the formula (gemma-2b-mingru: 2 fused-cell launches
+    per layer a step, forward and recompute, all on the tensor-core body,
+    and one reversed linear scan; native GQA: none), the loss finite and
+    falling, ms a step and peak memory.  ``plain_check``: outside the
+    count, the same 3 steps on the plain versions of the kernels (losses
+    within LOSS_RTOL_PLAIN) and a profiled step."""
+    train_data, _ = lm_corpus.build_corpus()
+    batch = lm_corpus.lm_batch(train_data, 0, 0, AB, AT)
+    ocfg = ATTN_OPT
+    p_init = clone(params) if plain_check else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    reset_serve_launches()
+    losses, times = timed_steps(cfg, params, batch, ocfg, 3)
+    peak = torch.cuda.max_memory_allocated()
+    launches = train_launches()
+    n = cfg.n_layers
+    want = {k_: 0 for k_ in launches}
+    if lm.kernel_tier(cfg) != "unfused":
+        want.update(fused_mingru_kernel=2 * n * 3, linear_scan_kernel=n * 3)
+    check(launches == want, f"{cfg.name} training launches {launches} != "
+          f"{want}")
+    check(gru_ops.LAUNCHES["fused_mingru_kernel/tc"]
+          == want["fused_mingru_kernel"],
+          f"{cfg.name} training launches by body {body_launches()}")
+    check(sum(serve_launches().values()) == 0,
+          f"{cfg.name} training launched decode kernels")
+    check(all(math.isfinite(v) for v in losses), f"{cfg.name}: {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name}: loss did not fall: {losses}")
+    tok = AB * AT
+    print(f"train {cfg.name} (bf16, remat full, B {AB} x T {AT}, one "
+          f"repeated batch, 3 steps): losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; launches {launches} == {want}; ms per step "
+          + " ".join(f"{v:.2f}" for v in times)
+          + f" (steps 2-3: tokens/s {tok / (sum(times[1:]) / 2) * 1e3:.1f});"
+          f" peak device memory {peak / 2**30:.2f} GiB")
+    if not plain_check:
+        return launches
+    with plain_kernels():
+        before = train_launches()
+        plain, _ = timed_steps(cfg, clone(p_init), batch, ocfg, 3)
+        check(train_launches() == before, "the plain run launched kernels")
+    d_plain = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    check(max(d_plain) <= LOSS_RTOL_PLAIN,
+          f"{cfg.name} kernel vs plain losses {losses} vs {plain} "
+          f"(relative {d_plain})")
+    print(f"train {cfg.name}: losses vs the plain versions' run {plain}: "
+          f"relative differences " + " ".join(f"{v:.3g}" for v in d_plain)
+          + f" (limit {LOSS_RTOL_PLAIN})")
+    train_profile(cfg, p_init, lambda i: batch, ocfg, shape=(AB, AT))
+    scan_at_gemma_width()
+    return launches
+
+
+def scan_at_gemma_width():
+    """The backward's reversed linear scan at gemma-2b-mingru's training
+    shape (fp32, B 8 x T 512 x D 2048, zero h0; a_next and the incoming
+    gradient as the backward passes them): against its plain version and
+    its segmented rendering, its plan, eager and CUDA-graph times over 4
+    input sets (134 MB: more than the L2), the plain version's, the bound."""
+    gen = torch.Generator().manual_seed(22)
+    d = 2048
+    sets = [(torch.rand((AB, AT, d), generator=gen).to(DEV),
+             torch.randn((AB, AT, d), generator=gen).to(DEV))
+            for _ in range(SCAN_SETS)]
+    h0 = torch.zeros((AB, d), device=DEV)
+    a, b = sets[0]
+    got = scan_ops.launch_linear_scan(a, b, h0, True)
+    err = max_err(got, scan_ref.linear_scan_ref(a, b, h0, reverse=True),
+                  torch.float32, "reversed linear scan at D 2048")
+    check(torch.equal(got, scan_ref.linear_scan_segmented(a, b, h0,
+                                                          reverse=True)),
+          "reversed linear scan at D 2048 != its segmented rendering")
+    occ = scan_ops.occupancy("linear", torch.float32, AB, AT, d)
+    fns = [lambda a_=a_, b_=b_: scan_ops.launch_linear_scan(a_, b_, h0, True)
+           for a_, b_ in sets]
+    k_ms = eager_ms(fns, 40)
+    g_ms = graph_ms(rotating(fns))
+    p_ms = eager_ms([lambda: scan_ref.linear_scan_ref(a, b, h0,
+                                                      reverse=True)], 3)
+    b_ms = AB * AT * d * 3 * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"linear_scan_kernel reversed at gemma width (fp32, B {AB} x T "
+          f"{AT} x D {d}): max abs err {err:.3g}, bit-equal to the "
+          f"segmented rendering; plan {occ}; {k_ms:.5f} ms eager, device "
+          f"{g_ms:.5f} ms, plain {p_ms:.3f} ms, bound {b_ms:.5f} ms (bytes)")
+
+
+def gemma2b_phase():
+    """gemma-2b at full width (native GQA: 8 query heads on one KV head of
+    256, RoPE, a KV cache of 1024 positions; GeGLU d_ff 16384, tied vocab
+    256,000; bf16, weights drawn on the card from a seed).  It runs no
+    kernel of the repo (the reference computes attention outside Pallas):
+    every count stays 0.  Serving: 8 requests x 32 new tokens, K 4, C 1,
+    streams equal ``generate_one``, tok/s over 5 windows, a profiled and a
+    sampled window; then the prefill, the attention yardstick and 3
+    training steps on the same weights."""
+    cfg = archs.get("gemma-2b")
+    check(cfg.n_layers == 18 and cfg.d_model == 2048 and cfg.n_heads == 8
+          and cfg.n_kv_heads == 1 and cfg.head_dim_ == 256
+          and cfg.cdtype == torch.bfloat16 and cfg.vocab_size == 256000,
+          f"unexpected gemma-2b config {cfg}")
+    check(lm.kernel_tier(cfg) == "unfused", "gemma-2b not unfused")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(0), cfg,
+                            device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in leaves(params))
+    print(f"gemma-2b: {n_params} parameters drawn on the card in "
+          f"{t_init:.2f}s; peak device memory during the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    serve(cfg, params, 1, prompts, 4, label="warm-up",
+          max_len=GEMMA_MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_serve_launches()
+    reset_train_launches()
+    streams, info = serve(cfg, params, 1, prompts, 32, max_len=GEMMA_MAX_LEN)
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(sum(serve_launches().values()) + sum(train_launches().values())
+          == 0, f"gemma-2b serving launched kernels {serve_launches()}")
+    for p, s_ in zip(prompts, streams):
+        check(len(s_) == 32 and all(0 <= t < cfg.vocab_size for t in s_),
+              "malformed gemma-2b stream")
+        ref_s = tuple(generate_one(cfg, params, p, max_new=32,
+                                   max_len=GEMMA_MAX_LEN, device=DEV))
+        check(ref_s == s_, f"gemma-2b stream for {p} != generate_one: first "
+              f"divergence at token {first_divergence(ref_s, s_)}")
+    print(f"serve gemma-2b: streams equal generate_one; no kernel launch; "
+          f"KV cache {GEMMA_MAX_LEN} positions; peak device memory while "
+          f"serving {serve_peak / 2**30:.2f} GiB")
+    rate_spread(cfg, params, chunks=(1,), prompts=prompts,
+                max_len=GEMMA_MAX_LEN)
+    serve_profile(cfg, params, prompts, "gemma-2b", max_len=GEMMA_MAX_LEN)
+    # sampled: one superstep (2-token prompts, 2 new tokens: one host
+    # Gumbel table of 8 slots x 4 x 256,000, ~3.5 s)
+    t0 = time.perf_counter()
+    s_streams, s_info = serve(cfg, params, 1, [p[:2] for p in prompts], 2,
+                              quiet=True, max_len=GEMMA_MAX_LEN,
+                              temperature=0.8, top_k=40, top_p=0.95)
+    t_window = time.perf_counter() - t0
+    for s_ in s_streams:
+        check(len(s_) == 2 and all(0 <= t < cfg.vocab_size for t in s_),
+              "malformed sampled gemma-2b stream")
+    print(f"sampled gemma-2b, one window of 8 requests x 2 tokens (K 4, T "
+          f"0.8, top-k 40, top-p 0.95): {t_window:.2f}s, "
+          f"{s_info['rounds']} rounds")
+    gemma2b_prefill(cfg, params)
+    attention_yardstick(cfg)
+    launches = attn_train(cfg, params, plain_check=False)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gemma2b_prefill(cfg, params):
+    """gemma-2b, B 8 x T 512 into a KV cache of 1024: ms and prompt
+    tokens/s, peak memory; the logits and one ``decode_step`` after it
+    against the sequential route (512 ``decode_step`` calls) within
+    PREFILL_REL of the largest |logit|; 16 decode steps after it."""
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (AB, AT), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    lm.prefill(params, cfg, toks[:, :16], GEMMA_MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = lm.prefill(params, cfg, toks, GEMMA_MAX_LEN)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(cache["k"].shape) == (cfg.n_layers, AB, GEMMA_MAX_LEN,
+                                      cfg.n_kv_heads, cfg.head_dim_)
+          and bool((cache["pos"] == AT).all()), "gemma-2b prefill cache")
+    c_seq = lm.init_cache(cfg, AB, GEMMA_MAX_LEN, DEV)
+    for t in range(AT):
+        l_seq, c_seq = lm.decode_step(params, cfg, toks[:, t], c_seq)
+    tol = PREFILL_REL[torch.bfloat16]
+    e_l = rel_err(logits, l_seq, "gemma-2b prefill vs the step path", tol)
+    tok = l_seq[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    l_p1, cache = lm.decode_step(params, cfg, tok, cache)
+    l_s1, _ = lm.decode_step(params, cfg, tok, c_seq)
+    e_d = rel_err(l_p1, l_s1, "gemma-2b decode after the prefill vs after "
+                  "the step path", tol)
+    for _ in range(15):
+        tok = l_p1[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        l_p1, cache = lm.decode_step(params, cfg, tok, cache)
+        check(bool(torch.isfinite(l_p1).all()), "gemma-2b decode after "
+              "prefill")
+    ms = synced_ms(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
+                   reps=3)
+    print(f"prefill gemma-2b B {AB} x T {AT} (KV cache {GEMMA_MAX_LEN}): "
+          f"logits vs the step path relative error {e_l:.3g}, one "
+          f"decode_step after each {e_d:.3g} (limit {tol}); 16 decode steps "
+          f"after it finite; peak device memory of the prefill "
+          f"{peak / 2**30:.2f} GiB; ms min {ms[0]:.2f} median {ms[1]:.2f} "
+          f"max {ms[-1]:.2f}, prompt tokens/s median "
+          f"{AB * AT / ms[1] * 1e3:.0f}")
+
+
+def attention_yardstick(cfg):
+    """The port's blocked attention (causal, bf16, its 1024 tiles) against
+    one ``F.scaled_dot_product_attention`` call on the same inputs, at the
+    prefill's shape: a yardstick only, the port never calls it."""
+    gen = torch.Generator().manual_seed(3)
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = torch.randn((AB, AT, h, d), generator=gen).to(torch.bfloat16).to(DEV)
+    k = torch.randn((AB, AT, kv, d), generator=gen).to(torch.bfloat16).to(DEV)
+    v = torch.randn((AB, AT, kv, d), generator=gen).to(torch.bfloat16).to(DEV)
+    from repro_torch.models import attention as attn
+
+    def port():
+        return attn.blocked_attention(q, k, v, causal=True,
+                                      q_chunk=cfg.attn_q_chunk,
+                                      kv_chunk=cfg.attn_kv_chunk)
+
+    def sdpa():
+        rep_ = h // kv
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(rep_, 1),
+            v.transpose(1, 2).repeat_interleave(rep_, 1),
+            is_causal=True).transpose(1, 2)
+
+    err = max_err(port(), sdpa(), torch.bfloat16,
+                  "blocked attention vs scaled_dot_product_attention")
+    p_ms, s_ms = eager_ms([port], 20), eager_ms([sdpa], 20)
+    flops = 2 * 2 * AB * h * AT * AT * d / 2          # causal QK^T and PV
+    nbytes = 2 * (2 * AB * AT * h * d + 2 * AB * AT * kv * d)
+    b_ms = max(flops / PEAK_FLOPS[torch.bfloat16],
+               nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"attention yardstick at the prefill shape (bf16, B {AB} x T {AT}"
+          f", {h} heads on {kv} KV head of {d}, causal): the port's blocked "
+          f"attention {p_ms:.4f} ms, scaled_dot_product_attention "
+          f"{s_ms:.4f} ms, bound {b_ms:.4f} ms; max abs difference "
+          f"{err:.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -2717,26 +3019,46 @@ def main():
         print(build.ptxas_log(src).strip())
 
     gen = torch.Generator().manual_seed(0)
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"phase {what}: {now - clock[0]:.1f}s")
+        clock[0] = now
+
     main_k = kernel_phase(gen)
     main_k.update(cell_kernel_phase(gen))
+    lap("decode kernels")
     main_k.update(train_kernel_phase(gen))
+    lap("training kernels")
     launches, (cfg, params, block_streams) = serve_phase(gen)
+    lap("block-tier serving")
     launches.update(cell_serve_phase(gen, cfg, params, block_streams))
     del params
     torch.cuda.empty_cache()
+    lap("cell-tier serving")
     merge(launches, gemma_phase())
+    lap("gemma-2b-mingru")
+    merge(launches, gemma2b_phase())
+    lap("gemma-2b")
     merge(launches, prefill_phase(gen))
+    lap("prefill")
     merge(launches, spec_phase(gen))
     torch.cuda.empty_cache()
+    lap("speculative serving")
     merge(launches, train_phase(gen))
     torch.cuda.empty_cache()
+    lap("training")
     rgen = torch.Generator().manual_seed(21)
     robust, (cfg, params) = robustness_phase(rgen)
     merge(launches, robust)
+    lap("faults")
     merge(launches, recovery_phase(cfg, params))
     del params
+    lap("recovery")
     merge(launches, tuning_phase(rgen))
     shutil.rmtree(SCRATCH, ignore_errors=True)
+    lap("tuning")
 
     entries = []
     for name in REPLACES:

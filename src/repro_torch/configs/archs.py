@@ -1,5 +1,6 @@
-"""The paper's own minGRU / minLSTM LMs (Feng et al. 2024, App. C), and
-gemma-2b with the paper's minGRU as its sequence mixer.
+"""The paper's own minGRU / minLSTM LMs (Feng et al. 2024, App. C),
+gemma-2b and gemma-7b (native GQA attention with RoPE), and gemma-2b with
+the paper's minGRU as its sequence mixer.
 
 Copied from ``repro.configs.archs`` (full and smoke entries); the other
 architectures of the reference zoo are not ported yet.
@@ -37,19 +38,37 @@ for _name, _cell in (("mingru-lm", "mingru"), ("minlstm-lm", "minlstm")):
 
 PAPER_OWN = ["mingru-lm", "minlstm-lm"]
 
-# gemma-2b [arXiv:2403.08295]: MQA (kv 1), GeGLU, head_dim 256 -- with the
-# paper's minGRU replacing attention (the reference's beyond-paper model)
+_GEMMA = dict(block_kind="attention", norm="rmsnorm",
+              norm_zero_centered=True, gated_mlp=True, mlp_activation="gelu",
+              rope=True, tie_embeddings=True, embedding_scale=True)
+
+# gemma-7b [arXiv:2403.08295; hf]: GeGLU, head_dim 256, 256k vocab
+_register(
+    ModelConfig(name="gemma-7b", n_layers=28, d_model=3072, n_heads=16,
+                n_kv_heads=16, head_dim=256, d_ff=24576, vocab_size=256000,
+                **_GEMMA, **_BIG),
+    ModelConfig(name="gemma-7b", n_layers=2, d_model=64, n_heads=4,
+                n_kv_heads=4, head_dim=32, d_ff=128, vocab_size=1024,
+                **_GEMMA, **_SMOKE_NUM))
+
+# gemma-2b [arXiv:2403.08295; hf]: MQA (kv 1), GeGLU, head_dim 256
+_register(
+    ModelConfig(name="gemma-2b", n_layers=18, d_model=2048, n_heads=8,
+                n_kv_heads=1, head_dim=256, d_ff=16384, vocab_size=256000,
+                **_GEMMA, **_BIG),
+    ModelConfig(name="gemma-2b", n_layers=2, d_model=64, n_heads=4,
+                n_kv_heads=1, head_dim=32, d_ff=128, vocab_size=1024,
+                **_GEMMA, **_SMOKE_NUM))
+
+# gemma-2b with the paper's minGRU replacing attention (the reference's
+# beyond-paper model), derived from gemma-2b as the reference derives it
 _g2_mr = MinRNNConfig(cell="mingru", expansion=1.0, mode="log",
                       use_conv=False, use_mlp=False)
-_g2 = dict(name="gemma-2b-mingru", block_kind="attention", seq_mixer="mingru",
-           norm="rmsnorm", norm_zero_centered=True, gated_mlp=True,
-           mlp_activation="gelu", rope=True, tie_embeddings=True,
-           embedding_scale=True, minrnn=_g2_mr)
 _register(
-    ModelConfig(n_layers=18, d_model=2048, n_heads=8, n_kv_heads=1,
-                head_dim=256, d_ff=16384, vocab_size=256000, **_g2, **_BIG),
-    ModelConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=1, head_dim=32,
-                d_ff=128, vocab_size=1024, **_g2, **_SMOKE_NUM))
+    _REGISTRY["gemma-2b"].replace(name="gemma-2b-mingru", seq_mixer="mingru",
+                                  minrnn=_g2_mr),
+    _SMOKE["gemma-2b"].replace(name="gemma-2b-mingru", seq_mixer="mingru",
+                               minrnn=_g2_mr))
 
 
 def get(name: str) -> ModelConfig:

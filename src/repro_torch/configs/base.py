@@ -2,10 +2,10 @@
 
 A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
 dtype table.  Only the fields the port reads are kept (the minRNN LMs,
-and the attention trunk whose mixer ``seq_mixer`` swaps for a minRNN
-cell, with the attention fields such a config carries); the field names,
-defaults and properties match the reference so a config built here
-describes the same model as its JAX twin.
+and the attention trunk: native GQA with RoPE, or with its mixer swapped
+for a minRNN cell by ``seq_mixer``); the field names, defaults and
+properties match the reference so a config built here describes the
+same model as its JAX twin.
 """
 
 from __future__ import annotations
@@ -32,8 +32,7 @@ class MinRNNConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
-    # minrnn | attention (served only with a minRNN ``seq_mixer``)
-    block_kind: str = "minrnn"
+    block_kind: str = "minrnn"     # minrnn | attention
     seq_mixer: str = "native"      # native | mingru | minlstm
     n_layers: int = 2
     d_model: int = 128
@@ -46,6 +45,7 @@ class ModelConfig:
     norm_zero_centered: bool = False   # gemma (1 + scale) RMSNorm
     mlp_activation: str = "silu"   # silu | gelu for the (gated) MLP
     gated_mlp: bool = True         # SwiGLU / GeGLU vs plain MLP
+    attn_bias: bool = False
     mlp_bias: bool = False
     rope: bool = True
     rope_theta: float = 10000.0
@@ -66,7 +66,13 @@ class ModelConfig:
     # layer's forward in the backward; "none" keeps its activations) and
     # the z-loss weight on logsumexp(logits)^2
     remat: str = "none"            # none | full
+    attn_q_chunk: int = 1024       # blocked-attention tile sizes
+    attn_kv_chunk: int = 1024
     z_loss: float = 0.0
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
 
     @property
     def padded_vocab(self) -> int:

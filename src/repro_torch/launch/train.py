@@ -5,8 +5,10 @@
 
 Config registry -> seeded init -> AdamW -> the deterministic data
 pipeline -> the fault-tolerant supervisor (checkpoint / restart,
-straggler watchdog).  Every layer's forward runs the fused CUDA cell
-kernel and its backward the reversed CUDA scan.  ``--smoke`` takes the
+straggler watchdog).  Every minRNN layer's forward (and gemma-2b-mingru's
+mixer) runs the fused CUDA cell kernel and its backward the reversed
+CUDA scan; ``--arch gemma-2b`` trains native GQA in PyTorch ops (the
+reference has no kernel there).  ``--smoke`` takes the
 reduced config; ``--device cpu`` runs the plain PyTorch versions of the
 kernels; ``--simulate-failure N`` kills step N once to show recovery.
 """
@@ -73,8 +75,9 @@ def main(argv=None):
 
     ocfg = opt_lib.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
                                total_steps=args.steps)
+    # drawn on the device: a CPU draw of gemma-2b's 2.5 B weights is slow
     model = lm.MinRNNLM(cfg, lm.init_params(
-        torch.Generator().manual_seed(args.seed), cfg, device=dev))
+        torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev))
     params = model.params()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{n_params / 1e6:.1f}M parameters")

@@ -1,7 +1,7 @@
-"""Decoder-only LM: the minRNN LMs' training and serving, and the
-attention trunk's serving where ``seq_mixer`` swaps its attention for a
-minRNN cell (gemma-2b-mingru) -- the subset of ``repro.models.lm`` ported
-so far.
+"""Decoder-only LM: the minRNN LMs and the attention trunk (native GQA
+with RoPE and a KV cache, e.g. gemma-2b; or its mixer swapped for a
+minRNN cell by ``seq_mixer``, e.g. gemma-2b-mingru), trained, prefilled
+and served -- the subset of ``repro.models.lm`` ported so far.
 
 Params are nested dicts with the JAX pytree's layout -- ``embed.table``,
 ``final_norm.scale`` and ``layers.blocks.*`` stacked with a leading L
@@ -11,11 +11,13 @@ floating leaves are ``nn.Parameter``s (``.to(device)``, ``state_dict``,
 ``parameters()``).
 
 Training runs ``forward`` / ``loss_fn``: the layer stack of
-``blocks.apply`` (the fused CUDA cell kernel in every layer under the
-default strategy), each layer under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"``.  ``prefill`` runs the same parallel form over a
-prompt (right-padded batches, resumable from a cache) and hands a cache
-to the decode functions: one fused-cell launch per layer.
+``blocks.apply`` or of attention blocks (the fused CUDA cell kernel in
+every minRNN layer or mixer under the default strategy; GQA's blocked
+attention in PyTorch ops), each layer under ``torch.utils.checkpoint``
+when ``cfg.remat == "full"``.  ``prefill`` runs the same parallel form
+over a prompt (right-padded batches; the minRNN trunk resumable from a
+cache) and hands a cache to the decode functions: one fused-cell launch
+per minRNN layer, or a KV cache seeded with the prompt's keys and values.
 
 Serving drives the step forms: ``superstep`` runs K rounds of
 re-admission -> token select -> ``decode_step`` (or ``decode_chunk`` for
@@ -26,9 +28,10 @@ speculative rounds instead (``_superstep_spec``: propose, one
 reference runs those rounds in one ``lax.scan``; here they are a Python
 loop of eager device ops.  Each minRNN layer of each round is ONE launch
 of the whole-block CUDA kernel, or, on the cell-fused tier
-(``fuse_block="off"``) and in every layer of the attention trunk, one
-launch of the cell-only CUDA kernel between PyTorch norms, projections
-and MLPs.
+(``fuse_block="off"``) and in every layer of an attention trunk with a
+minRNN mixer, one launch of the cell-only CUDA kernel between PyTorch
+norms, projections and MLPs.  Native GQA decodes in PyTorch ops against
+a KV cache written in place (``attention._cache_insert``).
 Whoever owns the params binds them once (``bind_layers``) and passes the
 binding as ``layers=``; without it, each call binds its own.  The prefill
 and decode functions run under ``torch.no_grad()``: they build no graph
@@ -48,6 +51,7 @@ from repro_torch.core import blocks as minrnn_blocks
 from repro_torch.core import min_gru, min_lstm, nn
 from repro_torch.core import scan as scan_lib
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.tree import leaves, tree_map
 
@@ -69,23 +73,28 @@ def _minrnn_block_cfg(cfg) -> minrnn_blocks.MinRNNBlockConfig:
 
 
 def _check_cfg(cfg):
-    """The minRNN trunk, or the attention trunk with a minRNN mixer;
-    native attention (GQA or MLA), SSD, hybrid and MoE trunks are not
-    ported."""
-    if cfg.block_kind == "minrnn" or _attn_minrnn(cfg):
+    """The minRNN trunk, or the attention trunk with native GQA or a
+    minRNN mixer; MLA, SSD, hybrid and MoE trunks are not ported."""
+    if cfg.block_kind == "minrnn" or _attn_minrnn(cfg) or _attn_gqa(cfg):
         return
     what = f"block_kind {cfg.block_kind!r}"
     if cfg.block_kind == "attention":
         what = f"the native {cfg.attn_kind} attention mixer"
     raise NotImplementedError(
         f"{what} is not ported (ROADMAP.md queue 1, item 5); the port "
-        f"serves the minRNN LMs and attention trunks whose seq_mixer is "
-        f"mingru or minlstm")
+        f"runs the minRNN LMs and attention trunks with native GQA or a "
+        f"mingru / minlstm seq_mixer")
 
 
 def _attn_minrnn(cfg) -> bool:
     """The attention trunk with its mixer swapped for a minRNN cell."""
     return cfg.block_kind == "attention" and cfg.seq_mixer in _MIN_CELLS
+
+
+def _attn_gqa(cfg) -> bool:
+    """The attention trunk with its native GQA mixer (a KV cache)."""
+    return cfg.block_kind == "attention" and cfg.seq_mixer == "native" \
+        and cfg.attn_kind == "gqa"
 
 
 def _mixer_d_hidden(cfg) -> int:
@@ -97,8 +106,11 @@ def kernel_tier(cfg) -> str:
     """The decode tier the layers run: "block-fused" (one whole-block
     kernel launch per layer per round), "cell-fused" (one cell-only
     kernel launch per layer per round, the rest PyTorch ops; always so on
-    the attention trunk) or "unfused" (plain PyTorch)."""
+    an attention trunk with a minRNN mixer) or "unfused" (plain PyTorch;
+    always so for native GQA, as the reference engine reports it)."""
     _check_cfg(cfg)
+    if _attn_gqa(cfg):
+        return "unfused"
     if _attn_minrnn(cfg):
         return "cell-fused" if scan_lib.resolve_strategy(
             cfg.scan_strategy) == "fused" else "unfused"
@@ -133,7 +145,7 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = nn.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                           use_bias=False, dtype=dtype)
-    if _attn_minrnn(cfg):
+    if cfg.block_kind == "attention":
         layers = [_attn_layer_init(gen, cfg, dtype)
                   for _ in range(cfg.n_layers)]
     else:
@@ -145,8 +157,10 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
 
 
 def _mixer_init(gen, cfg, dtype):
-    """The attention block's sequence mixer, here a minRNN cell and its
+    """The attention block's sequence mixer: GQA, or a minRNN cell and its
     down projection (the reference's ``_mixer_init``)."""
+    if _attn_gqa(cfg):
+        return attn.gqa_init(gen, cfg, dtype=dtype)
     cell = _MIN_CELLS[cfg.seq_mixer]
     dh = _mixer_d_hidden(cfg)
     return {"rnn": cell.init(gen, cfg.d_model, dh, dtype=dtype),
@@ -209,22 +223,22 @@ class MinRNNLM(torch.nn.Module):
 def bind_layers(params, cfg) -> List[tuple]:
     """``(params, operands)`` per layer: views of the stacked layer params
     and each layer's weights bound for its kernel -- the whole block
-    (``blocks.bind``) or, on the cell-fused tier and the attention trunk,
-    the cell's gates (``CellOperands``); None on the CPU.  Bind once per
+    (``blocks.bind``) or, on the cell-fused tier and the attention trunk's
+    minRNN mixer, the cell's gates (``CellOperands``); None on the CPU and
+    for native GQA, which runs no kernel.  Bind once per
     params and pass the result as ``layers=``; it reads the params as they
     are now, so bind again after replacing a leaf."""
     _check_cfg(cfg)
     out = []
     with torch.no_grad():
-        if _attn_minrnn(cfg):
+        if cfg.block_kind == "attention":
             cell_tier = kernel_tier(cfg) == "cell-fused"
             for p_l in _layer_params(params):
-                rnn = p_l["mixer"]["rnn"]
                 ops_ = None
-                if cell_tier and leaves(rnn)[0].device.type == "cuda":
+                if cell_tier and leaves(p_l)[0].device.type == "cuda":
                     from repro_torch.kernels.decode_step import ops as so
-                    ops_ = so.CellOperands.from_params(rnn, cfg.seq_mixer,
-                                                       cfg.cdtype)
+                    ops_ = so.CellOperands.from_params(
+                        p_l["mixer"]["rnn"], cfg.seq_mixer, cfg.cdtype)
                 out.append((p_l, ops_))
             return out
         bc = _minrnn_block_cfg(cfg)
@@ -268,9 +282,7 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def _final(params, cfg, x):
-    nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
-    x = nn.norm_apply(cfg.norm, params["final_norm"], x, **nk)
-    return _logits(params, cfg, x)
+    return _logits(params, cfg, _norm(cfg, params["final_norm"], x))
 
 
 # ===========================================================================
@@ -291,20 +303,49 @@ def _remat(cfg, fn):
     return fn
 
 
-def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
-    """The minRNN layer stack in the parallel form: ``blocks.apply`` per
-    layer, under ``_remat``."""
-    _check_cfg(cfg)
+def _mixer_apply(p, cfg, x, positions):
+    """The attention block's mixer over a sequence: the minRNN cell's
+    parallel form (the fused kernel under the default strategy) and its
+    down projection, or causal GQA."""
     if _attn_minrnn(cfg):
-        raise NotImplementedError(
-            "training the attention trunk (gemma-2b-mingru's forward / "
-            "loss_fn) is not ported yet (ROADMAP.md queue 1, item 4); it "
-            "serves through prefill and decode_step")
-    bc = _minrnn_block_cfg(cfg)
+        cell = _MIN_CELLS[cfg.seq_mixer]
+        mode = cfg.minrnn.mode if cfg.minrnn else "log"
+        h = cell.parallel(p["rnn"], x, mode=mode, compute_dtype=cfg.cdtype,
+                          scan_strategy=cfg.scan_strategy)
+        return nn.dense_apply(p["down"], h, cfg.cdtype)
+    return attn.gqa_apply(p, cfg, x, positions=positions, causal=True)
 
-    def body(x_, p_l):
-        return minrnn_blocks.apply(p_l, bc, x_, compute_dtype=cfg.cdtype,
-                                   scan_strategy=cfg.scan_strategy)
+
+def _norm(cfg, p, x):
+    nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
+    return nn.norm_apply(cfg.norm, p, x, **nk)
+
+
+def _attn_block_apply(p, cfg, x, positions):
+    x = x + _mixer_apply(p["mixer"], cfg, _norm(cfg, p["norm1"], x),
+                         positions)
+    out = mlp_lib.mlp_apply(p["mlp"], _norm(cfg, p["norm2"], x),
+                            activation=cfg.mlp_activation,
+                            compute_dtype=cfg.cdtype)
+    return x + out
+
+
+def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The layer stack in the parallel form, each layer under ``_remat``:
+    ``blocks.apply`` per minRNN layer, or an attention block at positions
+    ``arange(T)``."""
+    _check_cfg(cfg)
+    if cfg.block_kind == "attention":
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+        def body(x_, p_l):
+            return _attn_block_apply(p_l, cfg, x_, positions)
+    else:
+        bc = _minrnn_block_cfg(cfg)
+
+        def body(x_, p_l):
+            return minrnn_blocks.apply(p_l, bc, x_, compute_dtype=cfg.cdtype,
+                                       scan_strategy=cfg.scan_strategy)
 
     body = _remat(cfg, body)
     for p_l in _layer_params(params):
@@ -349,7 +390,8 @@ def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
 # ===========================================================================
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
-    """Stacked per-layer recurrent state + per-row position counter."""
+    """Stacked per-layer recurrent state, or KV cache (L, B, max_len, KV,
+    head_dim), + per-row position counter."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     dt = cfg.cdtype
@@ -358,6 +400,11 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
         return {"pos": pos, "h": torch.zeros(
             (cfg.n_layers, batch, _mixer_d_hidden(cfg)), dtype=dt,
             device=dev)}
+    if _attn_gqa(cfg):
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        return {"pos": pos,
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
     bc = _minrnn_block_cfg(cfg)
     cache: Dict[str, Any] = {
         "pos": pos,
@@ -399,37 +446,56 @@ def _minrnn_decode(params, cfg, x, cache, layers=None):
         layers)
 
 
-def _attn_mixer_step(p, cfg, y, h, operands):
-    """The minRNN mixer for one token: the cell (its kernel under the
-    default strategy; ``operands`` its binding) and the down projection.
-    Returns (out, new h)."""
+def _attn_mixer_step(p, cfg, y, cache_l, pos, operands, tables=None):
+    """The mixer for one token, with this layer's cache dict: the minRNN
+    cell (its kernel under the default strategy; ``operands`` its
+    binding) and the down projection, or GQA against the KV cache (the
+    new k / v written in place; ``tables`` the step's
+    ``attention.decode_tables``).  Returns (out, new mixer cache dict)."""
+    if _attn_gqa(cfg):
+        out, k, v = attn.gqa_decode_step(p, cfg, y, cache_l["k"],
+                                         cache_l["v"], pos, tables=tables)
+        return out, {"k": k, "v": v}
     cell = _MIN_CELLS[cfg.seq_mixer]
     mode = cfg.minrnn.mode if cfg.minrnn else "log"
-    h = cell.step(p["rnn"], y, h, mode=mode, compute_dtype=cfg.cdtype,
+    h = cell.step(p["rnn"], y, cache_l["h"], mode=mode,
+                  compute_dtype=cfg.cdtype,
                   scan_strategy=cfg.scan_strategy, operands=operands)
-    return nn.dense_apply(p["down"], h, cfg.cdtype), h
+    return nn.dense_apply(p["down"], h, cfg.cdtype), {"h": h}
 
 
-def _attn_block_step(p, cfg, x, h, operands):
-    nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
-    y = nn.norm_apply(cfg.norm, p["norm1"], x, **nk)
-    out, h = _attn_mixer_step(p["mixer"], cfg, y, h, operands)
+def _attn_block_step(p, cfg, x, cache_l, pos, operands, tables=None):
+    out, mix_cache = _attn_mixer_step(p["mixer"], cfg,
+                                      _norm(cfg, p["norm1"], x), cache_l,
+                                      pos, operands, tables)
     x = x + out
-    y = nn.norm_apply(cfg.norm, p["norm2"], x, **nk)
-    out = mlp_lib.mlp_apply(p["mlp"], y, activation=cfg.mlp_activation,
+    out = mlp_lib.mlp_apply(p["mlp"], _norm(cfg, p["norm2"], x),
+                            activation=cfg.mlp_activation,
                             compute_dtype=cfg.cdtype)
-    return x + out, h
+    return x + out, mix_cache
 
 
 def _attn_decode(params, cfg, x, cache, layers=None):
-    """The attention trunk for one token: per layer norm, minRNN mixer,
-    residual, norm, MLP, residual -- one cell-kernel launch per layer."""
+    """The attention trunk for one token: per layer norm, mixer, residual,
+    norm, MLP, residual -- one cell-kernel launch per layer with a minRNN
+    mixer; with GQA, each layer's KV rows written in place into the
+    stacked cache, which comes back as it is."""
     if layers is None:
         layers = bind_layers(params, cfg)
+    pos = cache["pos"]
+    if _attn_gqa(cfg):
+        # built once for every layer of the step
+        tables = attn.decode_tables(cfg, pos, cache["k"].shape[2])
+        for i, (p_l, _) in enumerate(layers):
+            x, _ = _attn_block_step(p_l, cfg, x, {"k": cache["k"][i],
+                                                  "v": cache["v"][i]},
+                                    pos, None, tables)
+        return x, {"k": cache["k"], "v": cache["v"]}
     hs = []
     for i, (p_l, operands) in enumerate(layers):
-        x, h = _attn_block_step(p_l, cfg, x, cache["h"][i], operands)
-        hs.append(h)
+        x, mc = _attn_block_step(p_l, cfg, x, {"h": cache["h"][i]}, pos,
+                                 operands)
+        hs.append(mc["h"])
     return x, {"h": torch.stack(hs)}
 
 
@@ -437,11 +503,13 @@ def _attn_decode(params, cfg, x, cache, layers=None):
 def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
                 layers=None):
     """token: (B,) -> (logits (B, V), new cache).  ``layers``: the
-    params' ``bind_layers``, if the caller holds one."""
+    params' ``bind_layers``, if the caller holds one.  A KV cache's ``k``
+    / ``v`` are updated in place and come back in the new cache (the
+    reference returns new arrays of the same values)."""
     _check_cfg(cfg)
     x = _embed(params, cfg, token)
     new_cache = dict(cache)
-    decode = _attn_decode if _attn_minrnn(cfg) else _minrnn_decode
+    decode = _attn_decode if cfg.block_kind == "attention" else _minrnn_decode
     x, outs = decode(params, cfg, x, cache, layers)
     new_cache.update(outs)
     new_cache["pos"] = cache["pos"] + 1
@@ -527,24 +595,40 @@ def supports_chunked_prefill(cfg) -> bool:
     return cfg.block_kind == "minrnn"
 
 
-def _attn_block_prefill(p, cfg, x, *, lengths=None):
-    """The attention trunk's block over the prompt with its minRNN mixer:
+def _attn_block_prefill(p, cfg, x, positions, *, lengths=None):
+    """The attention trunk's block over the prompt: with a minRNN mixer
     the cell's parallel form (the fused kernel under the default
-    strategy), the down product, the MLP.  Returns (x, the mixer's h at
-    each row's last real position)."""
-    nk = dict(zero_centered=True) if cfg.norm_zero_centered else {}
-    y = nn.norm_apply(cfg.norm, p["norm1"], x, **nk)
-    cell = _MIN_CELLS[cfg.seq_mixer]
-    mode = cfg.minrnn.mode if cfg.minrnn else "log"
-    h = cell.parallel(p["mixer"]["rnn"], y, mode=mode,
-                      compute_dtype=cfg.cdtype,
-                      scan_strategy=cfg.scan_strategy)
-    x = x + nn.dense_apply(p["mixer"]["down"], h, cfg.cdtype)
-    y = nn.norm_apply(cfg.norm, p["norm2"], x, **nk)
-    out = mlp_lib.mlp_apply(p["mlp"], y, activation=cfg.mlp_activation,
+    strategy) and the down product, with GQA causal blocked attention;
+    then the MLP.  Returns (x, the mixer's cache: h at each row's last
+    real position, or the prompt's k / v at every position)."""
+    y = _norm(cfg, p["norm1"], x)
+    if _attn_gqa(cfg):
+        out, k, v = attn.gqa_prefill(p["mixer"], cfg, y, positions=positions)
+        mix_cache = {"k": k, "v": v}
+    else:
+        cell = _MIN_CELLS[cfg.seq_mixer]
+        mode = cfg.minrnn.mode if cfg.minrnn else "log"
+        h = cell.parallel(p["mixer"]["rnn"], y, mode=mode,
+                          compute_dtype=cfg.cdtype,
+                          scan_strategy=cfg.scan_strategy)
+        out = nn.dense_apply(p["mixer"]["down"], h, cfg.cdtype)
+        mix_cache = {"h": h[:, -1] if lengths is None
+                     else nn.gather_last(h, lengths)}
+    x = x + out
+    out = mlp_lib.mlp_apply(p["mlp"], _norm(cfg, p["norm2"], x),
+                            activation=cfg.mlp_activation,
                             compute_dtype=cfg.cdtype)
-    h_last = h[:, -1] if lengths is None else nn.gather_last(h, lengths)
-    return x + out, h_last
+    return x + out, mix_cache
+
+
+def _seed_kv(full: List[torch.Tensor], max_len: int) -> torch.Tensor:
+    """L x (B, T, ...) prompt kv -> (L, B, max_len, ...), zero past T."""
+    first = full[0]
+    out = first.new_zeros((len(full), first.shape[0], max_len)
+                          + tuple(first.shape[2:]))
+    for i, a in enumerate(full):
+        out[i, :, :a.shape[1]] = a
+    return out
 
 
 @torch.no_grad()
@@ -559,9 +643,10 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
     ``lengths`` (B,) int32: right-padded prompts, row b's logits and
     state taken at its position ``lengths[b] - 1``.  ``cache``: resume
     from an earlier prefill's cache (chunked prefill; the minRNN trunk
-    only).  ``pos`` advances by the tokens consumed.  ``max_len`` is the
-    reference's (it sizes KV caches, which the ported trunks have
-    none of)."""
+    only).  ``pos`` advances by the tokens consumed.  ``max_len`` sizes a
+    KV cache: the prompt's keys and values at positions [0, T), zeros
+    after; a padded row's positions past its length hold the pad's, which
+    decode overwrites before it can attend to them."""
     _check_cfg(cfg)
     if cache is not None and not supports_chunked_prefill(cfg):
         raise NotImplementedError(
@@ -569,16 +654,24 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
             f"{cfg.block_kind!r}")
     x = _embed(params, cfg, tokens)
     bsz, t = x.shape[0], x.shape[1]
+    if _attn_gqa(cfg) and t > max_len:
+        raise ValueError(f"prompt of {t} tokens exceeds max_len {max_len}")
     consumed = torch.full((bsz,), t, dtype=torch.int32, device=x.device) \
         if lengths is None else lengths.to(torch.int32)
     new_cache: Dict[str, Any] = {
         "pos": consumed if cache is None else cache["pos"] + consumed}
-    if _attn_minrnn(cfg):
-        hs = []
+    if cfg.block_kind == "attention":
+        positions = torch.arange(t, device=x.device)[None, :]
+        mcs = []
         for p_l in _layer_params(params):
-            x, h = _attn_block_prefill(p_l, cfg, x, lengths=lengths)
-            hs.append(h)
-        new_cache["h"] = torch.stack(hs)
+            x, mc = _attn_block_prefill(p_l, cfg, x, positions,
+                                        lengths=lengths)
+            mcs.append(mc)
+        if _attn_gqa(cfg):
+            for k in ("k", "v"):
+                new_cache[k] = _seed_kv([mc[k] for mc in mcs], max_len)
+        else:
+            new_cache["h"] = torch.stack([mc["h"] for mc in mcs])
     else:
         bc = _minrnn_block_cfg(cfg)
         keys = ("h", "conv") if bc.use_conv else ("h",)
@@ -601,6 +694,10 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
 # Superstep: prefill + decode + sampling + re-admission, K rounds
 # ===========================================================================
 
+# cache leaves read back by the recurrence, zeroed when a slot re-arms.
+# KV leaves (k / v) stay in place, as in the reference: decode masks
+# attention by the row's ``pos`` and writes position p before attending
+# to it, so stale entries past ``pos`` are never seen
 _RECURRENT_CACHE_KEYS = ("h", "conv")
 
 # request fields swapped wholesale from the staging buffer when a row arms
@@ -776,11 +873,13 @@ def superstep(params, cfg, state: Dict[str, Any], n: int, *,
         prefill_ct = prefill_ct + take.sum(dtype=torch.int32)
 
         # 3b. numerical health guard: a row whose logits or recurrent
-        # state went non-finite dies this round with its emission dropped
+        # state (where the arch carries one) went non-finite dies this
+        # round with its emission dropped
         ok = torch.isfinite(logits).all(dim=-1)
-        h = st["cache"]["h"]
-        ok = ok & torch.isfinite(h).transpose(0, 1).reshape(batch, -1) \
-            .all(dim=-1)
+        if "h" in st["cache"]:
+            h = st["cache"]["h"]
+            ok = ok & torch.isfinite(h).transpose(0, 1) \
+                .reshape(batch, -1).all(dim=-1)
         bad = alive & ~ok
         nf_ct = nf_ct + (bad & ~prefilling).sum(dtype=torch.int32)
 

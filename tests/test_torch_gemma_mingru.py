@@ -1,5 +1,6 @@
 """Port parity for gemma-2b-mingru, gemma-2b's trunk with the paper's
-minGRU as its sequence mixer, served through the cell-fused tier.
+minGRU as its sequence mixer, served through the cell-fused tier (its
+training trajectory is in ``test_torch_gemma.py``).
 
 The smoke config (2 layers, d64, vocab 1024, fp32) is built in both
 packages, the JAX params bridged into the port, and the same tokens go
@@ -148,19 +149,35 @@ def test_sampled_streams_equal_jax_engine():
 
 
 def test_prompt_packing_and_training_are_refused():
-    _, pcfg, _, pparams, _ = _setup()
+    """Prompt packing stays refused on the attention trunk, as in the
+    reference; training is no longer refused: ``forward`` and ``loss_fn``
+    match the JAX package's."""
+    jcfg, pcfg, jparams, pparams, _ = _setup()
     with pytest.raises(ValueError, match="prompt_chunk"):
         pt_engine.ServingEngine(pcfg, pparams, max_batch=2, max_len=MAX_LEN,
                                 prompt_chunk=4, device="cpu")
     state = pt_lm.init_slot_state(pcfg, 2, MAX_LEN, device="cpu")
     with pytest.raises(NotImplementedError, match="prompt_chunk"):
         pt_lm.superstep(pparams, pcfg, state, 2, prompt_chunk=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_lm.forward(pparams, pcfg, torch.zeros((1, 4), dtype=torch.int32))
+    toks = np.random.default_rng(3).integers(0, 1024, (2, 9)).astype(
+        np.int32)
+    want, _ = jax_lm.forward(jparams, jcfg, jnp.asarray(toks))
+    got, _ = pt_lm.forward(pparams, pcfg, torch.from_numpy(toks))
+    _close(want, got)
+    labels = np.where(toks % 5 == 0, -1, toks)
+    batch = {"tokens": toks, "labels": labels}
+    jl, _ = jax_lm.loss_fn(jparams, jcfg, jax.tree.map(jnp.asarray, batch))
+    pl, _ = pt_lm.loss_fn(pparams, pcfg, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+    np.testing.assert_allclose(float(pl), float(jl), rtol=TOL)
 
 
 def test_native_attention_is_refused():
-    cfg = pt_archs.smoke(ARCH).replace(seq_mixer="native")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Native GQA is ported (``test_torch_gemma.py``); MLA is not, and
+    says which ROADMAP item it waits for."""
+    cfg = pt_archs.smoke(ARCH).replace(seq_mixer="native", attn_kind="mla")
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         pt_lm.init_params(torch.Generator().manual_seed(0), cfg,
                           device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+        pt_lm.init_cache(cfg, 1, 8, device="cpu")

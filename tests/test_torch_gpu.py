@@ -1163,3 +1163,111 @@ def test_full_width_kill_restore_bit_identical(cuda_device, tmp_path):
     with pytest.raises(recovery.RecoveryError, match="device"):
         ServingEngine.restore(str(tmp_path), cfg,
                               lm.tree_to(params, "cpu"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The attention trunk at gemma width: training, the KV scatter, batch rows
+# ---------------------------------------------------------------------------
+
+def test_gemma_mingru_full_width_training_step_launches(cuda_device):
+    """One AdamW step of full-width bf16 gemma-2b-mingru (remat "full"):
+    two fused-cell launches per layer (forward, recompute), all on the
+    tensor-core body, one reversed linear scan per layer, a finite loss."""
+    cfg = archs.get("gemma-2b-mingru")
+    params = lm.init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                            cfg, device=cuda_device)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ocfg = opt_lib.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    for mod in (gru_ops, lstm_ops, scan_ops):
+        mod.reset_launches()
+    _, _, m = ts_lib.make_train_step(cfg, ocfg)(
+        params, opt_lib.init(ocfg, params), batch)
+    n = cfg.n_layers
+    assert torch.isfinite(m["loss"])
+    assert gru_ops.LAUNCHES["fused_mingru_kernel"] == 2 * n
+    assert gru_ops.LAUNCHES["fused_mingru_kernel/tc"] == 2 * n
+    assert scan_ops.LAUNCHES["linear_scan_kernel"] == n
+    assert scan_ops.LAUNCHES["log_scan_kernel"] == 0
+    assert lstm_ops.LAUNCHES["fused_minlstm_kernel"] == 0
+
+
+def test_reversed_linear_scan_at_gemma_width_matches_plain(cuda_device):
+    """The backward's scan at gemma-2b-mingru's training shape (fp32, B 8
+    x T 512 x D 2048: 33.5 MB an operand): a block per (row, 32 columns),
+    512 blocks, against the plain version and bit for bit its segmented
+    rendering."""
+    gen = torch.Generator().manual_seed(5)
+    shape = (8, 512, 2048)
+    a = torch.rand(shape, generator=gen).to(cuda_device)
+    b = torch.randn(shape, generator=gen).to(cuda_device)
+    h0 = torch.zeros((8, 2048), device=cuda_device)
+    got = scan_ops.linear_scan_kernel(a, b, h0, reverse=True)
+    _close(got, scan_ref.linear_scan_ref(a, b, h0, reverse=True),
+           torch.float32)
+    assert torch.equal(got, scan_ref.linear_scan_segmented(a, b, h0,
+                                                           reverse=True))
+    occ = scan_ops.occupancy("linear", torch.float32, *shape,
+                             device=cuda_device)
+    assert occ["blocks"] == 8 * 2048 // 32, occ
+
+
+def test_kv_scatter_at_gemma_shapes_in_place_bit_equal_to_blend(cuda_device):
+    """gemma-2b's KV cache rows (B 8, max_len 1024, 1 head of 256, bf16):
+    the in-place scatter equals the reference's one-hot blend bit for bit,
+    writes nothing at a position past the end, and keeps the storage."""
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(6)
+    cache = torch.randn((8, 1024, 1, 256), generator=gen).to(
+        torch.bfloat16).to(cuda_device)
+    new = torch.randn((8, 1, 256), generator=gen).to(torch.bfloat16).to(
+        cuda_device)
+    pos = torch.tensor([0, 1, 511, 512, 1023, 1024, 3000, 7],
+                       dtype=torch.int32, device=cuda_device)
+    onehot = torch.nn.functional.one_hot(pos.long().clamp(max=1024), 1025)[
+        :, :1024].to(cache.dtype)[..., None, None]
+    blend = cache * (1.0 - onehot).to(cache.dtype) + onehot * new[:, None]
+    ptr = cache.data_ptr()
+    out = attention._cache_insert(cache, new, pos)
+    assert out is cache and cache.data_ptr() == ptr
+    assert torch.equal(cache, blend)
+
+
+def test_gemma_decode_row_is_independent_of_batch(cuda_device):
+    """Full-width bf16 gemma-2b: a row decoded in a batch of 8 gives the
+    same logits and KV rows, bit for bit, as the row decoded alone -- the
+    engine's greedy streams equal ``generate_one`` only so."""
+    cfg = archs.get("gemma-2b")
+    params = lm.init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                            cfg, device=cuda_device)
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    c8 = lm.init_cache(cfg, 8, 64, cuda_device)
+    c1 = lm.init_cache(cfg, 1, 64, cuda_device)
+    for t in range(toks.shape[1]):
+        l8, c8 = lm.decode_step(params, cfg, toks[:, t], c8)
+        l1, c1 = lm.decode_step(params, cfg, toks[3:4, t], c1)
+        assert torch.equal(l8[3:4], l1), t
+    for k in ("k", "v"):
+        assert torch.equal(c8[k][:, 3:4], c1[k]), k
+
+
+@pytest.mark.parametrize("bsz", [3, 8, 16, 21])
+def test_decode_attention_rows_match_alone_at_gemma_shape(bsz, cuda_device):
+    """Decode attention at gemma-2b's shape (8 heads on 1 KV head of 256,
+    a cache of 1024, bf16), rows of mixed lengths: each row of a batch
+    equals the row attended alone, bit for bit."""
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(8)
+    q = torch.randn((bsz, 8, 256), generator=gen).to(torch.bfloat16)
+    kc = torch.randn((bsz, 1024, 1, 256), generator=gen).to(torch.bfloat16)
+    vc = torch.randn((bsz, 1024, 1, 256), generator=gen).to(torch.bfloat16)
+    length = torch.randint(1, 1025, (bsz,), generator=gen, dtype=torch.int32)
+    q, kc, vc, length = (t.to(cuda_device) for t in (q, kc, vc, length))
+    both = attention.decode_attention(q, kc, vc, length)
+    for b in range(bsz):
+        one = attention.decode_attention(q[b:b + 1], kc[b:b + 1],
+                                         vc[b:b + 1], length[b:b + 1])
+        assert torch.equal(both[b:b + 1], one), b
