@@ -2,8 +2,10 @@
 holds each against its plain PyTorch version at full model width, serves
 full-width mingru-lm (and a short minlstm-lm run) through the port's
 ServingEngine on the block-fused and on the cell-fused tier, serves,
-prefills and trains full-width gemma-2b-mingru and gemma-2b (native GQA
-with RoPE and a KV cache), prefills the minRNN LMs in parallel,
+prefills and trains full-width gemma-2b-mingru, gemma-2b (native GQA
+with RoPE and a KV cache) and mamba2-370m (the SSD trunk), trains the
+paper's task heads, holds the GRU / LSTM baselines against the CPU and
+times them against minGRU / minLSTM, prefills the minRNN LMs in parallel,
 serves with speculative decoding on both tiers, trains full-width
 mingru-lm / minlstm-lm through the port's train step, then serves under
 injected faults, kills and restores the engine (in this process and a
@@ -124,6 +126,29 @@ Phases (any failed check exits non-zero before the result line):
      loss finite and falling; outside the count, the first 3 losses
      against the same run on the plain versions, a checkpoint restore +
      resumed step 6, and ms per step over 5 repeats;
+  5c. mamba2-370m at full width (48 SSD layers, d 1024, 32 heads of 64,
+     d_state 128, chunk 256, tied vocab 50,280; bf16, drawn on the card;
+     no kernel of the repo, every count stays 0): 8 slots, 8 prompts of
+     8 seeded ids, 32 new tokens, K 4, C 1 (streams equal
+     ``generate_one``, a B-8 decode row equal to the B-1 row bit for bit,
+     tok/s over 5 windows, peak memory, a device profile with its device
+     events a layer a round); its prefill B 8 x T 1024, full and
+     right-padded (lengths 1 to 1024): the logits, the ssm state and one
+     step after against 1024 ``decode_step`` calls, each padded row
+     against its own prefill, within 5e-2 of the largest; ms, prompt
+     tokens/s, peak memory, a profile; one layer's SSD at that shape,
+     the masked form against the compact one and ``ssd_sequential``, ms
+     and memory of each; 3 training steps as gemma-2b's.  The task heads
+     (fp32): the Chomsky classifier (Table 4's block) on majority and on
+     ListOps and the Decision-Transformer model on rl_proxy "medium",
+     minGRU and minLSTM, 5 AdamW steps each on one batch: one fused-cell
+     launch and one reversed linear scan per layer a step, all on the
+     CUDA-core body, the loss finite and falling, outside the count the
+     plain versions' losses within 1% and the fused cells at the heads'
+     shapes (T 40, 128, 192) against their plain versions.  GRU / LSTM:
+     forward and BPTT gradients on the card against the CPU run, then one
+     ungated Fig. 1 line (fwd + bwd ms at D 64, B 16, T 1024 and 4096
+     against minGRU / minLSTM in parallel);
   6. the robustness layer, full width, bf16, weights seeded on the card.
      Faults on mingru-lm (block tier and cell tier) and minlstm-lm
      (block tier), K 4, C 8: an injector armed at rate 0 gives the plain
@@ -988,13 +1013,15 @@ def serve_profile(cfg, params, prompts, label, spec=None, chunk=1,
     """Where one window's device time goes: ``torch.profiler`` over one
     K 4 window (after the warm-ups), device kernels by group and the
     device-busy share of the window's wall time (the profiler's own host
-    cost inflates the wall time, so the share is a lower bound)."""
+    cost inflates the wall time, so the share is a lower bound).  Returns
+    {"events", "rounds", "busy_ms", "wall_ms"}, or None if the profiler
+    saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(cfg, params, chunk, prompts, 8, quiet=True, spec=spec,
-              max_len=max_len)
+        _, info = serve(cfg, params, chunk, prompts, 8, quiet=True,
+                        spec=spec, max_len=max_len)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -1031,6 +1058,8 @@ def serve_profile(cfg, params, prompts, label, spec=None, chunk=1,
           + f"; {sum(e.count for e in events)} device events")
     for e in sorted(events, key=dev_us, reverse=True)[:6]:
         print(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:5d}  {e.key[:80]}")
+    return {"events": sum(e.count for e in events), "rounds": info["rounds"],
+            "busy_ms": busy, "wall_ms": wall_ms}
 
 
 def first_divergence(a, b):
@@ -2501,6 +2530,515 @@ def attention_yardstick(cfg):
 
 
 # ---------------------------------------------------------------------------
+# 5c. the paper's rival and baselines: mamba2-370m (the SSD trunk), the task
+#     heads, the sequential GRU / LSTM
+# ---------------------------------------------------------------------------
+
+def mamba2_phase():
+    """mamba2-370m at full width (48 SSD layers, d 1024, 32 heads of 64,
+    d_state 128, one group, conv 4, chunk 256, tied vocab 50,280; bf16,
+    weights drawn on the card from a seed).  It runs no kernel of the repo
+    (the reference runs the SSD outside Pallas): every count stays 0.
+    Serving: 8 requests x 32 new tokens, K 4, C 1, streams equal
+    ``generate_one``, a B-8 decode row equal to the B-1 row bit for bit,
+    tok/s over 5 windows, a profiled window; then the prefill, one layer's
+    SSD in both dual forms against the sequential one, and 3 training
+    steps, on the same weights."""
+    cfg = archs.get("mamba2-370m")
+    s = cfg.ssm
+    nh = s.n_heads(cfg.d_model)
+    check(cfg.n_layers == 48 and cfg.d_model == 1024 and nh == 32
+          and s.head_dim == 64 and s.d_state == 128 and s.n_groups == 1
+          and s.chunk == 256 and cfg.cdtype == torch.bfloat16
+          and cfg.vocab_size == 50280 and cfg.remat == "full",
+          f"unexpected mamba2-370m config {cfg}")
+    check(lm.kernel_tier(cfg) == "unfused", "mamba2-370m not unfused")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(0), cfg,
+                            device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in leaves(params))
+    state_mb = cfg.n_layers * nh * s.head_dim * s.d_state * 4 / 1e6
+    print(f"mamba2-370m: {n_params} parameters drawn on the card in "
+          f"{t_init:.2f}s; SSM state {state_mb:.1f} MB a slot (fp32, "
+          f"derived)")
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    serve(cfg, params, 1, prompts, 4, label="warm-up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_serve_launches()
+    reset_train_launches()
+    streams, info = serve(cfg, params, 1, prompts, 32)
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(sum(serve_launches().values()) + sum(train_launches().values())
+          == 0, f"mamba2-370m serving launched kernels {serve_launches()}")
+    for p, s_ in zip(prompts, streams):
+        check(len(s_) == 32 and all(0 <= t < cfg.vocab_size for t in s_),
+              "malformed mamba2-370m stream")
+        ref_s = tuple(generate_one(cfg, params, p, max_new=32, max_len=128,
+                                   device=DEV))
+        check(ref_s == s_, f"mamba2-370m stream for {p} != generate_one: "
+              f"first divergence at token {first_divergence(ref_s, s_)}")
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=torch.
+                         Generator().manual_seed(7), dtype=torch.int32).to(DEV)
+    c8, c1 = lm.init_cache(cfg, 8, 64, DEV), lm.init_cache(cfg, 1, 64, DEV)
+    for t in range(toks.shape[1]):
+        l8, c8 = lm.decode_step(params, cfg, toks[:, t], c8)
+        l1, c1 = lm.decode_step(params, cfg, toks[3:4, t], c1)
+        check(torch.equal(l8[3:4], l1), f"mamba2-370m: a B-8 decode row's "
+              f"logits != the B-1 row's at step {t}")
+    for k_ in ("conv", "ssm"):
+        check(torch.equal(c8[k_][:, 3:4], c1[k_]),
+              f"mamba2-370m: a B-8 decode row's {k_} != the B-1 row's")
+    print(f"serve mamba2-370m: streams equal generate_one; a B-8 decode row "
+          f"equals the B-1 row bit for bit (logits, conv and ssm state, 6 "
+          f"steps); no kernel launch; peak device memory while serving "
+          f"{serve_peak / 2**30:.2f} GiB ({info['rounds']} rounds)")
+    rate_spread(cfg, params, chunks=(1,), prompts=prompts)
+    prof = serve_profile(cfg, params, prompts, "mamba2-370m")
+    if prof is not None:
+        print(f"mamba2-370m profile: {prof['events']} device events in "
+              f"{prof['rounds']} rounds: "
+              f"{prof['events'] / (cfg.n_layers * prof['rounds']):.1f} a "
+              f"layer a round")
+    mamba2_prefill(cfg, params)
+    ssd_forms_at_full_shape(cfg, params)
+    launches = attn_train(cfg, params, plain_check=False)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def device_groups(fn, label):
+    """``torch.profiler`` over one call of ``fn`` (after a warm one):
+    device time by group (cuBLAS, elementwise / reductions / copies) and
+    the device-busy share of the wall time (a lower bound: the profiler's
+    own host cost inflates the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    if not events:
+        print(f"{label} profile: the profiler saw no device time")
+        return
+    groups = {"cuBLAS": 0.0, "elementwise, reductions, copies": 0.0}
+    for e in events:
+        key = "cuBLAS" if any(k_ in e.key.lower() for k_ in (
+            "gemm", "cutlass", "xmma", "nvjet", "cublas", "gemv")) \
+            else "elementwise, reductions, copies"
+        groups[key] += dev_us(e) / 1e3
+    busy = sum(groups.values())
+    print(f"{label} profile: wall {wall_ms:.2f} ms under the profiler, "
+          f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%); "
+          + ", ".join(f"{k_} {v:.2f} ms" for k_, v in groups.items())
+          + f"; {sum(e.count for e in events)} device events; top:")
+    for e in sorted(events, key=dev_us, reverse=True)[:6]:
+        print(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:5d}  {e.key[:80]}")
+
+
+def mamba2_prefill(cfg, params):
+    """mamba2-370m, B 8 x T 1024, full and right-padded (PREFILL_LENS):
+    the last logits against the sequential route (1024 ``decode_step``
+    calls) and one step after each, within PREFILL_REL of the largest
+    (the ssm state's difference printed: the same bf16 rounding drift
+    the logits carry); the two routes in an fp32 compute dtype at T
+    ROUTE_T, logits and state within PREFILL_REL[fp32] (they compute one
+    function); each padded row against its own unpadded prefill; ms,
+    prompt tokens/s, peak memory and a profile."""
+    gen = torch.Generator().manual_seed(2)
+    t = PREFILL_LENS[-1]
+    full = torch.randint(1, cfg.vocab_size, (B, t), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    toks, lens = padded_prompts(gen, PREFILL_LENS, cfg.vocab_size)
+    tol = PREFILL_REL[torch.bfloat16]
+    lm.prefill(params, cfg, full[:, :16], 2048)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = lm.prefill(params, cfg, full, 2048)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    s = cfg.ssm
+    check(tuple(cache["ssm"].shape) == (cfg.n_layers, B, s.n_heads(
+        cfg.d_model), s.head_dim, s.d_state)
+          and cache["ssm"].dtype == torch.float32
+          and cache["conv"].dtype == torch.bfloat16
+          and bool((cache["pos"] == t).all()), "mamba2-370m prefill cache")
+    c_seq = lm.init_cache(cfg, B, 2048, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(t):
+        l_seq, c_seq = lm.decode_step(params, cfg, full[:, i], c_seq)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    v = cfg.vocab_size          # the pad columns are -1e30 in every route
+    e_l = rel_err(logits[:, :v], l_seq[:, :v], "mamba2-370m prefill vs the "
+                  "step path", tol)
+    e_s = float((cache["ssm"] - c_seq["ssm"]).abs().max()
+                / c_seq["ssm"].abs().max())
+    tok = l_seq[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    l_p1, _ = lm.decode_step(params, cfg, tok, cache)
+    l_s1, _ = lm.decode_step(params, cfg, tok, c_seq)
+    e_d = rel_err(l_p1[:, :v], l_s1[:, :v], "mamba2-370m decode after the "
+                  "prefill vs after the step path", tol)
+    lp, cp = lm.prefill(params, cfg, toks, 2048, lengths=lens)
+    worst, worst_s = 0.0, 0.0
+    for b, n in enumerate(PREFILL_LENS):
+        l1, c1 = lm.prefill(params, cfg, toks[b:b + 1, :n], 2048)
+        check(int(cp["pos"][b]) == n, f"mamba2-370m pos of row {b}")
+        worst = max(worst, rel_err(lp[b, :v], l1[0, :v], f"mamba2-370m "
+                                   f"padded row {b} logits", tol))
+        check(bool(torch.isfinite(cp["ssm"][:, b]).all()),
+              f"mamba2-370m padded row {b} ssm state")
+        worst_s = max(worst_s, float((cp["ssm"][:, b] - c1["ssm"][:, 0])
+                                     .abs().max() / c1["ssm"].abs().max()))
+    ms = synced_ms(lambda: lm.prefill(params, cfg, full, 2048), reps=3)
+    ms_pad = synced_ms(lambda: lm.prefill(params, cfg, toks, 2048,
+                                          lengths=lens), reps=3)
+    f32 = cfg.replace(compute_dtype="float32")
+    l32, c32 = lm.prefill(params, f32, full[:, :ROUTE_T], 2048)
+    c_s32 = lm.init_cache(f32, B, 2048, DEV)
+    for i in range(ROUTE_T):
+        l_s32, c_s32 = lm.decode_step(params, f32, full[:, i], c_s32)
+    tol32 = PREFILL_REL[torch.float32]
+    e_l32 = rel_err(l32[:, :v], l_s32[:, :v], "mamba2-370m fp32 prefill vs "
+                    "the step path", tol32)
+    e_s32 = rel_err(c32["ssm"], c_s32["ssm"], "mamba2-370m fp32 prefill ssm "
+                    "state vs the step path's", tol32)
+    print(f"prefill mamba2-370m B {B} x T {t}: logits vs the step path "
+          f"relative error {e_l:.3g}, one decode_step after each {e_d:.3g} "
+          f"(limit {tol}); the ssm state {e_s:.3g} (printed); in an fp32 "
+          f"compute dtype at T {ROUTE_T} logits {e_l32:.3g}, ssm state "
+          f"{e_s32:.3g} (limit {tol32}); padded rows (lengths {PREFILL_LENS}) vs "
+          f"their own prefill, worst {worst:.3g} (limit {tol}), ssm state "
+          f"{worst_s:.3g} (printed); peak device "
+          f"memory of the prefill {peak / 2**30:.2f} GiB; ms min "
+          f"{ms[0]:.2f} median {ms[1]:.2f} max {ms[-1]:.2f}, prompt "
+          f"tokens/s median {B * t / ms[1] * 1e3:.0f}; padded median "
+          f"{ms_pad[1]:.2f} ms; the sequential route (1024 decode_step "
+          f"calls) {seq_ms:.1f} ms")
+    device_groups(lambda: lm.prefill(params, cfg, full, 2048),
+                  f"prefill mamba2-370m B {B} x T {t}")
+
+
+def ssd_forms_at_full_shape(cfg, params):
+    """One layer's SSD at the prefill's shape (B 8 x T 1024, 32 heads of
+    64, d_state 128, one group, chunk 256), its inputs from layer 0's
+    in-projection and conv on seeded embeddings (x, b, c bf16; dt fp32):
+    the masked form (the model's) against ``ssd_sequential`` within
+    PREFILL_REL of the largest |y| (and the final state); the compact form
+    on the same inputs in fp32 against the sequential one in fp32 within
+    SSD_FP32_REL; in bf16 the compact form's error is printed, not held
+    (it rounds the cumulative log decay to bf16, as the reference's
+    does); each form's ms and peak memory in bf16."""
+    from repro_torch.models import ssd
+    gen = torch.Generator().manual_seed(4)
+    p0 = tree_map(lambda a: a[0], params["layers"]["blocks"])
+    toks = torch.randint(0, cfg.vocab_size, (B, 1024), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    with torch.no_grad():
+        u = core_nn.rmsnorm_apply(p0["norm"], lm._embed(params, cfg, toks))
+        ins = ssd.ssd_inputs(p0["mixer"], cfg, u)
+        args = (ins["x"], ins["dt"], p0["mixer"]["a_log"], ins["b"],
+                ins["c"], p0["mixer"]["d_skip"])
+        seq = ssd.ssd_sequential(*args)
+        args32 = tuple(a.float() for a in args)
+        y32 = ssd.ssd_chunked(*args32, chunk=cfg.ssm.chunk, form="compact")
+        seq32 = ssd.ssd_sequential(*args32)
+        out, times, peaks = {}, {}, {}
+        for form in ("masked", "compact"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out[form] = ssd.ssd_chunked(*args, chunk=cfg.ssm.chunk,
+                                        return_state=True, form=form)
+            torch.cuda.synchronize()
+            peaks[form] = torch.cuda.max_memory_allocated() - base
+            times[form] = synced_ms(lambda f=form: ssd.ssd_chunked(
+                *args, chunk=cfg.ssm.chunk, form=f), reps=3)[1]
+        state = torch.zeros_like(out["masked"][1])
+        for i in range(args[0].shape[1]):
+            _, state = ssd.ssd_step(args[0][:, i], args[1][:, i], args[2],
+                                    args[3][:, i], args[4][:, i], args[5],
+                                    state)
+    tol = PREFILL_REL[torch.bfloat16]
+    e_q = rel_err(out["masked"][0], seq, "SSD masked vs ssd_sequential at "
+                  "the prefill shape", tol)
+    e_st = rel_err(out["masked"][1], state, "SSD masked final state vs the "
+                   "sequential roll-out", tol)
+    e_32 = rel_err(y32, seq32, "SSD compact vs ssd_sequential at the prefill "
+                   "shape in fp32", SSD_FP32_REL)
+    d_c = out["compact"][0].float() - seq.float()
+    e_c = float(d_c.abs().max() / seq.float().abs().max())
+    print(f"SSD dual forms, one layer at B {B} x T 1024 (32 heads of 64, "
+          f"d_state 128, chunk 256; x, b, c bf16, dt fp32): masked vs "
+          f"sequential {e_q:.3g}, final state {e_st:.3g} (limit {tol}); "
+          f"compact vs sequential in fp32 {e_32:.3g} (limit "
+          f"{SSD_FP32_REL}); compact in bf16 vs sequential {e_c:.3g} (not "
+          f"held: the bf16 cumulative log decay); "
+          f"masked {times['masked']:.3f} ms, {peaks['masked'] / 2**30:.2f} "
+          f"GiB above its inputs; compact {times['compact']:.3f} ms, "
+          f"{peaks['compact'] / 2**30:.2f} GiB")
+
+
+# the prompt length at which the two prefill routes of mamba2-370m are held
+# in an fp32 compute dtype
+ROUTE_T = 128
+# the compact SSD form against the sequential one in fp32 at the prefill
+# shape: the same sums in another order over up to 1024 steps
+SSD_FP32_REL = 1e-3
+
+
+# the task heads at the settings of the repo's own scripts: the classifier
+# of benchmarks/table4_chomsky.py (d 64, 2 layers, expansion 2, conv on,
+# MLP off; batch 64; AdamW lr 3e-4, warmup 20, weight decay 0.01) on
+# majority (T 40) and on ListOps (T 128), and the Decision-Transformer
+# model of benchmarks/table3_rl_proxy.py (d 64, 3 layers, MLP x2, no
+# conv; 192 episodes of "medium", batch 64, lr 1e-3, warmup 20, weight
+# decay 1e-4; T 3 x 64), each cell for minGRU and minLSTM: HEAD_STEPS
+# steps on one repeated batch, fp32
+HEAD_STEPS = 5
+
+
+def head_cells():
+    """(label, block config, init, loss, batch on the card, layers,
+    AdamW config) for every head cell."""
+    from repro_torch.core import blocks
+    from repro_torch.data import rl_proxy, synthetic
+    from repro_torch.models import heads
+    out = []
+    ocls = opt_lib.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=250,
+                               weight_decay=0.01)
+    odt = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=150,
+                              weight_decay=1e-4)
+    rl = rl_proxy.build_dataset("medium", n_episodes=192, seed=0)
+    for cell in ("mingru", "minlstm"):
+        bc = blocks.MinRNNBlockConfig(d_model=64, cell=cell, expansion=2.0,
+                                      use_conv=True, use_mlp=False)
+        for task in ("majority", "listops"):
+            b = getattr(synthetic, task)(0, 0, 64)
+            batch = {"tokens": torch.from_numpy(b["tokens"]).to(DEV),
+                     "label": torch.from_numpy(b["label"]).to(DEV)}
+
+            def init(gen, bc=bc, nc=b["n_classes"]):
+                return heads.classifier_init(gen, vocab=16, n_classes=nc,
+                                             d_model=64, n_layers=2,
+                                             block_cfg=bc, device=DEV)
+
+            def loss(p, bt, bc=bc):
+                return heads.classifier_loss(p, bc, bt)
+            out.append((f"classifier/{task}/{cell}", init, loss, batch, 2,
+                        ocls))
+        dbc = blocks.MinRNNBlockConfig(d_model=64, cell=cell, expansion=2.0,
+                                       use_conv=False, use_mlp=True,
+                                       mlp_factor=2.0)
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in rl_proxy.rl_batch(rl, 0, 0, 64).items()}
+
+        def dinit(gen, bc=dbc):
+            return heads.dt_init(gen, state_dim=rl_proxy.STATE_DIM,
+                                 act_dim=rl_proxy.ACT_DIM, d_model=64,
+                                 n_layers=3, block_cfg=bc, device=DEV)
+
+        def dloss(p, bt, bc=dbc):
+            return heads.dt_loss(p, bc, bt)
+        out.append((f"dt/rl_proxy-medium/{cell}", dinit, dloss, batch, 3,
+                    odt))
+    return out
+
+
+def head_train(loss, params, batch, ocfg, n):
+    """``n`` AdamW steps on one batch from ``params`` (updated in place):
+    losses (synchronised floats) and host ms a step."""
+    state = opt_lib.init(ocfg, params)
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lv, _), grads = ts_lib.value_and_grad(loss, params, batch)
+        params, state, _ = opt_lib.apply(ocfg, state, params, grads)
+        losses.append(float(lv))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, times
+
+
+def head_kernel_checks():
+    """The fused cells at the heads' shapes (B 64; T 40, 128, 192; Dx 64,
+    Dh 128; fp32, zero h0) against their plain versions, forward and
+    gradients, and the reversed linear scan their backward runs; kernel
+    and plain ms.  Outside the count."""
+    gen = torch.Generator().manual_seed(23)
+    rows = []
+    for cell, fn, plain in (
+            ("mingru", lambda *a: gru_ops.fused_mingru(*a, mode="log"),
+             lambda *a: gru_ref.fused_mingru_ref(*a, mode="log")),
+            ("minlstm", lambda *a: lstm_ops.fused_minlstm(
+                *a, mode="log", normalize=True),
+             lambda *a: lstm_ref.fused_minlstm_ref(*a, mode="log",
+                                                   normalize=True))):
+        for t in (40, 128, 192):
+            n = len(GATES[cell])
+            ins = [torch.randn((64, t, 64), generator=gen)]
+            for _ in range(n):
+                ins += [torch.randn((64, 128), generator=gen) / 8.0,
+                        0.1 * torch.randn((128,), generator=gen)]
+            ins = [v.to(DEV).requires_grad_(True) for v in ins]
+            out, want = fn(*ins), plain(*ins)
+            e = max_err(out, want, torch.float32,
+                        f"{cell} fused kernel at the heads' T {t}")
+            ct = torch.randn(out.shape, generator=gen).to(DEV)
+            for g, w in zip(torch.autograd.grad(out, ins, ct),
+                            torch.autograd.grad(want, ins, ct)):
+                rel_err(g, w, f"{cell} fused kernel's gradient at T {t}",
+                        GRAD_TOL[torch.float32])
+            det = [v.detach() for v in ins]
+            with torch.no_grad():
+                k_ms = eager_ms([lambda: fn(*det)], 20)
+                p_ms = eager_ms([lambda: plain(*det)], 5)
+            rows.append(f"{cell} T {t}: err {e:.3g}, {k_ms:.4f} ms "
+                        f"(plain {p_ms:.4f})")
+    print("fused cells at the heads' shapes (B 64, Dx 64, Dh 128, fp32, "
+          "the CUDA-core body), forward and gradients against the plain "
+          "versions: " + "; ".join(rows))
+
+
+def heads_phase():
+    """Every head cell trains HEAD_STEPS AdamW steps on one repeated batch
+    on the card: the counted main path.  Launches against the formula
+    (per step, one fused-cell launch a layer of the cell's kernel, the
+    forward, and one reversed linear scan a layer, the backward; no remat,
+    no log scan; every launch on the CUDA-core body, fp32), the loss
+    finite and falling; outside the count, the same steps on the plain
+    versions (losses within LOSS_RTOL_PLAIN) and the kernels at the heads'
+    shapes."""
+    cells = head_cells()
+    inits = {}
+    for label, init, _, _, _, _ in cells:
+        inits[label] = init(torch.Generator(device=DEV).manual_seed(0))
+    # first-use allocations off the count
+    for label, _, loss, batch, _, ocfg in cells:
+        head_train(loss, clone(inits[label]), batch, ocfg, 1)
+    reset_train_launches()
+    reset_serve_launches()
+    results, want = {}, {k_: 0 for k_ in train_launches()}
+    for label, _, loss, batch, layers, ocfg in cells:
+        results[label] = head_train(loss, clone(inits[label]), batch, ocfg,
+                                    HEAD_STEPS)
+        cell = label.rsplit("/", 1)[1]
+        want[f"fused_{cell}_kernel"] += layers * HEAD_STEPS
+        want["linear_scan_kernel"] += layers * HEAD_STEPS
+    launches = train_launches()
+    check(launches == want, f"head training launches {launches} != {want}")
+    bodies = body_launches()
+    want_bodies = {f"{k_}/{b_}": (want[k_] if b_ == "cuda_core" else 0)
+                   for k_ in ("fused_mingru_kernel", "fused_minlstm_kernel")
+                   for b_ in ("tc", "cuda_core")}
+    check(bodies == want_bodies, f"head launches by body {bodies} != "
+          f"{want_bodies}")
+    check(sum(serve_launches().values()) == 0, "head training launched "
+          "decode kernels")
+    for label, _, loss, batch, _, ocfg in cells:
+        ls, times = results[label]
+        check(all(math.isfinite(v) for v in ls), f"{label}: loss {ls}")
+        check(ls[-1] < ls[0], f"{label}: loss did not fall: {ls}")
+        with plain_kernels():
+            before = train_launches()
+            plain, p_times = head_train(loss, clone(inits[label]), batch,
+                                        ocfg, HEAD_STEPS)
+            check(train_launches() == before, "the plain run launched "
+                  "kernels")
+        d = [abs(a - b_) / abs(b_) for a, b_ in zip(ls, plain)]
+        check(max(d) <= LOSS_RTOL_PLAIN, f"{label}: kernel vs plain losses "
+              f"{ls} vs {plain} (relative {d})")
+        print(f"train head {label} (fp32, B 64, {HEAD_STEPS} steps on one "
+              f"batch): losses " + " ".join(f"{v:.5f}" for v in ls)
+              + f"; vs the plain versions' run, relative at most "
+              f"{max(d):.3g} (limit {LOSS_RTOL_PLAIN}); ms a step median "
+              f"{sorted(times)[len(times) // 2]:.2f} (plain "
+              f"{sorted(p_times)[len(p_times) // 2]:.2f})")
+    print(f"train heads: launches {launches} == {want}; by body {bodies}")
+    head_kernel_checks()
+    return launches
+
+
+def rnn_baselines_phase():
+    """The sequential GRU / LSTM (``core/gru.py``, ``core/lstm.py``; PyTorch
+    ops, no kernel of the repo): forward and BPTT gradients of a mean
+    square on the card against the CPU run (fp32, D 64, B 16, T 64: TOL
+    and GRAD_TOL); then Fig. 1's line, not gated: fwd + bwd ms at D 64,
+    B 16, T 1024 and 4096, GRU / LSTM by BPTT against minGRU / minLSTM in
+    parallel (the fused kernels, log mode, fp32; min of 5 calls; GRU /
+    LSTM one call each, about a second)."""
+    from repro_torch.core import gru, lstm, min_gru, min_lstm
+    gen = torch.Generator().manual_seed(31)
+
+    def fwd_bwd(fn, p, x):
+        p = tree_map(lambda a: a.detach().clone().requires_grad_(True), p)
+        x = x.detach().clone().requires_grad_(True)
+        h = fn(p, x)
+        return h, torch.autograd.grad(torch.mean(h ** 2), leaves(p) + [x])
+
+    errs = []
+    for name, mod in (("GRU", gru), ("LSTM", lstm)):
+        p = mod.init(gen, 64, 64)
+        x = torch.randn((16, 64, 64), generator=gen)
+        h_c, g_c = fwd_bwd(mod.forward, p, x)
+        h_d, g_d = fwd_bwd(mod.forward, tree_map(lambda a: a.to(DEV), p),
+                           x.to(DEV))
+        e = max_err(h_d, h_c.to(DEV), torch.float32, f"{name} on the card "
+                    f"vs the CPU")
+        e_g = max(rel_err(gd, gc.to(DEV), f"{name} BPTT gradient on the card "
+                          f"vs the CPU", GRAD_TOL[torch.float32])
+                  for gd, gc in zip(g_d, g_c))
+        errs.append(f"{name} h {e:.3g}, gradients {e_g:.3g}")
+    print(f"GRU / LSTM (fp32, D 64, B 16, T 64) on the card vs the CPU run: "
+          + "; ".join(errs) + f" (limits {TOL[torch.float32]}, "
+          f"{GRAD_TOL[torch.float32]})")
+    models = {"GRU": (gru, gru.forward), "LSTM": (lstm, lstm.forward),
+              "minGRU": (min_gru, lambda p, x: min_gru.parallel(
+                  p, x, mode="log", scan_strategy="auto")),
+              "minLSTM": (min_lstm, lambda p, x: min_lstm.parallel(
+                  p, x, mode="log", scan_strategy="auto"))}
+    for t in (1024, 4096):
+        x = torch.randn((16, t, 64), generator=gen).to(DEV)
+        ms = {}
+        for name, (mod, fn) in models.items():
+            p = tree_map(lambda a: a.to(DEV), mod.init(gen, 64, 64))
+            if name in ("GRU", "LSTM"):     # warm from the check above
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fwd_bwd(fn, p, x)
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t0) * 1e3
+            else:
+                ms[name] = synced_ms(lambda: fwd_bwd(fn, p, x), reps=5)[0]
+        print(f"fig1 (fwd + bwd of mean(h^2), fp32, D 64, B 16, T {t}; not "
+              f"gated): " + ", ".join(f"{k_} {v:.3f} ms"
+                                       for k_, v in ms.items())
+              + f"; GRU / minGRU {ms['GRU'] / ms['minGRU']:.1f}x, LSTM / "
+              f"minLSTM {ms['LSTM'] / ms['minLSTM']:.1f}x")
+
+
+# ---------------------------------------------------------------------------
 # 4c. the robustness layer: faults, crash recovery, tune plans
 # ---------------------------------------------------------------------------
 
@@ -3049,6 +3587,12 @@ def main():
     merge(launches, train_phase(gen))
     torch.cuda.empty_cache()
     lap("training")
+    merge(launches, mamba2_phase())
+    lap("mamba2-370m")
+    merge(launches, heads_phase())
+    lap("task heads")
+    rnn_baselines_phase()
+    lap("GRU / LSTM")
     rgen = torch.Generator().manual_seed(21)
     robust, (cfg, params) = robustness_phase(rgen)
     merge(launches, robust)

@@ -1,6 +1,7 @@
 """The paper's own minGRU / minLSTM LMs (Feng et al. 2024, App. C),
-gemma-2b and gemma-7b (native GQA attention with RoPE), and gemma-2b with
-the paper's minGRU as its sequence mixer.
+gemma-2b and gemma-7b (native GQA attention with RoPE), gemma-2b with
+the paper's minGRU as its sequence mixer, and mamba2-370m (the SSD
+trunk, the paper's recurrent rival in Fig. 2).
 
 Copied from ``repro.configs.archs`` (full and smoke entries); the other
 architectures of the reference zoo are not ported yet.
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import MinRNNConfig, ModelConfig
+from repro_torch.configs.base import MinRNNConfig, ModelConfig, SSMConfig
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 _SMOKE: Dict[str, ModelConfig] = {}
@@ -69,6 +70,21 @@ _register(
                                   minrnn=_g2_mr),
     _SMOKE["gemma-2b"].replace(name="gemma-2b-mingru", seq_mixer="mingru",
                                minrnn=_g2_mr))
+
+# mamba2-370m [arXiv:2405.21060]: SSD, attention-free, tied vocab 50280
+_register(
+    ModelConfig(
+        name="mamba2-370m", block_kind="ssm",
+        n_layers=48, d_model=1024, n_heads=0, n_kv_heads=0, d_ff=0,
+        vocab_size=50280, norm="rmsnorm", rope=False, tie_embeddings=True,
+        ssm=SSMConfig(d_state=128, expand=2, head_dim=64, n_groups=1,
+                      conv_kernel=4, chunk=256), **_BIG),
+    ModelConfig(
+        name="mamba2-370m", block_kind="ssm",
+        n_layers=2, d_model=64, n_heads=0, n_kv_heads=0, d_ff=0,
+        vocab_size=512, norm="rmsnorm", rope=False, tie_embeddings=True,
+        ssm=SSMConfig(d_state=16, expand=2, head_dim=16, n_groups=1,
+                      conv_kernel=4, chunk=8), **_SMOKE_NUM))
 
 
 def get(name: str) -> ModelConfig:

@@ -1,11 +1,11 @@
-"""Config schema: the minRNN subset of ``repro.configs.base``.
+"""Config schema: the ported subset of ``repro.configs.base``.
 
 A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
-dtype table.  Only the fields the port reads are kept (the minRNN LMs,
-and the attention trunk: native GQA with RoPE, or with its mixer swapped
-for a minRNN cell by ``seq_mixer``); the field names, defaults and
-properties match the reference so a config built here describes the
-same model as its JAX twin.
+dtype table.  Only the fields the port reads are kept (the minRNN LMs;
+the attention trunk: native GQA with RoPE, or with its mixer swapped
+for a minRNN cell by ``seq_mixer``; and the SSD trunk of mamba2); the
+field names, defaults and properties match the reference so a config
+built here describes the same model as its JAX twin.
 """
 
 from __future__ import annotations
@@ -17,6 +17,23 @@ from typing import Optional
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    conv_kernel: int = 4
+    chunk: int = 256               # SSD chunk length
+    dual_form: str = "masked"      # masked (paper-faithful) | compact
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -32,7 +49,7 @@ class MinRNNConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
-    block_kind: str = "minrnn"     # minrnn | attention
+    block_kind: str = "minrnn"     # minrnn | attention | ssm
     seq_mixer: str = "native"      # native | mingru | minlstm
     n_layers: int = 2
     d_model: int = 128
@@ -52,6 +69,7 @@ class ModelConfig:
     attn_kind: str = "gqa"         # gqa | mla
     tie_embeddings: bool = False
     embedding_scale: bool = False  # gemma: x *= sqrt(d_model)
+    ssm: Optional[SSMConfig] = None
     minrnn: Optional[MinRNNConfig] = None
     param_dtype: str = "float32"
     compute_dtype: str = "float32"

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import min_gru, min_lstm, nn
 from repro_torch.core import scan as scan_lib
+from repro_torch.device import resolve_device
 
 
 def fuse_block_tier(cfg: "MinRNNBlockConfig",
@@ -143,8 +144,10 @@ def apply(params, cfg: MinRNNBlockConfig, x: torch.Tensor, *,
 
 
 def init_state(cfg: MinRNNBlockConfig, batch_shape: Tuple[int, ...],
-               dtype=torch.float32, device="cpu"):
-    """Decode-time carried state for one block."""
+               dtype=torch.float32, device="cuda"):
+    """Decode-time carried state for one block, on ``device`` (the card
+    unless the caller asks for the CPU, as every entry point)."""
+    device = resolve_device(device)
     state = {"h": torch.zeros(batch_shape + (cfg.d_hidden,), dtype=dtype,
                               device=device)}
     if cfg.use_conv:

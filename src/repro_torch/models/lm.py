@@ -1,7 +1,8 @@
-"""Decoder-only LM: the minRNN LMs and the attention trunk (native GQA
+"""Decoder-only LM: the minRNN LMs, the attention trunk (native GQA
 with RoPE and a KV cache, e.g. gemma-2b; or its mixer swapped for a
-minRNN cell by ``seq_mixer``, e.g. gemma-2b-mingru), trained, prefilled
-and served -- the subset of ``repro.models.lm`` ported so far.
+minRNN cell by ``seq_mixer``, e.g. gemma-2b-mingru) and the SSD trunk
+(mamba2-370m), trained, prefilled and served -- the subset of
+``repro.models.lm`` ported so far.
 
 Params are nested dicts with the JAX pytree's layout -- ``embed.table``,
 ``final_norm.scale`` and ``layers.blocks.*`` stacked with a leading L
@@ -13,11 +14,13 @@ floating leaves are ``nn.Parameter``s (``.to(device)``, ``state_dict``,
 Training runs ``forward`` / ``loss_fn``: the layer stack of
 ``blocks.apply`` or of attention blocks (the fused CUDA cell kernel in
 every minRNN layer or mixer under the default strategy; GQA's blocked
-attention in PyTorch ops), each layer under ``torch.utils.checkpoint``
-when ``cfg.remat == "full"``.  ``prefill`` runs the same parallel form
+attention and the SSD mixer in PyTorch ops, as the reference runs them
+outside Pallas), each layer under ``torch.utils.checkpoint`` when
+``cfg.remat == "full"``.  ``prefill`` runs the same parallel form
 over a prompt (right-padded batches; the minRNN trunk resumable from a
 cache) and hands a cache to the decode functions: one fused-cell launch
-per minRNN layer, or a KV cache seeded with the prompt's keys and values.
+per minRNN layer, a KV cache seeded with the prompt's keys and values,
+or the SSD trunk's conv windows and fp32 states (``models/ssd.py``).
 
 Serving drives the step forms: ``superstep`` runs K rounds of
 re-admission -> token select -> ``decode_step`` (or ``decode_chunk`` for
@@ -31,7 +34,9 @@ of the whole-block CUDA kernel, or, on the cell-fused tier
 (``fuse_block="off"``) and in every layer of an attention trunk with a
 minRNN mixer, one launch of the cell-only CUDA kernel between PyTorch
 norms, projections and MLPs.  Native GQA decodes in PyTorch ops against
-a KV cache written in place (``attention._cache_insert``).
+a KV cache written in place (``attention._cache_insert``); the SSD
+trunk steps its recurrence in PyTorch ops, in groups of
+``attention.DECODE_ROWS`` rows (``_ssm_decode``).
 Whoever owns the params binds them once (``bind_layers``) and passes the
 binding as ``layers=``; without it, each call binds its own.  The prefill
 and decode functions run under ``torch.no_grad()``: they build no graph
@@ -53,7 +58,8 @@ from repro_torch.core import scan as scan_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.tree import leaves, tree_map
+from repro_torch.models import ssd as ssd_lib
+from repro_torch.tree import leaves, stack, tree_map
 
 _MIN_CELLS = {"mingru": min_gru, "minlstm": min_lstm}
 
@@ -73,17 +79,24 @@ def _minrnn_block_cfg(cfg) -> minrnn_blocks.MinRNNBlockConfig:
 
 
 def _check_cfg(cfg):
-    """The minRNN trunk, or the attention trunk with native GQA or a
-    minRNN mixer; MLA, SSD, hybrid and MoE trunks are not ported."""
-    if cfg.block_kind == "minrnn" or _attn_minrnn(cfg) or _attn_gqa(cfg):
+    """The minRNN trunk, the attention trunk with native GQA or a minRNN
+    mixer, or the SSD trunk; MLA, hybrid and MoE trunks are not
+    ported."""
+    if cfg.block_kind == "minrnn" or _attn_minrnn(cfg) or _attn_gqa(cfg) \
+            or _ssm(cfg):
         return
     what = f"block_kind {cfg.block_kind!r}"
     if cfg.block_kind == "attention":
         what = f"the native {cfg.attn_kind} attention mixer"
     raise NotImplementedError(
         f"{what} is not ported (ROADMAP.md queue 1, item 5); the port "
-        f"runs the minRNN LMs and attention trunks with native GQA or a "
-        f"mingru / minlstm seq_mixer")
+        f"runs the minRNN LMs, attention trunks with native GQA or a "
+        f"mingru / minlstm seq_mixer, and the SSD trunk")
+
+
+def _ssm(cfg) -> bool:
+    """The SSD trunk (mamba2): norm -> SSD mixer -> residual per layer."""
+    return cfg.block_kind == "ssm"
 
 
 def _attn_minrnn(cfg) -> bool:
@@ -107,9 +120,10 @@ def kernel_tier(cfg) -> str:
     kernel launch per layer per round), "cell-fused" (one cell-only
     kernel launch per layer per round, the rest PyTorch ops; always so on
     an attention trunk with a minRNN mixer) or "unfused" (plain PyTorch;
-    always so for native GQA, as the reference engine reports it)."""
+    always so for native GQA and the SSD trunk, as the reference engine
+    reports them)."""
     _check_cfg(cfg)
-    if _attn_gqa(cfg):
+    if _attn_gqa(cfg) or _ssm(cfg):
         return "unfused"
     if _attn_minrnn(cfg):
         return "cell-fused" if scan_lib.resolve_strategy(
@@ -148,11 +162,15 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
     if cfg.block_kind == "attention":
         layers = [_attn_layer_init(gen, cfg, dtype)
                   for _ in range(cfg.n_layers)]
+    elif _ssm(cfg):
+        layers = [{"norm": nn.norm_init(cfg.norm, cfg.d_model, dtype),
+                   "mixer": ssd_lib.ssd_init(gen, cfg, dtype=dtype)}
+                  for _ in range(cfg.n_layers)]
     else:
         bc = _minrnn_block_cfg(cfg)
         layers = [minrnn_blocks.init(gen, bc, dtype=dtype)
                   for _ in range(cfg.n_layers)]
-    params["layers"] = {"blocks": _stack(layers)}
+    params["layers"] = {"blocks": stack(layers)}
     return tree_to(params, dev)
 
 
@@ -175,13 +193,6 @@ def _attn_layer_init(gen, cfg, dtype):
             "mlp": mlp_lib.mlp_init(gen, cfg.d_model, cfg.d_ff,
                                     gated=cfg.gated_mlp, bias=cfg.mlp_bias,
                                     dtype=dtype)}
-
-
-def _stack(trees: List[dict]) -> dict:
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
 
 
 class _Tree(torch.nn.Module):
@@ -225,12 +236,14 @@ def bind_layers(params, cfg) -> List[tuple]:
     and each layer's weights bound for its kernel -- the whole block
     (``blocks.bind``) or, on the cell-fused tier and the attention trunk's
     minRNN mixer, the cell's gates (``CellOperands``); None on the CPU and
-    for native GQA, which runs no kernel.  Bind once per
+    for native GQA and the SSD trunk, which run no kernel.  Bind once per
     params and pass the result as ``layers=``; it reads the params as they
     are now, so bind again after replacing a leaf."""
     _check_cfg(cfg)
     out = []
     with torch.no_grad():
+        if _ssm(cfg):
+            return [(p_l, None) for p_l in _layer_params(params)]
         if cfg.block_kind == "attention":
             cell_tier = kernel_tier(cfg) == "cell-fused"
             for p_l in _layer_params(params):
@@ -285,6 +298,26 @@ def _final(params, cfg, x):
     return _logits(params, cfg, _norm(cfg, params["final_norm"], x))
 
 
+def _row_groups(x: torch.Tensor):
+    """(start, rows, x[start:start + rows] padded with zero rows to
+    ``attention.DECODE_ROWS``) for each group of rows of x."""
+    size = attn.DECODE_ROWS
+    for i in range(0, x.shape[0], size):
+        part = x[i:i + size]
+        n = part.shape[0]
+        if n < size:
+            part = torch.cat([part, part.new_zeros((size - n,)
+                                                   + tuple(part.shape[1:]))])
+        yield i, n, part
+
+
+def _final_rows(params, cfg, x):
+    """``_final`` in groups of ``attention.DECODE_ROWS`` rows: a row's
+    logits do not depend on how many rows came with it."""
+    return torch.cat([_final(params, cfg, part)[:n]
+                      for _, n, part in _row_groups(x)])
+
+
 # ===========================================================================
 # Trunk (parallel) / forward / loss
 # ===========================================================================
@@ -330,12 +363,20 @@ def _attn_block_apply(p, cfg, x, positions):
     return x + out
 
 
+def _ssm_block_apply(p, cfg, x):
+    return x + ssd_lib.ssd_block_apply(p["mixer"], cfg,
+                                       _norm(cfg, p["norm"], x))
+
+
 def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """The layer stack in the parallel form, each layer under ``_remat``:
-    ``blocks.apply`` per minRNN layer, or an attention block at positions
-    ``arange(T)``."""
+    ``blocks.apply`` per minRNN layer, an attention block at positions
+    ``arange(T)``, or an SSD block."""
     _check_cfg(cfg)
-    if cfg.block_kind == "attention":
+    if _ssm(cfg):
+        def body(x_, p_l):
+            return _ssm_block_apply(p_l, cfg, x_)
+    elif cfg.block_kind == "attention":
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
         def body(x_, p_l):
@@ -391,11 +432,17 @@ def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     """Stacked per-layer recurrent state, or KV cache (L, B, max_len, KV,
-    head_dim), + per-row position counter."""
+    head_dim), + per-row position counter.  The SSD trunk's: ``conv``
+    (L, B, K-1, d_inner + 2 G N) in the compute dtype and ``ssm`` (L, B,
+    H, P, N) in fp32."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     dt = cfg.cdtype
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if _ssm(cfg):
+        st = ssd_lib.ssd_block_init_state(cfg, batch, dt, dev)
+        return {"pos": pos, **{k: torch.stack([v] * cfg.n_layers)
+                               for k, v in st.items()}}
     if _attn_minrnn(cfg):
         return {"pos": pos, "h": torch.zeros(
             (cfg.n_layers, batch, _mixer_d_hidden(cfg)), dtype=dt,
@@ -507,13 +554,53 @@ def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
     / ``v`` are updated in place and come back in the new cache (the
     reference returns new arrays of the same values)."""
     _check_cfg(cfg)
-    x = _embed(params, cfg, token)
     new_cache = dict(cache)
+    new_cache["pos"] = cache["pos"] + 1
+    if _ssm(cfg):
+        logits, outs = _ssm_decode(params, cfg, token, cache, layers)
+        new_cache.update(outs)
+        return logits, new_cache
+    x = _embed(params, cfg, token)
     decode = _attn_decode if cfg.block_kind == "attention" else _minrnn_decode
     x, outs = decode(params, cfg, x, cache, layers)
     new_cache.update(outs)
-    new_cache["pos"] = cache["pos"] + 1
     return _final(params, cfg, x), new_cache
+
+
+def _ssm_decode(params, cfg, token, cache, layers=None):
+    """The SSD trunk for one token: per layer norm, ``ssd_block_step``,
+    residual; then the final norm and logits.  The rows run in groups of
+    ``attention.DECODE_ROWS``, the last group padded with zero rows, so
+    every product of the step (the projections, the state read-out, the
+    logits) runs at one row count whatever B is, and a row's result does
+    not depend on B (the engine's greedy streams equal ``generate_one``'s,
+    B 1, only so).  Returns (logits (B, V), {"conv", "ssm"})."""
+    if layers is None:
+        layers = bind_layers(params, cfg)
+    rows = attn.DECODE_ROWS
+    logits, convs, ssms = [], [], []
+    for i, n, tok in _row_groups(token):
+        conv, ssm = cache["conv"][:, i:i + n], cache["ssm"][:, i:i + n]
+        if n < rows:
+            conv, ssm = (torch.cat([a, a.new_zeros(
+                (a.shape[0], rows - n) + tuple(a.shape[2:]))], dim=1)
+                for a in (conv, ssm))
+        x = _embed(params, cfg, tok)
+        conv_l, ssm_l = [], []
+        for li, (p_l, _) in enumerate(layers):
+            out, st = ssd_lib.ssd_block_step(
+                p_l["mixer"], cfg, _norm(cfg, p_l["norm"], x),
+                {"conv": conv[li], "ssm": ssm[li]})
+            x = x + out
+            conv_l.append(st["conv"][:n])
+            ssm_l.append(st["ssm"][:n])
+        logits.append(_final(params, cfg, x)[:n])
+        convs.append(torch.stack(conv_l))
+        ssms.append(torch.stack(ssm_l))
+    if len(logits) == 1:
+        return logits[0], {"conv": convs[0], "ssm": ssms[0]}
+    return torch.cat(logits), {"conv": torch.cat(convs, dim=1),
+                               "ssm": torch.cat(ssms, dim=1)}
 
 
 def supports_prompt_packing(cfg) -> bool:
@@ -591,7 +678,9 @@ def decode_verify(params, cfg, tokens: torch.Tensor, valid: torch.Tensor,
 
 def supports_chunked_prefill(cfg) -> bool:
     """True when ``prefill`` can resume from a carried cache: the whole
-    decode state is a constant-size recurrence (the minRNN trunk)."""
+    decode state is a constant-size recurrence of the minRNN trunk (the
+    SSD trunk would need a state-resumed chunk scan, as in the
+    reference)."""
     return cfg.block_kind == "minrnn"
 
 
@@ -643,7 +732,9 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
     ``lengths`` (B,) int32: right-padded prompts, row b's logits and
     state taken at its position ``lengths[b] - 1``.  ``cache``: resume
     from an earlier prefill's cache (chunked prefill; the minRNN trunk
-    only).  ``pos`` advances by the tokens consumed.  ``max_len`` sizes a
+    only).  ``pos`` advances by the tokens consumed.  The SSD trunk's
+    padded positions are inert steps (dt 0), so its state is the state
+    after ``lengths[b]`` tokens.  ``max_len`` sizes a
     KV cache: the prompt's keys and values at positions [0, T), zeros
     after; a padded row's positions past its length hold the pad's, which
     decode overwrites before it can attend to them."""
@@ -660,7 +751,17 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
         if lengths is None else lengths.to(torch.int32)
     new_cache: Dict[str, Any] = {
         "pos": consumed if cache is None else cache["pos"] + consumed}
-    if cfg.block_kind == "attention":
+    if _ssm(cfg):
+        states = {"conv": [], "ssm": []}
+        for p_l in _layer_params(params):
+            out, st = ssd_lib.ssd_block_apply(
+                p_l["mixer"], cfg, _norm(cfg, p_l["norm"], x),
+                return_state=True, lengths=lengths)
+            x = x + out
+            for k in states:
+                states[k].append(st[k])
+        new_cache.update({k: torch.stack(v) for k, v in states.items()})
+    elif cfg.block_kind == "attention":
         positions = torch.arange(t, device=x.device)[None, :]
         mcs = []
         for p_l in _layer_params(params):
@@ -687,6 +788,8 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
                 states[k].append(st[k])
         new_cache.update({k: torch.stack(v) for k, v in states.items()})
     x_last = x[:, -1] if lengths is None else nn.gather_last(x, lengths)
+    if _ssm(cfg):       # as its decode does: a row's logits whatever B
+        return _final_rows(params, cfg, x_last), new_cache
     return _final(params, cfg, x_last), new_cache
 
 
@@ -698,7 +801,7 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
 # KV leaves (k / v) stay in place, as in the reference: decode masks
 # attention by the row's ``pos`` and writes position p before attending
 # to it, so stale entries past ``pos`` are never seen
-_RECURRENT_CACHE_KEYS = ("h", "conv")
+_RECURRENT_CACHE_KEYS = ("h", "conv", "ssm")
 
 # request fields swapped wholesale from the staging buffer when a row arms
 _ARM_FIELDS = ("prompt_len", "rid", "remaining", "eos", "temperature",

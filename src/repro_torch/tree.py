@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List, Sequence, Tuple
 
+import torch
+
 
 def leaves_with_path(tree, path: Tuple[str, ...] = ()
                      ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -34,3 +36,12 @@ def unflatten(like, new_leaves: Sequence[Any]):
     """A tree of ``like``'s layout holding ``new_leaves`` in leaf order."""
     it = iter(new_leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def stack(trees: Sequence[Any]):
+    """Trees of one layout -> one tree whose leaves are the trees' leaves
+    stacked on a new leading axis (the reference's ``vmap``-ed inits)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack([t[k] for t in trees]) for k in first}
+    return torch.stack(list(trees))

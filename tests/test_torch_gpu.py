@@ -1271,3 +1271,106 @@ def test_decode_attention_rows_match_alone_at_gemma_shape(bsz, cuda_device):
         one = attention.decode_attention(q[b:b + 1], kc[b:b + 1],
                                          vc[b:b + 1], length[b:b + 1])
         assert torch.equal(both[b:b + 1], one), b
+
+
+# ---------------------------------------------------------------------------
+# The SSD trunk (mamba2-370m), the task heads' shapes, blocks.init_state
+# ---------------------------------------------------------------------------
+
+def test_mamba2_decode_row_is_independent_of_batch(cuda_device):
+    """Full-width bf16 mamba2-370m: a row decoded in a batch of 8 gives the
+    same logits and conv / ssm state, bit for bit, as the row decoded
+    alone (the trunk steps its rows in groups of 8) -- the engine's
+    greedy streams equal ``generate_one`` only so."""
+    cfg = archs.get("mamba2-370m")
+    params = lm.init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                            cfg, device=cuda_device)
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    c8 = lm.init_cache(cfg, 8, 64, cuda_device)
+    c1 = lm.init_cache(cfg, 1, 64, cuda_device)
+    for t in range(toks.shape[1]):
+        l8, c8 = lm.decode_step(params, cfg, toks[:, t], c8)
+        l1, c1 = lm.decode_step(params, cfg, toks[3:4, t], c1)
+        assert torch.equal(l8[3:4], l1), t
+    for k in ("conv", "ssm"):
+        assert torch.equal(c8[k][:, 3:4], c1[k]), k
+
+
+@pytest.mark.parametrize("form,dtype", [
+    ("masked", torch.float32), ("compact", torch.float32),
+    ("masked", torch.bfloat16)])
+def test_ssd_forms_match_sequential_on_gpu(form, dtype, cuda_device):
+    """The dual forms against the sequential oracle on the card: T 300
+    over chunks of 64 (ragged), 8 heads of 16 on 2 groups of 16; x, b, c
+    in ``dtype``, dt in fp32.  fp32 at the reference's own tolerance of
+    tests/test_ssd_forms.py (3e-4); bf16 (the masked form, the model's)
+    as the largest error over the largest value, 5e-2 (chip_smoke.py's
+    prefill limit).  The compact form is not held in bf16: as in the
+    reference it rounds the cumulative log decay to bf16 before the
+    segment differences, an error of half a bf16 unit of |cum| in each
+    decay exponent."""
+    from repro_torch.models import ssd
+    gen = torch.Generator().manual_seed(9)
+    bsz, t, h, p, g, n = 2, 300, 8, 16, 2, 16
+    x = torch.randn((bsz, t, h, p), generator=gen).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((bsz, t, h), generator=gen)
+                                      - 2.0)
+    b = torch.randn((bsz, t, g, n), generator=gen).to(dtype)
+    c = torch.randn((bsz, t, g, n), generator=gen).to(dtype)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h))
+    d_skip = torch.ones((h,))
+    args = [v.to(cuda_device) for v in (x, dt, a_log, b, c, d_skip)]
+    seq = ssd.ssd_sequential(*args)
+    y, st = ssd.ssd_chunked(*args, chunk=64, return_state=True, form=form)
+    assert y.shape == seq.shape and bool(torch.isfinite(y).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, seq, rtol=3e-4, atol=3e-4)
+    else:
+        assert _rel_err(y, seq) < 5e-2
+    # the state after the last position: the sequential roll-out's
+    state = torch.zeros((bsz, h, p, n), device=cuda_device)
+    for i in range(t):
+        _, state = ssd.ssd_step(args[0][:, i], args[1][:, i], a_log.to(
+            cuda_device), args[3][:, i], args[4][:, i], args[5], state)
+    assert _rel_err(st, state) < (1e-4 if dtype == torch.float32 else 5e-2)
+
+
+# the task heads' shapes (B, T, Dx, Dh): the Chomsky classifier (T 40),
+# ListOps (T 128) and the Decision-Transformer model (3 x horizon 64), d 64
+# with expansion 2, fp32 as the heads train
+HEAD_SHAPES = [(64, 40, 64, 128), (64, 128, 64, 128), (64, 192, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+def test_fused_kernels_at_head_shapes_match_plain(cell, shape, cuda_device):
+    """The heads' fused-cell launches (fp32: the CUDA-core body) and their
+    backward, h0 zero as the heads run it, against the plain version."""
+    gen = torch.Generator().manual_seed(12)
+    bsz, t, dx, dh = shape
+    ins = _fused_case(gen, cell, torch.float32, cuda_device, bsz, t, dx, dh)
+    ins = ins[:-1]                                   # no h0
+    fn, plain, mod = _fused_fns(cell, "log")
+    name = next(iter(mod.LAUNCHES))
+    mod.reset_launches()
+    scan_ops.reset_launches()
+    out = fn(*ins)
+    assert mod.LAUNCHES[f"{name}/cuda_core"] == mod.LAUNCHES[name] == 1
+    want = plain(*ins)
+    _close(out, want, torch.float32)
+    ct = torch.randn(out.shape, generator=gen).to(cuda_device)
+    got_g = torch.autograd.grad(out, ins, ct)
+    want_g = torch.autograd.grad(want, ins, ct)
+    assert scan_ops.LAUNCHES["linear_scan_kernel"] == 1
+    for g, w in zip(got_g, want_g):
+        assert _rel_err(g, w) < GRAD_TOL[torch.float32]
+
+
+def test_block_init_state_defaults_to_the_card(cuda_device):
+    bc = blocks.MinRNNBlockConfig(d_model=DX, expansion=2.0, use_conv=True)
+    st = blocks.init_state(bc, (3,))
+    assert all(v.device.type == "cuda" for v in st.values())
+    assert all(v.device.type == "cpu"
+               for v in blocks.init_state(bc, (3,), device="cpu").values())
