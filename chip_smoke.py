@@ -3,7 +3,8 @@ holds each against its plain PyTorch version at full model width, serves
 full-width mingru-lm (and a short minlstm-lm run) through the port's
 ServingEngine on the block-fused and on the cell-fused tier, serves,
 prefills and trains full-width gemma-2b-mingru, gemma-2b (native GQA
-with RoPE and a KV cache) and mamba2-370m (the SSD trunk), trains the
+with RoPE and a KV cache), mamba2-370m (the SSD trunk), zamba2-2.7b (the
+hybrid) and deepseek-moe-16b (MoE; trained at 4 layers), trains the
 paper's task heads, holds the GRU / LSTM baselines against the CPU and
 times them against minGRU / minLSTM, prefills the minRNN LMs in parallel,
 serves with speculative decoding on both tiers, trains full-width
@@ -149,6 +150,32 @@ Phases (any failed check exits non-zero before the result line):
      forward and BPTT gradients on the card against the CPU run, then one
      ungated Fig. 1 line (fwd + bwd ms at D 64, B 16, T 1024 and 4096
      against minGRU / minLSTM in parallel);
+  5d. zamba2-2.7b at full width (54 SSD layers, d 2560, 80 heads of 64,
+     d_state 64; one shared MHA block of 32 heads of 80 with GeGLU d_ff
+     10240 after every 6; vocab 32,000; bf16, drawn on the card; no
+     kernel of the repo, every count stays 0): 8 slots, 8 prompts of 8
+     seeded ids, 32 new tokens, K 4, C 1, a KV cache of 1024 (streams
+     equal ``generate_one``, a B-8 decode row equal to the B-1 row bit
+     for bit in the logits and every cache leaf, tok/s over 5 windows,
+     peak memory, a device profile with its device events a layer a
+     round); its prefill B 8 x T 1024, full and right-padded (ms, prompt
+     tokens/s, peak memory, a profile; each padded row against its own
+     prefill; against 256 sequential steps, logits and one step after,
+     within 5e-2 of the largest, and in an fp32 compute dtype at T 32
+     within 1e-4); 3 training steps as gemma-2b's.  deepseek-moe-16b at
+     full width and depth (1 dense layer, 27 MoE layers of 64 experts of
+     1408, top-6, 2 shared of 2816; vocab 102,400; 32.75 GB of bf16
+     weights drawn on the card; no kernel of the repo): the same
+     serving traffic at capacity factor 16 (streams equal
+     ``generate_one``, a B-8 row equal to the B-1 row) and at the
+     published 1.25 (the dropped share, tok/s over 5 windows, peak
+     memory, a profile, one sampled superstep); its prefill B 8 x T 512
+     at 1.25 (ms, prompt tokens/s, the dropped share, peak memory, a
+     profile) and, at capacity factor 16, against 64 sequential steps
+     held to the prefill's routing (5e-2; how many of the steps' own
+     top-6 choices differ printed) and in an fp32 compute dtype at T 32
+     (1e-4, no choice apart); then cut to 4 layers (1 dense + 3 MoE) 3
+     training steps, the losses and ``moe_aux`` printed;
   6. the robustness layer, full width, bf16, weights seeded on the card.
      Faults on mingru-lm (block tier and cell tier) and minlstm-lm
      (block tier), K 4, C 8: an injector armed at rate 0 gives the plain
@@ -175,6 +202,8 @@ Phases (any failed check exits non-zero before the result line):
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -211,6 +240,7 @@ from repro_torch.kernels.scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.timing import (  # noqa: E402
     eager_ms, graph_ms, rotating)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
 from repro_torch.training import train_step as ts_lib  # noqa: E402
@@ -2268,9 +2298,10 @@ GEMMA_MAX_LEN = 1024
 ATTN_OPT = opt_lib.AdamWConfig(lr=1e-4, warmup_steps=10, total_steps=1000)
 
 
-def timed_steps(cfg, params, batch, ocfg, n):
+def timed_steps(cfg, params, batch, ocfg, n, aux=None):
     """``n`` train steps on one batch from ``params`` (updated in place):
-    the per-step losses and host ms (each step ends in the loss's read)."""
+    the per-step losses and host ms (each step ends in the loss's read);
+    ``aux``, a list, gets each step's MoE router loss."""
     step = ts_lib.make_train_step(cfg, ocfg)
     state = opt_lib.init(ocfg, params)
     losses, times = [], []
@@ -2280,6 +2311,8 @@ def timed_steps(cfg, params, batch, ocfg, n):
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
         times.append((time.perf_counter() - t0) * 1e3)
+        if aux is not None:
+            aux.append(float(m["moe_aux"]))
     return losses, times
 
 
@@ -2301,7 +2334,8 @@ def attn_train(cfg, params, plain_check):
     torch.cuda.reset_peak_memory_stats()
     reset_train_launches()
     reset_serve_launches()
-    losses, times = timed_steps(cfg, params, batch, ocfg, 3)
+    aux = [] if cfg.moe else None
+    losses, times = timed_steps(cfg, params, batch, ocfg, 3, aux=aux)
     peak = torch.cuda.max_memory_allocated()
     launches = train_launches()
     n = cfg.n_layers
@@ -2318,9 +2352,14 @@ def attn_train(cfg, params, plain_check):
     check(all(math.isfinite(v) for v in losses), f"{cfg.name}: {losses}")
     check(losses[-1] < losses[0], f"{cfg.name}: loss did not fall: {losses}")
     tok = AB * AT
-    print(f"train {cfg.name} (bf16, remat full, B {AB} x T {AT}, one "
-          f"repeated batch, 3 steps): losses "
+    if aux is not None:
+        check(all(math.isfinite(v) for v in aux), f"{cfg.name}: moe_aux "
+              f"{aux}")
+    print(f"train {cfg.name} ({cfg.n_layers} layers, bf16, remat full, B "
+          f"{AB} x T {AT}, one repeated batch, 3 steps): losses "
           + " ".join(f"{v:.4f}" for v in losses)
+          + ("" if aux is None else "; moe_aux "
+             + " ".join(f"{v:.4f}" for v in aux))
           + f"; launches {launches} == {want}; ms per step "
           + " ".join(f"{v:.2f}" for v in times)
           + f" (steps 2-3: tokens/s {tok / (sum(times[1:]) / 2) * 1e3:.1f});"
@@ -3039,6 +3078,393 @@ def rnn_baselines_phase():
 
 
 # ---------------------------------------------------------------------------
+# 5d. the hybrid and mixture-of-experts trunks: zamba2-2.7b, deepseek-moe-16b
+# ---------------------------------------------------------------------------
+
+# the prompt lengths at which the prefill is held against the sequential
+# route (that many ``decode_step`` calls of 8 rows, ~0.1 s each at these
+# widths): the hybrid's and the MoE trunk's in bf16, and both in an fp32
+# compute dtype
+HYBRID_ROUTE_T = 256
+MOE_ROUTE_T = 64
+FP32_ROUTE_T = 32
+# deepseek-moe-16b's capacity factor for the checks that need no drops:
+# the reference's smoke configs' (at 8 tokens 12 rows an expert, at 1 one)
+NO_DROP_CF = 16.0
+
+
+def fresh_card():
+    """Free what earlier phases left and restart the peak counter; the
+    objects that survive are moved out of the collector's sight (the big
+    models' host-bound decode steps allocate many short-lived objects,
+    and each full collection would walk what earlier phases left)."""
+    import gc
+    gc.collect()
+    gc.freeze()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def draw_params(cfg, label):
+    """Seeded weights drawn on the card; prints the count, the draw's
+    seconds and its peak memory."""
+    fresh_card()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(0), cfg,
+                            device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in leaves(params))
+    print(f"{label}: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB in "
+          f"bf16) drawn on the card in {time.perf_counter() - t0:.2f}s; "
+          f"peak device memory during the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return params
+
+
+def row_alone(cfg, params, label):
+    """A row decoded in a batch of 8 against the row decoded alone, 6
+    steps: the logits and every cache leaf, bit for bit."""
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=torch.
+                         Generator().manual_seed(7), dtype=torch.int32).to(DEV)
+    c8, c1 = lm.init_cache(cfg, 8, 64, DEV), lm.init_cache(cfg, 1, 64, DEV)
+    for t in range(toks.shape[1]):
+        l8, c8 = lm.decode_step(params, cfg, toks[:, t], c8)
+        l1, c1 = lm.decode_step(params, cfg, toks[3:4, t], c1)
+        check(torch.equal(l8[3:4], l1), f"{label}: a B-8 decode row's "
+              f"logits != the B-1 row's at step {t}")
+    keys = sorted(k for k in c8 if k != "pos")
+    for k in keys:
+        check(torch.equal(c8[k][:, 3:4], c1[k]),
+              f"{label}: a B-8 decode row's {k} != the B-1 row's")
+    return keys
+
+
+def served_against_generate_one(cfg, params, prompts, label):
+    """A warm-up, then the counted serving run of ``prompts`` (8 slots, 32
+    new tokens, K 4, C 1, a KV cache of GEMMA_MAX_LEN): no kernel of the
+    repo launched, the streams equal to ``generate_one``'s, a B-8 decode
+    row equal to the B-1 row.  Prints the line; returns the serving
+    info."""
+    serve(cfg, params, 1, prompts, 4, label="warm-up",
+          max_len=GEMMA_MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_serve_launches()
+    reset_train_launches()
+    streams, info = serve(cfg, params, 1, prompts, 32, max_len=GEMMA_MAX_LEN,
+                          label=f"serve [{label}]")
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(serve_launches().values()) + sum(train_launches().values())
+          == 0, f"{label} serving launched kernels {serve_launches()}")
+    for p, s_ in zip(prompts, streams):
+        check(len(s_) == 32 and all(0 <= t < cfg.vocab_size for t in s_),
+              f"malformed {label} stream")
+        ref_s = tuple(generate_one(cfg, params, p, max_new=32,
+                                   max_len=GEMMA_MAX_LEN, device=DEV))
+        check(ref_s == s_, f"{label} stream for {p} != generate_one: first "
+              f"divergence at token {first_divergence(ref_s, s_)}")
+    keys = row_alone(cfg, params, label)
+    print(f"serve {label}: streams equal generate_one; a B-8 decode row "
+          f"equals the B-1 row bit for bit (logits, {', '.join(keys)}; 6 "
+          f"steps); no kernel launch; KV cache {GEMMA_MAX_LEN} positions; "
+          f"peak device memory while serving {peak / 2**30:.2f} GiB "
+          f"({info['rounds']} rounds)")
+    return dict(info, streams=streams)
+
+
+def route_check(cfg, params, toks, max_len, label, tol):
+    """``lm.prefill`` of ``toks`` against ``toks.shape[1]`` sequential
+    ``decode_step`` calls: the last logits and one step after each, within
+    ``tol`` of the largest |logit|.  Returns the two errors and the
+    sequential route's ms."""
+    v = cfg.vocab_size
+    logits, cache = lm.prefill(params, cfg, toks, max_len)
+    c_seq = lm.init_cache(cfg, toks.shape[0], max_len, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(toks.shape[1]):
+        l_seq, c_seq = lm.decode_step(params, cfg, toks[:, i], c_seq)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    e_l = rel_err(logits[:, :v], l_seq[:, :v], f"{label} prefill vs the "
+                  f"step path", tol)
+    tok = l_seq[:, :v].argmax(-1).to(torch.int32)
+    l_p1, _ = lm.decode_step(params, cfg, tok, cache)
+    l_s1, _ = lm.decode_step(params, cfg, tok, c_seq)
+    e_d = rel_err(l_p1[:, :v], l_s1[:, :v], f"{label} decode after the "
+                  f"prefill vs after the step path", tol)
+    return e_l, e_d, seq_ms
+
+
+def profile_events(cfg, params, prompts, label):
+    prof = serve_profile(cfg, params, prompts, label, max_len=GEMMA_MAX_LEN)
+    if prof is not None:
+        print(f"{label} profile: {prof['events']} device events in "
+              f"{prof['rounds']} rounds: "
+              f"{prof['events'] / (cfg.n_layers * prof['rounds']):.1f} a "
+              f"layer a round ({cfg.n_layers} layers)")
+
+
+def zamba2_phase():
+    """zamba2-2.7b at full width (54 SSD layers, d 2560, 80 heads of 64,
+    d_state 64, chunk 256; one shared attention block, MHA 32 heads of 80
+    and a GeGLU MLP of 10240, after every 6 SSD layers; untied vocab
+    32,000; bf16, weights drawn on the card).  It runs no kernel of the
+    repo: every count stays 0.  Serving: 8 requests x 32 new tokens, K 4,
+    C 1, a KV cache of 1024 (streams equal ``generate_one``, a B-8 decode
+    row equal to the B-1 row, tok/s over 5 windows, a profile); then the
+    prefill and 3 training steps on the same weights."""
+    cfg = archs.get("zamba2-2.7b")
+    s = cfg.ssm
+    nh = s.n_heads(cfg.d_model)
+    check(cfg.n_layers == 54 and cfg.hybrid_attn_every == 6
+          and cfg.d_model == 2560 and nh == 80 and s.head_dim == 64
+          and s.d_state == 64 and cfg.n_heads == 32 and cfg.head_dim_ == 80
+          and cfg.d_ff == 10240 and cfg.vocab_size == 32000
+          and cfg.cdtype == torch.bfloat16 and cfg.remat == "full",
+          f"unexpected zamba2-2.7b config {cfg}")
+    check(lm.kernel_tier(cfg) == "unfused", "zamba2-2.7b not unfused")
+    params = draw_params(cfg, "zamba2-2.7b")
+    n_groups = cfg.n_layers // cfg.hybrid_attn_every
+    state_mb = cfg.n_layers * nh * s.head_dim * s.d_state * 4 / 1e6
+    kv_mb = n_groups * GEMMA_MAX_LEN * cfg.n_kv_heads * cfg.head_dim_ * 4 \
+        / 1e6
+    print(f"zamba2-2.7b: SSM state {state_mb:.1f} MB (fp32) and KV cache "
+          f"{kv_mb:.1f} MB (bf16, {n_groups} applications x "
+          f"{GEMMA_MAX_LEN} positions) a slot (derived)")
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    served_against_generate_one(cfg, params, prompts, "zamba2-2.7b")
+    rate_spread(cfg, params, chunks=(1,), prompts=prompts,
+                max_len=GEMMA_MAX_LEN)
+    profile_events(cfg, params, prompts, "zamba2-2.7b")
+    zamba2_prefill(cfg, params)
+    launches = attn_train(cfg, params, plain_check=False)
+    del params
+    fresh_card()
+    return launches
+
+
+def zamba2_prefill(cfg, params):
+    """zamba2-2.7b, B 8 x T 1024, full and right-padded (PREFILL_LENS),
+    into a cache of 2048: ms, prompt tokens/s, peak memory, a profile;
+    each padded row against its own prefill; the prefill against the
+    sequential route at T HYBRID_ROUTE_T (bf16) and FP32_ROUTE_T (an fp32
+    compute dtype), within PREFILL_REL of the largest |logit|."""
+    gen = torch.Generator().manual_seed(2)
+    t, max_len = PREFILL_LENS[-1], 2048
+    full = torch.randint(1, cfg.vocab_size, (B, t), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    toks, lens = padded_prompts(gen, PREFILL_LENS, cfg.vocab_size)
+    tol, v = PREFILL_REL[torch.bfloat16], cfg.vocab_size
+    lm.prefill(params, cfg, full[:, :16], max_len)
+    fresh_card()
+    logits, cache = lm.prefill(params, cfg, full, max_len)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    s = cfg.ssm
+    n_groups = cfg.n_layers // cfg.hybrid_attn_every
+    check(tuple(cache["ssm"].shape) == (cfg.n_layers, B, s.n_heads(
+        cfg.d_model), s.head_dim, s.d_state)
+          and cache["ssm"].dtype == torch.float32
+          and tuple(cache["k"].shape) == (n_groups, B, max_len,
+                                          cfg.n_kv_heads, cfg.head_dim_)
+          and bool((cache["pos"] == t).all())
+          and bool(torch.isfinite(logits[:, :v]).all()),
+          "zamba2-2.7b prefill cache")
+    del logits, cache
+    ms = synced_ms(lambda: lm.prefill(params, cfg, full, max_len), reps=3)
+    ms_pad = synced_ms(lambda: lm.prefill(params, cfg, toks, max_len,
+                                          lengths=lens), reps=3)
+    lp, cp = lm.prefill(params, cfg, toks, max_len, lengths=lens)
+    worst = 0.0
+    for b, n in enumerate(PREFILL_LENS):
+        l1, _ = lm.prefill(params, cfg, toks[b:b + 1, :n], max_len)
+        check(int(cp["pos"][b]) == n, f"zamba2-2.7b pos of row {b}")
+        worst = max(worst, rel_err(lp[b, :v], l1[0, :v], f"zamba2-2.7b "
+                                   f"padded row {b} logits", tol))
+    del lp, cp
+    e_l, e_d, seq_ms = route_check(cfg, params, full[:, :HYBRID_ROUTE_T],
+                                   max_len, "zamba2-2.7b", tol)
+    f32 = cfg.replace(compute_dtype="float32")
+    tol32 = PREFILL_REL[torch.float32]
+    e_l32, e_d32, _ = route_check(f32, params, full[:, :FP32_ROUTE_T],
+                                  max_len, "zamba2-2.7b fp32", tol32)
+    print(f"prefill zamba2-2.7b B {B} x T {t}: peak device memory "
+          f"{peak / 2**30:.2f} GiB; ms min {ms[0]:.2f} median {ms[1]:.2f} "
+          f"max {ms[-1]:.2f}, prompt tokens/s median "
+          f"{B * t / ms[1] * 1e3:.0f}; padded median {ms_pad[1]:.2f} ms; "
+          f"padded rows (lengths {PREFILL_LENS}) vs their own prefill, "
+          f"worst {worst:.3g}; against the step path at T "
+          f"{HYBRID_ROUTE_T}: logits {e_l:.3g}, one decode_step after "
+          f"{e_d:.3g} (limit {tol}; the {HYBRID_ROUTE_T} steps "
+          f"{seq_ms:.1f} ms); in an fp32 compute dtype at T {FP32_ROUTE_T}: "
+          f"{e_l32:.3g}, {e_d32:.3g} (limit {tol32})")
+    device_groups(lambda: lm.prefill(params, cfg, full, max_len),
+                  f"prefill zamba2-2.7b B {B} x T {t}")
+
+
+def moe_route_check(cfg, params, toks):
+    """``lm.prefill`` of ``toks`` against ``toks.shape[1]`` sequential
+    ``decode_step`` calls of the MoE trunk, the steps held to the
+    prefill's top-k choices (``moe.forced_routing``): in bf16 a rounding
+    apart flips near-tied choices, and a flipped token's expert mix
+    changes the rest of the route.  Returns ((prefill, steps) last
+    logits, how many of the steps' own top-k choices differ from the
+    prefill's, all choices, the steps' ms)."""
+    v = cfg.vocab_size
+    bsz, t = toks.shape
+    with moe_lib.routing_log() as pre:
+        logits, _ = lm.prefill(params, cfg, toks, GEMMA_MAX_LEN)
+    n_moe = len(pre)
+    pre = torch.stack([r.reshape(bsz, t, -1) for r in pre])  # (L, B, T, k)
+    cache = lm.init_cache(cfg, bsz, GEMMA_MAX_LEN, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe_lib.routing_log() as own, moe_lib.forced_routing(
+            lambda i: pre[i % n_moe, :, i // n_moe]):
+        for i in range(t):
+            l_seq, cache = lm.decode_step(params, cfg, toks[:, i], cache)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    own = torch.stack(own).reshape(t, n_moe, bsz, -1).permute(1, 2, 0, 3)
+    apart = int((pre.sort(-1).values != own.sort(-1).values).any(-1).sum())
+    return (logits[:, :v], l_seq[:, :v]), apart, pre[..., 0].numel(), seq_ms
+
+
+def dropped_share(drops):
+    """(dropped, assigned, share) over ``moe.count_drops``' records."""
+    if not drops:
+        return 0, 0, 0.0
+    dropped = int(torch.stack([d for d, _ in drops]).sum())
+    assigned = sum(n for _, n in drops)
+    return dropped, assigned, dropped / assigned
+
+
+def deepseek_phase():
+    """deepseek-moe-16b at full width (1 dense layer of d_ff 10944, 27 MoE
+    layers of 64 experts of 1408, top-6, 2 shared experts of 2816, MHA 16
+    heads of 128, untied vocab 102,400; bf16, drawn on the card).  It
+    runs no kernel of the repo: every count stays 0.  Serving at full
+    depth: at capacity factor NO_DROP_CF streams equal ``generate_one``
+    and a B-8 decode row the B-1 row; at the published 1.25 the dropped
+    share, tok/s over 5 windows, a profile and one sampled superstep.
+    Prefill B 8 x T 512 at 1.25 and the route check at NO_DROP_CF.  Then
+    training cut to 4 layers (1 dense + 3 MoE; 16.38 B parameters take
+    ~196 GB with AdamW's fp32 moments), 3 steps."""
+    cfg = archs.get("deepseek-moe-16b")
+    m = cfg.moe
+    check(cfg.n_layers == 28 and m.first_dense_layers == 1
+          and cfg.d_model == 2048 and cfg.d_ff == 10944
+          and m.n_experts == 64 and m.top_k == 6 and m.d_expert == 1408
+          and m.n_shared == 2 and m.d_shared == 2816
+          and m.capacity_factor == 1.25 and cfg.n_heads == 16
+          and cfg.head_dim_ == 128 and cfg.vocab_size == 102400
+          and cfg.cdtype == torch.bfloat16,
+          f"unexpected deepseek-moe-16b config {cfg}")
+    check(lm.kernel_tier(cfg) == "unfused", "deepseek-moe-16b not unfused")
+    cfg16 = cfg.replace(moe=dataclasses.replace(m, capacity_factor=NO_DROP_CF))
+    params = draw_params(cfg, "deepseek-moe-16b")
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    at16 = served_against_generate_one(cfg16, params, prompts,
+                                       f"deepseek-moe-16b cf {NO_DROP_CF}")
+    torch.cuda.reset_peak_memory_stats()
+    with moe_lib.count_drops() as drops:
+        streams, info = serve(cfg, params, 1, prompts, 32,
+                              max_len=GEMMA_MAX_LEN,
+                              label="serve [deepseek-moe-16b cf 1.25]")
+    peak = torch.cuda.max_memory_allocated()
+    dropped, assigned, share = dropped_share(drops)
+    n_moe = cfg.n_layers - m.first_dense_layers
+    same = sum(a == b for a, b in zip(streams, at16["streams"]))
+    print(f"serve deepseek-moe-16b at cf 1.25: {dropped} of {assigned} "
+          f"top-6 assignments dropped ({100 * share:.1f}%; "
+          f"{dropped / (info['rounds'] * n_moe):.2f} of "
+          f"{assigned / (info['rounds'] * n_moe):.0f} a layer a round, "
+          f"{info['rounds']} rounds); {same} of 8 streams as at cf "
+          f"{NO_DROP_CF}; peak device memory while serving "
+          f"{peak / 2**30:.2f} GiB")
+    rate_spread(cfg, params, chunks=(1,), prompts=prompts,
+                max_len=GEMMA_MAX_LEN)
+    profile_events(cfg, params, prompts, "deepseek-moe-16b")
+    t0 = time.perf_counter()
+    s_streams, s_info = serve(cfg, params, 1, [p[:2] for p in prompts], 2,
+                              quiet=True, max_len=GEMMA_MAX_LEN,
+                              temperature=0.8, top_k=40, top_p=0.95)
+    t_window = time.perf_counter() - t0
+    for s_ in s_streams:
+        check(len(s_) == 2 and all(0 <= t < cfg.vocab_size for t in s_),
+              "malformed sampled deepseek-moe-16b stream")
+    print(f"sampled deepseek-moe-16b, one window of 8 requests x 2 tokens "
+          f"(K 4, T 0.8, top-k 40, top-p 0.95): {t_window:.2f}s, "
+          f"{s_info['rounds']} rounds")
+    deepseek_prefill(cfg, cfg16, params)
+    del params
+    tcfg = cfg.replace(n_layers=4)
+    tparams = draw_params(tcfg, "deepseek-moe-16b cut to 4 layers (1 dense "
+                          "+ 3 MoE) for training")
+    launches = attn_train(tcfg, tparams, plain_check=False)
+    del tparams
+    fresh_card()
+    return launches
+
+
+def deepseek_prefill(cfg, cfg16, params):
+    """deepseek-moe-16b, B 8 x T 512 at the published capacity into a KV
+    cache of 1024: ms, prompt tokens/s, the dropped share, peak memory, a
+    profile; the prefill against the sequential route held to its
+    routing at capacity factor NO_DROP_CF (no drops on either route) at
+    T MOE_ROUTE_T (bf16) and FP32_ROUTE_T (an fp32 compute dtype, where
+    no choice may differ), within PREFILL_REL of the largest |logit|."""
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (AB, AT), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    lm.prefill(params, cfg, toks[:, :16], GEMMA_MAX_LEN)
+    fresh_card()
+    with moe_lib.count_drops() as drops:
+        logits, cache = lm.prefill(params, cfg, toks, GEMMA_MAX_LEN)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    dropped, assigned, share = dropped_share(drops)
+    check(tuple(cache["k"].shape) == (cfg.n_layers, AB, GEMMA_MAX_LEN,
+                                      cfg.n_kv_heads, cfg.head_dim_)
+          and bool((cache["pos"] == AT).all()), "deepseek-moe-16b prefill "
+          "cache")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "deepseek-moe-16b prefill logits")
+    del logits, cache
+    ms = synced_ms(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
+                   reps=3)
+    tol, tol32 = PREFILL_REL[torch.bfloat16], PREFILL_REL[torch.float32]
+    held, apart, n_dec, seq_ms = moe_route_check(cfg16, params,
+                                                 toks[:, :MOE_ROUTE_T])
+    held = rel_err(*held, "deepseek-moe-16b prefill vs the step path on "
+                   "the prefill's routing", tol)
+    f32 = cfg16.replace(compute_dtype="float32")
+    held32, apart32, n_dec32, _ = moe_route_check(f32, params,
+                                                  toks[:, :FP32_ROUTE_T])
+    check(apart32 == 0, f"deepseek-moe-16b fp32: {apart32} top-6 choices "
+          f"of the steps differ from the prefill's")
+    held32 = rel_err(*held32, "deepseek-moe-16b fp32 prefill vs the step "
+                     "path", tol32)
+    print(f"prefill deepseek-moe-16b B {AB} x T {AT} at cf 1.25 (KV cache "
+          f"{GEMMA_MAX_LEN}): {dropped} of {assigned} assignments dropped "
+          f"({100 * share:.1f}%); peak device memory {peak / 2**30:.2f} "
+          f"GiB; ms min {ms[0]:.2f} median {ms[1]:.2f} max {ms[-1]:.2f}, "
+          f"prompt tokens/s median {AB * AT / ms[1] * 1e3:.0f}; at cf "
+          f"{NO_DROP_CF} against {MOE_ROUTE_T} sequential steps held to the "
+          f"prefill's routing (bf16): logits {held:.3g} (limit {tol}), "
+          f"{apart} of {n_dec} top-6 choices of the steps' own apart from "
+          f"the prefill's (printed; the steps {seq_ms:.1f} ms); in an fp32 "
+          f"compute dtype at T {FP32_ROUTE_T}: {held32:.3g} (limit "
+          f"{tol32}), {apart32} of {n_dec32} choices apart (limit 0)")
+    device_groups(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
+                  f"prefill deepseek-moe-16b B {AB} x T {AT}")
+
+
+# ---------------------------------------------------------------------------
 # 4c. the robustness layer: faults, crash recovery, tune plans
 # ---------------------------------------------------------------------------
 
@@ -3593,6 +4019,10 @@ def main():
     lap("task heads")
     rnn_baselines_phase()
     lap("GRU / LSTM")
+    merge(launches, zamba2_phase())
+    lap("zamba2-2.7b")
+    merge(launches, deepseek_phase())
+    lap("deepseek-moe-16b")
     rgen = torch.Generator().manual_seed(21)
     robust, (cfg, params) = robustness_phase(rgen)
     merge(launches, robust)

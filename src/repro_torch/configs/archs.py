@@ -1,7 +1,9 @@
 """The paper's own minGRU / minLSTM LMs (Feng et al. 2024, App. C),
 gemma-2b and gemma-7b (native GQA attention with RoPE), gemma-2b with
-the paper's minGRU as its sequence mixer, and mamba2-370m (the SSD
-trunk, the paper's recurrent rival in Fig. 2).
+the paper's minGRU as its sequence mixer, mamba2-370m (the SSD trunk,
+the paper's recurrent rival in Fig. 2), zamba2-2.7b (Mamba-2 layers
+with one shared attention block) and deepseek-moe-16b (a dense layer,
+then routed top-6 experts plus shared ones).
 
 Copied from ``repro.configs.archs`` (full and smoke entries); the other
 architectures of the reference zoo are not ported yet.
@@ -11,7 +13,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import MinRNNConfig, ModelConfig, SSMConfig
+from repro_torch.configs.base import (MinRNNConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 _SMOKE: Dict[str, ModelConfig] = {}
@@ -83,6 +86,45 @@ _register(
         name="mamba2-370m", block_kind="ssm",
         n_layers=2, d_model=64, n_heads=0, n_kv_heads=0, d_ff=0,
         vocab_size=512, norm="rmsnorm", rope=False, tie_embeddings=True,
+        ssm=SSMConfig(d_state=16, expand=2, head_dim=16, n_groups=1,
+                      conv_kernel=4, chunk=8), **_SMOKE_NUM))
+
+# deepseek-moe-16b [arXiv:2401.06066; hf]: 2 shared + 64 routed top-6
+_register(
+    ModelConfig(
+        name="deepseek-moe-16b", block_kind="attention",
+        n_layers=28, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
+        d_ff=10944, vocab_size=102400, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True,
+        moe=MoEConfig(n_experts=64, top_k=6, d_expert=1408, n_shared=2,
+                      d_shared=2816, first_dense_layers=1,
+                      capacity_factor=1.25), **_BIG),
+    ModelConfig(
+        name="deepseek-moe-16b", block_kind="attention",
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+        d_ff=128, vocab_size=512, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True,
+        # capacity >= N*k so the smoke consistency tests see no dropping
+        moe=MoEConfig(n_experts=8, top_k=2, d_expert=32, n_shared=2,
+                      d_shared=64, first_dense_layers=1,
+                      capacity_factor=16.0), **_SMOKE_NUM))
+
+# zamba2-2.7b [arXiv:2411.15242; hf]: Mamba2 trunk + one shared attention
+# block applied every 6 layers (the shared-block LoRA omitted, as in the
+# reference)
+_register(
+    ModelConfig(
+        name="zamba2-2.7b", block_kind="hybrid",
+        n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32, head_dim=80,
+        d_ff=10240, vocab_size=32000, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="gelu", rope=True, hybrid_attn_every=6,
+        ssm=SSMConfig(d_state=64, expand=2, head_dim=64, n_groups=1,
+                      conv_kernel=4, chunk=256), **_BIG),
+    ModelConfig(
+        name="zamba2-2.7b", block_kind="hybrid",
+        n_layers=4, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+        d_ff=128, vocab_size=512, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="gelu", rope=True, hybrid_attn_every=2,
         ssm=SSMConfig(d_state=16, expand=2, head_dim=16, n_groups=1,
                       conv_kernel=4, chunk=8), **_SMOKE_NUM))
 

@@ -2,10 +2,12 @@
 
 A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
 dtype table.  Only the fields the port reads are kept (the minRNN LMs;
-the attention trunk: native GQA with RoPE, or with its mixer swapped
-for a minRNN cell by ``seq_mixer``; and the SSD trunk of mamba2); the
-field names, defaults and properties match the reference so a config
-built here describes the same model as its JAX twin.
+the attention trunk: native GQA with RoPE, dense or with a leading dense
+segment and MoE layers, or with its mixer swapped for a minRNN cell by
+``seq_mixer``; the SSD trunk of mamba2; and the hybrid SSD trunk with
+one shared attention block of zamba2); the field names, defaults and
+properties match the reference so a config built here describes the
+same model as its JAX twin.
 """
 
 from __future__ import annotations
@@ -17,6 +19,21 @@ from typing import Optional
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int                 # routed experts
+    top_k: int
+    d_expert: int                  # per-expert FFN hidden dim
+    n_shared: int = 0              # shared (always-on) experts
+    d_shared: int = 0              # shared-expert hidden dim (total)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    first_dense_layers: int = 0    # deepseek: leading dense layers
+    ep_2d: str = "auto"            # 2D (expert x d) weight sharding of
+                                   # the expert-parallel mesh path (not
+                                   # ported: ROADMAP.md queue 1, item 6)
 
 
 @dataclass(frozen=True)
@@ -49,7 +66,7 @@ class MinRNNConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
-    block_kind: str = "minrnn"     # minrnn | attention | ssm
+    block_kind: str = "minrnn"     # minrnn | attention | ssm | hybrid
     seq_mixer: str = "native"      # native | mingru | minlstm
     n_layers: int = 2
     d_model: int = 128
@@ -69,8 +86,10 @@ class ModelConfig:
     attn_kind: str = "gqa"         # gqa | mla
     tie_embeddings: bool = False
     embedding_scale: bool = False  # gemma: x *= sqrt(d_model)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     minrnn: Optional[MinRNNConfig] = None
+    hybrid_attn_every: int = 0     # zamba2: shared attn block period
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     # "auto" resolves to the fused kernels (core.scan.resolve_strategy);

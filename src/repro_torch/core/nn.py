@@ -129,6 +129,31 @@ def causal_conv_step(p, x_t: torch.Tensor, conv_state: torch.Tensor):
     return y, window[..., 1:, :]
 
 
+def pad_to(a: torch.Tensor, rows: int, dim: int = 0) -> torch.Tensor:
+    """a with zeros appended along ``dim`` up to ``rows``."""
+    pad = list(a.shape)
+    pad[dim] = rows - a.shape[dim]
+    return torch.cat([a, a.new_zeros(pad)], dim=dim)
+
+
+def tiled(fn, x: torch.Tensor, rows, dim: int = 0) -> torch.Tensor:
+    """``fn(x)`` for a row-wise ``fn``, with x cut along ``dim`` into tiles
+    of ``rows`` (the last padded with zeros, its padding dropped from the
+    result), so every call sees the same row count whatever x's; ``rows``
+    None or x one tile already: one plain call."""
+    n = x.shape[dim]
+    if rows is None or n == rows:
+        return fn(x)
+    outs = []
+    for i in range(0, n, rows):
+        part = x.narrow(dim, i, min(rows, n - i))
+        m = part.shape[dim]
+        if m < rows:
+            part = pad_to(part, rows, dim)
+        outs.append(fn(part).narrow(dim, 0, m))
+    return torch.cat(outs, dim=dim)
+
+
 def gather_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """x: (B, T, ...) -> (B, ...), row b taken at position lengths[b]-1."""
     rows = torch.arange(x.shape[0], device=x.device)

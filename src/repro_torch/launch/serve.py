@@ -7,8 +7,9 @@ Serves the given prompts from a seeded random init through the
 continuous-batching superstep engine: one whole-block CUDA kernel launch
 per layer per device round, or with ``--fuse-block off`` (and always for
 ``--arch gemma-2b-mingru``) one cell-only kernel launch per layer per
-round between PyTorch norms, projections and MLPs; ``--arch gemma-2b``
-and ``--arch mamba2-370m`` serve in PyTorch ops (C 1 only).  Prints the
+round between PyTorch norms, projections and MLPs; ``--arch gemma-2b``,
+``mamba2-370m``, ``zamba2-2.7b`` and ``deepseek-moe-16b`` serve in
+PyTorch ops (C 1 only).  Prints the
 completions, the kernel tier, the superstep / latency lines and the
 engine stats snapshot.  ``--device cpu`` runs the plain PyTorch versions
 of the kernels.  On the card the weights are drawn there, from the

@@ -7,8 +7,10 @@ Config registry -> seeded init -> AdamW -> the deterministic data
 pipeline -> the fault-tolerant supervisor (checkpoint / restart,
 straggler watchdog).  Every minRNN layer's forward (and gemma-2b-mingru's
 mixer) runs the fused CUDA cell kernel and its backward the reversed
-CUDA scan; ``--arch gemma-2b`` trains native GQA and ``--arch
-mamba2-370m`` the SSD trunk in PyTorch ops (the reference has no kernel
+CUDA scan; ``--arch gemma-2b`` trains native GQA, ``--arch
+mamba2-370m`` the SSD trunk, ``--arch zamba2-2.7b`` the hybrid and
+``--arch deepseek-moe-16b`` the MoE trunk (its log lines carry the
+router loss, ``moe_aux``) in PyTorch ops (the reference has no kernel
 there).  ``--smoke`` takes the
 reduced config; ``--device cpu`` runs the plain PyTorch versions of the
 kernels; ``--simulate-failure N`` kills step N once to show recovery.

@@ -264,25 +264,34 @@ def decode_tables(cfg, pos: torch.Tensor, max_len: int) -> dict:
 
 def gqa_decode_step(params, cfg, x_t: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, pos: torch.Tensor, *,
-                    tables: Optional[dict] = None):
+                    tables: Optional[dict] = None,
+                    rows: Optional[int] = None):
     """x_t: (B, d_model); caches (B, S, KV, D); pos: (B,) current index.
 
     Returns (out_t, k_cache, v_cache): the new token's k and v are written
     into the caches in place (``_cache_insert``), which come back.
-    ``tables``: the step's ``decode_tables``, if the caller holds them."""
+    ``tables``: the step's ``decode_tables``, if the caller holds them.
+    ``rows`` (``DECODE_ROWS``): the four projections in tiles of that
+    many rows, the last padded, so a row's result does not depend on B."""
     bsz = x_t.shape[0]
     if tables is None:
         tables = decode_tables(cfg, pos, k_cache.shape[1])
-    q = _project(params["wq"], x_t, cfg, cfg.n_heads)
-    k = _project(params["wk"], x_t, cfg, cfg.n_kv_heads)
-    v = _project(params["wv"], x_t, cfg, cfg.n_kv_heads)
+
+    def proj(name, n_heads):
+        return nn.tiled(lambda t: _project(params[name], t, cfg, n_heads),
+                        x_t, rows)
+
+    q = proj("wq", cfg.n_heads)
+    k = proj("wk", cfg.n_kv_heads)
+    v = proj("wv", cfg.n_kv_heads)
     if cfg.rope:
         q = rotate(q[:, None], *tables["rope"])[:, 0]
         k = rotate(k[:, None], *tables["rope"])[:, 0]
     _cache_insert(k_cache, k, pos, tables["slots"])
     _cache_insert(v_cache, v, pos, tables["slots"])
     o = decode_attention(q, k_cache, v_cache, pos + 1)
-    out = nn.dense_apply(params["wo"], o.reshape(bsz, -1), cfg.cdtype)
+    out = nn.tiled(lambda t: nn.dense_apply(params["wo"], t, cfg.cdtype),
+                   o.reshape(bsz, -1), rows)
     return out, k_cache, v_cache
 
 

@@ -1,26 +1,35 @@
 """Decoder-only LM: the minRNN LMs, the attention trunk (native GQA
-with RoPE and a KV cache, e.g. gemma-2b; or its mixer swapped for a
-minRNN cell by ``seq_mixer``, e.g. gemma-2b-mingru) and the SSD trunk
-(mamba2-370m), trained, prefilled and served -- the subset of
+with RoPE and a KV cache, e.g. gemma-2b; with a leading dense segment
+and mixture-of-experts layers, deepseek-moe-16b; or its mixer swapped
+for a minRNN cell by ``seq_mixer``, e.g. gemma-2b-mingru), the SSD trunk
+(mamba2-370m) and the hybrid trunk (zamba2-2.7b: SSD layers with one
+shared attention block applied after every ``hybrid_attn_every`` of
+them), trained, prefilled and served -- the subset of
 ``repro.models.lm`` ported so far.
 
 Params are nested dicts with the JAX pytree's layout -- ``embed.table``,
 ``final_norm.scale`` and ``layers.blocks.*`` stacked with a leading L
-axis -- so the bridge, the checkpoints and the parity tests line up leaf
-by leaf.  ``MinRNNLM`` is a thin ``nn.Module`` around such a dict whose
-floating leaves are ``nn.Parameter``s (``.to(device)``, ``state_dict``,
+axis (the MoE trunk's leading dense layers under
+``layers.dense_blocks``, its MoE layers carrying ``moe`` in place of
+``mlp``; the hybrid's shared block under ``layers.shared_attn``) -- so
+the bridge, the checkpoints and the parity tests line up leaf by leaf.
+``MinRNNLM`` is a thin ``nn.Module`` around such a dict whose floating
+leaves are ``nn.Parameter``s (``.to(device)``, ``state_dict``,
 ``parameters()``).
 
 Training runs ``forward`` / ``loss_fn``: the layer stack of
 ``blocks.apply`` or of attention blocks (the fused CUDA cell kernel in
 every minRNN layer or mixer under the default strategy; GQA's blocked
-attention and the SSD mixer in PyTorch ops, as the reference runs them
-outside Pallas), each layer under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"``.  ``prefill`` runs the same parallel form
-over a prompt (right-padded batches; the minRNN trunk resumable from a
-cache) and hands a cache to the decode functions: one fused-cell launch
-per minRNN layer, a KV cache seeded with the prompt's keys and values,
-or the SSD trunk's conv windows and fp32 states (``models/ssd.py``).
+attention, the MoE layer and the SSD mixer in PyTorch ops, as the
+reference runs them outside Pallas), each layer -- each group of SSD
+layers and the shared block, in the hybrid -- under
+``torch.utils.checkpoint`` when ``cfg.remat == "full"``; the MoE
+layers' router loss joins the loss.  ``prefill`` runs the same parallel
+form over a prompt (right-padded batches; the minRNN trunk resumable
+from a cache) and hands a cache to the decode functions: one fused-cell
+launch per minRNN layer, a KV cache seeded with the prompt's keys and
+values, or the SSD layers' conv windows and fp32 states
+(``models/ssd.py``), or both (the hybrid).
 
 Serving drives the step forms: ``superstep`` runs K rounds of
 re-admission -> token select -> ``decode_step`` (or ``decode_chunk`` for
@@ -34,9 +43,11 @@ of the whole-block CUDA kernel, or, on the cell-fused tier
 (``fuse_block="off"``) and in every layer of an attention trunk with a
 minRNN mixer, one launch of the cell-only CUDA kernel between PyTorch
 norms, projections and MLPs.  Native GQA decodes in PyTorch ops against
-a KV cache written in place (``attention._cache_insert``); the SSD
-trunk steps its recurrence in PyTorch ops, in groups of
-``attention.DECODE_ROWS`` rows (``_ssm_decode``).
+a KV cache written in place (``attention._cache_insert``), every product
+of the step in tiles of ``attention.DECODE_ROWS`` rows (the MoE layer
+routes all B tokens together, as the reference's does); the SSD and
+hybrid trunks step in groups of ``attention.DECODE_ROWS`` rows
+(``_ssm_decode``).
 Whoever owns the params binds them once (``bind_layers``) and passes the
 binding as ``layers=``; without it, each call binds its own.  The prefill
 and decode functions run under ``torch.no_grad()``: they build no graph
@@ -58,8 +69,9 @@ from repro_torch.core import scan as scan_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssd as ssd_lib
-from repro_torch.tree import leaves, stack, tree_map
+from repro_torch.tree import leaves, tree_map
 
 _MIN_CELLS = {"mingru": min_gru, "minlstm": min_lstm}
 
@@ -79,24 +91,48 @@ def _minrnn_block_cfg(cfg) -> minrnn_blocks.MinRNNBlockConfig:
 
 
 def _check_cfg(cfg):
-    """The minRNN trunk, the attention trunk with native GQA or a minRNN
-    mixer, or the SSD trunk; MLA, hybrid and MoE trunks are not
-    ported."""
-    if cfg.block_kind == "minrnn" or _attn_minrnn(cfg) or _attn_gqa(cfg) \
-            or _ssm(cfg):
+    """The minRNN trunk; the attention trunk with native GQA (dense, or a
+    dense prefix and MoE layers) or a minRNN mixer; the SSD trunk; the
+    hybrid SSD trunk with a shared GQA block.  MLA, MoE under a minRNN
+    mixer and the hybrid with another shared mixer are not ported (nor
+    layernorm, which ``nn.norm_init`` refuses)."""
+    if cfg.block_kind == "minrnn" or _attn_gqa(cfg) or _ssm(cfg) \
+            or (_attn_minrnn(cfg) and cfg.moe is None):
+        return
+    if _hybrid(cfg):
+        if cfg.n_layers % cfg.hybrid_attn_every:
+            raise ValueError(
+                f"the hybrid trunk needs n_layers ({cfg.n_layers}) to be a "
+                f"multiple of hybrid_attn_every ({cfg.hybrid_attn_every})")
         return
     what = f"block_kind {cfg.block_kind!r}"
-    if cfg.block_kind == "attention":
-        what = f"the native {cfg.attn_kind} attention mixer"
+    if _attn_minrnn(cfg):
+        what = f"MoE under a {cfg.seq_mixer} seq_mixer"
+    elif cfg.block_kind in ("attention", "hybrid"):
+        what = f"the {cfg.seq_mixer} {cfg.attn_kind} attention mixer of " \
+               f"block_kind {cfg.block_kind!r}"
     raise NotImplementedError(
         f"{what} is not ported (ROADMAP.md queue 1, item 5); the port "
-        f"runs the minRNN LMs, attention trunks with native GQA or a "
-        f"mingru / minlstm seq_mixer, and the SSD trunk")
+        f"runs the minRNN LMs, attention trunks with native GQA (dense or "
+        f"MoE) or a mingru / minlstm seq_mixer, the SSD trunk and the "
+        f"hybrid SSD trunk with a shared GQA block")
 
 
 def _ssm(cfg) -> bool:
     """The SSD trunk (mamba2): norm -> SSD mixer -> residual per layer."""
     return cfg.block_kind == "ssm"
+
+
+def _native_gqa(cfg) -> bool:
+    return cfg.seq_mixer == "native" and cfg.attn_kind == "gqa"
+
+
+def _hybrid(cfg) -> bool:
+    """The hybrid trunk (zamba2): SSD layers, and one shared native-GQA
+    attention block (params shared, KV caches not) after every
+    ``hybrid_attn_every`` of them."""
+    return cfg.block_kind == "hybrid" and cfg.hybrid_attn_every > 0 \
+        and _native_gqa(cfg)
 
 
 def _attn_minrnn(cfg) -> bool:
@@ -105,9 +141,9 @@ def _attn_minrnn(cfg) -> bool:
 
 
 def _attn_gqa(cfg) -> bool:
-    """The attention trunk with its native GQA mixer (a KV cache)."""
-    return cfg.block_kind == "attention" and cfg.seq_mixer == "native" \
-        and cfg.attn_kind == "gqa"
+    """The attention trunk with its native GQA mixer (a KV cache), its
+    MLP dense or, after ``moe.first_dense_layers`` dense layers, MoE."""
+    return cfg.block_kind == "attention" and _native_gqa(cfg)
 
 
 def _mixer_d_hidden(cfg) -> int:
@@ -120,10 +156,10 @@ def kernel_tier(cfg) -> str:
     kernel launch per layer per round), "cell-fused" (one cell-only
     kernel launch per layer per round, the rest PyTorch ops; always so on
     an attention trunk with a minRNN mixer) or "unfused" (plain PyTorch;
-    always so for native GQA and the SSD trunk, as the reference engine
-    reports them)."""
+    always so for native GQA, dense or MoE, and the SSD and hybrid
+    trunks, as the reference engine reports them)."""
     _check_cfg(cfg)
-    if _attn_gqa(cfg) or _ssm(cfg):
+    if _attn_gqa(cfg) or _ssm(cfg) or _hybrid(cfg):
         return "unfused"
     if _attn_minrnn(cfg):
         return "cell-fused" if scan_lib.resolve_strategy(
@@ -160,24 +196,50 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
         params["unembed"] = nn.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                           use_bias=False, dtype=dtype)
     if cfg.block_kind == "attention":
-        layers = [_attn_layer_init(gen, cfg, dtype)
-                  for _ in range(cfg.n_layers)]
-    elif _ssm(cfg):
-        layers = [{"norm": nn.norm_init(cfg.norm, cfg.d_model, dtype),
-                   "mixer": ssd_lib.ssd_init(gen, cfg, dtype=dtype)}
-                  for _ in range(cfg.n_layers)]
+        # a leading dense segment before the MoE layers (deepseek)
+        n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
+        params["layers"] = {}
+        if n_dense:
+            params["layers"]["dense_blocks"] = _stack_init(
+                lambda: _attn_layer_init(gen, cfg, dtype, force_dense=True),
+                n_dense)
+        params["layers"]["blocks"] = _stack_init(
+            lambda: _attn_layer_init(gen, cfg, dtype),
+            cfg.n_layers - n_dense)
+    elif _ssm(cfg) or _hybrid(cfg):
+        params["layers"] = {"blocks": _stack_init(
+            lambda: {"norm": nn.norm_init(cfg.norm, cfg.d_model, dtype),
+                     "mixer": ssd_lib.ssd_init(gen, cfg, dtype=dtype)},
+            cfg.n_layers)}
+        if _hybrid(cfg):
+            params["layers"]["shared_attn"] = _attn_layer_init(
+                gen, cfg, dtype, force_dense=True)
     else:
         bc = _minrnn_block_cfg(cfg)
-        layers = [minrnn_blocks.init(gen, bc, dtype=dtype)
-                  for _ in range(cfg.n_layers)]
-    params["layers"] = {"blocks": stack(layers)}
+        params["layers"] = {"blocks": _stack_init(
+            lambda: minrnn_blocks.init(gen, bc, dtype=dtype), cfg.n_layers)}
     return tree_to(params, dev)
+
+
+def _stack_init(make, n: int):
+    """``stack([make() for _ in range(n)])`` -- the same draws in the same
+    order -- holding one layer's tree beside the stack at a time, not all
+    n: deepseek-moe-16b's 32.75 GB of bf16 weights fit the card once, not
+    twice."""
+    first = make()
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else make()
+        for dst, src in zip(leaves(out), leaves(layer)):
+            dst[i].copy_(src)
+        first = None
+    return out
 
 
 def _mixer_init(gen, cfg, dtype):
     """The attention block's sequence mixer: GQA, or a minRNN cell and its
     down projection (the reference's ``_mixer_init``)."""
-    if _attn_gqa(cfg):
+    if cfg.seq_mixer not in _MIN_CELLS:
         return attn.gqa_init(gen, cfg, dtype=dtype)
     cell = _MIN_CELLS[cfg.seq_mixer]
     dh = _mixer_d_hidden(cfg)
@@ -186,13 +248,17 @@ def _mixer_init(gen, cfg, dtype):
                                   dtype=dtype)}
 
 
-def _attn_layer_init(gen, cfg, dtype):
-    return {"norm1": nn.norm_init(cfg.norm, cfg.d_model, dtype),
-            "mixer": _mixer_init(gen, cfg, dtype),
-            "norm2": nn.norm_init(cfg.norm, cfg.d_model, dtype),
-            "mlp": mlp_lib.mlp_init(gen, cfg.d_model, cfg.d_ff,
+def _attn_layer_init(gen, cfg, dtype, force_dense: bool = False):
+    p = {"norm1": nn.norm_init(cfg.norm, cfg.d_model, dtype),
+         "mixer": _mixer_init(gen, cfg, dtype),
+         "norm2": nn.norm_init(cfg.norm, cfg.d_model, dtype)}
+    if cfg.moe and not force_dense:
+        p["moe"] = moe_lib.moe_init(gen, cfg, dtype=dtype)
+    else:
+        p["mlp"] = mlp_lib.mlp_init(gen, cfg.d_model, cfg.d_ff,
                                     gated=cfg.gated_mlp, bias=cfg.mlp_bias,
-                                    dtype=dtype)}
+                                    dtype=dtype)
+    return p
 
 
 class _Tree(torch.nn.Module):
@@ -236,13 +302,14 @@ def bind_layers(params, cfg) -> List[tuple]:
     and each layer's weights bound for its kernel -- the whole block
     (``blocks.bind``) or, on the cell-fused tier and the attention trunk's
     minRNN mixer, the cell's gates (``CellOperands``); None on the CPU and
-    for native GQA and the SSD trunk, which run no kernel.  Bind once per
+    for native GQA (dense or MoE) and the SSD and hybrid trunks, which run
+    no kernel (the hybrid's layers are its SSD layers).  Bind once per
     params and pass the result as ``layers=``; it reads the params as they
     are now, so bind again after replacing a leaf."""
     _check_cfg(cfg)
     out = []
     with torch.no_grad():
-        if _ssm(cfg):
+        if _ssm(cfg) or _hybrid(cfg):
             return [(p_l, None) for p_l in _layer_params(params)]
         if cfg.block_kind == "attention":
             cell_tier = kernel_tier(cfg) == "cell-fused"
@@ -262,10 +329,16 @@ def bind_layers(params, cfg) -> List[tuple]:
 
 
 def _layer_params(params) -> List[dict]:
-    """Views of the stacked block params, one dict per layer."""
-    blocks = params["layers"]["blocks"]
-    n = leaves(blocks)[0].shape[0]
-    return [tree_map(lambda a, i=i: a[i], blocks) for i in range(n)]
+    """Views of the stacked block params, one dict per layer: the MoE
+    trunk's dense layers first, then its MoE layers, as the reference
+    runs them (the hybrid's shared block is not among them)."""
+    out = []
+    for key in ("dense_blocks", "blocks"):
+        blocks = params["layers"].get(key)
+        if blocks is not None:
+            n = leaves(blocks)[0].shape[0]
+            out += [tree_map(lambda a, i=i: a[i], blocks) for i in range(n)]
+    return out
 
 
 # ===========================================================================
@@ -305,17 +378,13 @@ def _row_groups(x: torch.Tensor):
     for i in range(0, x.shape[0], size):
         part = x[i:i + size]
         n = part.shape[0]
-        if n < size:
-            part = torch.cat([part, part.new_zeros((size - n,)
-                                                   + tuple(part.shape[1:]))])
-        yield i, n, part
+        yield i, n, part if n == size else nn.pad_to(part, size)
 
 
 def _final_rows(params, cfg, x):
     """``_final`` in groups of ``attention.DECODE_ROWS`` rows: a row's
     logits do not depend on how many rows came with it."""
-    return torch.cat([_final(params, cfg, part)[:n]
-                      for _, n, part in _row_groups(x)])
+    return nn.tiled(lambda t: _final(params, cfg, t), x, attn.DECODE_ROWS)
 
 
 # ===========================================================================
@@ -340,7 +409,7 @@ def _mixer_apply(p, cfg, x, positions):
     """The attention block's mixer over a sequence: the minRNN cell's
     parallel form (the fused kernel under the default strategy) and its
     down projection, or causal GQA."""
-    if _attn_minrnn(cfg):
+    if cfg.seq_mixer in _MIN_CELLS:
         cell = _MIN_CELLS[cfg.seq_mixer]
         mode = cfg.minrnn.mode if cfg.minrnn else "log"
         h = cell.parallel(p["rnn"], x, mode=mode, compute_dtype=cfg.cdtype,
@@ -354,13 +423,31 @@ def _norm(cfg, p, x):
     return nn.norm_apply(cfg.norm, p, x, **nk)
 
 
+def _ffn(p, cfg, y, rows=None):
+    """The block's feed-forward half on y (B, S, d) or, at a decode step,
+    (B, d): the MLP or, in an MoE layer, the routed and shared experts
+    over every token given.  ``rows``: every product in tiles of that many
+    rows.  Returns (out, the router's aux loss: 0 for an MLP, None at a
+    step, which drops it)."""
+    if "moe" in p:
+        step = y.ndim == 2
+        out, aux = moe_lib.moe_apply(p["moe"], cfg,
+                                     y[:, None, :] if step else y,
+                                     activation=cfg.mlp_activation, rows=rows,
+                                     with_aux=not step)
+        return (out[:, 0] if step else out), aux
+    out = nn.tiled(lambda t: mlp_lib.mlp_apply(
+        p["mlp"], t, activation=cfg.mlp_activation,
+        compute_dtype=cfg.cdtype), y, rows)
+    return out, torch.zeros((), dtype=torch.float32, device=y.device)
+
+
 def _attn_block_apply(p, cfg, x, positions):
+    """Returns (x, the MoE layer's aux loss; 0 for a dense layer)."""
     x = x + _mixer_apply(p["mixer"], cfg, _norm(cfg, p["norm1"], x),
                          positions)
-    out = mlp_lib.mlp_apply(p["mlp"], _norm(cfg, p["norm2"], x),
-                            activation=cfg.mlp_activation,
-                            compute_dtype=cfg.cdtype)
-    return x + out
+    out, aux = _ffn(p, cfg, _norm(cfg, p["norm2"], x))
+    return x + out, aux
 
 
 def _ssm_block_apply(p, cfg, x):
@@ -368,19 +455,28 @@ def _ssm_block_apply(p, cfg, x):
                                        _norm(cfg, p["norm"], x))
 
 
-def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
+def _trunk_apply(params, cfg, x: torch.Tensor):
     """The layer stack in the parallel form, each layer under ``_remat``:
     ``blocks.apply`` per minRNN layer, an attention block at positions
-    ``arange(T)``, or an SSD block."""
+    ``arange(T)`` (the dense layers, then the MoE layers), or an SSD
+    block; the hybrid in groups (``_hybrid_apply``).  Returns (x, the MoE
+    layers' aux losses summed; 0 without MoE)."""
     _check_cfg(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if _hybrid(cfg):
+        return _hybrid_apply(params, cfg, x), aux
     if _ssm(cfg):
         def body(x_, p_l):
             return _ssm_block_apply(p_l, cfg, x_)
     elif cfg.block_kind == "attention":
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-
-        def body(x_, p_l):
-            return _attn_block_apply(p_l, cfg, x_, positions)
+        body = _remat(cfg, lambda x_, p_l: _attn_block_apply(
+            p_l, cfg, x_, positions))
+        for p_l in _layer_params(params):
+            x, aux_l = body(x, p_l)
+            if "moe" in p_l:
+                aux = aux + aux_l
+        return x, aux
     else:
         bc = _minrnn_block_cfg(cfg)
 
@@ -391,24 +487,46 @@ def _trunk_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     body = _remat(cfg, body)
     for p_l in _layer_params(params):
         x = body(x, p_l)
+    return x, aux
+
+
+def _hybrid_apply(params, cfg, x):
+    """The hybrid trunk: per group, ``hybrid_attn_every`` SSD blocks and
+    then the shared attention block (its params shared by every group,
+    its activations not).  The remat unit is the group, as the
+    reference's."""
+    every = cfg.hybrid_attn_every
+    blocks = _layer_params(params)
+    shared = params["layers"]["shared_attn"]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def group(x_, shared_p, *p_group):
+        for p_l in p_group:
+            x_ = _ssm_block_apply(p_l, cfg, x_)
+        return _attn_block_apply(shared_p, cfg, x_, positions)[0]
+
+    group = _remat(cfg, group)
+    for g in range(0, len(blocks), every):
+        x = group(x, shared, *blocks[g:g + every])
     return x
 
 
 def forward(params, cfg, tokens: torch.Tensor):
     """tokens: (B, S) -> (logits (B, S, V) in the compute dtype, aux
-    loss); the aux loss is the reference's MoE term, zero here."""
+    loss): the MoE layers' router loss summed over the layers, fp32
+    (zero without MoE)."""
     x = _embed(params, cfg, tokens)
-    x = _trunk_apply(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _trunk_apply(params, cfg, x)
     return _final(params, cfg, x), aux
 
 
 def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
     """batch: tokens (B, S), labels (B, S) with -1 = ignore ->
     (loss, metrics): the token-mean NLL in fp32, plus ``cfg.z_loss`` x
-    the mean squared logsumexp.  Metrics are detached."""
+    the mean squared logsumexp and, with MoE, ``router_aux_weight`` x the
+    router loss (``moe_aux``).  Metrics are detached."""
     tokens, labels = batch["tokens"], batch["labels"]
-    logits, _ = forward(params, cfg, tokens)
+    logits, aux = forward(params, cfg, tokens)
     logits = logits.float()
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0).long()
@@ -422,6 +540,9 @@ def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
         zl = cfg.z_loss * (logz ** 2 * mask).sum() / denom
         loss = loss + zl
         metrics["z_loss"] = zl.detach()
+    if cfg.moe:
+        loss = loss + cfg.moe.router_aux_weight * aux
+        metrics["moe_aux"] = aux.detach()
     metrics["loss"] = loss.detach()
     return loss, metrics
 
@@ -434,15 +555,23 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     """Stacked per-layer recurrent state, or KV cache (L, B, max_len, KV,
     head_dim), + per-row position counter.  The SSD trunk's: ``conv``
     (L, B, K-1, d_inner + 2 G N) in the compute dtype and ``ssm`` (L, B,
-    H, P, N) in fp32."""
+    H, P, N) in fp32; the hybrid's: those for its L SSD layers and ``k`` /
+    ``v`` (n_groups, B, max_len, KV, head_dim), one per application of
+    the shared block."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     dt = cfg.cdtype
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    if _ssm(cfg):
+    if _ssm(cfg) or _hybrid(cfg):
         st = ssd_lib.ssd_block_init_state(cfg, batch, dt, dev)
-        return {"pos": pos, **{k: torch.stack([v] * cfg.n_layers)
-                               for k, v in st.items()}}
+        cache = {"pos": pos, **{k: torch.stack([v] * cfg.n_layers)
+                                for k, v in st.items()}}
+        if _hybrid(cfg):
+            shape = (cfg.n_layers // cfg.hybrid_attn_every, batch, max_len,
+                     cfg.n_kv_heads, cfg.head_dim_)
+            cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        return cache
     if _attn_minrnn(cfg):
         return {"pos": pos, "h": torch.zeros(
             (cfg.n_layers, batch, _mixer_d_hidden(cfg)), dtype=dt,
@@ -497,11 +626,13 @@ def _attn_mixer_step(p, cfg, y, cache_l, pos, operands, tables=None):
     """The mixer for one token, with this layer's cache dict: the minRNN
     cell (its kernel under the default strategy; ``operands`` its
     binding) and the down projection, or GQA against the KV cache (the
-    new k / v written in place; ``tables`` the step's
+    new k / v written in place, every product in tiles of
+    ``attention.DECODE_ROWS`` rows; ``tables`` the step's
     ``attention.decode_tables``).  Returns (out, new mixer cache dict)."""
-    if _attn_gqa(cfg):
+    if cfg.seq_mixer not in _MIN_CELLS:
         out, k, v = attn.gqa_decode_step(p, cfg, y, cache_l["k"],
-                                         cache_l["v"], pos, tables=tables)
+                                         cache_l["v"], pos, tables=tables,
+                                         rows=attn.DECODE_ROWS)
         return out, {"k": k, "v": v}
     cell = _MIN_CELLS[cfg.seq_mixer]
     mode = cfg.minrnn.mode if cfg.minrnn else "log"
@@ -512,21 +643,25 @@ def _attn_mixer_step(p, cfg, y, cache_l, pos, operands, tables=None):
 
 
 def _attn_block_step(p, cfg, x, cache_l, pos, operands, tables=None):
-    out, mix_cache = _attn_mixer_step(p["mixer"], cfg,
-                                      _norm(cfg, p["norm1"], x), cache_l,
-                                      pos, operands, tables)
+    """One attention block for one token.  With native GQA the norms and
+    every product run in tiles of ``attention.DECODE_ROWS`` rows, so a
+    row's result does not depend on B (an MoE layer routes all B rows
+    together, as the reference's does at a step)."""
+    rows = None if cfg.seq_mixer in _MIN_CELLS else attn.DECODE_ROWS
+    y = nn.tiled(lambda t: _norm(cfg, p["norm1"], t), x, rows)
+    out, mix_cache = _attn_mixer_step(p["mixer"], cfg, y, cache_l, pos,
+                                      operands, tables)
     x = x + out
-    out = mlp_lib.mlp_apply(p["mlp"], _norm(cfg, p["norm2"], x),
-                            activation=cfg.mlp_activation,
-                            compute_dtype=cfg.cdtype)
+    y = nn.tiled(lambda t: _norm(cfg, p["norm2"], t), x, rows)
+    out, _ = _ffn(p, cfg, y, rows)
     return x + out, mix_cache
 
 
 def _attn_decode(params, cfg, x, cache, layers=None):
     """The attention trunk for one token: per layer norm, mixer, residual,
-    norm, MLP, residual -- one cell-kernel launch per layer with a minRNN
-    mixer; with GQA, each layer's KV rows written in place into the
-    stacked cache, which comes back as it is."""
+    norm, MLP (or MoE), residual -- one cell-kernel launch per layer with
+    a minRNN mixer; with GQA, each layer's KV rows written in place into
+    the stacked cache, which comes back as it is."""
     if layers is None:
         layers = bind_layers(params, cfg)
     pos = cache["pos"]
@@ -556,7 +691,7 @@ def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
     _check_cfg(cfg)
     new_cache = dict(cache)
     new_cache["pos"] = cache["pos"] + 1
-    if _ssm(cfg):
+    if _ssm(cfg) or _hybrid(cfg):
         logits, outs = _ssm_decode(params, cfg, token, cache, layers)
         new_cache.update(outs)
         return logits, new_cache
@@ -564,27 +699,39 @@ def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
     decode = _attn_decode if cfg.block_kind == "attention" else _minrnn_decode
     x, outs = decode(params, cfg, x, cache, layers)
     new_cache.update(outs)
-    return _final(params, cfg, x), new_cache
+    final = _final_rows if _attn_gqa(cfg) else _final
+    return final(params, cfg, x), new_cache
 
 
 def _ssm_decode(params, cfg, token, cache, layers=None):
-    """The SSD trunk for one token: per layer norm, ``ssd_block_step``,
-    residual; then the final norm and logits.  The rows run in groups of
-    ``attention.DECODE_ROWS``, the last group padded with zero rows, so
-    every product of the step (the projections, the state read-out, the
-    logits) runs at one row count whatever B is, and a row's result does
-    not depend on B (the engine's greedy streams equal ``generate_one``'s,
-    B 1, only so).  Returns (logits (B, V), {"conv", "ssm"})."""
+    """The SSD and hybrid trunks for one token: per layer norm,
+    ``ssd_block_step``, residual -- in the hybrid, after every
+    ``hybrid_attn_every`` layers the shared attention block against its
+    group's KV cache (written in place) --; then the final norm and
+    logits.  The rows run in groups of ``attention.DECODE_ROWS``, the last
+    group padded with zero rows (and, in the hybrid, its KV rows copied
+    out and back), so every product of the step (the projections, the
+    state read-out, the attention, the logits) runs at one row count
+    whatever B is, and a row's result does not depend on B (the engine's
+    greedy streams equal ``generate_one``'s, B 1, only so).  Returns
+    (logits (B, V), {"conv", "ssm"[, "k", "v"]})."""
     if layers is None:
         layers = bind_layers(params, cfg)
     rows = attn.DECODE_ROWS
+    every = cfg.hybrid_attn_every if _hybrid(cfg) else 0
     logits, convs, ssms = [], [], []
     for i, n, tok in _row_groups(token):
         conv, ssm = cache["conv"][:, i:i + n], cache["ssm"][:, i:i + n]
+        if every:
+            k_g, v_g = cache["k"][:, i:i + n], cache["v"][:, i:i + n]
+            pos = cache["pos"][i:i + n]
         if n < rows:
-            conv, ssm = (torch.cat([a, a.new_zeros(
-                (a.shape[0], rows - n) + tuple(a.shape[2:]))], dim=1)
-                for a in (conv, ssm))
+            conv, ssm = (nn.pad_to(a, rows, 1) for a in (conv, ssm))
+            if every:
+                k_g, v_g = (nn.pad_to(a, rows, 1) for a in (k_g, v_g))
+                pos = nn.pad_to(pos, rows)
+        if every:
+            tables = attn.decode_tables(cfg, pos, k_g.shape[2])
         x = _embed(params, cfg, tok)
         conv_l, ssm_l = [], []
         for li, (p_l, _) in enumerate(layers):
@@ -594,13 +741,22 @@ def _ssm_decode(params, cfg, token, cache, layers=None):
             x = x + out
             conv_l.append(st["conv"][:n])
             ssm_l.append(st["ssm"][:n])
+            if every and (li + 1) % every == 0:
+                g = li // every
+                x, _ = _attn_block_step(
+                    params["layers"]["shared_attn"], cfg, x,
+                    {"k": k_g[g], "v": v_g[g]}, pos, None, tables)
+        if every and n < rows:          # the padded copy's rows back
+            cache["k"][:, i:i + n] = k_g[:, :n]
+            cache["v"][:, i:i + n] = v_g[:, :n]
         logits.append(_final(params, cfg, x)[:n])
         convs.append(torch.stack(conv_l))
         ssms.append(torch.stack(ssm_l))
+    kv = {"k": cache["k"], "v": cache["v"]} if every else {}
     if len(logits) == 1:
-        return logits[0], {"conv": convs[0], "ssm": ssms[0]}
+        return logits[0], {"conv": convs[0], "ssm": ssms[0], **kv}
     return torch.cat(logits), {"conv": torch.cat(convs, dim=1),
-                               "ssm": torch.cat(ssms, dim=1)}
+                               "ssm": torch.cat(ssms, dim=1), **kv}
 
 
 def supports_prompt_packing(cfg) -> bool:
@@ -688,10 +844,12 @@ def _attn_block_prefill(p, cfg, x, positions, *, lengths=None):
     """The attention trunk's block over the prompt: with a minRNN mixer
     the cell's parallel form (the fused kernel under the default
     strategy) and the down product, with GQA causal blocked attention;
-    then the MLP.  Returns (x, the mixer's cache: h at each row's last
-    real position, or the prompt's k / v at every position)."""
+    then the MLP, or the MoE layer over every token of the batch, pad
+    tokens too, as the reference's.  Returns (x, the mixer's cache: h at
+    each row's last real position, or the prompt's k / v at every
+    position)."""
     y = _norm(cfg, p["norm1"], x)
-    if _attn_gqa(cfg):
+    if cfg.seq_mixer not in _MIN_CELLS:
         out, k, v = attn.gqa_prefill(p["mixer"], cfg, y, positions=positions)
         mix_cache = {"k": k, "v": v}
     else:
@@ -704,9 +862,7 @@ def _attn_block_prefill(p, cfg, x, positions, *, lengths=None):
         mix_cache = {"h": h[:, -1] if lengths is None
                      else nn.gather_last(h, lengths)}
     x = x + out
-    out = mlp_lib.mlp_apply(p["mlp"], _norm(cfg, p["norm2"], x),
-                            activation=cfg.mlp_activation,
-                            compute_dtype=cfg.cdtype)
+    out, _ = _ffn(p, cfg, _norm(cfg, p["norm2"], x))
     return x + out, mix_cache
 
 
@@ -732,12 +888,14 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
     ``lengths`` (B,) int32: right-padded prompts, row b's logits and
     state taken at its position ``lengths[b] - 1``.  ``cache``: resume
     from an earlier prefill's cache (chunked prefill; the minRNN trunk
-    only).  ``pos`` advances by the tokens consumed.  The SSD trunk's
-    padded positions are inert steps (dt 0), so its state is the state
+    only).  ``pos`` advances by the tokens consumed.  The SSD layers'
+    padded positions are inert steps (dt 0), so their state is the state
     after ``lengths[b]`` tokens.  ``max_len`` sizes a
     KV cache: the prompt's keys and values at positions [0, T), zeros
     after; a padded row's positions past its length hold the pad's, which
-    decode overwrites before it can attend to them."""
+    decode overwrites before it can attend to them.  An MoE layer routes
+    the pad tokens too, as the reference's: where assignments drop, a
+    padded row need not equal its own prefill."""
     _check_cfg(cfg)
     if cache is not None and not supports_chunked_prefill(cfg):
         raise NotImplementedError(
@@ -745,7 +903,7 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
             f"{cfg.block_kind!r}")
     x = _embed(params, cfg, tokens)
     bsz, t = x.shape[0], x.shape[1]
-    if _attn_gqa(cfg) and t > max_len:
+    if (_attn_gqa(cfg) or _hybrid(cfg)) and t > max_len:
         raise ValueError(f"prompt of {t} tokens exceeds max_len {max_len}")
     consumed = torch.full((bsz,), t, dtype=torch.int32, device=x.device) \
         if lengths is None else lengths.to(torch.int32)
@@ -761,6 +919,9 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
             for k in states:
                 states[k].append(st[k])
         new_cache.update({k: torch.stack(v) for k, v in states.items()})
+    elif _hybrid(cfg):
+        x, cache_h = _hybrid_prefill(params, cfg, x, max_len, lengths)
+        new_cache.update(cache_h)
     elif cfg.block_kind == "attention":
         positions = torch.arange(t, device=x.device)[None, :]
         mcs = []
@@ -788,9 +949,36 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
                 states[k].append(st[k])
         new_cache.update({k: torch.stack(v) for k, v in states.items()})
     x_last = x[:, -1] if lengths is None else nn.gather_last(x, lengths)
-    if _ssm(cfg):       # as its decode does: a row's logits whatever B
-        return _final_rows(params, cfg, x_last), new_cache
+    if _ssm(cfg) or _hybrid(cfg):    # as their decode: a row's logits
+        return _final_rows(params, cfg, x_last), new_cache     # whatever B
     return _final(params, cfg, x_last), new_cache
+
+
+def _hybrid_prefill(params, cfg, x, max_len, lengths=None):
+    """The hybrid trunk over the prompt: the SSD layers' conv windows and
+    states after each row's ``lengths[b]`` tokens, and one KV cache per
+    application of the shared block.  Returns (x, {"conv", "ssm", "k",
+    "v"})."""
+    every = cfg.hybrid_attn_every
+    shared = params["layers"]["shared_attn"]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    states = {"conv": [], "ssm": []}
+    mcs = []
+    for li, p_l in enumerate(_layer_params(params)):
+        out, st = ssd_lib.ssd_block_apply(
+            p_l["mixer"], cfg, _norm(cfg, p_l["norm"], x),
+            return_state=True, lengths=lengths)
+        x = x + out
+        for k in states:
+            states[k].append(st[k])
+        if (li + 1) % every == 0:
+            x, mc = _attn_block_prefill(shared, cfg, x, positions,
+                                        lengths=lengths)
+            mcs.append(mc)
+    out = {k: torch.stack(v) for k, v in states.items()}
+    for k in ("k", "v"):
+        out[k] = _seed_kv([mc[k] for mc in mcs], max_len)
+    return x, out
 
 
 # ===========================================================================

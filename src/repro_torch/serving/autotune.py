@@ -134,8 +134,8 @@ def sweep(arch: str, *, smoke: bool = False, device="cuda",
     if not lm.supports_prompt_packing(cfg):
         raise NotImplementedError(
             f"autotune sweeps the minRNN LMs' decode tier and prompt chunk; "
-            f"{arch} has neither (a K-only sweep for the attention and SSD "
-            f"trunks: ROADMAP.md queue 1, item 5)")
+            f"{arch} has neither (a K-only sweep for the attention, SSD "
+            f"and hybrid trunks: ROADMAP.md queue 1, item 5)")
     full = grid()
     pts = full[:max(1, int(points))] if points else full
     trace = make_trace(n_requests, BATCH, rate=RATE)

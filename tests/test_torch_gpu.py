@@ -1337,6 +1337,79 @@ def test_ssd_forms_match_sequential_on_gpu(form, dtype, cuda_device):
     assert _rel_err(st, state) < (1e-4 if dtype == torch.float32 else 5e-2)
 
 
+# ---------------------------------------------------------------------------
+# The hybrid (zamba2) and MoE (deepseek-moe-16b) trunks
+# ---------------------------------------------------------------------------
+
+def _row_vs_alone(cfg, dev, keys):
+    """Steps 8 rows and row 3 alone from seeded weights drawn on the card:
+    the logits and the cache leaves ``keys`` bit for bit."""
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=gen,
+                         dtype=torch.int32).to(dev)
+    c8 = lm.init_cache(cfg, 8, 64, dev)
+    c1 = lm.init_cache(cfg, 1, 64, dev)
+    for t in range(toks.shape[1]):
+        l8, c8 = lm.decode_step(params, cfg, toks[:, t], c8)
+        l1, c1 = lm.decode_step(params, cfg, toks[3:4, t], c1)
+        assert torch.equal(l8[3:4], l1), t
+    for k in keys:
+        assert torch.equal(c8[k][:, 3:4], c1[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_decode_row_is_independent_of_batch(dtype, cuda_device):
+    """zamba2-2.7b smoke on the card (rows stepped in groups of 8, the
+    shared block's KV rows of a padded group copied out and back): a row
+    decoded in a batch of 8 equals the row decoded alone, bit for bit."""
+    cfg = archs.smoke("zamba2-2.7b").replace(param_dtype=dtype,
+                                             compute_dtype=dtype)
+    _row_vs_alone(cfg, cuda_device, ("conv", "ssm", "k", "v"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_moe_decode_row_is_independent_of_batch(dtype,
+                                                         cuda_device):
+    """deepseek-moe-16b smoke at capacity factor 16 (no assignment drops):
+    every product of the step in tiles of 8 rows, the experts' too, so a
+    row decoded in a batch of 8 equals the row decoded alone, bit for
+    bit."""
+    cfg = archs.smoke("deepseek-moe-16b").replace(param_dtype=dtype,
+                                                  compute_dtype=dtype)
+    assert cfg.moe.capacity_factor == 16.0
+    _row_vs_alone(cfg, cuda_device, ("k", "v"))
+
+
+@pytest.mark.parametrize("n_tok,rows", [(8, 8), (512, None)])
+def test_moe_dispatch_is_bit_equal_on_the_card(n_tok, rows, cuda_device):
+    """One full-width deepseek-moe-16b MoE layer (64 experts of 1408,
+    top-6, 2 shared of 2816; bf16, drawn on the card) at the published
+    capacity factor 1.25: two calls on the same tokens are bit-equal
+    (the dispatch writes each kept (expert, position) once and drops
+    into one junk row), at a decode step's 8 tokens (tiles of 8) and at
+    512 tokens sharing one direction, which route alike and so overflow
+    their experts' 60 rows."""
+    from repro_torch.models import moe
+    cfg = archs.get("deepseek-moe-16b")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    layer = moe.moe_init(gen, cfg, dtype=torch.bfloat16)
+    layer = lm.tree_to(layer, cuda_device)
+    x = torch.randn((n_tok, 1, cfg.d_model), generator=gen,
+                    device=cuda_device)
+    x = (0.1 * x + torch.randn((cfg.d_model,), generator=gen,
+                               device=cuda_device)).to(torch.bfloat16)
+    with torch.no_grad(), moe.count_drops() as drops:
+        y1, a1 = moe.moe_apply(layer, cfg, x, rows=rows)
+        y2, a2 = moe.moe_apply(layer, cfg, x, rows=rows)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    assert bool(torch.isfinite(y1).all())
+    assert int(drops[0][0]) == int(drops[1][0])
+    if n_tok == 512:
+        assert int(drops[0][0]) > 0
+
+
 # the task heads' shapes (B, T, Dx, Dh): the Chomsky classifier (T 40),
 # ListOps (T 128) and the Decision-Transformer model (3 x horizon 64), d 64
 # with expansion 2, fp32 as the heads train

@@ -226,6 +226,6 @@ def test_prefill_cache_resume_raises_on_attention_trunk():
 
 
 def test_prefill_of_unported_trunks_names_the_roadmap():
-    cfg = pt_archs.smoke("mingru-lm").replace(block_kind="hybrid")
+    cfg = pt_archs.smoke("gemma-2b").replace(attn_kind="mla")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         pt_lm.prefill({}, cfg, torch.ones((1, 2), dtype=torch.int32), 8)
