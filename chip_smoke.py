@@ -4,7 +4,10 @@ full-width mingru-lm (and a short minlstm-lm run) through the port's
 ServingEngine on the block-fused and on the cell-fused tier, serves,
 prefills and trains full-width gemma-2b-mingru, gemma-2b (native GQA
 with RoPE and a KV cache), mamba2-370m (the SSD trunk), zamba2-2.7b (the
-hybrid) and deepseek-moe-16b (MoE; trained at 4 layers), trains the
+hybrid), deepseek-moe-16b (MoE; trained at 4 layers), starcoder2-15b
+(LayerNorm, biases), pixtral-12b (a patch prefix) and deepseek-67b (the
+last two at a cut depth), encodes, decodes and trains whisper-base (the
+encoder-decoder), trains the
 paper's task heads, holds the GRU / LSTM baselines against the CPU and
 times them against minGRU / minLSTM, prefills the minRNN LMs in parallel,
 serves with speculative decoding on both tiers, trains full-width
@@ -127,15 +130,17 @@ Phases (any failed check exits non-zero before the result line):
      loss finite and falling; outside the count, the first 3 losses
      against the same run on the plain versions, a checkpoint restore +
      resumed step 6, and ms per step over 5 repeats;
-  5c. mamba2-370m at full width (48 SSD layers, d 1024, 32 heads of 64,
-     d_state 128, chunk 256, tied vocab 50,280; bf16, drawn on the card;
-     no kernel of the repo, every count stays 0): 8 slots, 8 prompts of
+  5c. mamba2-370m at full width, cut to 12 of its 48 SSD layers for the
+     script's time (d 1024, 32 heads of 64, d_state 128, chunk 256, tied
+     vocab 50,280; bf16, drawn on the card; no kernel of the repo, every
+     count stays 0): 8 slots, 8 prompts of
      8 seeded ids, 32 new tokens, K 4, C 1 (streams equal
      ``generate_one``, a B-8 decode row equal to the B-1 row bit for bit,
      tok/s over 5 windows, peak memory, a device profile with its device
      events a layer a round); its prefill B 8 x T 1024, full and
      right-padded (lengths 1 to 1024): the logits, the ssm state and one
-     step after against 1024 ``decode_step`` calls, each padded row
+     step after against 1024 ``decode_step`` calls (and in an fp32
+     compute dtype against 128), each padded row
      against its own prefill, within 5e-2 of the largest; ms, prompt
      tokens/s, peak memory, a profile; one layer's SSD at that shape,
      the masked form against the compact one and ``ssd_sequential``, ms
@@ -150,9 +155,10 @@ Phases (any failed check exits non-zero before the result line):
      forward and BPTT gradients on the card against the CPU run, then one
      ungated Fig. 1 line (fwd + bwd ms at D 64, B 16, T 1024 and 4096
      against minGRU / minLSTM in parallel);
-  5d. zamba2-2.7b at full width (54 SSD layers, d 2560, 80 heads of 64,
-     d_state 64; one shared MHA block of 32 heads of 80 with GeGLU d_ff
-     10240 after every 6; vocab 32,000; bf16, drawn on the card; no
+  5d. zamba2-2.7b at full width, cut to 12 of its 54 SSD layers (2
+     groups) for the script's time (d 2560, 80 heads of 64, d_state 64;
+     one shared MHA block of 32 heads of 80 with GeGLU d_ff 10240 after
+     every 6; vocab 32,000; bf16, drawn on the card; no
      kernel of the repo, every count stays 0): 8 slots, 8 prompts of 8
      seeded ids, 32 new tokens, K 4, C 1, a KV cache of 1024 (streams
      equal ``generate_one``, a B-8 decode row equal to the B-1 row bit
@@ -163,9 +169,10 @@ Phases (any failed check exits non-zero before the result line):
      prefill; against 256 sequential steps, logits and one step after,
      within 5e-2 of the largest, and in an fp32 compute dtype at T 32
      within 1e-4); 3 training steps as gemma-2b's.  deepseek-moe-16b at
-     full width and depth (1 dense layer, 27 MoE layers of 64 experts of
-     1408, top-6, 2 shared of 2816; vocab 102,400; 32.75 GB of bf16
-     weights drawn on the card; no kernel of the repo): the same
+     full width (64 experts of 1408, top-6, 2 shared of 2816; vocab
+     102,400; drawn on the card; no kernel of the repo), its serving and
+     prefill cut to 10 of its 28 layers (1 dense + 9 MoE) for the
+     script's time: the same
      serving traffic at capacity factor 16 (streams equal
      ``generate_one``, a B-8 row equal to the B-1 row) and at the
      published 1.25 (the dropped share, tok/s over 5 windows, peak
@@ -176,6 +183,29 @@ Phases (any failed check exits non-zero before the result line):
      top-6 choices differ printed) and in an fp32 compute dtype at T 32
      (1e-4, no choice apart); then cut to 4 layers (1 dense + 3 MoE) 3
      training steps, the losses and ``moe_aux`` printed;
+  5e. the rest of the dense zoo at full width, bf16, drawn on the card,
+     no kernel of the repo (every count stays 0), a lap line each.
+     starcoder2-15b whole (40 layers, d 6144, GQA 48 / 4, LayerNorm,
+     biased attention and GELU MLP 24576, vocab 49,152; 31.92 GB): 8
+     prompts of 8 seeded ids, 32 new tokens, K 4, C 1, a KV cache of
+     1024 (streams equal ``generate_one``, a B-8 decode row equal to the
+     B-1 row bit for bit, tok/s over 3 windows, peak memory, a device
+     profile with its events a layer a round); its prefill B 8 x T 512
+     (ms, prompt tokens/s, peak memory, a profile; a prefill of 256
+     tokens and a step after against 256 sequential steps within 5e-2 of
+     the largest |logit|, and of 32 in an fp32 compute dtype within
+     1e-4); cut to 4 layers, 3 training steps at B 8 x T 512.
+     pixtral-12b cut to 10 of 40 layers (d 5120, GQA 32 / 8; 1024 patch
+     embeddings of dim 1024): the same serving traffic as text, its
+     prefill B 8 x (1024 patches + 512 tokens) against a prefill of the
+     patches and 384 tokens followed by 128 steps (5e-2), and cut to 4
+     layers 3 training steps with the patch prefix.  deepseek-67b cut to
+     12 of 95 layers (d 8192, GQA 64 / 8, SwiGLU 22016): serving and
+     prefill as starcoder2-15b's, the route at 128 steps.  whisper-base
+     whole (6 + 6 layers, d 512): encode B 8 x 1500 frames; prefill and
+     64 greedy decode steps against teacher-forced ``forward`` (bf16
+     5e-2, fp32 1e-4), decoded tok/s, a B-8 decode row equal to the B-1
+     row; 3 training steps at B 8 x 1500 frames x 448 tokens;
   6. the robustness layer, full width, bf16, weights seeded on the card.
      Faults on mingru-lm (block tier and cell tier) and minlstm-lm
      (block tier), K 4, C 8: an injector armed at rate 0 gives the plain
@@ -239,7 +269,7 @@ from repro_torch.kernels.scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.timing import (  # noqa: E402
     eager_ms, graph_ms, rotating)
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import encdec, lm  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
@@ -2316,9 +2346,10 @@ def timed_steps(cfg, params, batch, ocfg, n, aux=None):
     return losses, times
 
 
-def attn_train(cfg, params, plain_check):
+def attn_train(cfg, params, plain_check, extra=None):
     """3 AdamW steps of full-width ``cfg`` (bf16, remat "full") at B 8 x T
-    512 on one repeated corpus batch, from ``params`` (updated in place):
+    512 on one repeated corpus batch (``extra``: more batch entries, e.g.
+    a patch prefix), from ``params`` (updated in place):
     launches against the formula (gemma-2b-mingru: 2 fused-cell launches
     per layer a step, forward and recompute, all on the tensor-core body,
     and one reversed linear scan; native GQA: none), the loss finite and
@@ -2326,7 +2357,8 @@ def attn_train(cfg, params, plain_check):
     count, the same 3 steps on the plain versions of the kernels (losses
     within LOSS_RTOL_PLAIN) and a profiled step."""
     train_data, _ = lm_corpus.build_corpus()
-    batch = lm_corpus.lm_batch(train_data, 0, 0, AB, AT)
+    batch = dict(lm_corpus.lm_batch(train_data, 0, 0, AB, AT),
+                 **(extra or {}))
     ocfg = ATTN_OPT
     p_init = clone(params) if plain_check else None
     torch.cuda.synchronize()
@@ -2355,8 +2387,11 @@ def attn_train(cfg, params, plain_check):
     if aux is not None:
         check(all(math.isfinite(v) for v in aux), f"{cfg.name}: moe_aux "
               f"{aux}")
+    prefix = "" if not extra else \
+        " + a prefix of " + ", ".join(f"{k} {tuple(v.shape)}"
+                                      for k, v in extra.items())
     print(f"train {cfg.name} ({cfg.n_layers} layers, bf16, remat full, B "
-          f"{AB} x T {AT}, one repeated batch, 3 steps): losses "
+          f"{AB} x T {AT}{prefix}, one repeated batch, 3 steps): losses "
           + " ".join(f"{v:.4f}" for v in losses)
           + ("" if aux is None else "; moe_aux "
              + " ".join(f"{v:.4f}" for v in aux))
@@ -2574,10 +2609,12 @@ def attention_yardstick(cfg):
 # ---------------------------------------------------------------------------
 
 def mamba2_phase():
-    """mamba2-370m at full width (48 SSD layers, d 1024, 32 heads of 64,
-    d_state 128, one group, conv 4, chunk 256, tied vocab 50,280; bf16,
-    weights drawn on the card from a seed).  It runs no kernel of the repo
-    (the reference runs the SSD outside Pallas): every count stays 0.
+    """mamba2-370m at full width (d 1024, 32 heads of 64, d_state 128, one
+    group, conv 4, chunk 256, tied vocab 50,280; bf16, weights drawn on
+    the card from a seed), cut from 48 SSD layers to MAMBA2_LAYERS for the
+    script's time (its checks are host-bound, a layer at a time).  It
+    runs no kernel of the repo (the reference runs the SSD outside
+    Pallas): every count stays 0.
     Serving: 8 requests x 32 new tokens, K 4, C 1, streams equal
     ``generate_one``, a B-8 decode row equal to the B-1 row bit for bit,
     tok/s over 5 windows, a profiled window; then the prefill, one layer's
@@ -2591,6 +2628,9 @@ def mamba2_phase():
           and s.chunk == 256 and cfg.cdtype == torch.bfloat16
           and cfg.vocab_size == 50280 and cfg.remat == "full",
           f"unexpected mamba2-370m config {cfg}")
+    cfg = cfg.replace(n_layers=MAMBA2_LAYERS)
+    print(f"mamba2-370m cut to {cfg.n_layers} of 48 layers (the script's "
+          f"time)")
     check(lm.kernel_tier(cfg) == "unfused", "mamba2-370m not unfused")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3088,6 +3128,14 @@ def rnn_baselines_phase():
 HYBRID_ROUTE_T = 256
 MOE_ROUTE_T = 64
 FP32_ROUTE_T = 32
+# depths of the earlier big models in this script, cut at full width so
+# the whole run stays inside its time (their checks are host-bound, a
+# layer at a time): mamba2-370m 48 -> 12 layers, zamba2-2.7b 54 -> 12
+# (2 groups), deepseek-moe-16b's serving and prefill 28 -> 10 (1 dense +
+# 9 MoE)
+MAMBA2_LAYERS = 12
+ZAMBA2_LAYERS = 12
+DEEPSEEK_MOE_LAYERS = 10
 # deepseek-moe-16b's capacity factor for the checks that need no drops:
 # the reference's smoke configs' (at 8 tokens 12 rows an expert, at 1 one)
 NO_DROP_CF = 16.0
@@ -3207,10 +3255,11 @@ def profile_events(cfg, params, prompts, label):
 
 
 def zamba2_phase():
-    """zamba2-2.7b at full width (54 SSD layers, d 2560, 80 heads of 64,
-    d_state 64, chunk 256; one shared attention block, MHA 32 heads of 80
-    and a GeGLU MLP of 10240, after every 6 SSD layers; untied vocab
-    32,000; bf16, weights drawn on the card).  It runs no kernel of the
+    """zamba2-2.7b at full width (d 2560, 80 heads of 64, d_state 64, chunk
+    256; one shared attention block, MHA 32 heads of 80 and a GeGLU MLP of
+    10240, after every 6 SSD layers; untied vocab 32,000; bf16, weights
+    drawn on the card), cut from 54 SSD layers to ZAMBA2_LAYERS (2
+    groups) for the script's time.  It runs no kernel of the
     repo: every count stays 0.  Serving: 8 requests x 32 new tokens, K 4,
     C 1, a KV cache of 1024 (streams equal ``generate_one``, a B-8 decode
     row equal to the B-1 row, tok/s over 5 windows, a profile); then the
@@ -3224,6 +3273,10 @@ def zamba2_phase():
           and cfg.d_ff == 10240 and cfg.vocab_size == 32000
           and cfg.cdtype == torch.bfloat16 and cfg.remat == "full",
           f"unexpected zamba2-2.7b config {cfg}")
+    cfg = cfg.replace(n_layers=ZAMBA2_LAYERS)
+    print(f"zamba2-2.7b cut to {cfg.n_layers} of 54 layers, "
+          f"{cfg.n_layers // cfg.hybrid_attn_every} groups (the script's "
+          f"time)")
     check(lm.kernel_tier(cfg) == "unfused", "zamba2-2.7b not unfused")
     params = draw_params(cfg, "zamba2-2.7b")
     n_groups = cfg.n_layers // cfg.hybrid_attn_every
@@ -3345,9 +3398,10 @@ def dropped_share(drops):
 def deepseek_phase():
     """deepseek-moe-16b at full width (1 dense layer of d_ff 10944, 27 MoE
     layers of 64 experts of 1408, top-6, 2 shared experts of 2816, MHA 16
-    heads of 128, untied vocab 102,400; bf16, drawn on the card).  It
-    runs no kernel of the repo: every count stays 0.  Serving at full
-    depth: at capacity factor NO_DROP_CF streams equal ``generate_one``
+    heads of 128, untied vocab 102,400; bf16, drawn on the card), its
+    serving and prefill cut to DEEPSEEK_MOE_LAYERS (1 dense + 9 MoE) for
+    the script's time.  It runs no kernel of the repo: every count stays
+    0.  Serving: at capacity factor NO_DROP_CF streams equal ``generate_one``
     and a B-8 decode row the B-1 row; at the published 1.25 the dropped
     share, tok/s over 5 windows, a profile and one sampled superstep.
     Prefill B 8 x T 512 at 1.25 and the route check at NO_DROP_CF.  Then
@@ -3363,6 +3417,9 @@ def deepseek_phase():
           and cfg.head_dim_ == 128 and cfg.vocab_size == 102400
           and cfg.cdtype == torch.bfloat16,
           f"unexpected deepseek-moe-16b config {cfg}")
+    cfg = cfg.replace(n_layers=DEEPSEEK_MOE_LAYERS)
+    print(f"deepseek-moe-16b serving and prefill cut to {cfg.n_layers} of 28 "
+          f"layers (the script's time)")
     check(lm.kernel_tier(cfg) == "unfused", "deepseek-moe-16b not unfused")
     cfg16 = cfg.replace(moe=dataclasses.replace(m, capacity_factor=NO_DROP_CF))
     params = draw_params(cfg, "deepseek-moe-16b")
@@ -3462,6 +3519,363 @@ def deepseek_prefill(cfg, cfg16, params):
           f"{tol32}), {apart32} of {n_dec32} choices apart (limit 0)")
     device_groups(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
                   f"prefill deepseek-moe-16b B {AB} x T {AT}")
+
+
+# ---------------------------------------------------------------------------
+# 5e. the rest of the dense zoo: starcoder2-15b, pixtral-12b, deepseek-67b,
+# whisper-base
+# ---------------------------------------------------------------------------
+
+# depths at full width: pixtral-12b at 10 of 40 layers (4.07 B, 8.15 GB)
+# and deepseek-67b at 12 of 95 (9.98 B, 19.97 GB; whole it is 134.85 GB
+# of bf16, more than the card), for the script's time; every zoo model
+# trains cut to 4 layers (AdamW's fp32 moments: ~12 bytes a parameter on
+# top of the weights)
+PIXTRAL_LAYERS = 10
+DEEPSEEK67_LAYERS = 12
+ZOO_TRAIN_LAYERS = 4
+ZOO_RATE_WINDOWS = 3
+# the sequential routes the prefills are held against: starcoder2-15b
+# 256 steps, deepseek-67b 128, pixtral-12b a prefill of the patches and
+# the first PIXTRAL_SPLIT tokens, then the other AT - PIXTRAL_SPLIT as
+# steps
+STARCODER_ROUTE_T = 256
+DEEPSEEK67_ROUTE_T = 128
+PIXTRAL_SPLIT = 384
+# whisper-base: greedy decode steps after the prefill, and the training
+# batch's decoder tokens (whisper's 448-token context)
+WHISPER_STEPS = 64
+WHISPER_TRAIN_T = 448
+
+
+def zoo_kernel_counts_zero(label):
+    check(sum(serve_launches().values()) + sum(train_launches().values())
+          == 0, f"{label} launched kernels of the repo: serving "
+          f"{serve_launches()}, training {train_launches()}")
+
+
+def zoo_serving(cfg, params, label):
+    """8 prompts of 8 seeded ids, 32 new tokens, K 4, C 1, a KV cache of
+    GEMMA_MAX_LEN: streams equal ``generate_one``, a B-8 decode row the
+    B-1 row, tok/s over ZOO_RATE_WINDOWS windows, peak memory, and one
+    profiled window (device-busy share, device events a layer a
+    round)."""
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    served_against_generate_one(cfg, params, prompts, label)
+    rate_spread(cfg, params, reps=ZOO_RATE_WINDOWS, chunks=(1,),
+                prompts=prompts, max_len=GEMMA_MAX_LEN)
+    profile_events(cfg, params, prompts, label)
+
+
+def zoo_prefill(cfg, params, label, route_t):
+    """B 8 x T 512 into a KV cache of GEMMA_MAX_LEN: ms, prompt tokens/s,
+    peak memory, a profile; a prefill of the first ``route_t`` tokens and
+    one ``decode_step`` after it against ``route_t`` sequential steps
+    (bf16, PREFILL_REL), and of the first FP32_ROUTE_T in an fp32
+    compute dtype."""
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (AB, AT), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    lm.prefill(params, cfg, toks[:, :16], GEMMA_MAX_LEN)
+    fresh_card()
+    logits, cache = lm.prefill(params, cfg, toks, GEMMA_MAX_LEN)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(cache["k"].shape) == (cfg.n_layers, AB, GEMMA_MAX_LEN,
+                                      cfg.n_kv_heads, cfg.head_dim_)
+          and bool((cache["pos"] == AT).all())
+          and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          f"{label} prefill cache and logits")
+    del logits, cache
+    ms = synced_ms(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
+                   reps=3)
+    tol, tol32 = PREFILL_REL[torch.bfloat16], PREFILL_REL[torch.float32]
+    e_l, e_d, seq_ms = route_check(cfg, params, toks[:, :route_t],
+                                   GEMMA_MAX_LEN, label, tol)
+    f32 = cfg.replace(compute_dtype="float32")
+    e_l32, e_d32, _ = route_check(f32, params, toks[:, :FP32_ROUTE_T],
+                                  GEMMA_MAX_LEN, f"{label} fp32", tol32)
+    print(f"prefill {label} B {AB} x T {AT} (KV cache {GEMMA_MAX_LEN}): "
+          f"peak device memory {peak / 2**30:.2f} GiB; ms min {ms[0]:.2f} "
+          f"median {ms[1]:.2f} max {ms[-1]:.2f}, prompt tokens/s median "
+          f"{AB * AT / ms[1] * 1e3:.0f}; against the step path at T "
+          f"{route_t}: logits {e_l:.3g}, one decode_step after {e_d:.3g} "
+          f"(limit {tol}; the {route_t} steps {seq_ms:.1f} ms); in an fp32 "
+          f"compute dtype at T {FP32_ROUTE_T}: {e_l32:.3g}, {e_d32:.3g} "
+          f"(limit {tol32})")
+    device_groups(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
+                  f"prefill {label} B {AB} x T {AT}")
+
+
+def zoo_train(cfg, label, extra=None):
+    """``cfg`` cut to ZOO_TRAIN_LAYERS, drawn on the card: 3 AdamW steps
+    at B 8 x T 512 (``attn_train``; ``extra``: a patch prefix)."""
+    tcfg = cfg.replace(n_layers=ZOO_TRAIN_LAYERS)
+    tparams = draw_params(tcfg, f"{label} cut to {ZOO_TRAIN_LAYERS} layers "
+                          f"for training")
+    launches = attn_train(tcfg, tparams, plain_check=False, extra=extra)
+    del tparams
+    fresh_card()
+    return launches
+
+
+def starcoder2_phase():
+    """starcoder2-15b at full width and depth (40 layers, d 6144, GQA 48
+    heads on 4 KV heads of 128, RoPE theta 1e5, LayerNorm, biased
+    attention and a plain GELU MLP of 24576, untied vocab 49,152; 31.92
+    GB of bf16 weights drawn on the card).  No kernel of the repo: every
+    count stays 0.  Serving (``zoo_serving``), the prefill
+    (``zoo_prefill``, the route at STARCODER_ROUTE_T steps), then 3
+    training steps at ZOO_TRAIN_LAYERS layers (2.14 B)."""
+    cfg = archs.get("starcoder2-15b")
+    check(cfg.n_layers == 40 and cfg.d_model == 6144 and cfg.n_heads == 48
+          and cfg.n_kv_heads == 4 and cfg.head_dim_ == 128
+          and cfg.d_ff == 24576 and cfg.vocab_size == 49152
+          and cfg.norm == "layernorm" and cfg.attn_bias and cfg.mlp_bias
+          and not cfg.gated_mlp and not cfg.tie_embeddings
+          and cfg.rope_theta == 1e5 and cfg.cdtype == torch.bfloat16,
+          f"unexpected starcoder2-15b config {cfg}")
+    check(lm.kernel_tier(cfg) == "unfused", "starcoder2-15b not unfused")
+    reset_serve_launches()
+    reset_train_launches()
+    params = draw_params(cfg, "starcoder2-15b")
+    zoo_serving(cfg, params, "starcoder2-15b")
+    zoo_prefill(cfg, params, "starcoder2-15b", STARCODER_ROUTE_T)
+    zoo_kernel_counts_zero("starcoder2-15b")
+    del params
+    fresh_card()
+    launches = zoo_train(cfg, "starcoder2-15b")
+    zoo_kernel_counts_zero("starcoder2-15b")
+    return launches
+
+
+def pixtral_prefill(cfg, params, patches):
+    """B 8 x (the patch prefix + T 512) into a cache of 2048: ms, prompt
+    tokens/s, peak memory, a profile; its last logits against a prefill
+    of the patches and the first PIXTRAL_SPLIT tokens followed by AT -
+    PIXTRAL_SPLIT ``decode_step`` calls, within PREFILL_REL."""
+    n_pre, max_len, v = patches.shape[1], 2048, cfg.vocab_size
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, v, (AB, AT), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    lm.prefill(params, cfg, toks[:, :16], max_len, patch_embeds=patches)
+    fresh_card()
+    logits, cache = lm.prefill(params, cfg, toks, max_len,
+                               patch_embeds=patches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool((cache["pos"] == n_pre + AT).all())
+          and bool(torch.isfinite(logits[:, :v]).all()),
+          "pixtral-12b prefill with patches: cache and logits")
+    ms = synced_ms(lambda: lm.prefill(params, cfg, toks, max_len,
+                                      patch_embeds=patches), reps=3)
+    l_s, c_s = lm.prefill(params, cfg, toks[:, :PIXTRAL_SPLIT], max_len,
+                          patch_embeds=patches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PIXTRAL_SPLIT, AT):
+        l_s, c_s = lm.decode_step(params, cfg, toks[:, i], c_s)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    tol = PREFILL_REL[torch.bfloat16]
+    e = rel_err(logits[:, :v], l_s[:, :v], "pixtral-12b prefill with "
+                "patches vs a shorter prefill and steps", tol)
+    check(bool((c_s["pos"] == cache["pos"]).all()), "pixtral-12b pos")
+    del logits, cache, l_s, c_s
+    n = AB * (n_pre + AT)
+    print(f"prefill pixtral-12b B {AB} x ({n_pre} patches + {AT} tokens) "
+          f"(cache {max_len}): peak device memory {peak / 2**30:.2f} GiB; "
+          f"ms min {ms[0]:.2f} median {ms[1]:.2f} max {ms[-1]:.2f}, prompt "
+          f"tokens/s median {n / ms[1] * 1e3:.0f}; last logits against the "
+          f"patches + {PIXTRAL_SPLIT} tokens prefilled, then "
+          f"{AT - PIXTRAL_SPLIT} decode steps ({seq_ms:.1f} ms): {e:.3g} "
+          f"(limit {tol})")
+    device_groups(lambda: lm.prefill(params, cfg, toks, max_len,
+                                     patch_embeds=patches),
+                  f"prefill pixtral-12b B {AB} x ({n_pre} + {AT})")
+
+
+def pixtral_phase():
+    """pixtral-12b at full width (a mistral-nemo trunk: d 5120, GQA 32
+    heads on 8 KV heads of 128, RoPE theta 1e6, SwiGLU 14336, untied vocab
+    131,072; the stub patch frontend: 1024 patch embeddings of dim 1024,
+    ``patch_proj``), cut to PIXTRAL_LAYERS layers; bf16, drawn on the
+    card; no kernel of the repo.  Serving text (``zoo_serving``), the
+    prefill with the patch prefix (``pixtral_prefill``), then 3 training
+    steps at ZOO_TRAIN_LAYERS layers (2.44 B) with the patch prefix."""
+    cfg = archs.get("pixtral-12b")
+    check(cfg.n_layers == 40 and cfg.d_model == 5120 and cfg.n_heads == 32
+          and cfg.n_kv_heads == 8 and cfg.head_dim_ == 128
+          and cfg.d_ff == 14336 and cfg.vocab_size == 131072
+          and cfg.frontend == "patches" and cfg.n_frontend_tokens == 1024
+          and cfg.frontend_dim == 1024 and cfg.rope_theta == 1e6
+          and cfg.cdtype == torch.bfloat16,
+          f"unexpected pixtral-12b config {cfg}")
+    cfg = cfg.replace(n_layers=PIXTRAL_LAYERS)
+    check(lm.kernel_tier(cfg) == "unfused", "pixtral-12b not unfused")
+    reset_serve_launches()
+    reset_train_launches()
+    patches = torch.randn((AB, cfg.n_frontend_tokens, cfg.frontend_dim),
+                          generator=torch.Generator().manual_seed(4)
+                          ).to(torch.bfloat16).to(DEV)
+    params = draw_params(cfg, f"pixtral-12b cut to {cfg.n_layers} of 40 "
+                         f"layers")
+    zoo_serving(cfg, params, "pixtral-12b")
+    pixtral_prefill(cfg, params, patches)
+    zoo_kernel_counts_zero("pixtral-12b")
+    del params
+    fresh_card()
+    launches = zoo_train(cfg, "pixtral-12b", extra={"patch_embeds": patches})
+    zoo_kernel_counts_zero("pixtral-12b")
+    return launches
+
+
+def deepseek67_phase():
+    """deepseek-67b at full width (d 8192, GQA 64 heads on 8 KV heads of
+    128, SwiGLU 22016, RMSNorm, untied vocab 102,400), cut to
+    DEEPSEEK67_LAYERS layers; bf16, drawn on the card; no kernel of the
+    repo.  Serving (``zoo_serving``) and the prefill (``zoo_prefill``,
+    the route at DEEPSEEK67_ROUTE_T steps); no training on the card: it
+    runs the code of starcoder2-15b's and pixtral-12b's training, and
+    the CPU tests hold its loss and gradients."""
+    cfg = archs.get("deepseek-67b")
+    check(cfg.n_layers == 95 and cfg.d_model == 8192 and cfg.n_heads == 64
+          and cfg.n_kv_heads == 8 and cfg.head_dim_ == 128
+          and cfg.d_ff == 22016 and cfg.vocab_size == 102400
+          and cfg.norm == "rmsnorm" and cfg.gated_mlp
+          and cfg.cdtype == torch.bfloat16,
+          f"unexpected deepseek-67b config {cfg}")
+    cfg = cfg.replace(n_layers=DEEPSEEK67_LAYERS)
+    check(lm.kernel_tier(cfg) == "unfused", "deepseek-67b not unfused")
+    reset_serve_launches()
+    reset_train_launches()
+    params = draw_params(cfg, f"deepseek-67b cut to {cfg.n_layers} of 95 "
+                         f"layers")
+    zoo_serving(cfg, params, "deepseek-67b")
+    zoo_prefill(cfg, params, "deepseek-67b", DEEPSEEK67_ROUTE_T)
+    zoo_kernel_counts_zero("deepseek-67b")
+    del params
+    fresh_card()
+    return {}
+
+
+def whisper_decode(cfg, params, frames, n_steps):
+    """``encdec.prefill`` of ``frames``, then ``n_steps`` greedy
+    ``decode_step`` calls from seeded start tokens.  Returns the fed
+    tokens (B, n), the step logits (B, n, V) and the steps' seconds."""
+    bsz = frames.shape[0]
+    cache = encdec.prefill(params, cfg, frames, encdec.init_cache(
+        cfg, bsz, n_steps, DEV))
+    tok = torch.randint(0, cfg.vocab_size, (bsz,), generator=torch.
+                        Generator().manual_seed(5), dtype=torch.int32).to(DEV)
+    fed, logits = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        fed.append(tok)
+        out, cache = encdec.decode_step(params, cfg, tok, cache)
+        logits.append(out)
+        tok = out[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return torch.stack(fed, 1), torch.stack(logits, 1), \
+        time.perf_counter() - t0
+
+
+def whisper_phase():
+    """whisper-base whole (6 encoder and 6 decoder layers, d 512, 8 heads
+    of 64, LayerNorm, biased attention, GELU MLP 2048, learned positions,
+    tied vocab 51,865; the stub frame frontend: 1500 frames of dim 512;
+    bf16, drawn on the card; no kernel of the repo).  Encode B 8 x 1500
+    frames (ms); prefill, then WHISPER_STEPS greedy decode steps against
+    teacher-forced ``forward`` on the same tokens (bf16 and an fp32
+    compute dtype, PREFILL_REL), decoded tok/s; a decode row in a batch
+    of 8 equal to the row alone; 3 training steps at B 8 x 1500 frames x
+    WHISPER_TRAIN_T tokens (loss falling, ms a step, peak memory)."""
+    cfg = archs.get("whisper-base")
+    check(cfg.family == "encdec" and cfg.n_layers == 6
+          and cfg.n_encoder_layers == 6 and cfg.d_model == 512
+          and cfg.n_heads == 8 and cfg.head_dim_ == 64 and cfg.d_ff == 2048
+          and cfg.vocab_size == 51865 and cfg.norm == "layernorm"
+          and cfg.n_frontend_tokens == encdec.N_AUDIO_FRAMES
+          and cfg.frontend_dim == 512 and cfg.cdtype == torch.bfloat16,
+          f"unexpected whisper-base config {cfg}")
+    reset_serve_launches()
+    reset_train_launches()
+    fresh_card()
+    t0 = time.perf_counter()
+    params = encdec.init_params(torch.Generator(device=DEV).manual_seed(0),
+                                cfg, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in leaves(params))
+    print(f"whisper-base: {n_params} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f}s")
+    v, t_enc = cfg.vocab_size, cfg.n_frontend_tokens
+    frames = torch.randn((AB, t_enc, cfg.frontend_dim), generator=torch.
+                         Generator().manual_seed(3)).to(torch.bfloat16).to(DEV)
+    with torch.no_grad():
+        enc = encdec.encode(params, cfg, frames)
+        check(tuple(enc.shape) == (AB, t_enc, cfg.d_model)
+              and bool(torch.isfinite(enc).all()), "whisper-base encode")
+        enc_ms = synced_ms(lambda: encdec.encode(params, cfg, frames),
+                           reps=3)
+    del enc
+    tol, tol32 = PREFILL_REL[torch.bfloat16], PREFILL_REL[torch.float32]
+    errs = {}
+    for c in (cfg, cfg.replace(compute_dtype="float32")):
+        fed, step_logits, secs = whisper_decode(c, params, frames,
+                                                WHISPER_STEPS)
+        with torch.no_grad():
+            teacher = encdec.forward(params, c, frames, fed)
+        errs[c.compute_dtype] = rel_err(
+            step_logits[..., :v], teacher[..., :v], f"whisper-base "
+            f"{c.compute_dtype} decode steps vs teacher-forced forward",
+            tol if c.cdtype == torch.bfloat16 else tol32)
+        if c.cdtype == torch.bfloat16:
+            rate = AB * WHISPER_STEPS / secs
+            step_ms = secs / WHISPER_STEPS * 1e3
+        del step_logits, teacher
+    cache = encdec.prefill(params, cfg, frames,
+                           encdec.init_cache(cfg, AB, 64, DEV))
+    alone = {k: a[3:4].clone() if k == "pos" else a[:, 3:4].clone()
+             for k, a in cache.items()}
+    toks = torch.randint(0, v, (AB, 6), generator=torch.Generator().
+                         manual_seed(7), dtype=torch.int32).to(DEV)
+    for t in range(toks.shape[1]):
+        l8, cache = encdec.decode_step(params, cfg, toks[:, t], cache)
+        l1, alone = encdec.decode_step(params, cfg, toks[3:4, t], alone)
+        check(torch.equal(l8[3:4], l1), f"whisper-base: a B-8 decode row's "
+              f"logits != the B-1 row's at step {t}")
+    for k in ("k", "v"):
+        check(torch.equal(cache[k][:, 3:4], alone[k]),
+              f"whisper-base: a B-8 decode row's {k} != the B-1 row's")
+    del cache, alone
+    print(f"whisper-base: encode B {AB} x {t_enc} frames ms min "
+          f"{enc_ms[0]:.2f} median {enc_ms[1]:.2f} max {enc_ms[-1]:.2f}; "
+          f"prefill + {WHISPER_STEPS} greedy decode steps against "
+          f"teacher-forced forward: bf16 {errs['bfloat16']:.3g} (limit "
+          f"{tol}), fp32 {errs['float32']:.3g} (limit {tol32}); decoded "
+          f"tok/s {rate:.1f} (B {AB}, {step_ms:.2f} ms a step); a B-8 "
+          f"decode row equals the B-1 row bit for bit (logits, k, v; 6 "
+          f"steps)")
+    train_data, _ = lm_corpus.build_corpus()
+    batch = dict(lm_corpus.lm_batch(train_data, 0, 0, AB, WHISPER_TRAIN_T),
+                 frames=frames)
+    fresh_card()
+    losses, times = timed_steps(cfg, params, batch, ATTN_OPT, 3)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"whisper-base: {losses}")
+    check(losses[-1] < losses[0], f"whisper-base: loss did not fall: "
+          f"{losses}")
+    print(f"train whisper-base (bf16, remat full, B {AB} x {t_enc} frames x "
+          f"{WHISPER_TRAIN_T} tokens, one repeated batch, 3 steps): losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; ms per step "
+          + " ".join(f"{x:.2f}" for x in times)
+          + f"; peak device memory {peak / 2**30:.2f} GiB")
+    zoo_kernel_counts_zero("whisper-base")
+    del params
+    fresh_card()
+    return {}
 
 
 # ---------------------------------------------------------------------------
@@ -4023,6 +4437,14 @@ def main():
     lap("zamba2-2.7b")
     merge(launches, deepseek_phase())
     lap("deepseek-moe-16b")
+    merge(launches, starcoder2_phase())
+    lap("starcoder2-15b")
+    merge(launches, pixtral_phase())
+    lap("pixtral-12b")
+    merge(launches, deepseek67_phase())
+    lap("deepseek-67b")
+    merge(launches, whisper_phase())
+    lap("whisper-base")
     rgen = torch.Generator().manual_seed(21)
     robust, (cfg, params) = robustness_phase(rgen)
     merge(launches, robust)

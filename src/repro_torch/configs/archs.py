@@ -2,11 +2,15 @@
 gemma-2b and gemma-7b (native GQA attention with RoPE), gemma-2b with
 the paper's minGRU as its sequence mixer, mamba2-370m (the SSD trunk,
 the paper's recurrent rival in Fig. 2), zamba2-2.7b (Mamba-2 layers
-with one shared attention block) and deepseek-moe-16b (a dense layer,
-then routed top-6 experts plus shared ones).
+with one shared attention block), deepseek-moe-16b (a dense layer,
+then routed top-6 experts plus shared ones), starcoder2-15b (LayerNorm,
+biased attention and a plain GELU MLP), deepseek-67b (llama-style),
+pixtral-12b (a mistral-nemo trunk behind a stub patch frontend) and
+whisper-base (the encoder-decoder, ``models/encdec.py``, behind a stub
+frame frontend).
 
-Copied from ``repro.configs.archs`` (full and smoke entries); the other
-architectures of the reference zoo are not ported yet.
+Copied from ``repro.configs.archs`` (full and smoke entries); the
+reference zoo's deepseek-v3-671b (MLA) is not ported yet.
 """
 
 from __future__ import annotations
@@ -127,6 +131,74 @@ _register(
         mlp_activation="gelu", rope=True, hybrid_attn_every=2,
         ssm=SSMConfig(d_state=16, expand=2, head_dim=16, n_groups=1,
                       conv_kernel=4, chunk=8), **_SMOKE_NUM))
+
+# starcoder2-15b [arXiv:2402.19173; hf]: GQA, RoPE, LayerNorm, plain GELU
+# MLP, biases on attention and MLP
+_register(
+    ModelConfig(
+        name="starcoder2-15b", block_kind="attention",
+        n_layers=40, d_model=6144, n_heads=48, n_kv_heads=4, head_dim=128,
+        d_ff=24576, vocab_size=49152, norm="layernorm", gated_mlp=False,
+        mlp_activation="gelu", attn_bias=True, mlp_bias=True,
+        rope=True, rope_theta=1e5, tie_embeddings=False, **_BIG),
+    ModelConfig(
+        name="starcoder2-15b", block_kind="attention",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512, norm="layernorm", gated_mlp=False,
+        mlp_activation="gelu", attn_bias=True, mlp_bias=True,
+        rope=True, rope_theta=1e5, **_SMOKE_NUM))
+
+# deepseek-67b [arXiv:2401.02954; hf]: llama-style, GQA kv 8, SwiGLU
+_register(
+    ModelConfig(
+        name="deepseek-67b", block_kind="attention",
+        n_layers=95, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+        d_ff=22016, vocab_size=102400, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True, **_BIG),
+    ModelConfig(
+        name="deepseek-67b", block_kind="attention",
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=160, vocab_size=512, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True, **_SMOKE_NUM))
+
+# pixtral-12b [hf:mistralai/Pixtral-12B-2409]: the pixtral-ViT frontend as
+# a stub (precomputed patch embeddings, projected) before a mistral-nemo
+# trunk
+_register(
+    ModelConfig(
+        name="pixtral-12b", block_kind="attention",
+        n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=14336, vocab_size=131072, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True, rope_theta=1e6,
+        frontend="patches", n_frontend_tokens=1024, frontend_dim=1024,
+        **_BIG),
+    ModelConfig(
+        name="pixtral-12b", block_kind="attention",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True, rope_theta=1e6,
+        frontend="patches", n_frontend_tokens=8, frontend_dim=32,
+        **_SMOKE_NUM))
+
+# whisper-base [arXiv:2212.04356]: encoder-decoder behind a stub frame
+# frontend (precomputed frame embeddings, projected)
+_register(
+    ModelConfig(
+        name="whisper-base", family="encdec", block_kind="attention",
+        n_layers=6, n_encoder_layers=6, d_model=512, n_heads=8, n_kv_heads=8,
+        head_dim=64, d_ff=2048, vocab_size=51865, norm="layernorm",
+        gated_mlp=False, mlp_activation="gelu", attn_bias=True,
+        mlp_bias=True, rope=False, frontend="frames",
+        n_frontend_tokens=1500, frontend_dim=512, max_seq_len=32768,
+        **_BIG),
+    ModelConfig(
+        name="whisper-base", family="encdec", block_kind="attention",
+        n_layers=2, n_encoder_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+        head_dim=16, d_ff=128, vocab_size=512, norm="layernorm",
+        gated_mlp=False, mlp_activation="gelu", attn_bias=True,
+        mlp_bias=True, rope=False, frontend="frames",
+        n_frontend_tokens=16, frontend_dim=32, max_seq_len=128,
+        **_SMOKE_NUM))
 
 
 def get(name: str) -> ModelConfig:

@@ -4,8 +4,10 @@ A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
 dtype table.  Only the fields the port reads are kept (the minRNN LMs;
 the attention trunk: native GQA with RoPE, dense or with a leading dense
 segment and MoE layers, or with its mixer swapped for a minRNN cell by
-``seq_mixer``; the SSD trunk of mamba2; and the hybrid SSD trunk with
-one shared attention block of zamba2); the field names, defaults and
+``seq_mixer``, with RMSNorm or LayerNorm, biased or not, and a stub
+patch frontend; the SSD trunk of mamba2; the hybrid SSD trunk with one
+shared attention block of zamba2; and the encoder-decoder of whisper
+with its stub frame frontend); the field names, defaults and
 properties match the reference so a config built here describes the
 same model as its JAX twin.
 """
@@ -66,6 +68,7 @@ class MinRNNConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
+    family: str = "lm"             # lm | encdec (models/encdec.py)
     block_kind: str = "minrnn"     # minrnn | attention | ssm | hybrid
     seq_mixer: str = "native"      # native | mingru | minlstm
     n_layers: int = 2
@@ -75,7 +78,8 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
     d_ff: int = 512
     vocab_size: int = 256
-    norm: str = "rmsnorm"
+    max_seq_len: int = 8192        # the encoder-decoder's dec_pos rows
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
     norm_zero_centered: bool = False   # gemma (1 + scale) RMSNorm
     mlp_activation: str = "silu"   # silu | gelu for the (gated) MLP
     gated_mlp: bool = True         # SwiGLU / GeGLU vs plain MLP
@@ -90,6 +94,11 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     minrnn: Optional[MinRNNConfig] = None
     hybrid_attn_every: int = 0     # zamba2: shared attn block period
+    # modality frontend stubs: precomputed embeddings projected to d_model
+    frontend: Optional[str] = None  # "patches" (vlm) | "frames" (audio)
+    n_frontend_tokens: int = 0
+    frontend_dim: int = 0           # raw embedding dim of the stub inputs
+    n_encoder_layers: int = 0       # encoder-decoder
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     # "auto" resolves to the fused kernels (core.scan.resolve_strategy);

@@ -76,18 +76,36 @@ def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6,
     return (y * scale).to(dtype)
 
 
+def layernorm_init(dim: int, dtype=torch.float32):
+    return {"scale": torch.ones((dim,), dtype=dtype),
+            "bias": torch.zeros((dim,), dtype=dtype)}
+
+
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's arithmetic: fp32 mean and population variance,
+    ``rsqrt(var + eps)``, scale and bias in fp32, one cast back."""
+    dtype = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dtype)
+
+
 def norm_init(kind: str, dim: int, dtype=torch.float32):
     if kind == "rmsnorm":
         return rmsnorm_init(dim, dtype)
-    raise NotImplementedError(
-        f"norm {kind!r} is not ported (ROADMAP.md queue 1, item 5)")
+    if kind == "layernorm":
+        return layernorm_init(dim, dtype)
+    raise ValueError(kind)
 
 
 def norm_apply(kind: str, p, x: torch.Tensor, **kw) -> torch.Tensor:
     if kind == "rmsnorm":
         return rmsnorm_apply(p, x, **kw)
-    raise NotImplementedError(
-        f"norm {kind!r} is not ported (ROADMAP.md queue 1, item 5)")
+    if kind == "layernorm":
+        return layernorm_apply(p, x, **kw)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,10 @@ of the step in tiles of ``attention.DECODE_ROWS`` rows (the MoE layer
 routes all B tokens together, as the reference's does); the SSD and
 hybrid trunks step in groups of ``attention.DECODE_ROWS`` rows
 (``_ssm_decode``).
+A ``frontend="patches"`` config (pixtral-12b) prepends projected stub
+patch embeddings to the token embeddings (``patch_embeds`` of
+``forward``, ``loss_fn``'s batch and ``prefill``); the encoder-decoder
+(``family="encdec"``, whisper-base) is ``models/encdec.py``.
 Whoever owns the params binds them once (``bind_layers``) and passes the
 binding as ``layers=``; without it, each call binds its own.  The prefill
 and decode functions run under ``torch.no_grad()``: they build no graph
@@ -94,8 +98,13 @@ def _check_cfg(cfg):
     """The minRNN trunk; the attention trunk with native GQA (dense, or a
     dense prefix and MoE layers) or a minRNN mixer; the SSD trunk; the
     hybrid SSD trunk with a shared GQA block.  MLA, MoE under a minRNN
-    mixer and the hybrid with another shared mixer are not ported (nor
-    layernorm, which ``nn.norm_init`` refuses)."""
+    mixer and the hybrid with another shared mixer are not ported; the
+    encoder-decoder family is another module."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder (family 'encdec'): its "
+            f"model is models/encdec.py (training.train_step.model_for "
+            f"picks it)")
     if cfg.block_kind == "minrnn" or _attn_gqa(cfg) or _ssm(cfg) \
             or (_attn_minrnn(cfg) and cfg.moe is None):
         return
@@ -195,6 +204,10 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = nn.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                           use_bias=False, dtype=dtype)
+    if cfg.frontend == "patches":
+        params["patch_proj"] = nn.dense_init(gen, cfg.frontend_dim,
+                                             cfg.d_model, use_bias=False,
+                                             dtype=dtype)
     if cfg.block_kind == "attention":
         # a leading dense segment before the MoE layers (deepseek)
         n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
@@ -336,19 +349,31 @@ def _layer_params(params) -> List[dict]:
     for key in ("dense_blocks", "blocks"):
         blocks = params["layers"].get(key)
         if blocks is not None:
-            n = leaves(blocks)[0].shape[0]
-            out += [tree_map(lambda a, i=i: a[i], blocks) for i in range(n)]
+            out += unstack(blocks)
     return out
+
+
+def unstack(stack) -> List[dict]:
+    """Views of a stacked layer tree (a leading layer axis), one dict per
+    layer."""
+    n = leaves(stack)[0].shape[0]
+    return [tree_map(lambda a, i=i: a[i], stack) for i in range(n)]
 
 
 # ===========================================================================
 # Embedding / logits
 # ===========================================================================
 
-def _embed(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg, tokens: torch.Tensor,
+           patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings; with a patch frontend and ``patch_embeds`` (B, P,
+    frontend_dim), the projected patches first: (B, P + S, d)."""
     x = params["embed"]["table"].to(cfg.cdtype)[tokens.long()]
     if cfg.embedding_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
+    if cfg.frontend == "patches" and patch_embeds is not None:
+        pe = nn.dense_apply(params["patch_proj"], patch_embeds, cfg.cdtype)
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
     return x
 
 
@@ -359,12 +384,17 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
         logits = nn.dense_apply(params["unembed"], x, cfg.cdtype)
     if cfg.logits_softcap:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
-    if cfg.padded_vocab != cfg.vocab_size:     # mask the pad columns
-        col = torch.arange(cfg.padded_vocab, device=logits.device)
-        logits = torch.where(col < cfg.vocab_size, logits,
-                             torch.tensor(-1e30, dtype=logits.dtype,
-                                          device=logits.device))
-    return logits
+    return mask_pad_vocab(cfg, logits)
+
+
+def mask_pad_vocab(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """The pad columns past ``cfg.vocab_size`` set to -1e30."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    col = torch.arange(cfg.padded_vocab, device=logits.device)
+    return torch.where(col < cfg.vocab_size, logits,
+                       torch.tensor(-1e30, dtype=logits.dtype,
+                                    device=logits.device))
 
 
 def _final(params, cfg, x):
@@ -511,22 +541,27 @@ def _hybrid_apply(params, cfg, x):
     return x
 
 
-def forward(params, cfg, tokens: torch.Tensor):
-    """tokens: (B, S) -> (logits (B, S, V) in the compute dtype, aux
+def forward(params, cfg, tokens: torch.Tensor, *,
+            patch_embeds: Optional[torch.Tensor] = None):
+    """tokens: (B, S) -> (logits (B, S*, V) in the compute dtype, aux
     loss): the MoE layers' router loss summed over the layers, fp32
-    (zero without MoE)."""
-    x = _embed(params, cfg, tokens)
+    (zero without MoE).  S* counts a patch prefix (``patch_embeds``)."""
+    x = _embed(params, cfg, tokens, patch_embeds)
     x, aux = _trunk_apply(params, cfg, x)
     return _final(params, cfg, x), aux
 
 
 def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
-    """batch: tokens (B, S), labels (B, S) with -1 = ignore ->
-    (loss, metrics): the token-mean NLL in fp32, plus ``cfg.z_loss`` x
-    the mean squared logsumexp and, with MoE, ``router_aux_weight`` x the
-    router loss (``moe_aux``).  Metrics are detached."""
+    """batch: tokens (B, S), labels (B, S) with -1 = ignore, optional
+    patch_embeds (whose prefix's logits are dropped) -> (loss, metrics):
+    the token-mean NLL in fp32, plus ``cfg.z_loss`` x the mean squared
+    logsumexp and, with MoE, ``router_aux_weight`` x the router loss
+    (``moe_aux``).  Metrics are detached."""
     tokens, labels = batch["tokens"], batch["labels"]
-    logits, aux = forward(params, cfg, tokens)
+    logits, aux = forward(params, cfg, tokens,
+                          patch_embeds=batch.get("patch_embeds"))
+    if logits.shape[1] != labels.shape[1]:      # a frontend prefix
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
     logits = logits.float()
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0).long()
@@ -878,6 +913,7 @@ def _seed_kv(full: List[torch.Tensor], max_len: int) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
+            patch_embeds: Optional[torch.Tensor] = None,
             lengths: Optional[torch.Tensor] = None,
             cache: Optional[Dict[str, Any]] = None):
     """Parallel prompt processing: tokens (B, T) -> (last-token logits
@@ -895,13 +931,19 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
     after; a padded row's positions past its length hold the pad's, which
     decode overwrites before it can attend to them.  An MoE layer routes
     the pad tokens too, as the reference's: where assignments drop, a
-    padded row need not equal its own prefill."""
+    padded row need not equal its own prefill.  ``patch_embeds``: a patch
+    prefix before the tokens, its keys and values seeded into the cache
+    at positions [0, P); ``lengths`` is refused with a patch frontend, as
+    in the reference."""
     _check_cfg(cfg)
     if cache is not None and not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"chunked prefill resume not supported for block_kind="
             f"{cfg.block_kind!r}")
-    x = _embed(params, cfg, tokens)
+    if lengths is not None and cfg.frontend == "patches":
+        raise NotImplementedError("variable-length prefill with a patch "
+                                  "frontend prefix is not supported")
+    x = _embed(params, cfg, tokens, patch_embeds)
     bsz, t = x.shape[0], x.shape[1]
     if (_attn_gqa(cfg) or _hybrid(cfg)) and t > max_len:
         raise ValueError(f"prompt of {t} tokens exceeds max_len {max_len}")

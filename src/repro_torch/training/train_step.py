@@ -15,14 +15,22 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.tree import leaves, unflatten
 
 
+def model_for(cfg):
+    """The model module of ``cfg``: ``encdec`` for an encoder-decoder,
+    else ``lm``."""
+    return encdec if cfg.family == "encdec" else lm
+
+
 def make_loss_fn(cfg):
+    model = model_for(cfg)
+
     def loss(params, batch):
-        return lm.loss_fn(params, cfg, batch)
+        return model.loss_fn(params, cfg, batch)
 
     return loss
 
@@ -40,7 +48,11 @@ def value_and_grad(loss_fn, params, batch):
         if not p.requires_grad:
             p.requires_grad_(True)
     loss, metrics = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, flat)
+    # a leaf the loss does not read (pixtral-12b's patch projection on a
+    # text batch) gets zeros, as ``jax.grad`` gives it
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
     return (loss.detach(), metrics), unflatten(params, grads)
 
 

@@ -1338,7 +1338,8 @@ def test_ssd_forms_match_sequential_on_gpu(form, dtype, cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# The hybrid (zamba2) and MoE (deepseek-moe-16b) trunks
+# The hybrid (zamba2), MoE (deepseek-moe-16b), LayerNorm (starcoder2-15b)
+# and encoder-decoder (whisper-base) trunks
 # ---------------------------------------------------------------------------
 
 def _row_vs_alone(cfg, dev, keys):
@@ -1380,6 +1381,44 @@ def test_deepseek_moe_decode_row_is_independent_of_batch(dtype,
                                                   compute_dtype=dtype)
     assert cfg.moe.capacity_factor == 16.0
     _row_vs_alone(cfg, cuda_device, ("k", "v"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_starcoder2_decode_row_is_independent_of_batch(dtype, cuda_device):
+    """starcoder2-15b smoke on the card (LayerNorm, biased projections and
+    MLP, every product of the step in tiles of 8 rows): a row decoded in
+    a batch of 8 equals the row decoded alone, bit for bit."""
+    cfg = archs.smoke("starcoder2-15b").replace(param_dtype=dtype,
+                                                compute_dtype=dtype)
+    _row_vs_alone(cfg, cuda_device, ("k", "v"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_decode_row_is_independent_of_batch(dtype, cuda_device):
+    """whisper-base smoke on the card: from one B-8 prefill, row 3 decoded
+    in the batch equals row 3 decoded alone with its own cross k / v, bit
+    for bit (logits and the self-attention cache)."""
+    from repro_torch.models import encdec
+    cfg = archs.smoke("whisper-base").replace(param_dtype=dtype,
+                                              compute_dtype=dtype)
+    params = encdec.init_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg,
+        device=cuda_device)
+    gen = torch.Generator().manual_seed(7)
+    frames = torch.randn((8, cfg.n_frontend_tokens, cfg.frontend_dim),
+                         generator=gen).to(cuda_device)
+    c8 = encdec.prefill(params, cfg, frames,
+                        encdec.init_cache(cfg, 8, 64, cuda_device))
+    c1 = {k: v[3:4].clone() if k == "pos" else v[:, 3:4].clone()
+          for k, v in c8.items()}
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    for t in range(toks.shape[1]):
+        l8, c8 = encdec.decode_step(params, cfg, toks[:, t], c8)
+        l1, c1 = encdec.decode_step(params, cfg, toks[3:4, t], c1)
+        assert torch.equal(l8[3:4], l1), t
+    for k in ("k", "v"):
+        assert torch.equal(c8[k][:, 3:4], c1[k]), k
 
 
 @pytest.mark.parametrize("n_tok,rows", [(8, 8), (512, None)])

@@ -37,6 +37,7 @@ def _need_no_cuda():
 
 def test_importing_the_port_loads_no_jax():
     assert {"repro_torch.serving.draft", "repro_torch.models.lm",
+            "repro_torch.models.encdec",
             "repro_torch.serving.engine", "repro_torch.serving.tuning",
             "repro_torch.serving.faults", "repro_torch.serving.recovery",
             "repro_torch.serving.autotune"} <= set(MODULES)
