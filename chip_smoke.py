@@ -5,9 +5,10 @@ ServingEngine on the block-fused and on the cell-fused tier, serves,
 prefills and trains full-width gemma-2b-mingru, gemma-2b (native GQA
 with RoPE and a KV cache), mamba2-370m (the SSD trunk), zamba2-2.7b (the
 hybrid), deepseek-moe-16b (MoE; trained at 4 layers), starcoder2-15b
-(LayerNorm, biases), pixtral-12b (a patch prefix) and deepseek-67b (the
-last two at a cut depth), encodes, decodes and trains whisper-base (the
-encoder-decoder), trains the
+(LayerNorm, biases), pixtral-12b (a patch prefix), deepseek-67b and
+deepseek-v3-671b (MLA with 256 routed experts; all at cut depths),
+encodes, decodes and trains whisper-base (the encoder-decoder),
+compares remat "dots" with "full" and "none", trains the
 paper's task heads, holds the GRU / LSTM baselines against the CPU and
 times them against minGRU / minLSTM, prefills the minRNN LMs in parallel,
 serves with speculative decoding on both tiers, trains full-width
@@ -171,7 +172,7 @@ Phases (any failed check exits non-zero before the result line):
      within 1e-4); 3 training steps as gemma-2b's.  deepseek-moe-16b at
      full width (64 experts of 1408, top-6, 2 shared of 2816; vocab
      102,400; drawn on the card; no kernel of the repo), its serving and
-     prefill cut to 10 of its 28 layers (1 dense + 9 MoE) for the
+     prefill cut to 6 of its 28 layers (1 dense + 5 MoE) for the
      script's time: the same
      serving traffic at capacity factor 16 (streams equal
      ``generate_one``, a B-8 row equal to the B-1 row) and at the
@@ -185,14 +186,14 @@ Phases (any failed check exits non-zero before the result line):
      training steps, the losses and ``moe_aux`` printed;
   5e. the rest of the dense zoo at full width, bf16, drawn on the card,
      no kernel of the repo (every count stays 0), a lap line each.
-     starcoder2-15b whole (40 layers, d 6144, GQA 48 / 4, LayerNorm,
-     biased attention and GELU MLP 24576, vocab 49,152; 31.92 GB): 8
+     starcoder2-15b cut to 16 of 40 layers (d 6144, GQA 48 / 4, LayerNorm,
+     biased attention and GELU MLP 24576, vocab 49,152): 8
      prompts of 8 seeded ids, 32 new tokens, K 4, C 1, a KV cache of
      1024 (streams equal ``generate_one``, a B-8 decode row equal to the
      B-1 row bit for bit, tok/s over 3 windows, peak memory, a device
      profile with its events a layer a round); its prefill B 8 x T 512
-     (ms, prompt tokens/s, peak memory, a profile; a prefill of 256
-     tokens and a step after against 256 sequential steps within 5e-2 of
+     (ms, prompt tokens/s, peak memory, a profile; a prefill of 128
+     tokens and a step after against 128 sequential steps within 5e-2 of
      the largest |logit|, and of 32 in an fp32 compute dtype within
      1e-4); cut to 4 layers, 3 training steps at B 8 x T 512.
      pixtral-12b cut to 10 of 40 layers (d 5120, GQA 32 / 8; 1024 patch
@@ -200,12 +201,27 @@ Phases (any failed check exits non-zero before the result line):
      prefill B 8 x (1024 patches + 512 tokens) against a prefill of the
      patches and 384 tokens followed by 128 steps (5e-2), and cut to 4
      layers 3 training steps with the patch prefix.  deepseek-67b cut to
-     12 of 95 layers (d 8192, GQA 64 / 8, SwiGLU 22016): serving and
+     8 of 95 layers (d 8192, GQA 64 / 8, SwiGLU 22016): serving and
      prefill as starcoder2-15b's, the route at 128 steps.  whisper-base
      whole (6 + 6 layers, d 512): encode B 8 x 1500 frames; prefill and
      64 greedy decode steps against teacher-forced ``forward`` (bf16
      5e-2, fp32 1e-4), decoded tok/s, a B-8 decode row equal to the B-1
      row; 3 training steps at B 8 x 1500 frames x 448 tokens;
+  5f. deepseek-v3-671b (MLA: 128 heads, q / kv LoRA 1536 / 512, rope dim
+     64; 256 experts of 2048, top-8, a shared one; vocab 129,280) at full
+     width, bf16, drawn on the card a layer at a time, no kernel of the
+     repo (every count stays 0), cut to 3 dense + 2 MoE layers (53.2 GB):
+     the serving traffic with a latent cache of 1024 at capacity factor
+     32 (streams equal ``generate_one``, a B-8 decode row equal to the B-1
+     row bit for bit in the logits, ckv and krope) and at the published
+     1.25 (the dropped share, tok/s over 3 windows, peak memory, a
+     profile); its prefill B 8 x T 512 at 1.25 (the dropped share, ms,
+     prompt tokens/s, peak memory, a profile) and, at 32, against 128
+     steps held to the prefill's routing (5e-2); fp32 weights at 1 dense +
+     1 MoE layer against 32 steps (1e-4, no top-8 choice apart); 3
+     training steps on the 3 dense layers (an empty MoE stack), then one
+     loss and its gradients under remat full, dots and none (the same
+     loss, gradients within the bf16 limit of full's, peaks ordered);
   6. the robustness layer, full width, bf16, weights seeded on the card.
      Faults on mingru-lm (block tier and cell tier) and minlstm-lm
      (block tier), K 4, C 8: an injector armed at rate 0 gives the plain
@@ -3131,11 +3147,11 @@ FP32_ROUTE_T = 32
 # depths of the earlier big models in this script, cut at full width so
 # the whole run stays inside its time (their checks are host-bound, a
 # layer at a time): mamba2-370m 48 -> 12 layers, zamba2-2.7b 54 -> 12
-# (2 groups), deepseek-moe-16b's serving and prefill 28 -> 10 (1 dense +
-# 9 MoE)
+# (2 groups), deepseek-moe-16b's serving and prefill 28 -> 6 (1 dense +
+# 5 MoE)
 MAMBA2_LAYERS = 12
 ZAMBA2_LAYERS = 12
-DEEPSEEK_MOE_LAYERS = 10
+DEEPSEEK_MOE_LAYERS = 6
 # deepseek-moe-16b's capacity factor for the checks that need no drops:
 # the reference's smoke configs' (at 8 tokens 12 rows an expert, at 1 one)
 NO_DROP_CF = 16.0
@@ -3163,8 +3179,10 @@ def draw_params(cfg, label):
                             device=DEV)
     torch.cuda.synchronize()
     n_params = sum(a.numel() for a in leaves(params))
-    print(f"{label}: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB in "
-          f"bf16) drawn on the card in {time.perf_counter() - t0:.2f}s; "
+    n_bytes = sum(a.numel() * a.element_size() for a in leaves(params))
+    print(f"{label}: {n_params} parameters ({n_bytes / 1e9:.2f} GB in "
+          f"{cfg.param_dtype}) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f}s; "
           f"peak device memory during the init "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return params
@@ -3399,7 +3417,7 @@ def deepseek_phase():
     """deepseek-moe-16b at full width (1 dense layer of d_ff 10944, 27 MoE
     layers of 64 experts of 1408, top-6, 2 shared experts of 2816, MHA 16
     heads of 128, untied vocab 102,400; bf16, drawn on the card), its
-    serving and prefill cut to DEEPSEEK_MOE_LAYERS (1 dense + 9 MoE) for
+    serving and prefill cut to DEEPSEEK_MOE_LAYERS (1 dense + 5 MoE) for
     the script's time.  It runs no kernel of the repo: every count stays
     0.  Serving: at capacity factor NO_DROP_CF streams equal ``generate_one``
     and a B-8 decode row the B-1 row; at the published 1.25 the dropped
@@ -3526,20 +3544,21 @@ def deepseek_prefill(cfg, cfg16, params):
 # whisper-base
 # ---------------------------------------------------------------------------
 
-# depths at full width: pixtral-12b at 10 of 40 layers (4.07 B, 8.15 GB)
-# and deepseek-67b at 12 of 95 (9.98 B, 19.97 GB; whole it is 134.85 GB
-# of bf16, more than the card), for the script's time; every zoo model
-# trains cut to 4 layers (AdamW's fp32 moments: ~12 bytes a parameter on
-# top of the weights)
+# depths at full width, for the script's time: starcoder2-15b at 16 of
+# 40 layers, pixtral-12b at 10 of 40 (4.07 B, 8.15 GB) and deepseek-67b
+# at 8 of 95 (whole it is 134.85 GB of bf16, more than the card); every
+# zoo model trains cut to 4 layers (AdamW's fp32 moments: ~12 bytes a
+# parameter on top of the weights)
+STARCODER2_LAYERS = 16
 PIXTRAL_LAYERS = 10
-DEEPSEEK67_LAYERS = 12
+DEEPSEEK67_LAYERS = 8
 ZOO_TRAIN_LAYERS = 4
 ZOO_RATE_WINDOWS = 3
 # the sequential routes the prefills are held against: starcoder2-15b
-# 256 steps, deepseek-67b 128, pixtral-12b a prefill of the patches and
+# and deepseek-67b 128 steps, pixtral-12b a prefill of the patches and
 # the first PIXTRAL_SPLIT tokens, then the other AT - PIXTRAL_SPLIT as
 # steps
-STARCODER_ROUTE_T = 256
+STARCODER_ROUTE_T = 128
 DEEPSEEK67_ROUTE_T = 128
 PIXTRAL_SPLIT = 384
 # whisper-base: greedy decode steps after the prefill, and the training
@@ -3621,10 +3640,10 @@ def zoo_train(cfg, label, extra=None):
 
 
 def starcoder2_phase():
-    """starcoder2-15b at full width and depth (40 layers, d 6144, GQA 48
-    heads on 4 KV heads of 128, RoPE theta 1e5, LayerNorm, biased
-    attention and a plain GELU MLP of 24576, untied vocab 49,152; 31.92
-    GB of bf16 weights drawn on the card).  No kernel of the repo: every
+    """starcoder2-15b at full width (d 6144, GQA 48 heads on 4 KV heads
+    of 128, RoPE theta 1e5, LayerNorm, biased attention and a plain GELU
+    MLP of 24576, untied vocab 49,152; bf16, drawn on the card), cut to
+    STARCODER2_LAYERS of its 40 layers.  No kernel of the repo: every
     count stays 0.  Serving (``zoo_serving``), the prefill
     (``zoo_prefill``, the route at STARCODER_ROUTE_T steps), then 3
     training steps at ZOO_TRAIN_LAYERS layers (2.14 B)."""
@@ -3636,10 +3655,12 @@ def starcoder2_phase():
           and not cfg.gated_mlp and not cfg.tie_embeddings
           and cfg.rope_theta == 1e5 and cfg.cdtype == torch.bfloat16,
           f"unexpected starcoder2-15b config {cfg}")
+    cfg = cfg.replace(n_layers=STARCODER2_LAYERS)
     check(lm.kernel_tier(cfg) == "unfused", "starcoder2-15b not unfused")
     reset_serve_launches()
     reset_train_launches()
-    params = draw_params(cfg, "starcoder2-15b")
+    params = draw_params(cfg, f"starcoder2-15b cut to {cfg.n_layers} of 40 "
+                         f"layers")
     zoo_serving(cfg, params, "starcoder2-15b")
     zoo_prefill(cfg, params, "starcoder2-15b", STARCODER_ROUTE_T)
     zoo_kernel_counts_zero("starcoder2-15b")
@@ -3876,6 +3897,225 @@ def whisper_phase():
     del params
     fresh_card()
     return {}
+
+
+# ---------------------------------------------------------------------------
+# 5f. MLA: deepseek-v3-671b
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b at full width and a cut depth (671 B parameters are
+# ~1.34 TB of bf16): served and prefilled at 3 dense + 2 MoE layers
+# (26.62 B, 53.2 GB), its fp32 route at 1 dense + 1 MoE (13.94 B, 55.8
+# GB in fp32), trained on the 3 dense layers alone (an empty MoE stack;
+# 3.60 B, ~43 GB with the gradients and AdamW's fp32 moments)
+DEEPSEEK_V3_LAYERS = 5
+# the capacity factor at which no assignment can drop in the stream, row
+# and route checks: a B-1 step gets 1 row an expert, a B-8 step 8, a
+# prefill of 8 x 128 tokens 1024 (cap = int(cf * N * k / E))
+V3_NO_DROP_CF = 32.0
+V3_ROUTE_T = 128
+
+
+def deepseek_v3_phase():
+    """deepseek-v3-671b at full width (d 7168; MLA: 128 heads, q LoRA
+    1536, kv LoRA 512, rope dim 64, nope and v dims 128; 3 dense layers
+    of d_ff 18432, then MoE layers of 256 experts of 2048, top-8, one
+    shared expert of 2048; untied vocab 129,280; bf16, drawn on the card
+    a layer at a time), cut to DEEPSEEK_V3_LAYERS.  No kernel of the
+    repo: every count stays 0.  Serving 8 prompts of 8 seeded ids, 32 new
+    tokens, K 4, C 1, a latent cache of 1024: at capacity factor
+    V3_NO_DROP_CF streams equal ``generate_one`` and a B-8 decode row the
+    B-1 row; at the published 1.25 the dropped share, tok/s over
+    ZOO_RATE_WINDOWS windows and a profile.  The prefill
+    (``deepseek_v3_prefill``), the fp32 route at 1 + 1 layers, then 3
+    training steps on the dense prefix and one more under each remat
+    (``remat_peaks``)."""
+    cfg = archs.get("deepseek-v3-671b")
+    m = cfg.moe
+    check(cfg.n_layers == 61 and m.first_dense_layers == 3
+          and cfg.attn_kind == "mla" and cfg.d_model == 7168
+          and cfg.n_heads == 128 and cfg.mla_q_lora == 1536
+          and cfg.mla_kv_lora == 512 and cfg.mla_rope_dim == 64
+          and cfg.mla_qk_nope_dim == 128 and cfg.mla_v_dim == 128
+          and cfg.d_ff == 18432 and m.n_experts == 256 and m.top_k == 8
+          and m.d_expert == 2048 and m.n_shared == 1 and m.d_shared == 2048
+          and m.capacity_factor == 1.25 and cfg.vocab_size == 129280
+          and not cfg.tie_embeddings and cfg.cdtype == torch.bfloat16
+          and cfg.remat == "full",
+          f"unexpected deepseek-v3-671b config {cfg}")
+    label = "deepseek-v3-671b"
+    cfg = cfg.replace(n_layers=DEEPSEEK_V3_LAYERS)
+    check(lm.kernel_tier(cfg) == "unfused", f"{label} not unfused")
+    cf32 = cfg.replace(moe=dataclasses.replace(m,
+                                               capacity_factor=V3_NO_DROP_CF))
+    reset_serve_launches()
+    reset_train_launches()
+    params = draw_params(cfg, f"{label} cut to {cfg.n_layers} of 61 layers "
+                         f"({m.first_dense_layers} dense + "
+                         f"{cfg.n_layers - m.first_dense_layers} MoE)")
+    cache_mb = cfg.n_layers * GEMMA_MAX_LEN * (
+        cfg.mla_kv_lora + cfg.mla_rope_dim) * 2 / 1e6
+    print(f"{label}: latent cache {cache_mb:.2f} MB a slot (bf16, "
+          f"{cfg.n_layers} layers x {GEMMA_MAX_LEN} positions x "
+          f"{cfg.mla_kv_lora} + {cfg.mla_rope_dim}; derived)")
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    at32 = served_against_generate_one(cf32, params, prompts,
+                                       f"{label} cf {V3_NO_DROP_CF}")
+    torch.cuda.reset_peak_memory_stats()
+    with moe_lib.count_drops() as drops:
+        streams, info = serve(cfg, params, 1, prompts, 32,
+                              max_len=GEMMA_MAX_LEN,
+                              label=f"serve [{label} cf 1.25]")
+    peak = torch.cuda.max_memory_allocated()
+    dropped, assigned, share = dropped_share(drops)
+    n_moe = cfg.n_layers - m.first_dense_layers
+    same = sum(a == b for a, b in zip(streams, at32["streams"]))
+    print(f"serve {label} at cf 1.25: {dropped} of {assigned} top-8 "
+          f"assignments dropped ({100 * share:.1f}%; "
+          f"{dropped / (info['rounds'] * n_moe):.2f} of "
+          f"{assigned / (info['rounds'] * n_moe):.0f} a layer a round, "
+          f"{info['rounds']} rounds); {same} of 8 streams as at cf "
+          f"{V3_NO_DROP_CF}; peak device memory while serving "
+          f"{peak / 2**30:.2f} GiB")
+    rate_spread(cfg, params, reps=ZOO_RATE_WINDOWS, chunks=(1,),
+                prompts=prompts, max_len=GEMMA_MAX_LEN)
+    profile_events(cfg, params, prompts, label)
+    deepseek_v3_prefill(cfg, cf32, params)
+    zoo_kernel_counts_zero(label)
+    del params
+    deepseek_v3_fp32_route(cf32)
+    tcfg = cfg.replace(n_layers=m.first_dense_layers)
+    tparams = draw_params(tcfg, f"{label} cut to its {tcfg.n_layers} dense "
+                          f"layers (an empty MoE stack) for training")
+    check(leaves(tparams["layers"]["blocks"])[0].shape[0] == 0,
+          f"{label}: the training cut's MoE stack is not empty")
+    launches = attn_train(tcfg, tparams, plain_check=False)
+    remat_peaks(tcfg, tparams, label)
+    zoo_kernel_counts_zero(label)
+    del tparams
+    fresh_card()
+    return launches
+
+
+def deepseek_v3_prefill(cfg, cf32, params):
+    """deepseek-v3-671b, B 8 x T 512 at the published capacity into a
+    latent cache of GEMMA_MAX_LEN: the dropped share, ms, prompt
+    tokens/s, peak memory, a profile; a prefill of the first V3_ROUTE_T
+    tokens at capacity factor V3_NO_DROP_CF against that many sequential
+    steps held to its routing (bf16, PREFILL_REL)."""
+    label = "deepseek-v3-671b"
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (AB, AT), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    lm.prefill(params, cfg, toks[:, :16], GEMMA_MAX_LEN)
+    fresh_card()
+    with moe_lib.count_drops() as drops:
+        logits, cache = lm.prefill(params, cfg, toks, GEMMA_MAX_LEN)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    dropped, assigned, share = dropped_share(drops)
+    check(tuple(cache["ckv"].shape) == (cfg.n_layers, AB, GEMMA_MAX_LEN,
+                                        cfg.mla_kv_lora)
+          and tuple(cache["krope"].shape) == (cfg.n_layers, AB,
+                                              GEMMA_MAX_LEN,
+                                              cfg.mla_rope_dim)
+          and set(cache) == {"pos", "ckv", "krope"}
+          and bool((cache["pos"] == AT).all())
+          and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          f"{label} prefill cache and logits")
+    del logits, cache
+    ms = synced_ms(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
+                   reps=3)
+    tol = PREFILL_REL[torch.bfloat16]
+    held, apart, n_dec, seq_ms = moe_route_check(cf32, params,
+                                                 toks[:, :V3_ROUTE_T])
+    held = rel_err(*held, f"{label} prefill vs the step path on the "
+                   f"prefill's routing", tol)
+    print(f"prefill {label} B {AB} x T {AT} at cf 1.25 (latent cache "
+          f"{GEMMA_MAX_LEN}): {dropped} of {assigned} assignments dropped "
+          f"({100 * share:.1f}%); peak device memory {peak / 2**30:.2f} "
+          f"GiB; ms min {ms[0]:.2f} median {ms[1]:.2f} max {ms[-1]:.2f}, "
+          f"prompt tokens/s median {AB * AT / ms[1] * 1e3:.0f}; at cf "
+          f"{V3_NO_DROP_CF} against {V3_ROUTE_T} sequential steps held to "
+          f"the prefill's routing (bf16): logits {held:.3g} (limit {tol}), "
+          f"{apart} of {n_dec} top-8 choices of the steps' own apart from "
+          f"the prefill's (printed; the steps {seq_ms:.1f} ms)")
+    device_groups(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN),
+                  f"prefill {label} B {AB} x T {AT}")
+
+
+def deepseek_v3_fp32_route(cf32):
+    """The prefill against the step path with fp32 weights and compute at
+    1 dense + 1 MoE layer (drawn after the bf16 model is freed), at
+    capacity factor V3_NO_DROP_CF and T FP32_ROUTE_T: no top-8 choice of
+    the steps apart from the prefill's, logits within PREFILL_REL."""
+    label = "deepseek-v3-671b fp32"
+    f32 = cf32.replace(n_layers=2, param_dtype="float32",
+                       compute_dtype="float32",
+                       moe=dataclasses.replace(cf32.moe,
+                                               first_dense_layers=1))
+    params = draw_params(f32, f"{label} at 1 dense + 1 MoE layer")
+    toks = torch.randint(0, f32.vocab_size, (AB, FP32_ROUTE_T),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32).to(DEV)
+    fresh_card()
+    held, apart, n_dec, seq_ms = moe_route_check(f32, params, toks)
+    peak = torch.cuda.max_memory_allocated()
+    check(apart == 0, f"{label}: {apart} top-8 choices of the steps differ "
+          f"from the prefill's")
+    tol = PREFILL_REL[torch.float32]
+    held = rel_err(*held, f"{label} prefill vs the step path", tol)
+    print(f"prefill {label} (1 dense + 1 MoE layer, fp32 weights) at cf "
+          f"{V3_NO_DROP_CF} against {FP32_ROUTE_T} sequential steps: logits "
+          f"{held:.3g} (limit {tol}), {apart} of {n_dec} top-8 choices "
+          f"apart (limit 0); the steps {seq_ms:.1f} ms; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    del params
+    fresh_card()
+
+
+def remat_peaks(cfg, params, label):
+    """One loss and its gradients at B 8 x T 512 under remat "full",
+    "dots" and "none", each from a clean peak counter: the same loss, the
+    gradients of "dots" and "none" within GRAD_TOL of "full"'s (the
+    largest error over the largest value, leaf by leaf; "full"'s kept on
+    the host meanwhile), and the peaks ordered full <= dots <= none."""
+    train_data, _ = lm_corpus.build_corpus()
+    batch = ts_lib.batch_to(lm_corpus.lm_batch(train_data, 0, 1, AB, AT),
+                            DEV)
+    tol = GRAD_TOL[cfg.cdtype]
+    peaks, errs, ms, ref = {}, {}, {}, None
+    for remat in ("full", "dots", "none"):
+        fresh_card()
+        t0 = time.perf_counter()
+        (loss, _), grads = ts_lib.value_and_grad(
+            ts_lib.make_loss_fn(cfg.replace(remat=remat)), params, batch)
+        torch.cuda.synchronize()
+        ms[remat] = (time.perf_counter() - t0) * 1e3
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        flat = leaves(grads)
+        if ref is None:
+            ref = (float(loss), [g.cpu() for g in flat])
+        else:
+            check(float(loss) == ref[0], f"{label} remat {remat}: loss "
+                  f"{float(loss)} != full's {ref[0]}")
+            errs[remat] = max(
+                float((g.float() - r.to(DEV).float()).abs().max()
+                      / r.float().abs().max().clamp(min=1e-30))
+                for g, r in zip(flat, ref[1]) if r.numel())
+            check(errs[remat] <= tol, f"{label} remat {remat}: gradients "
+                  f"{errs[remat]:.3g} of the largest from full's > {tol}")
+        del grads, flat
+    check(peaks["full"] <= peaks["dots"] <= peaks["none"],
+          f"{label}: remat peaks not ordered full <= dots <= none: {peaks}")
+    print(f"remat {label} ({cfg.n_layers} layers, bf16, B {AB} x T {AT}, "
+          f"one loss and its gradients): loss {ref[0]:.4f} under all "
+          f"three; gradients against full's: dots {errs['dots']:.3g}, none "
+          f"{errs['none']:.3g} (limit {tol}); peak device memory full "
+          f"{peaks['full'] / 2**30:.2f} <= dots {peaks['dots'] / 2**30:.2f}"
+          f" <= none {peaks['none'] / 2**30:.2f} GiB; ms full "
+          f"{ms['full']:.1f}, dots {ms['dots']:.1f}, none {ms['none']:.1f}")
 
 
 # ---------------------------------------------------------------------------
@@ -4445,6 +4685,8 @@ def main():
     lap("deepseek-67b")
     merge(launches, whisper_phase())
     lap("whisper-base")
+    merge(launches, deepseek_v3_phase())
+    lap("deepseek-v3-671b")
     rgen = torch.Generator().manual_seed(21)
     robust, (cfg, params) = robustness_phase(rgen)
     merge(launches, robust)

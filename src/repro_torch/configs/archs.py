@@ -5,12 +5,13 @@ the paper's recurrent rival in Fig. 2), zamba2-2.7b (Mamba-2 layers
 with one shared attention block), deepseek-moe-16b (a dense layer,
 then routed top-6 experts plus shared ones), starcoder2-15b (LayerNorm,
 biased attention and a plain GELU MLP), deepseek-67b (llama-style),
-pixtral-12b (a mistral-nemo trunk behind a stub patch frontend) and
-whisper-base (the encoder-decoder, ``models/encdec.py``, behind a stub
-frame frontend).
+pixtral-12b (a mistral-nemo trunk behind a stub patch frontend),
+deepseek-v3-671b (MLA, 3 dense layers, then 256 routed experts top-8
+plus a shared one) and whisper-base (the encoder-decoder,
+``models/encdec.py``, behind a stub frame frontend).
 
-Copied from ``repro.configs.archs`` (full and smoke entries); the
-reference zoo's deepseek-v3-671b (MLA) is not ported yet.
+Copied from ``repro.configs.archs`` (full and smoke entries): every
+architecture of the reference's registry.
 """
 
 from __future__ import annotations
@@ -38,10 +39,12 @@ for _name, _cell in (("mingru-lm", "mingru"), ("minlstm-lm", "minlstm")):
                        use_conv=True, use_mlp=True)
     _register(
         ModelConfig(name=_name, block_kind="minrnn", n_layers=12,
-                    d_model=768, d_ff=3072, vocab_size=256, norm="rmsnorm",
+                    d_model=768, d_ff=3072, n_heads=0, n_kv_heads=0,
+                    vocab_size=256, norm="rmsnorm", rope=False,
                     tie_embeddings=True, minrnn=_mr, **_BIG),
         ModelConfig(name=_name, block_kind="minrnn", n_layers=3,
-                    d_model=64, d_ff=256, vocab_size=256, norm="rmsnorm",
+                    d_model=64, d_ff=256, n_heads=0, n_kv_heads=0,
+                    vocab_size=256, norm="rmsnorm", rope=False,
                     tie_embeddings=True, minrnn=_mr, **_SMOKE_NUM))
 
 PAPER_OWN = ["mingru-lm", "minlstm-lm"]
@@ -111,6 +114,32 @@ _register(
         # capacity >= N*k so the smoke consistency tests see no dropping
         moe=MoEConfig(n_experts=8, top_k=2, d_expert=32, n_shared=2,
                       d_shared=64, first_dense_layers=1,
+                      capacity_factor=16.0), **_SMOKE_NUM))
+
+# deepseek-v3-671b [arXiv:2412.19437; hf]: MLA, 1 shared + 256 routed
+# experts top-8 after 3 dense layers (the MTP head left out, as in the
+# reference)
+_register(
+    ModelConfig(
+        name="deepseek-v3-671b", block_kind="attention", attn_kind="mla",
+        n_layers=61, d_model=7168, n_heads=128, n_kv_heads=128, head_dim=128,
+        d_ff=18432, vocab_size=129280, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True,
+        mla_q_lora=1536, mla_kv_lora=512, mla_rope_dim=64,
+        mla_qk_nope_dim=128, mla_v_dim=128,
+        moe=MoEConfig(n_experts=256, top_k=8, d_expert=2048, n_shared=1,
+                      d_shared=2048, first_dense_layers=3,
+                      capacity_factor=1.25), **_BIG),
+    ModelConfig(
+        name="deepseek-v3-671b", block_kind="attention", attn_kind="mla",
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+        d_ff=128, vocab_size=512, norm="rmsnorm", gated_mlp=True,
+        mlp_activation="silu", rope=True,
+        mla_q_lora=32, mla_kv_lora=16, mla_rope_dim=8,
+        mla_qk_nope_dim=16, mla_v_dim=16,
+        # capacity >= N*k so the smoke consistency tests see no dropping
+        moe=MoEConfig(n_experts=8, top_k=2, d_expert=32, n_shared=1,
+                      d_shared=32, first_dense_layers=1,
                       capacity_factor=16.0), **_SMOKE_NUM))
 
 # zamba2-2.7b [arXiv:2411.15242; hf]: Mamba2 trunk + one shared attention

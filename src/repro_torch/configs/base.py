@@ -2,8 +2,8 @@
 
 A copy, not an import: the JAX module pulls in ``jax.numpy`` for its
 dtype table.  Only the fields the port reads are kept (the minRNN LMs;
-the attention trunk: native GQA with RoPE, dense or with a leading dense
-segment and MoE layers, or with its mixer swapped for a minRNN cell by
+the attention trunk: native GQA with RoPE or MLA, dense or with a
+leading dense segment and MoE layers, or with its mixer swapped for a minRNN cell by
 ``seq_mixer``, with RMSNorm or LayerNorm, biased or not, and a stub
 patch frontend; the SSD trunk of mamba2; the hybrid SSD trunk with one
 shared attention block of zamba2; and the encoder-decoder of whisper
@@ -88,6 +88,12 @@ class ModelConfig:
     rope: bool = True
     rope_theta: float = 10000.0
     attn_kind: str = "gqa"         # gqa | mla
+    # MLA (deepseek-v3): low-rank q / kv, a decoupled RoPE head
+    mla_q_lora: int = 1536
+    mla_kv_lora: int = 512
+    mla_rope_dim: int = 64
+    mla_v_dim: int = 128
+    mla_qk_nope_dim: int = 128
     tie_embeddings: bool = False
     embedding_scale: bool = False  # gemma: x *= sqrt(d_model)
     moe: Optional[MoEConfig] = None
@@ -109,9 +115,10 @@ class ModelConfig:
     fuse_block: str = "auto"
     logits_softcap: float = 0.0
     # training: per-layer activation checkpointing ("full" recomputes each
-    # layer's forward in the backward; "none" keeps its activations) and
-    # the z-loss weight on logsumexp(logits)^2
-    remat: str = "none"            # none | full
+    # layer's forward in the backward; "dots" keeps the outputs of its
+    # products with no batch dimension and recomputes the rest; "none"
+    # keeps its activations) and the z-loss weight on logsumexp(logits)^2
+    remat: str = "none"            # none | full | dots
     attn_q_chunk: int = 1024       # blocked-attention tile sizes
     attn_kv_chunk: int = 1024
     z_loss: float = 0.0

@@ -1,6 +1,9 @@
 """Attention mixers (``repro.models.attention``): GQA, blocked
 (flash-style) for training and prefill, and single-token decode over a
-KV cache.  MLA is not ported.
+KV cache; and deepseek-v3's MLA, which caches a latent ``c_kv`` and one
+rotary key ``k_rope`` a position (not heads x head_dim), expands them for
+training and prefill, and decodes in the latent space (the up
+projections absorbed into the query and the output).
 
 Blocked attention keeps the reference's tiling: the query axis in tiles
 of ``q_chunk``, each running an online softmax in fp32 over the kv tiles
@@ -251,13 +254,15 @@ def gqa_prefill(params, cfg, x: torch.Tensor, *, positions: torch.Tensor):
     return out, k, v
 
 
-def decode_tables(cfg, pos: torch.Tensor, max_len: int) -> dict:
+def decode_tables(cfg, pos: torch.Tensor, max_len: int,
+                  rope_dim: Optional[int] = None) -> dict:
     """What every layer of one decode step shares, built once for the
-    step: the RoPE tables at ``pos`` and the cache rows it writes
-    (``_cache_insert``'s slots)."""
+    step: the RoPE tables at ``pos`` over ``rope_dim`` rotated channels
+    (the head size unless given: MLA rotates ``mla_rope_dim``) and the
+    cache rows it writes (``_cache_insert``'s slots)."""
     tables = {"slots": cache_slots(pos, max_len)}
     if cfg.rope:
-        tables["rope"] = rope_tables(pos[:, None], cfg.head_dim_,
+        tables["rope"] = rope_tables(pos[:, None], rope_dim or cfg.head_dim_,
                                      cfg.rope_theta)
     return tables
 
@@ -319,13 +324,148 @@ def _cache_insert(cache: torch.Tensor, new: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLA (deepseek-v3): not ported
+# MLA (deepseek-v3)
 # ---------------------------------------------------------------------------
 
-def _mla_not_ported(*_args, **_kw):
-    raise NotImplementedError(
-        "MLA attention (attn_kind='mla') is not ported (ROADMAP.md queue 1, "
-        "item 5)")
+def mla_init(gen: torch.Generator, cfg, *, dtype=torch.float32):
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.mla_q_lora, cfg.mla_kv_lora
+    nope, rope_d, vd = cfg.mla_qk_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    return {
+        "wq_a": nn.dense_init(gen, d, qr, use_bias=False, dtype=dtype),
+        "q_norm": nn.rmsnorm_init(qr, dtype),
+        "wq_b": nn.dense_init(gen, qr, h * (nope + rope_d), use_bias=False,
+                              dtype=dtype),
+        "wkv_a": nn.dense_init(gen, d, kvr + rope_d, use_bias=False,
+                               dtype=dtype),
+        "kv_norm": nn.rmsnorm_init(kvr, dtype),
+        "wk_b": nn.dense_init(gen, kvr, h * nope, use_bias=False,
+                              dtype=dtype),
+        "wv_b": nn.dense_init(gen, kvr, h * vd, use_bias=False, dtype=dtype),
+        "wo": nn.dense_init(gen, h * vd, d, use_bias=False, dtype=dtype),
+    }
 
 
-mla_init = mla_apply = mla_prefill = mla_decode_step = _mla_not_ported
+def _mla_q(params, cfg, x):
+    """x: (..., d) -> q (..., H, nope + rope_dim), not yet rotated."""
+    cd = cfg.cdtype
+    q = nn.dense_apply(params["wq_b"], nn.rmsnorm_apply(
+        params["q_norm"], nn.dense_apply(params["wq_a"], x, cd)), cd)
+    return q.reshape(q.shape[:-1] + (cfg.n_heads, -1))
+
+
+def _mla_kv(params, cfg, x):
+    """x: (..., d) -> (..., kv_lora + rope_dim): the normed latent c_kv,
+    then the rotary key k_rope (one for all heads), not yet rotated."""
+    kvr = cfg.mla_kv_lora
+    kv = nn.dense_apply(params["wkv_a"], x, cfg.cdtype)
+    return torch.cat([nn.rmsnorm_apply(params["kv_norm"], kv[..., :kvr]),
+                      kv[..., kvr:]], dim=-1)
+
+
+def _mla_split(cfg, q, kv, rope):
+    """(q_nope, q_rope, c_kv, k_rope), the rotary parts rotated by
+    ``rope``'s (cos, sin) tables."""
+    nope, kvr = cfg.mla_qk_nope_dim, cfg.mla_kv_lora
+    return (q[..., :nope], rotate(q[..., nope:], *rope), kv[..., :kvr],
+            rotate(kv[..., kvr:], *rope))
+
+
+def _mla_expanded(params, cfg, x, positions, causal):
+    """The training / prefill form: the latent expanded into per-head
+    k_nope and v, k_rope broadcast over the heads, v padded to the qk
+    head size so blocked attention sees one head size.  Returns (out,
+    c_kv, k_rope)."""
+    bsz, t, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.mla_qk_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    cd = cfg.cdtype
+    rope = rope_tables(positions, cfg.mla_rope_dim, cfg.rope_theta)
+    q_nope, q_rope, c_kv, k_rope = _mla_split(
+        cfg, _mla_q(params, cfg, x), _mla_kv(params, cfg, x), rope)
+    k_nope = nn.dense_apply(params["wk_b"], c_kv, cd).reshape(bsz, t, h, nope)
+    v = nn.dense_apply(params["wv_b"], c_kv, cd).reshape(bsz, t, h, vd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(bsz, t, h, rope_d)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    v = torch.nn.functional.pad(v, (0, nope + rope_d - vd))
+    o = blocked_attention(q, k, v, causal=causal, q_chunk=cfg.attn_q_chunk,
+                          kv_chunk=cfg.attn_kv_chunk)[..., :vd]
+    out = nn.dense_apply(params["wo"], o.reshape(bsz, t, h * vd), cd)
+    return out, c_kv, k_rope
+
+
+def mla_apply(params, cfg, x: torch.Tensor, *, positions: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """Training / prefill MLA: expand the latent and run blocked
+    attention (in fp32, as the GQA core)."""
+    return _mla_expanded(params, cfg, x, positions, causal)[0]
+
+
+def mla_prefill(params, cfg, x: torch.Tensor, *, positions: torch.Tensor):
+    """MLA prefill; returns (out, c_kv, k_rope): the latent caches."""
+    return _mla_expanded(params, cfg, x, positions, True)
+
+
+def mla_decode_step(params, cfg, x_t: torch.Tensor, ckv_cache: torch.Tensor,
+                    krope_cache: torch.Tensor, pos: torch.Tensor, *,
+                    tables: Optional[dict] = None,
+                    rows: Optional[int] = None):
+    """Absorbed-latent decode: attend in the compressed kv space.
+
+    x_t: (B, d_model); ckv_cache: (B, S, kv_lora); krope_cache: (B, S,
+    rope_dim); pos: (B,).  The new token's c_kv and k_rope are written
+    into the caches in place (``_cache_insert``), which come back.  The
+    up projections are absorbed: q_lat = q_nope wk_b^T per head, scores
+    q_lat c_kv + q_rope k_rope, then p c_kv and wv_b, wo -- in fp32,
+    ``DECODE_ROWS`` rows a call, the last call padded, as
+    ``decode_attention``; the mask is -inf past a row's ``pos``, as the
+    reference's (every row sees position 0).  ``rows``: the projections
+    in tiles of that many rows."""
+    bsz = x_t.shape[0]
+    if tables is None:
+        tables = decode_tables(cfg, pos, ckv_cache.shape[1],
+                               cfg.mla_rope_dim)
+    q_nope, q_rope, c_kv, k_rope = _mla_split(
+        cfg, nn.tiled(lambda t: _mla_q(params, cfg, t), x_t, rows),
+        nn.tiled(lambda t: _mla_kv(params, cfg, t), x_t, rows),
+        [a[:, 0] for a in tables["rope"]])
+    _cache_insert(ckv_cache, c_kv, pos, tables["slots"])
+    _cache_insert(krope_cache, k_rope, pos, tables["slots"])
+    h = cfg.n_heads
+    wk_b = params["wk_b"]["kernel"].float().reshape(cfg.mla_kv_lora, h, -1)
+    wv_b = params["wv_b"]["kernel"].float().reshape(cfg.mla_kv_lora, h, -1)
+    q_nope = q_nope.reshape(bsz, h, -1)
+    q_rope = q_rope.reshape(bsz, h, -1)
+    length = pos + 1
+    pad = (-bsz) % DECODE_ROWS
+    if pad:
+        q_nope, q_rope, ckv, krope = (
+            torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+            for t in (q_nope, q_rope, ckv_cache, krope_cache))
+        length = torch.cat([length, length.new_ones((pad,))])
+    else:
+        ckv, krope = ckv_cache, krope_cache
+    scale = 1.0 / math.sqrt(cfg.mla_qk_nope_dim + cfg.mla_rope_dim)
+    o = torch.cat([
+        _mla_decode_rows(*(a[i:i + DECODE_ROWS] for a in (
+            q_nope, q_rope, ckv, krope, length)), wk_b, wv_b, scale)
+        for i in range(0, bsz + pad, DECODE_ROWS)])[:bsz]
+    out = nn.tiled(lambda t: nn.dense_apply(params["wo"], t, cfg.cdtype),
+                   o.reshape(bsz, -1).to(cfg.cdtype), rows)
+    return out, ckv_cache, krope_cache
+
+
+def _mla_decode_rows(q_nope, q_rope, ckv, krope, length, wk_b, wv_b, scale):
+    """One tile of the absorbed decode in fp32: q_nope (b, H, nope),
+    q_rope (b, H, rope_dim), caches (b, S, .) -> (b, H, v_dim)."""
+    q_lat = torch.einsum("bhn,khn->bhk", q_nope.float(), wk_b)
+    s = (torch.einsum("bhk,bsk->bhs", q_lat, ckv.float())
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(), krope.float())
+         ) * scale
+    idx = torch.arange(ckv.shape[1], device=ckv.device)
+    s = torch.where(idx[None, None, :] < length[:, None, None], s,
+                    float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsk->bhk", p, ckv.float())
+    return torch.einsum("bhk,khv->bhv", o_lat, wv_b)

@@ -144,9 +144,14 @@ def _dec_block_apply(p, cfg, x, enc_kv, positions):
 
 
 def _embed(params, cfg, tokens, pos):
-    """Token embeddings plus the learned decoder positions ``pos``."""
+    """Token embeddings plus the learned decoder positions ``pos``,
+    clamped into the table's ``max_seq_len`` rows as the reference's
+    gather clamps them: a decode step at or past the last learned
+    position reuses that position's row."""
     x = params["embed"]["table"].to(cfg.cdtype)[tokens.long()]
-    return x + params["dec_pos"]["table"].to(cfg.cdtype)[pos.long()]
+    table = params["dec_pos"]["table"]
+    idx = pos.long().clamp(0, table.shape[0] - 1)
+    return x + table.to(cfg.cdtype)[idx]
 
 
 def forward(params, cfg, frames: torch.Tensor,

@@ -1,7 +1,8 @@
 """Decoder-only LM: the minRNN LMs, the attention trunk (native GQA
-with RoPE and a KV cache, e.g. gemma-2b; with a leading dense segment
-and mixture-of-experts layers, deepseek-moe-16b; or its mixer swapped
-for a minRNN cell by ``seq_mixer``, e.g. gemma-2b-mingru), the SSD trunk
+with RoPE and a KV cache, e.g. gemma-2b, or MLA with a latent cache;
+with a leading dense segment and mixture-of-experts layers,
+deepseek-moe-16b and deepseek-v3-671b; or its mixer swapped for a minRNN
+cell by ``seq_mixer``, e.g. gemma-2b-mingru), the SSD trunk
 (mamba2-370m) and the hybrid trunk (zamba2-2.7b: SSD layers with one
 shared attention block applied after every ``hybrid_attn_every`` of
 them), trained, prefilled and served -- the subset of
@@ -19,11 +20,11 @@ leaves are ``nn.Parameter``s (``.to(device)``, ``state_dict``,
 
 Training runs ``forward`` / ``loss_fn``: the layer stack of
 ``blocks.apply`` or of attention blocks (the fused CUDA cell kernel in
-every minRNN layer or mixer under the default strategy; GQA's blocked
-attention, the MoE layer and the SSD mixer in PyTorch ops, as the
-reference runs them outside Pallas), each layer -- each group of SSD
+every minRNN layer or mixer under the default strategy; GQA's and MLA's
+blocked attention, the MoE layer and the SSD mixer in PyTorch ops, as
+the reference runs them outside Pallas), each layer -- each group of SSD
 layers and the shared block, in the hybrid -- under
-``torch.utils.checkpoint`` when ``cfg.remat == "full"``; the MoE
+``torch.utils.checkpoint`` when ``cfg.remat`` is "full" or "dots"; the MoE
 layers' router loss joins the loss.  ``prefill`` runs the same parallel
 form over a prompt (right-padded batches; the minRNN trunk resumable
 from a cache) and hands a cache to the decode functions: one fused-cell
@@ -43,8 +44,9 @@ of the whole-block CUDA kernel, or, on the cell-fused tier
 (``fuse_block="off"``) and in every layer of an attention trunk with a
 minRNN mixer, one launch of the cell-only CUDA kernel between PyTorch
 norms, projections and MLPs.  Native GQA decodes in PyTorch ops against
-a KV cache written in place (``attention._cache_insert``), every product
-of the step in tiles of ``attention.DECODE_ROWS`` rows (the MoE layer
+a KV cache written in place (``attention._cache_insert``), MLA in its
+latent space against a ``ckv`` / ``krope`` cache, every product of the
+step in tiles of ``attention.DECODE_ROWS`` rows (the MoE layer
 routes all B tokens together, as the reference's does); the SSD and
 hybrid trunks step in groups of ``attention.DECODE_ROWS`` rows
 (``_ssm_decode``).
@@ -95,17 +97,17 @@ def _minrnn_block_cfg(cfg) -> minrnn_blocks.MinRNNBlockConfig:
 
 
 def _check_cfg(cfg):
-    """The minRNN trunk; the attention trunk with native GQA (dense, or a
-    dense prefix and MoE layers) or a minRNN mixer; the SSD trunk; the
-    hybrid SSD trunk with a shared GQA block.  MLA, MoE under a minRNN
-    mixer and the hybrid with another shared mixer are not ported; the
-    encoder-decoder family is another module."""
+    """The minRNN trunk; the attention trunk with native GQA or MLA
+    (dense, or a dense prefix and MoE layers) or a minRNN mixer; the SSD
+    trunk; the hybrid SSD trunk with a shared GQA block.  MoE under a
+    minRNN mixer and the hybrid with another shared mixer are not
+    ported; the encoder-decoder family is another module."""
     if cfg.family == "encdec":
         raise ValueError(
             f"{cfg.name} is an encoder-decoder (family 'encdec'): its "
             f"model is models/encdec.py (training.train_step.model_for "
             f"picks it)")
-    if cfg.block_kind == "minrnn" or _attn_gqa(cfg) or _ssm(cfg) \
+    if cfg.block_kind == "minrnn" or _attn_native(cfg) or _ssm(cfg) \
             or (_attn_minrnn(cfg) and cfg.moe is None):
         return
     if _hybrid(cfg):
@@ -122,9 +124,9 @@ def _check_cfg(cfg):
                f"block_kind {cfg.block_kind!r}"
     raise NotImplementedError(
         f"{what} is not ported (ROADMAP.md queue 1, item 5); the port "
-        f"runs the minRNN LMs, attention trunks with native GQA (dense or "
-        f"MoE) or a mingru / minlstm seq_mixer, the SSD trunk and the "
-        f"hybrid SSD trunk with a shared GQA block")
+        f"runs the minRNN LMs, attention trunks with native GQA or MLA "
+        f"(dense or MoE) or a mingru / minlstm seq_mixer, the SSD trunk "
+        f"and the hybrid SSD trunk with a shared GQA block")
 
 
 def _ssm(cfg) -> bool:
@@ -149,10 +151,18 @@ def _attn_minrnn(cfg) -> bool:
     return cfg.block_kind == "attention" and cfg.seq_mixer in _MIN_CELLS
 
 
-def _attn_gqa(cfg) -> bool:
-    """The attention trunk with its native GQA mixer (a KV cache), its
-    MLP dense or, after ``moe.first_dense_layers`` dense layers, MoE."""
-    return cfg.block_kind == "attention" and _native_gqa(cfg)
+def _attn_native(cfg) -> bool:
+    """The attention trunk with its native mixer: GQA (a KV cache) or MLA
+    (a latent cache), its MLP dense or, after ``moe.first_dense_layers``
+    dense layers, MoE."""
+    return cfg.block_kind == "attention" and cfg.seq_mixer == "native" \
+        and cfg.attn_kind in ("gqa", "mla")
+
+
+def _kv_keys(cfg):
+    """The attention trunk's per-position cache leaves: MLA's latent
+    ``ckv`` and rotary key ``krope``, or GQA's ``k`` and ``v``."""
+    return ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
 
 
 def _mixer_d_hidden(cfg) -> int:
@@ -165,10 +175,10 @@ def kernel_tier(cfg) -> str:
     kernel launch per layer per round), "cell-fused" (one cell-only
     kernel launch per layer per round, the rest PyTorch ops; always so on
     an attention trunk with a minRNN mixer) or "unfused" (plain PyTorch;
-    always so for native GQA, dense or MoE, and the SSD and hybrid
-    trunks, as the reference engine reports them)."""
+    always so for native GQA or MLA, dense or MoE, and the SSD and
+    hybrid trunks, as the reference engine reports them)."""
     _check_cfg(cfg)
-    if _attn_gqa(cfg) or _ssm(cfg) or _hybrid(cfg):
+    if _attn_native(cfg) or _ssm(cfg) or _hybrid(cfg):
         return "unfused"
     if _attn_minrnn(cfg):
         return "cell-fused" if scan_lib.resolve_strategy(
@@ -238,22 +248,28 @@ def _stack_init(make, n: int):
     """``stack([make() for _ in range(n)])`` -- the same draws in the same
     order -- holding one layer's tree beside the stack at a time, not all
     n: deepseek-moe-16b's 32.75 GB of bf16 weights fit the card once, not
-    twice."""
-    first = make()
-    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    twice, and deepseek-v3-671b's two 23 GB MoE layers with one more.
+    One layer is its own stack (views, no copy); n = 0 draws one layer
+    for the shapes and keeps none (an empty MoE stack)."""
+    layer = make()
+    if n == 1:
+        return tree_map(lambda a: a.unsqueeze(0), layer)
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), layer)
     for i in range(n):
-        layer = first if i == 0 else make()
+        if i:
+            layer = make()
         for dst, src in zip(leaves(out), leaves(layer)):
             dst[i].copy_(src)
-        first = None
+        layer = None
     return out
 
 
 def _mixer_init(gen, cfg, dtype):
-    """The attention block's sequence mixer: GQA, or a minRNN cell and its
-    down projection (the reference's ``_mixer_init``)."""
+    """The attention block's sequence mixer: GQA, MLA, or a minRNN cell
+    and its down projection (the reference's ``_mixer_init``)."""
     if cfg.seq_mixer not in _MIN_CELLS:
-        return attn.gqa_init(gen, cfg, dtype=dtype)
+        init = attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init
+        return init(gen, cfg, dtype=dtype)
     cell = _MIN_CELLS[cfg.seq_mixer]
     dh = _mixer_d_hidden(cfg)
     return {"rnn": cell.init(gen, cfg.d_model, dh, dtype=dtype),
@@ -421,30 +437,57 @@ def _final_rows(params, cfg, x):
 # Trunk (parallel) / forward / loss
 # ===========================================================================
 
+# the products ``remat="dots"`` keeps: those with no batch dimension (a
+# 2D weight times the rows), as ``dots_with_no_batch_dims_saveable``
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(cfg, fn):
     """``remat="full"``: recompute the layer's forward in the backward
     (``torch.utils.checkpoint``, non-reentrant; a block draws no random
-    numbers, so no RNG state is stashed)."""
+    numbers, so no RNG state is stashed).  ``remat="dots"``: the same,
+    keeping the outputs of the products with no batch dimension
+    (``aten.mm`` / ``addmm``: the projections, the MLP, the logits) and
+    recomputing everything else -- batched products (``aten.bmm``: the
+    attention scores, the experts), elementwise ops and the hand-written
+    kernels -- the counterpart of the reference's
+    ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)``.  Neither
+    changes a value, only what the backward keeps."""
+    if cfg.remat == "none":
+        return fn
     if cfg.remat == "full":
-        return lambda *args: torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat {cfg.remat!r} is not ported (ROADMAP.md queue 1, item "
-            f"5); the LM configs use 'full' or 'none'")
-    return fn
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": _dots_context}
+    else:
+        raise ValueError(f"remat {cfg.remat!r}: 'none', 'full' or 'dots'")
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def _mixer_apply(p, cfg, x, positions):
     """The attention block's mixer over a sequence: the minRNN cell's
     parallel form (the fused kernel under the default strategy) and its
-    down projection, or causal GQA."""
+    down projection, or causal GQA or MLA."""
     if cfg.seq_mixer in _MIN_CELLS:
         cell = _MIN_CELLS[cfg.seq_mixer]
         mode = cfg.minrnn.mode if cfg.minrnn else "log"
         h = cell.parallel(p["rnn"], x, mode=mode, compute_dtype=cfg.cdtype,
                           scan_strategy=cfg.scan_strategy)
         return nn.dense_apply(p["down"], h, cfg.cdtype)
+    if cfg.attn_kind == "mla":
+        return attn.mla_apply(p, cfg, x, positions=positions, causal=True)
     return attn.gqa_apply(p, cfg, x, positions=positions, causal=True)
 
 
@@ -588,7 +631,8 @@ def loss_fn(params, cfg, batch: Dict[str, torch.Tensor]):
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     """Stacked per-layer recurrent state, or KV cache (L, B, max_len, KV,
-    head_dim), + per-row position counter.  The SSD trunk's: ``conv``
+    head_dim), or MLA's latent cache ``ckv`` (L, B, max_len, kv_lora) and
+    ``krope`` (L, B, max_len, rope_dim), + per-row position counter.  The SSD trunk's: ``conv``
     (L, B, K-1, d_inner + 2 G N) in the compute dtype and ``ssm`` (L, B,
     H, P, N) in fp32; the hybrid's: those for its L SSD layers and ``k`` /
     ``v`` (n_groups, B, max_len, KV, head_dim), one per application of
@@ -611,11 +655,15 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
         return {"pos": pos, "h": torch.zeros(
             (cfg.n_layers, batch, _mixer_d_hidden(cfg)), dtype=dt,
             device=dev)}
-    if _attn_gqa(cfg):
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-        return {"pos": pos,
-                "k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if _attn_native(cfg):
+        if cfg.attn_kind == "mla":
+            shapes = {"ckv": (cfg.mla_kv_lora,), "krope": (cfg.mla_rope_dim,)}
+        else:
+            kv = (cfg.n_kv_heads, cfg.head_dim_)
+            shapes = {"k": kv, "v": kv}
+        return {"pos": pos, **{
+            k: torch.zeros((cfg.n_layers, batch, max_len) + s, dtype=dt,
+                           device=dev) for k, s in shapes.items()}}
     bc = _minrnn_block_cfg(cfg)
     cache: Dict[str, Any] = {
         "pos": pos,
@@ -660,15 +708,18 @@ def _minrnn_decode(params, cfg, x, cache, layers=None):
 def _attn_mixer_step(p, cfg, y, cache_l, pos, operands, tables=None):
     """The mixer for one token, with this layer's cache dict: the minRNN
     cell (its kernel under the default strategy; ``operands`` its
-    binding) and the down projection, or GQA against the KV cache (the
-    new k / v written in place, every product in tiles of
-    ``attention.DECODE_ROWS`` rows; ``tables`` the step's
-    ``attention.decode_tables``).  Returns (out, new mixer cache dict)."""
+    binding) and the down projection, or GQA against the KV cache or MLA
+    against its latent cache (the new entries written in place, every
+    product in tiles of ``attention.DECODE_ROWS`` rows; ``tables`` the
+    step's ``attention.decode_tables``).  Returns (out, new mixer cache
+    dict)."""
     if cfg.seq_mixer not in _MIN_CELLS:
-        out, k, v = attn.gqa_decode_step(p, cfg, y, cache_l["k"],
-                                         cache_l["v"], pos, tables=tables,
-                                         rows=attn.DECODE_ROWS)
-        return out, {"k": k, "v": v}
+        step = attn.mla_decode_step if cfg.attn_kind == "mla" \
+            else attn.gqa_decode_step
+        keys = _kv_keys(cfg)
+        out, a, b = step(p, cfg, y, cache_l[keys[0]], cache_l[keys[1]], pos,
+                         tables=tables, rows=attn.DECODE_ROWS)
+        return out, {keys[0]: a, keys[1]: b}
     cell = _MIN_CELLS[cfg.seq_mixer]
     mode = cfg.minrnn.mode if cfg.minrnn else "log"
     h = cell.step(p["rnn"], y, cache_l["h"], mode=mode,
@@ -695,19 +746,23 @@ def _attn_block_step(p, cfg, x, cache_l, pos, operands, tables=None):
 def _attn_decode(params, cfg, x, cache, layers=None):
     """The attention trunk for one token: per layer norm, mixer, residual,
     norm, MLP (or MoE), residual -- one cell-kernel launch per layer with
-    a minRNN mixer; with GQA, each layer's KV rows written in place into
-    the stacked cache, which comes back as it is."""
+    a minRNN mixer; with GQA or MLA, each layer's cache rows (k / v, or
+    ckv / krope) written in place into the stacked cache, which comes
+    back as it is."""
     if layers is None:
         layers = bind_layers(params, cfg)
     pos = cache["pos"]
-    if _attn_gqa(cfg):
+    if _attn_native(cfg):
+        keys = _kv_keys(cfg)
         # built once for every layer of the step
-        tables = attn.decode_tables(cfg, pos, cache["k"].shape[2])
+        tables = attn.decode_tables(
+            cfg, pos, cache[keys[0]].shape[2],
+            cfg.mla_rope_dim if cfg.attn_kind == "mla" else None)
         for i, (p_l, _) in enumerate(layers):
-            x, _ = _attn_block_step(p_l, cfg, x, {"k": cache["k"][i],
-                                                  "v": cache["v"][i]},
+            x, _ = _attn_block_step(p_l, cfg, x, {k: cache[k][i]
+                                                  for k in keys},
                                     pos, None, tables)
-        return x, {"k": cache["k"], "v": cache["v"]}
+        return x, {k: cache[k] for k in keys}
     hs = []
     for i, (p_l, operands) in enumerate(layers):
         x, mc = _attn_block_step(p_l, cfg, x, {"h": cache["h"][i]}, pos,
@@ -734,7 +789,7 @@ def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
     decode = _attn_decode if cfg.block_kind == "attention" else _minrnn_decode
     x, outs = decode(params, cfg, x, cache, layers)
     new_cache.update(outs)
-    final = _final_rows if _attn_gqa(cfg) else _final
+    final = _final_rows if _attn_native(cfg) else _final
     return final(params, cfg, x), new_cache
 
 
@@ -881,12 +936,13 @@ def _attn_block_prefill(p, cfg, x, positions, *, lengths=None):
     strategy) and the down product, with GQA causal blocked attention;
     then the MLP, or the MoE layer over every token of the batch, pad
     tokens too, as the reference's.  Returns (x, the mixer's cache: h at
-    each row's last real position, or the prompt's k / v at every
-    position)."""
+    each row's last real position, or the prompt's k / v -- MLA's ckv /
+    krope -- at every position)."""
     y = _norm(cfg, p["norm1"], x)
     if cfg.seq_mixer not in _MIN_CELLS:
-        out, k, v = attn.gqa_prefill(p["mixer"], cfg, y, positions=positions)
-        mix_cache = {"k": k, "v": v}
+        fn = attn.mla_prefill if cfg.attn_kind == "mla" else attn.gqa_prefill
+        out, a, b = fn(p["mixer"], cfg, y, positions=positions)
+        mix_cache = dict(zip(_kv_keys(cfg), (a, b)))
     else:
         cell = _MIN_CELLS[cfg.seq_mixer]
         mode = cfg.minrnn.mode if cfg.minrnn else "log"
@@ -945,7 +1001,7 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
                                   "frontend prefix is not supported")
     x = _embed(params, cfg, tokens, patch_embeds)
     bsz, t = x.shape[0], x.shape[1]
-    if (_attn_gqa(cfg) or _hybrid(cfg)) and t > max_len:
+    if (_attn_native(cfg) or _hybrid(cfg)) and t > max_len:
         raise ValueError(f"prompt of {t} tokens exceeds max_len {max_len}")
     consumed = torch.full((bsz,), t, dtype=torch.int32, device=x.device) \
         if lengths is None else lengths.to(torch.int32)
@@ -971,8 +1027,8 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
             x, mc = _attn_block_prefill(p_l, cfg, x, positions,
                                         lengths=lengths)
             mcs.append(mc)
-        if _attn_gqa(cfg):
-            for k in ("k", "v"):
+        if _attn_native(cfg):
+            for k in _kv_keys(cfg):
                 new_cache[k] = _seed_kv([mc[k] for mc in mcs], max_len)
         else:
             new_cache["h"] = torch.stack([mc["h"] for mc in mcs])
@@ -1028,9 +1084,10 @@ def _hybrid_prefill(params, cfg, x, max_len, lengths=None):
 # ===========================================================================
 
 # cache leaves read back by the recurrence, zeroed when a slot re-arms.
-# KV leaves (k / v) stay in place, as in the reference: decode masks
-# attention by the row's ``pos`` and writes position p before attending
-# to it, so stale entries past ``pos`` are never seen
+# KV leaves (k / v, MLA's ckv / krope) stay in place, as in the
+# reference: decode masks attention by the row's ``pos`` and writes
+# position p before attending to it, so stale entries past ``pos`` are
+# never seen
 _RECURRENT_CACHE_KEYS = ("h", "conv", "ssm")
 
 # request fields swapped wholesale from the staging buffer when a row arms

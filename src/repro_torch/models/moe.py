@@ -94,9 +94,17 @@ def moe_init(gen: torch.Generator, cfg, *, dtype=torch.float32):
 
 
 def _expert_init(gen, e, d_in, d_out, dtype):
-    t = torch.empty((e, d_in, d_out), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return {"kernel": (math.sqrt(1.0 / d_in) * t).to(dtype)}
+    """(e, d_in, d_out) LeCun-normal weights, drawn an expert at a time:
+    the fp32 draw of a whole deepseek-v3-671b expert weight (15 GB) would
+    not fit the card beside the layers already drawn."""
+    out = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
+    std = math.sqrt(1.0 / d_in)
+    for i in range(e):
+        t = torch.empty((d_in, d_out), dtype=torch.float32,
+                        device=gen.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        out[i] = (std * t).to(dtype)
+    return {"kernel": out}
 
 
 def _moe_body(router_w, gate_w, up_w, down_w, x: torch.Tensor, *, cfg,

@@ -114,8 +114,10 @@ def apply(cfg: AdamWConfig, state: AdamWState, params, grads) -> tuple:
     for (path, p), g, mu, nu in zip(leaves_with_path(params), leaves(grads),
                                     leaves(state.mu), leaves(state.nu)):
         wd = decay_mask(path, p)
-        rows = max(1, _SLICE_ELEMS // max(1, p[0].numel())) if p.ndim \
-            else 1
+        # a leaf of an empty layer stack (n_layers ==
+        # first_dense_layers) has no slice, and nothing to update
+        rows = max(1, _SLICE_ELEMS // max(1, p[0].numel())) \
+            if p.ndim and p.shape[0] else 1
         for i in range(0, p.shape[0] if p.ndim else 1, rows):
             sl = slice(i, i + rows) if p.ndim else ...
             _update(cfg, p[sl], g[sl], mu[sl], nu[sl], scale, lr, bc1, bc2,

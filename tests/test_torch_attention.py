@@ -261,8 +261,50 @@ def test_blocked_attention_backward_saves_no_score_tile():
     assert torch.isfinite(q.grad).all()
 
 
-def test_mla_is_refused_naming_the_roadmap():
-    for fn in (pt_attn.mla_init, pt_attn.mla_apply, pt_attn.mla_prefill,
-               pt_attn.mla_decode_step):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            fn(None, None)
+def _mla_cfg():
+    """``_cfg``'s fields plus MLA's, at tiles of 8 / 8."""
+    return types.SimpleNamespace(**{**vars(_cfg(n_heads=4, n_kv_heads=4)),
+                                    "attn_kind": "mla", "mla_q_lora": 24,
+                                    "mla_kv_lora": 12, "mla_rope_dim": 8,
+                                    "mla_qk_nope_dim": 8, "mla_v_dim": 12})
+
+
+def test_mla_matches_the_reference_at_tiles_of_8():
+    """``mla_init``'s tree, ``mla_apply`` and ``mla_prefill`` over several
+    q and kv tiles (T 19 at tiles of 8: v padded from 12 to the qk head
+    size 16), then two absorbed ``mla_decode_step`` calls, against the
+    reference's."""
+    jcfg = _mla_cfg()
+    pcfg = _pt_cfg(jcfg)
+    jp = jax_attn.mla_init(jax.random.PRNGKey(4), jcfg)
+    pp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    own = pt_attn.mla_init(torch.Generator().manual_seed(0), pcfg)
+    assert {k: {n: tuple(a.shape) for n, a in v.items()}
+            for k, v in own.items()} == \
+        {k: {n: tuple(a.shape) for n, a in v.items()} for k, v in pp.items()}
+    rng = np.random.default_rng(8)
+    x = _randn(rng, 2, 19, 32)
+    pos = np.arange(19)[None, :]
+    _close(jax_attn.mla_apply(jp, jcfg, jnp.asarray(x),
+                              positions=jnp.asarray(pos)),
+           pt_attn.mla_apply(pp, pcfg, torch.from_numpy(x),
+                             positions=torch.from_numpy(pos)))
+    jo, jckv, jkr = jax_attn.mla_prefill(jp, jcfg, jnp.asarray(x),
+                                         positions=jnp.asarray(pos))
+    po, pckv, pkr = pt_attn.mla_prefill(pp, pcfg, torch.from_numpy(x),
+                                        positions=torch.from_numpy(pos))
+    for a, b in ((jo, po), (jckv, pckv), (jkr, pkr)):
+        _close(a, b)
+    jc = [jnp.pad(a, ((0, 0), (0, 5), (0, 0))) for a in (jckv, jkr)]
+    pc = [torch.nn.functional.pad(a, (0, 0, 0, 5)) for a in (pckv, pkr)]
+    p_now = np.array([19, 20], np.int32)
+    for _ in range(2):
+        xt = _randn(rng, 2, 32)
+        jo, *jc = jax_attn.mla_decode_step(jp, jcfg, jnp.asarray(xt), *jc,
+                                           jnp.asarray(p_now))
+        po, *pc = pt_attn.mla_decode_step(pp, pcfg, torch.from_numpy(xt),
+                                          *pc, torch.from_numpy(p_now))
+        _close(jo, po)
+        for a, b in zip(jc, pc):
+            _close(a, b)
+        p_now = p_now + 1

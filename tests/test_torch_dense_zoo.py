@@ -146,12 +146,26 @@ def test_config_equals_reference(arch, get):
     assert (j.head_dim_, j.padded_vocab) == (p.head_dim_, p.padded_vocab)
 
 
-def test_mla_stays_unregistered_and_names_the_roadmap():
-    assert "deepseek-v3-671b" not in pt_archs.all_names()
-    cfg = pt_archs.smoke("deepseek-67b").replace(attn_kind="mla")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        pt_lm.init_params(torch.Generator().manual_seed(0), cfg,
-                          device="cpu")
+# deepseek-67b's trunk with MLA for its attention, at smoke widths
+_MLA = dict(attn_kind="mla", mla_q_lora=32, mla_kv_lora=16, mla_rope_dim=8,
+            mla_qk_nope_dim=16, mla_v_dim=16)
+
+
+def test_mla_is_registered_and_runs_on_the_deepseek_67b_trunk():
+    """deepseek-v3-671b is registered; deepseek-67b's trunk with MLA in
+    place of GQA builds its own params in the bridged tree's layout and
+    gives the reference's logits."""
+    assert "deepseek-v3-671b" in pt_archs.all_names()
+    jcfg, pcfg, jparams, pparams = _setup("deepseek-67b", **_MLA)
+    own = pt_lm.init_params(torch.Generator().manual_seed(0), pcfg,
+                            device="cpu")
+    assert {p: tuple(a.shape) for p, a in tree.leaves_with_path(own)} == \
+        {p: tuple(a.shape) for p, a in tree.leaves_with_path(pparams)}
+    toks = np.random.default_rng(9).integers(0, 512, (2, 11)).astype(
+        np.int32)
+    want, _ = jax_lm.forward(jparams, jcfg, jnp.asarray(toks))
+    got, _ = pt_lm.forward(pparams, pcfg, torch.from_numpy(toks))
+    _close(want, got)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -172,12 +172,29 @@ def test_prompt_packing_and_training_are_refused():
     np.testing.assert_allclose(float(pl), float(jl), rtol=TOL)
 
 
-def test_native_attention_is_refused():
-    """Native GQA is ported (``test_torch_gemma.py``); MLA is not, and
-    says which ROADMAP item it waits for."""
-    cfg = pt_archs.smoke(ARCH).replace(seq_mixer="native", attn_kind="mla")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        pt_lm.init_params(torch.Generator().manual_seed(0), cfg,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        pt_lm.init_cache(cfg, 1, 8, device="cpu")
+def test_native_mla_builds_on_the_gemma_trunk():
+    """Native GQA is tested in ``test_torch_gemma.py``; with MLA in place
+    of the minGRU mixer the trunk builds, its cache is MLA's latent one,
+    and a decode step gives the reference's logits and cache."""
+    over = dict(seq_mixer="native", attn_kind="mla", mla_q_lora=32,
+                mla_kv_lora=16, mla_rope_dim=8, mla_qk_nope_dim=16,
+                mla_v_dim=16)
+    jcfg = jax_archs.smoke(ARCH).replace(**over)
+    cfg = pt_archs.smoke(ARCH).replace(**over)
+    own = pt_lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    assert tuple(own["layers"]["blocks"]["mixer"]["wkv_a"]["kernel"].shape
+                 ) == (2, 64, 24)
+    jparams = jax_lm.init_params(jax.random.PRNGKey(0), jcfg)
+    pparams = bridge.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+    jc = jax_lm.init_cache(jcfg, 2, 8)
+    pc = pt_lm.init_cache(cfg, 2, 8, device="cpu")
+    assert {k: tuple(v.shape) for k, v in pc.items()} == \
+        {k: v.shape for k, v in jc.items()} == \
+        {"pos": (2,), "ckv": (2, 2, 8, 16), "krope": (2, 2, 8, 8)}
+    tok = np.array([5, 900], np.int32)
+    jl, jc = jax_lm.decode_step(jparams, jcfg, jnp.asarray(tok), jc)
+    pl, pc = pt_lm.decode_step(pparams, cfg, torch.from_numpy(tok), pc)
+    _close(jl, pl)
+    _close(jc["ckv"], pc["ckv"])

@@ -19,6 +19,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.configs import archs
 from repro_torch.core import blocks
 from repro_torch.kernels.block_step import ops, ref
@@ -1419,6 +1420,95 @@ def test_whisper_decode_row_is_independent_of_batch(dtype, cuda_device):
         assert torch.equal(l8[3:4], l1), t
     for k in ("k", "v"):
         assert torch.equal(c8[k][:, 3:4], c1[k]), k
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3-671b), remat "dots", whisper past its learned positions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_v3_decode_row_is_independent_of_batch(dtype, cuda_device):
+    """deepseek-v3-671b smoke at capacity factor 16: the absorbed MLA
+    decode in fp32 tiles of 8 rows, so a row decoded in a batch of 8
+    equals the row decoded alone, bit for bit (logits, ckv, krope)."""
+    cfg = archs.smoke("deepseek-v3-671b").replace(param_dtype=dtype,
+                                                  compute_dtype=dtype)
+    _row_vs_alone(cfg, cuda_device, ("ckv", "krope"))
+
+
+def test_deepseek_v3_prefill_matches_the_step_path(cuda_device):
+    """deepseek-v3-671b smoke in fp32: a prefill of 12 tokens against 12
+    ``decode_step`` calls (the expanded form against the absorbed one),
+    the last logits and the latent caches within 1e-4."""
+    cfg = archs.smoke("deepseek-v3-671b")
+    params = lm.init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                            cfg, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), generator=torch.
+                         Generator().manual_seed(2),
+                         dtype=torch.int32).to(cuda_device)
+    logits, cache = lm.prefill(params, cfg, toks, 16)
+    c = lm.init_cache(cfg, 3, 16, cuda_device)
+    for i in range(toks.shape[1]):
+        l_seq, c = lm.decode_step(params, cfg, toks[:, i], c)
+    torch.testing.assert_close(logits, l_seq, rtol=1e-4, atol=1e-4)
+    for k in ("ckv", "krope"):
+        torch.testing.assert_close(cache[k], c[k], rtol=1e-4, atol=1e-4)
+    assert torch.equal(cache["pos"], c["pos"])
+
+
+@pytest.mark.parametrize("arch", ["mingru-lm", "deepseek-v3-671b"])
+def test_remat_dots_gradients_equal_full(arch, cuda_device):
+    """One loss and its gradients under ``remat="dots"`` and ``"full"``
+    (fp32 smoke; mingru-lm through its fused kernel and reversed scan):
+    the same loss, gradients within 1e-4 of the largest."""
+    cfg = archs.smoke(arch)
+    params = lm.init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                            cfg, device=cuda_device)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for remat in ("full", "dots"):
+        out[remat] = ts_lib.value_and_grad(
+            ts_lib.make_loss_fn(cfg.replace(remat=remat)),
+            tree.tree_map(torch.clone, params), batch)
+    (lf, _), gf = out["full"]
+    (ld, _), gd = out["dots"]
+    assert float(lf) == float(ld)
+    for a, b in zip(tree.leaves(gf), tree.leaves(gd)):
+        assert _rel_err(b, a) <= 1e-4
+
+
+def test_whisper_decodes_past_its_learned_positions(cuda_device):
+    """whisper-base smoke: rows at max_seq_len - 1 and max_seq_len (a
+    cache of max_seq_len + 4), 3 steps: the learned position clamps to
+    the table's last row (no device-side assert), the logits finite and
+    equal to the same steps on the CPU within 1e-4."""
+    from repro_torch.models import encdec
+    cfg = archs.smoke("whisper-base")
+    s = cfg.max_seq_len
+    params = encdec.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    frames = torch.randn((2, cfg.n_frontend_tokens, cfg.frontend_dim),
+                         generator=torch.Generator().manual_seed(5))
+    toks = torch.randint(0, cfg.vocab_size, (2, 3), generator=torch.
+                         Generator().manual_seed(6), dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        p = lm.tree_to(params, dev)
+        cache = encdec.prefill(p, cfg, frames.to(dev),
+                               encdec.init_cache(cfg, 2, s + 4, dev))
+        cache["pos"] = torch.tensor([s - 1, s], dtype=torch.int32,
+                                    device=dev)
+        logits = []
+        for i in range(toks.shape[1]):
+            out, cache = encdec.decode_step(p, cfg, toks[:, i].to(dev),
+                                            cache)
+            logits.append(out.cpu())
+        outs.append(torch.stack(logits, 1))
+    assert bool(torch.isfinite(outs[1]).all())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("n_tok,rows", [(8, 8), (512, None)])

@@ -225,7 +225,22 @@ def test_prefill_cache_resume_raises_on_attention_trunk():
         pt_lm.prefill(pparams, pcfg, toks, MAX_LEN, cache=cache)
 
 
-def test_prefill_of_unported_trunks_names_the_roadmap():
-    cfg = pt_archs.smoke("gemma-2b").replace(attn_kind="mla")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        pt_lm.prefill({}, cfg, torch.ones((1, 2), dtype=torch.int32), 8)
+def test_prefill_of_the_mla_trunk_matches_jax():
+    """gemma-2b's trunk with MLA in place of GQA: a right-padded prefill
+    (``LENGTHS``) seeds MLA's latent cache as the reference's does."""
+    over = dict(attn_kind="mla", mla_q_lora=32, mla_kv_lora=16,
+                mla_rope_dim=8, mla_qk_nope_dim=16, mla_v_dim=16)
+    jcfg = jax_archs.smoke("gemma-2b").replace(**over)
+    pcfg = pt_archs.smoke("gemma-2b").replace(**over)
+    jparams = jax_lm.init_params(jax.random.PRNGKey(0), jcfg)
+    pparams = bridge.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+    toks = _tokens(pcfg, 6)
+    lengths = np.asarray(LENGTHS, np.int32)
+    jl, jc = jax_lm.prefill(jparams, jcfg, jnp.asarray(toks), 16,
+                            lengths=jnp.asarray(lengths))
+    pl, pc = pt_lm.prefill(pparams, pcfg, torch.from_numpy(toks), 16,
+                           lengths=torch.from_numpy(lengths))
+    assert set(pc) == {"pos", "ckv", "krope"}
+    _close(jl, pl)
+    _cache_close(jc, pc)

@@ -190,20 +190,17 @@ def test_remat_full_matches_no_remat():
     _, pcfg, _, pparams = _setup()
     batch = pt_ts.batch_to(_batch(1), "cpu")
     outs = []
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         cfg = pcfg.replace(remat=remat)
         outs.append(pt_ts.value_and_grad(pt_ts.make_loss_fn(cfg), pparams,
                                          batch))
     (l0, _), g0 = outs[0]
-    (l1, _), g1 = outs[1]
-    assert float(l0) == float(l1)
-    for (k, a), (_, b) in zip(_flat(g0), _flat(g1)):
-        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=str(k))
+    for (l1, _), g1 in outs[1:]:
+        assert float(l0) == float(l1)
+        for (k, a), (_, b) in zip(_flat(g0), _flat(g1)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=str(k))
     for leaf in tree.leaves(pparams):
         leaf.requires_grad_(False)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        pt_encdec.forward(pparams, pcfg.replace(remat="dots"),
-                          batch["frames"], batch["tokens"])
 
 
 def test_five_step_trajectory_matches_jax():
@@ -262,6 +259,33 @@ def test_prefill_and_decode_steps_match_jax():
     for k in ("k", "v"):
         _close(jc[k], pc[k])
     np.testing.assert_array_equal(np.asarray(jc["pos"]), pc["pos"].numpy())
+
+
+def test_decode_past_the_learned_positions_matches_jax():
+    """Rows at positions max_seq_len - 1 and max_seq_len (128 in the
+    smoke config; a cache of max_seq_len + 4), stepped 3 times: the
+    learned position clamps to the table's last row, as the reference's
+    gather does, and the logits are finite and equal the reference's."""
+    jcfg, pcfg, jparams, pparams = _setup()
+    s = pcfg.max_seq_len
+    fr, toks = _frames(11, 2), _tokens(12, (2, 3))
+    jc = jax_encdec.prefill(jparams, jcfg, jnp.asarray(fr),
+                            jax_encdec.init_cache(jcfg, 2, s + 4))
+    pc = pt_encdec.prefill(pparams, pcfg, torch.from_numpy(fr),
+                           pt_encdec.init_cache(pcfg, 2, s + 4,
+                                                device="cpu"))
+    start = np.array([s - 1, s], np.int32)
+    jc = dict(jc, pos=jnp.asarray(start))
+    pc = dict(pc, pos=torch.from_numpy(start))
+    for i in range(toks.shape[1]):
+        jl, jc = jax_encdec.decode_step(jparams, jcfg,
+                                        jnp.asarray(toks[:, i]), jc)
+        pl, pc = pt_encdec.decode_step(pparams, pcfg,
+                                       torch.from_numpy(toks[:, i]), pc)
+        assert bool(torch.isfinite(pl).all())
+        _close(jl, pl)
+    for k in ("k", "v"):
+        _close(jc[k], pc[k])
 
 
 def test_decode_equals_teacher_forced_forward():
