@@ -14,8 +14,8 @@ times them against minGRU / minLSTM, prefills the minRNN LMs in parallel,
 serves with speculative decoding on both tiers, trains full-width
 mingru-lm / minlstm-lm through the port's train step, then serves under
 injected faults, kills and restores the engine (in this process and a
-serving process sent SIGKILL) and serves under the card's tune plans,
-and checks that every layer of every device round, prefill and training
+serving process sent SIGKILL), serves under the card's tune plans and
+on data x model worlds of ranks sharing the card, and checks that every layer of every device round, prefill and training
 step went through the kernels.
 
     python3 chip_smoke.py            # from the repository root, one GPU
@@ -243,7 +243,19 @@ Phases (any failed check exits non-zero before the result line):
      resolves the committed plans of this card for both LMs (never the
      JAX package's CPU plans); a ``tune="auto"`` engine streams as K 1 /
      C 1 on the plan's tier; the two in turns;
-  7. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  7. mesh-sharded serving of full-width mingru-lm on worlds of ranks that
+     share the card (gloo, every rank on ``cuda:0``, spawned by
+     ``serve_mesh.run_world``): DP 2x1 and 4x1 on the block tier at K 4,
+     C 1 and 8, and 2x1 on the cell tier, streams equal to the one card's
+     bit for bit and one kernel launch per layer per round on every rank;
+     a shard crash at round 4 finishing on the survivors with the same
+     streams; TP 1x2 and 2x2 on the cell tier at Dh 768, the model ranks'
+     planes and first-step logits equal bit for bit, the logits within
+     the bf16 tolerance of the one card's, fp32 streams equal to the one
+     card's, bf16 streams counted; ``python -m repro_torch.launch.serve
+     --mesh 2x2`` on the card; decoded tok/s per mesh against the one
+     card, ms per TP all-reduce, each world's start-up (not gated);
+  8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -271,6 +283,8 @@ if not torch.cuda.is_available():
 
 from repro_torch.configs import archs  # noqa: E402
 from repro_torch.data import lm_corpus  # noqa: E402
+from repro_torch.distributed import context as mesh_ctx  # noqa: E402
+from repro_torch.distributed import serve_mesh  # noqa: E402
 from repro_torch.core import nn as core_nn  # noqa: E402
 from repro_torch.core.min_lstm import normalized_gates  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -4619,6 +4633,279 @@ def tuning_phase(gen):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 7. mesh-sharded serving: a world of ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SEED = 27
+MESH_NEW = 32
+MESH_AR_ITERS = 50
+
+
+def mesh_cfg(tier, fp32=False):
+    cfg = archs.get("mingru-lm").replace(fuse_block=tier)
+    if fp32:
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    return cfg
+
+
+def mesh_params(cfg, dev):
+    """Every rank and this process draw the same bits from one seed."""
+    return lm.init_params(torch.Generator(device=dev).manual_seed(MESH_SEED),
+                          cfg, device=dev)
+
+
+def mesh_serve(cfg, params, mesh, dev, chunk=1, faults=None):
+    """PROMPTS x MESH_NEW greedy tokens at K 4 through one engine, on one
+    card (``mesh`` None) or as this rank of ``mesh``: its streams, stats,
+    launches (this process's) and decoded tok/s."""
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=128, seed=0,
+                        decode_block=4, prompt_chunk=chunk, device=dev,
+                        mesh=mesh, faults=faults)
+    before = serve_launches()
+    bodies = cell_body_launches()
+    rids = [eng.submit(tokens_of(p), max_new=MESH_NEW) for p in PROMPTS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.run_to_completion()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = cell_body_launches()
+    return {"streams": [tuple(outs[r]) for r in rids],
+            "rounds": eng.stats.decode_steps, "tier": eng.kernel_tier,
+            "launches": {k: v - before[k]
+                         for k, v in serve_launches().items()},
+            "bodies": {k: v - bodies[k] for k, v in after.items()},
+            "identities": eng.stats.shard_identities_ok(),
+            "completed": eng.stats.completed,
+            "dead_shards": sorted(eng.dead_shards),
+            "mismatches": eng.tp_plane_mismatches,
+            "h_block": tuple(eng.state["cache"]["h"].shape),
+            "rate": eng.stats.decode_tokens / dt}
+
+
+def first_logits(cfg, params, mesh=None):
+    """The first decode step's logits for PROMPTS' first bytes, B 8, on
+    one card, or this rank's rows of them sharded as this rank of
+    ``mesh`` (a RankMesh)."""
+    tok = torch.tensor([p.encode()[0] for p in PROMPTS], dtype=torch.int32,
+                       device=params["embed"]["table"].device)
+    cache = lm.init_cache(cfg, 8, 16, tok.device)
+    group = None
+    if mesh is not None:
+        rows = serve_mesh.shard_rows(mesh.data_index, 8 // mesh.plan.data)
+        tok = tok[rows.start:rows.stop]
+        params = serve_mesh.shard_params(params, cfg, mesh)
+        cache = serve_mesh.cut_slot_state(cfg, {"cache": cache},
+                                          mesh)["cache"]
+        group = mesh.model_group
+    with mesh_ctx.serving_tp(group):
+        logits, _ = lm.decode_step(params, cfg, tok, cache)
+    return logits.float().cpu()
+
+
+def allreduce_ms(mesh, dev):
+    """ms of one all-reduce of a (8, 768) bf16 partial over the model
+    group, the size each TP sub-block reduces a round at C 1."""
+    import torch.distributed as dist
+    x = torch.ones((8, 768), dtype=torch.bfloat16, device=dev)
+    for _ in range(5):
+        dist.all_reduce(x, group=mesh.model_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_AR_ITERS):
+        dist.all_reduce(x, group=mesh.model_group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / MESH_AR_ITERS * 1e3
+
+
+def mesh_rank(mesh_spec, t_spawn):
+    """One rank of a serving world on the card: the scenarios of its
+    shape, its own launch counts, and when it was ready."""
+    dev = serve_mesh.rank_device("cuda")
+    plan = serve_mesh.MeshPlan.parse(mesh_spec)
+    out = {"rank": int(os.environ["RANK"]), "device": str(dev)}
+    block = mesh_cfg("auto")
+    params = mesh_params(block, dev)
+    mesh_serve(block, params, mesh_spec, dev, chunk=8)    # first use
+    torch.cuda.synchronize()
+    out["ready_s"] = time.time() - t_spawn
+    if plan.model == 1:
+        for c in (1, 8):
+            out[f"block C{c}"] = mesh_serve(block, params, mesh_spec, dev,
+                                            chunk=c)
+        out["failover"] = mesh_serve(
+            block, params, mesh_spec, dev,
+            faults=FaultInjector(shard_crash_at=((4, 1),)))
+        if plan.data == 2:
+            out["cell C1"] = mesh_serve(mesh_cfg("off"), params, mesh_spec,
+                                        dev)
+        return out
+    rank_mesh = plan.build()
+    out["bf16"] = mesh_serve(block, params, mesh_spec, dev)
+    out["logits"] = first_logits(block, params, rank_mesh)
+    out["allreduce_ms"] = allreduce_ms(rank_mesh, dev)
+    del params
+    fp32 = mesh_cfg("off", fp32=True)
+    params = mesh_params(fp32, dev)
+    out["fp32"] = mesh_serve(fp32, params, mesh_spec, dev)
+    return out
+
+
+def mesh_cli(mesh_spec):
+    """Start ``python -m repro_torch.launch.serve --mesh`` (full-width
+    mingru-lm on the card); returns the process."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "mingru-lm", "--device", "cuda", "--mesh", mesh_spec,
+           "--max-new", "8", "--decode-block", "4"]
+    return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def mesh_phase():
+    """Full-width mingru-lm served on data x model worlds of ranks that
+    share the card (gloo): DP 2x1 / 4x1 on the block tier at C 1 and 8
+    and 2x1 on the cell tier, streams bit-equal to the one-card engine's,
+    one kernel launch per layer per round on every rank, a shard crash
+    failing over with the same streams; TP 1x2 / 2x2 on the cell tier,
+    model ranks' planes equal bit for bit, first-step logits within the
+    bf16 tolerance, fp32 streams equal to the one card's; the launcher at
+    --mesh 2x2.  Returns the launches of every rank's counted runs."""
+    t_phase = time.perf_counter()
+    cli = mesh_cli("2x2")
+    # the one card's streams while the launcher runs; its rates after
+    block, fp32 = mesh_cfg("auto"), mesh_cfg("off", fp32=True)
+    params = {"bf16": mesh_params(block, DEV), "fp32": mesh_params(fp32, DEV)}
+    runs = (("block C1", block, "bf16", 1), ("block C8", block, "bf16", 8),
+            ("cell C1", mesh_cfg("off"), "bf16", 1), ("fp32", fp32, "fp32", 1))
+    single = {name: mesh_serve(cfg, params[p], None, DEV, chunk=c)
+              for name, cfg, p, c in runs}
+    ref_logits = first_logits(block, params["bf16"])
+    try:
+        cli_out, _ = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    line = [ln for ln in cli_out.splitlines() if ln.startswith("mesh 2x2")]
+    check(cli.returncode == 0 and line
+          and "identity per shard + global: True" in line[0]
+          and "plane mismatches: 0" in line[0],
+          f"launch.serve --mesh 2x2 (rc {cli.returncode}): "
+          f"{cli_out[-3000:]}")
+    print(f"launch.serve --mesh 2x2: {line[0]}")
+    for name, cfg, p, c in runs:
+        single[name]["rate"] = mesh_serve(cfg, params[p], None, DEV,
+                                          chunk=c)["rate"]
+        print(f"mesh one card [{single[name]['tier']}] {name}: "
+              f"{single[name]['rate']:.1f} decoded tok/s")
+    del params
+    torch.cuda.empty_cache()
+
+    layers = block.n_layers
+    launches = {}
+    for spec in ("2x1", "4x1", "1x2", "2x2"):
+        plan = serve_mesh.MeshPlan.parse(spec)
+        t0 = time.time()
+        ranks = serve_mesh.run_world(mesh_rank, plan.size, (spec, t0))
+        up = max(r["ready_s"] for r in ranks)
+        devs = ", ".join(r["device"] for r in ranks)
+        runs = [k for k in ranks[0] if isinstance(ranks[0][k], dict)]
+        for r in ranks:
+            for name in runs:
+                run = r[name]
+                check(run["identities"] and run["completed"] == len(PROMPTS)
+                      and run["mismatches"] == 0,
+                      f"mesh {spec} rank {r['rank']} {name}: identities "
+                      f"{run['identities']}, completed {run['completed']}, "
+                      f"plane mismatches {run['mismatches']}")
+                n = sum(run["launches"].values())
+                fam = ("block_step_kernel", "block_chunk_kernel") \
+                    if run["tier"] == "block-fused" else \
+                    ("mingru_step_kernel", "mingru_chunk_kernel")
+                check(n == layers * run["rounds"]
+                      == sum(run["launches"][k] for k in fam),
+                      f"mesh {spec} rank {r['rank']} {name}: launches "
+                      f"{run['launches']} for {layers} layers x "
+                      f"{run['rounds']} rounds on the {run['tier']} tier")
+                merge(launches, run["launches"])
+        for name in runs:
+            check(all(r[name]["streams"] == ranks[0][name]["streams"]
+                      for r in ranks), f"mesh {spec} {name}: ranks drained "
+                  f"different streams")
+        if plan.model == 1:
+            for name in runs:
+                run = ranks[0][name]
+                want = single["cell C1" if name == "cell C1" else
+                              "block C1" if name == "failover" else name]
+                check(run["streams"] == want["streams"],
+                      f"mesh {spec} {name}: streams differ from one card's")
+                check(run["tier"] == want["tier"],
+                      f"mesh {spec} {name}: tier {run['tier']}")
+            check(ranks[0]["failover"]["dead_shards"] == [1],
+                  f"mesh {spec}: dead shards "
+                  f"{ranks[0]['failover']['dead_shards']}")
+            print(f"mesh {spec} ({plan.size} ranks, {serve_mesh.BACKEND}; "
+                  f"devices {devs}; world up in {up:.1f}s): streams equal "
+                  f"the one card's on "
+                  f"{', '.join(runs)} (failover: shard 1 crashed at round "
+                  f"4, {ranks[0]['failover']['rounds']} rounds against "
+                  f"{ranks[0]['block C1']['rounds']}); one kernel launch "
+                  f"per layer per round on every rank (rank 0: " + ", ".join(
+                      f"{n} {sum(ranks[0][n]['launches'].values())}"
+                      for n in runs) + "); decoded tok/s " + ", ".join(
+                      f"{n} {ranks[0][n]['rate']:.1f}" for n in runs))
+            continue
+        for r in ranks:
+            for name in ("bf16", "fp32"):
+                run = r[name]
+                check(run["tier"] == "cell-fused"
+                      and run["launches"]["block_step_kernel"]
+                      + run["launches"]["block_chunk_kernel"] == 0
+                      and run["h_block"][2] == 1536 // plan.model,
+                      f"mesh {spec} {name}: tier {run['tier']}, launches "
+                      f"{run['launches']}, h block {run['h_block']}")
+            check(r["bf16"]["bodies"]["mingru_step_kernel/tc"]
+                  == r["bf16"]["launches"]["mingru_step_kernel"],
+                  f"mesh {spec}: bf16 TP launches off the tensor-core body "
+                  f"{r['bf16']['bodies']}")
+            row0 = ranks[r["rank"] - r["rank"] % plan.model]
+            check(torch.equal(r["logits"], row0["logits"]),
+                  f"mesh {spec}: model ranks' logits differ")
+        err = max(max_err(
+            r["logits"], ref_logits[serve_mesh.shard_rows(
+                r["rank"] // plan.model, 8 // plan.data)],
+            torch.bfloat16, f"mesh {spec} first-step logits against one "
+            f"card") for r in ranks)
+        check(ranks[0]["fp32"]["streams"] == single["fp32"]["streams"],
+              f"mesh {spec}: fp32 streams differ from one card's")
+        bf, one = ranks[0]["bf16"]["streams"], single["cell C1"]["streams"]
+        div = [first_divergence(a, b) for a, b in zip(bf, one)]
+        same = sum(a == b for s_, t_ in zip(bf, one) for a, b in zip(s_, t_))
+        ar = [r["allreduce_ms"] for r in ranks]
+        print(f"mesh {spec} ({plan.size} ranks, {serve_mesh.BACKEND}; "
+              f"devices {devs}; world up in {up:.1f}s): cell tier at Dh "
+              f"{1536 // plan.model}, model ranks' planes equal bit for "
+              f"bit; first-step logits max abs err {err:.3g} against one "
+              f"card (bf16 limit atol {TOL[torch.bfloat16][0]} rtol "
+              f"{TOL[torch.bfloat16][1]}); fp32 streams equal the one "
+              f"card's; bf16 streams: {same} of "
+              f"{len(PROMPTS) * MESH_NEW} tokens equal, first divergence "
+              f"{div}; decode_step launches per rank at Dh "
+              f"{1536 // plan.model}: "
+              f"{[r['bf16']['launches']['mingru_step_kernel'] for r in ranks]}"
+              f" (bf16) {[r['fp32']['launches']['mingru_step_kernel'] for r in ranks]}"
+              f" (fp32); decoded tok/s bf16 {ranks[0]['bf16']['rate']:.1f} "
+              f"fp32 {ranks[0]['fp32']['rate']:.1f} (one card's cell tier "
+              f"{single['cell C1']['rate']:.1f} / "
+              f"{single['fp32']['rate']:.1f}); ms per TP all-reduce "
+              f"(8 x 768 bf16) {', '.join(f'{a:.3f}' for a in ar)}")
+    print(f"mesh: launches of every rank's counted runs {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     print(card_line())
@@ -4697,6 +4984,8 @@ def main():
     merge(launches, tuning_phase(rgen))
     shutil.rmtree(SCRATCH, ignore_errors=True)
     lap("tuning")
+    merge(launches, mesh_phase())
+    lap("mesh serving")
 
     entries = []
     for name in REPLACES:

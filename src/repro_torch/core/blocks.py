@@ -13,7 +13,11 @@ whole block runs in ONE hand-written CUDA kernel per layer per round
 a norm the block kernel does not pin) runs only the cell in a CUDA
 kernel (``kernels/decode_step``); norm, conv window, down projection and
 MLP stay PyTorch ops.  ``scan_strategy="sequential"`` is the plain
-PyTorch oracle.
+PyTorch oracle.  Under tensor-parallel serving (``distributed.context.
+serving_tp``) a rank holds column blocks of the gates and ``mlp_in`` and
+row blocks of ``down`` and ``mlp_out``; the row-parallel products
+all-reduce their partials (:func:`_row_parallel_apply`), and such a
+layer runs the cell tier.
 """
 
 from __future__ import annotations
@@ -26,21 +30,72 @@ import torch
 from repro_torch.core import min_gru, min_lstm, nn
 from repro_torch.core import scan as scan_lib
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as mesh_ctx
 
 
 def fuse_block_tier(cfg: "MinRNNBlockConfig",
-                    scan_strategy: Optional[str] = None) -> str:
+                    scan_strategy: Optional[str] = None, *,
+                    params=None) -> str:
     """Which decode tier this block runs: ``"block-fused"`` (whole block
     in one kernel launch), ``"cell-fused"`` (cell-only kernel) or
-    ``"unfused"`` (plain PyTorch).  The tensor-parallel branch of the
-    reference is not part of this slice."""
+    ``"unfused"`` (plain PyTorch).  The block tier needs ``fuse_block``
+    not "off", an rmsnorm block, and -- given ``params`` under
+    ``serving_tp`` -- unsplit row-parallel kernels: a TP-split layer's
+    ``down`` / ``mlp_out`` products all-reduce over the model group,
+    which stays outside the kernel, so split layers take the cell
+    tier."""
     strategy = scan_strategy if scan_strategy is not None \
         else cfg.scan_strategy
     if scan_lib.resolve_strategy(strategy) != "fused":
         return "unfused"
     if cfg.fuse_block == "off" or cfg.norm != "rmsnorm":
         return "cell-fused"
+    if params is not None and mesh_ctx.serving_tp_group() is not None:
+        if params["down"]["kernel"].shape[0] != cfg.d_hidden:
+            return "cell-fused"
+        if cfg.use_mlp and \
+                params["mlp_out"]["kernel"].shape[0] != cfg.d_mlp:
+            return "cell-fused"
     return "block-fused"
+
+
+def _row_parallel_apply(p, x, compute_dtype, full_in_dim: int):
+    """``dense_apply`` that understands tensor-parallel serving.
+
+    Under ``serving_tp`` the column-parallel projections (gates,
+    ``mlp_in``) hand each model rank a ``d_hidden/model`` (``d_ff/model``)
+    column block, so the row-parallel projections that contract over it
+    (``down``, ``mlp_out``) hold a row block: ``kernel.shape[0] <
+    full_in_dim``.  Their product is then a partial sum, all-reduced over
+    the model group in the compute dtype BEFORE the bias (whole on every
+    rank) is added.  Without the context, or with a whole kernel (pure
+    DP; a draft model's whole weights under a TP mesh), this is exactly
+    ``dense_apply``.
+
+    ``x`` may also be a list of tensors (a chunk's positions, each at the
+    step's shape): each gets its own product, and one all-reduce carries
+    all their partials (a sum of the same elements in any layout)."""
+    group = mesh_ctx.serving_tp_group()
+    k = p["kernel"]
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if group is None or k.shape[0] == full_in_dim:
+        ys = [nn.dense_apply(p, t, compute_dtype) for t in xs]
+    else:
+        import torch.distributed as dist
+        if compute_dtype is not None:
+            k = k.to(compute_dtype)
+        ys = [(t if compute_dtype is None else t.to(compute_dtype)) @ k
+              for t in xs]
+        flat = torch.cat([y.reshape(-1) for y in ys])
+        dist.all_reduce(flat, group=group)
+        ys = [part.view(y.shape) for part, y in
+              zip(flat.split([y.numel() for y in ys]), ys)]
+        if "bias" in p:
+            b = p["bias"]
+            if compute_dtype is not None:
+                b = b.to(compute_dtype)
+            ys = [y + b for y in ys]
+    return ys if isinstance(x, (list, tuple)) else ys[0]
 
 
 @dataclass(frozen=True)
@@ -137,7 +192,7 @@ def apply(params, cfg: MinRNNBlockConfig, x: torch.Tensor, *,
     if return_state:
         state["h"] = nn.gather_last(h, lengths) if lengths is not None \
             else h[..., -1, :]
-    x = _tail(params, cfg, x, h, compute_dtype)
+    x = _tail(params, cfg, [x], [h], compute_dtype)[0]
     if return_state:
         return x, state
     return x
@@ -164,7 +219,7 @@ def bind(params, cfg: MinRNNBlockConfig, *, compute_dtype=None,
     the block-fused tier, a ``CellOperands`` (the cell's gates, in the
     compute dtype, zero biases made once) on the cell-fused tier, None on
     the CPU or the unfused tier (nothing to bind)."""
-    tier = fuse_block_tier(cfg, scan_strategy)
+    tier = fuse_block_tier(cfg, scan_strategy, params=params)
     if tier == "unfused" or params["down"]["kernel"].device.type != "cuda":
         return None
     if tier == "cell-fused":
@@ -184,7 +239,7 @@ def step(params, cfg: MinRNNBlockConfig, x_t: torch.Tensor, state, *,
     ``operands``: this block's :func:`bind`, if the caller holds one."""
     if scan_strategy is None:
         scan_strategy = cfg.scan_strategy
-    tier = fuse_block_tier(cfg, scan_strategy)
+    tier = fuse_block_tier(cfg, scan_strategy, params=params)
     if tier == "block-fused":
         from repro_torch.kernels.block_step import ops as block_ops
         return block_ops.fused_block_step(
@@ -203,17 +258,23 @@ def step(params, cfg: MinRNNBlockConfig, x_t: torch.Tensor, state, *,
                   compute_dtype=compute_dtype, scan_strategy=scan_strategy,
                   operands=operands)
     new_state["h"] = h
-    return _tail(params, cfg, x_t, h, compute_dtype), new_state
+    return _tail(params, cfg, [x_t], [h], compute_dtype)[0], new_state
 
 
-def _tail(params, cfg: MinRNNBlockConfig, x_t, h, compute_dtype):
-    """The block after its cell: x + Down(h), then the MLP sub-block."""
-    x_t = x_t + nn.dense_apply(params["down"], h, compute_dtype)
+def _tail(params, cfg: MinRNNBlockConfig, xs, hs, compute_dtype):
+    """The block after its cell, for positions ``xs[t]``, ``hs[t]``: x +
+    Down(h), then the MLP sub-block.  Under serving TP each sub-block
+    all-reduces the partials of every position at once."""
+    ys = _row_parallel_apply(params["down"], hs, compute_dtype, cfg.d_hidden)
+    xs = [x + y for x, y in zip(xs, ys)]
     if cfg.use_mlp:
-        y = nn.norm_apply(cfg.norm, params["norm_mlp"], x_t)
-        y = nn.gelu(nn.dense_apply(params["mlp_in"], y, compute_dtype))
-        x_t = x_t + nn.dense_apply(params["mlp_out"], y, compute_dtype)
-    return x_t
+        zs = [nn.gelu(nn.dense_apply(
+            params["mlp_in"], nn.norm_apply(cfg.norm, params["norm_mlp"], x),
+            compute_dtype)) for x in xs]
+        ys = _row_parallel_apply(params["mlp_out"], zs, compute_dtype,
+                                 cfg.d_mlp)
+        xs = [x + y for x, y in zip(xs, ys)]
+    return xs
 
 
 def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
@@ -227,7 +288,7 @@ def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
     the state after every position."""
     if scan_strategy is None:
         scan_strategy = cfg.scan_strategy
-    tier = fuse_block_tier(cfg, scan_strategy)
+    tier = fuse_block_tier(cfg, scan_strategy, params=params)
     if tier == "block-fused":
         from repro_torch.kernels.block_step import ops as block_ops
         return block_ops.fused_block_chunk(
@@ -261,8 +322,9 @@ def step_chunk(params, cfg: MinRNNBlockConfig, x: torch.Tensor, state,
     if cfg.use_conv:
         new_state["conv"] = win
         pos_states["conv"] = torch.stack(wins, dim=1)
-    x = torch.stack([_tail(params, cfg, xs[t], hs[:, t].contiguous(),
-                           compute_dtype) for t in range(chunk)], dim=1)
+    x = torch.stack(_tail(params, cfg, xs, [hs[:, t].contiguous()
+                                            for t in range(chunk)],
+                          compute_dtype), dim=1)
     if return_positions:
         return x, new_state, pos_states
     return x, new_state

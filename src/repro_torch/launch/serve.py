@@ -29,6 +29,20 @@ recovery (a write-ahead journal and a snapshot every
 ``--snapshot-every`` rounds); ``--restore DIR`` resumes a killed run from
 DIR bit-identically, given the same weights: the same ``--seed``, or the
 training checkpoint in ``--ckpt-dir``.
+
+``--mesh DxM`` serves on a ``data x model`` world of D*M ranks, one
+process each (``distributed/serve_mesh.py``): the slot pool splits over
+the D data shards, and the minRNN gate, down and MLP projections over the
+M model ranks.  The launcher spawns the ranks (gloo; with ``--device
+cuda`` every rank on ``cuda:{rank % device_count}``, so ``cuda:0`` on one
+card), or joins the world when started by ``torchrun --nproc-per-node
+D*M``.  Every rank draws the same weights from the seed; rank 0 prints,
+with a ``mesh ...`` line of the per-shard tokens, the slot-step identity
+per shard and globally, and each rank's device.  A rank that raises makes
+the launcher exit non-zero.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mingru-lm \
+        --device cpu --smoke --mesh 2x2
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import torch
 
 from repro_torch.configs import archs
 from repro_torch.data.lm_corpus import decode_bytes
+from repro_torch.distributed import serve_mesh
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.training import checkpoint as ckpt_lib
@@ -138,15 +153,33 @@ def main(argv=None):
                          "journal, not the flags), finish its requests, "
                          "then serve --prompts on top; keeps journaling "
                          "into DIR")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serving mesh, e.g. 4x1 (data-parallel slot "
+                         "shards) or 2x2 (and tensor-parallel minRNN "
+                         "projections): D*M ranks, one process each, "
+                         "spawned here (or joined under torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.tune_file == "none":
         args.tune_file = None
+    plan = serve_mesh.MeshPlan.parse(args.mesh)
+    if plan is None:
+        serve(args)
+        return
+    if args.prefill:
+        ap.error("--prefill runs one lm.prefill on one device; it takes "
+                 "no --mesh")
+    serve_mesh.run_world(serve, plan.size, (args, plan))
 
+
+def serve(args, mesh=None):
+    """Serve ``args.prompts`` as the flags say, on one device or as one
+    rank of ``mesh``'s world (a ``MeshPlan``; rank 0 prints)."""
     cfg = archs.smoke(args.arch) if args.smoke else archs.get(args.arch)
     if cfg.vocab_size != 256:       # byte prompts, as the reference serves
         cfg = cfg.replace(vocab_size=256)
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else \
+        serve_mesh.rank_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(gen, cfg, device=device)
     if args.ckpt_dir:
@@ -176,14 +209,15 @@ def main(argv=None):
         engine = ServingEngine.restore(args.restore, cfg, params,
                                        device=device)
         rep = engine.recovery_report
-        print(f"restored from {args.restore}: snapshot "
-              f"@{rep['snapshot_round']}, replayed "
-              f"{rep['replayed_records']} journal records "
-              f"({rep['replayed_rounds']} rounds) in "
-              f"{rep['recovery_s']:.2f}s"
-              + (f"; fell past corrupt snapshot(s) "
-                 f"{rep['corrupt_snapshots_skipped']}"
-                 if rep["corrupt_snapshots_skipped"] else ""))
+        if engine.writer:
+            print(f"restored from {args.restore}: snapshot "
+                  f"@{rep['snapshot_round']}, replayed "
+                  f"{rep['replayed_records']} journal records "
+                  f"({rep['replayed_rounds']} rounds) in "
+                  f"{rep['recovery_s']:.2f}s"
+                  + (f"; fell past corrupt snapshot(s) "
+                     f"{rep['corrupt_snapshots_skipped']}"
+                     if rep["corrupt_snapshots_skipped"] else ""))
     else:
         engine = ServingEngine(cfg, params, max_batch=args.max_batch,
                                max_len=args.max_len, seed=args.seed,
@@ -196,7 +230,8 @@ def main(argv=None):
                                draft_len=args.draft_len,
                                tune=args.tune_file,
                                recover_dir=args.snapshot_dir,
-                               snapshot_every=args.snapshot_every)
+                               snapshot_every=args.snapshot_every,
+                               mesh=mesh)
     rids = {}
     for p in args.prompts:
         rid = engine.submit(list(p.encode()), max_new=args.max_new,
@@ -208,6 +243,13 @@ def main(argv=None):
     t0 = time.time()
     outs = engine.run_to_completion()
     dt = time.time() - t0
+    devices = [str(device)]
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+        devices = [None] * mesh.size
+        dist.all_gather_object(devices, str(device))
+    if not engine.writer:
+        return
     n_tokens = sum(len(o) for o in outs.values())
     for rid, toks in sorted(outs.items()):
         req = engine.finished[rid]
@@ -245,6 +287,16 @@ def main(argv=None):
               f"accepted ({snap['accept_rate']:.1%}); "
               f"{snap['non_spec_tokens']} emitting slot-rounds for "
               f"{snap['decode_tokens']} tokens")
+    if mesh is not None:
+        per = ", ".join(
+            f"shard {i}: {s['decode_tokens']} tok "
+            f"({s['wasted_slot_steps']} wasted)"
+            for i, s in enumerate(snap["shards"]))
+        print(f"mesh {mesh} ({mesh.size} ranks, {serve_mesh.BACKEND}; rank "
+              f"devices {', '.join(devices)}): {per}; slot-step identity "
+              f"per shard + global: {snap['shard_identities_ok']}; "
+              f"model-rank plane mismatches: "
+              f"{engine.tp_plane_mismatches}")
     print("engine stats: " + ", ".join(
         f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in sorted(snap.items())))

@@ -40,12 +40,20 @@ The robustness layer follows the reference's:
     one (``serving/recovery.py``).
 
 With ``faults=None`` and ``recover_dir=None`` none of it runs: the same
-launches and the same host reads as without the layer.  Serving meshes
-are not in the port yet (``mesh=`` raises ``NotImplementedError`` naming
-its ROADMAP.md entry); the engine is one data shard, so a ``shard_crash``
-fault is a total outage.  ``fuse_block="off"`` serves on the cell-only
-kernel tier; the attention trunk with a minRNN mixer (gemma-2b-mingru)
-always does.
+launches and the same host reads as without the layer.
+
+``mesh="DxM"`` serves on a ``data x model`` world, one process per mesh
+position (``distributed/serve_mesh.py``): the slot pool splits into
+``data`` contiguous row groups (shard s owns rows ``[s*B/D, (s+1)*B/D)``)
+and, for the minRNN LMs, ``model`` splits the gate, ``down`` and MLP
+projections by ``d_hidden`` / ``d_ff``.  Every rank runs this host logic
+on the same submissions and holds its own rows on its device; each drain
+gathers the planes over the data shards, so every host decides alike.  A
+``shard_crash`` kills one data shard's rows and its requests finish on
+the survivors; without a mesh the engine is one shard and a crash is a
+total outage.  ``fuse_block="off"`` serves on the cell-only kernel tier;
+the attention trunk with a minRNN mixer (gemma-2b-mingru) and a
+tensor-parallel mesh always do.
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import serve_mesh
 from repro_torch.models import lm
 from repro_torch.serving import draft as draft_lib
 from repro_torch.serving import recovery, sampling, tuning
@@ -125,12 +135,6 @@ _COUNTERS = ("prefill_steps", "prefill_rounds", "wasted_slot_steps",
 _SPEC_COUNTERS = ("draft_proposed", "draft_accepted", "emit_rounds")
 
 
-def _not_ported(what: str, entry: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP.md "
-        f"{entry})")
-
-
 class ServingEngine:
     def __init__(self, cfg, params, *, max_batch: int = 8,
                  max_len: int = 2048, seed: int = 0,
@@ -146,8 +150,6 @@ class ServingEngine:
                  mesh=None, faults=None, tune=None,
                  recover_dir: Optional[str] = None,
                  snapshot_every: int = 8, snapshot_keep: int = 3):
-        if mesh is not None:
-            _not_ported("mesh-sharded serving", "queue 1, item 6")
         self.device = resolve_device(device)
         # autotuned plan (serving/tuning.py): None (no plan), "auto"
         # (discovery order), a path, or a plan dict, for this device.  It
@@ -177,10 +179,49 @@ class ServingEngine:
                 f"(block_kind='minrnn'); {cfg.name} has "
                 f"block_kind={cfg.block_kind!r}")
         self.cfg = cfg
+        # the serving mesh (``--mesh DxM``): this process is one rank of a
+        # data x model world; None keeps the one-device path as it was
+        self.mesh_plan = serve_mesh.MeshPlan.parse(mesh)
+        self.mesh = None
+        if self.mesh_plan is not None:
+            plan = self.mesh_plan
+            if max_batch % plan.data != 0:
+                raise ValueError(
+                    f"max_batch ({max_batch}) must divide over the data "
+                    f"axis ({plan.data}): each shard owns "
+                    f"max_batch/data contiguous slot rows")
+            if plan.model > 1:
+                if cfg.block_kind != "minrnn":
+                    raise ValueError(
+                        f"tensor-parallel serving (model axis "
+                        f"{plan.model} > 1) shards d_hidden and requires "
+                        f"block_kind='minrnn'; {cfg.name} has "
+                        f"block_kind={cfg.block_kind!r}")
+                if not serve_mesh._tp_shards_hidden(cfg, plan):
+                    raise ValueError(
+                        f"d_hidden of {cfg.name} does not divide over "
+                        f"the model axis ({plan.model}); pick a model "
+                        f"size that divides d_hidden")
+            self.mesh = plan.build()
+        self.dp = self.mesh_plan.data if self.mesh_plan is not None else 1
+        self._rows_per_shard = max_batch // self.dp
+        # this rank's rows of the slot pool (all of them without a mesh)
+        shard = 0 if self.mesh is None else self.mesh.data_index
+        self._rows = serve_mesh.shard_rows(shard, self._rows_per_shard)
+        # elements of the drained planes where this rank's own differed
+        # from model rank 0's (tensor parallelism; stays 0 unless the
+        # model ranks' bits part)
+        self.tp_plane_mismatches = 0
         self.params = lm.tree_to(params, self.device)
+        if self.mesh is not None:
+            self.params = serve_mesh.shard_params(self.params, cfg,
+                                                  self.mesh)
         # the engine owns the params for its lifetime: bind them for the
-        # kernels once, not once per round
-        self.layers = lm.bind_layers(self.params, cfg)
+        # kernels once, not once per round (under TP: the rank's blocks,
+        # on the cell tier)
+        with mesh_ctx.serving_tp(None if self.mesh is None
+                                 else self.mesh.model_group):
+            self.layers = lm.bind_layers(self.params, cfg)
         self.max_batch = max_batch
         self.max_len = max_len
         self.seed = int(seed)
@@ -197,32 +238,38 @@ class ServingEngine:
         self._spec_active = True
         self._spec_hist: List = []      # (proposed, accepted) per call
         self._spec_off_calls = 0
-        self.state = lm.init_slot_state(cfg, max_batch, max_len, seed=seed,
-                                        draft=self.draft, device=self.device)
+        # the global B-row state; a rank keeps its cut (the per-slot keys
+        # depend on the global row)
+        state = lm.init_slot_state(cfg, max_batch, max_len, seed=seed,
+                                   draft=self.draft, device=self.device)
+        self.state = state if self.mesh is None else \
+            serve_mesh.cut_slot_state(cfg, state, self.mesh)
         self.scheduler = AdmissionScheduler(SchedulerConfig(
             max_batch=max_batch, max_queue=max_queue,
             high_watermark=high_watermark, low_watermark=low_watermark,
             aging_rounds=aging_rounds))
-        self.stats = EngineStats(prompt_chunk=self.prompt_chunk,
-                                 shards=[ShardStats()])
+        self.stats = EngineStats(
+            prompt_chunk=self.prompt_chunk,
+            shards=[ShardStats() for _ in range(self.dp)])
         self.max_retries = max(0, int(max_retries))
         self.retry_backoff = max(0, int(retry_backoff))
         # chaos injector (None = fully inert)
         self.faults = faults
-        # one data shard holding every row (no mesh): a scheduled
-        # shard_crash kills them all; dead rows never stage again
-        self.dp = 1
-        self._rows_per_shard = max_batch
+        # DP-shard failover: data shards whose rows a scheduled
+        # shard_crash killed.  Dead rows never stage again (they keep
+        # stepping, counted as waste); their requests drain onto the
+        # survivors -- without a mesh there are none
         self.dead_shards: set = set()
         self._next_rid = 0
         self.current: List[Optional[Request]] = [None] * max_batch
         self.staged: List[Optional[Request]] = [None] * max_batch
         self.finished: Dict[int, Request] = {}
         self.requests: Dict[int, Request] = {}
-        # host mirrors of the staging tensors (authoritative on the host;
-        # the device only consumes them, flipping s_valid)
-        self._smirror = {k: self.state[k].cpu().numpy().copy()
+        # host mirrors of the staging tensors, all B rows (authoritative
+        # on the host; the device only consumes them, flipping s_valid)
+        self._smirror = {k: state[k].cpu().numpy().copy()
                          for k in _STAGE_FIELDS}
+        del state
         self._dirty_slots: List[int] = []
         self._prompt_pos = np.zeros((max_batch,), np.int32)
         self._rid_dev = np.full((max_batch,), -1, np.int32)
@@ -241,17 +288,31 @@ class ServingEngine:
         self.recovery_report: Optional[Dict[str, Any]] = None
         if recover_dir is not None:
             os.makedirs(recover_dir, exist_ok=True)
+            # under a mesh rank 0 alone writes; the other ranks' journals
+            # keep the sequence and write nothing
             self.journal = recovery.Journal.create(
                 os.path.join(recover_dir, recovery.JOURNAL_NAME),
-                recovery.engine_header(self))
+                recovery.engine_header(self), writes=self.writer)
 
     # ------------------------------------------------------------------
     @property
     def kernel_tier(self) -> str:
         """"block-fused" (one whole-block kernel launch per layer per
         round), "cell-fused" (one cell-only kernel launch per layer per
-        round) or "unfused" (plain PyTorch)."""
-        return lm.kernel_tier(self.cfg)
+        round) or "unfused" (plain PyTorch).  Tensor-parallel serving
+        splits the row-parallel products, whose all-reduce stays outside
+        any kernel, so a TP mesh reports the cell tier."""
+        tier = lm.kernel_tier(self.cfg)
+        if tier == "block-fused" and self.mesh_plan is not None \
+                and self.mesh_plan.model > 1:
+            return "cell-fused"
+        return tier
+
+    @property
+    def writer(self) -> bool:
+        """True on the one process that writes journals and snapshots:
+        rank 0 of a mesh, or the engine without one."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @classmethod
     def restore(cls, recover_dir: str, cfg, params, *, speculative=None,
@@ -261,7 +322,8 @@ class ServingEngine:
         (``serving.recovery.restore_engine``).  Its streams are
         bit-identical to an uninterrupted run and it keeps journaling
         and snapshotting where the dead process stopped;
-        ``engine.recovery_report`` says what recovery did."""
+        ``engine.recovery_report`` says what recovery did.  A journal of
+        a meshed engine restores on every rank of a world of its mesh."""
         return recovery.restore_engine(recover_dir, cfg, params,
                                        speculative=speculative,
                                        draft_params=draft_params,
@@ -387,8 +449,13 @@ class ServingEngine:
 
     def _stage(self):
         """Park queued requests into empty staging buffers in scheduler
-        order, soonest-freeing rows first; rows of a crashed shard never
-        stage."""
+        order; rows of a crashed shard never stage.
+
+        Under a data-parallel mesh a row belongs to one shard, so
+        admission also places: the least-loaded shard first (load = the
+        summed ``_row_eta`` of its rows plus the service rounds of its
+        parked requests), then the soonest-freeing row, then the row
+        index.  With one shard this is the ``(eta, row)`` order."""
         empty = [i for i in range(self.max_batch)
                  if self.staged[i] is None
                  and i // self._rows_per_shard not in self.dead_shards]
@@ -398,10 +465,20 @@ class ServingEngine:
                 and not any(self.current) and not any(self.staged):
             group = self.scheduler.take(len(empty), now_round=now,
                                         ignore_backoff=True)
+        if not group:
+            return
+        load = [0] * self.dp
+        for i in range(self.max_batch):
+            load[i // self._rows_per_shard] += self._row_eta(i)
+            if self.staged[i] is not None:
+                load[i // self._rows_per_shard] += \
+                    self._service_rounds(self.staged[i])
         m = self._smirror
         for req in group:
-            empty.sort(key=lambda i: (self._row_eta(i), i))
+            empty.sort(key=lambda i: (load[i // self._rows_per_shard],
+                                      self._row_eta(i), i))
             slot = empty.pop(0)
+            load[slot // self._rows_per_shard] += self._service_rounds(req)
             req.slot = slot
             req.status = STAGED
             req.admit_seq = self.stats.admitted
@@ -442,10 +519,12 @@ class ServingEngine:
         if self.faults is not None:
             rows, dropped = self.faults.drop_upload(
                 self.stats.decode_calls, rows)
-        if rows:
-            idx = torch.as_tensor(rows, device=self.device)
+        lo, hi = self._rows.start, self._rows.stop
+        mine = [r for r in rows if lo <= r < hi]
+        if mine:
+            idx = torch.as_tensor([r - lo for r in mine], device=self.device)
             self.state["s_prompt"][idx] = torch.as_tensor(
-                self._smirror["s_prompt"][rows]).to(self.device)
+                self._smirror["s_prompt"][mine]).to(self.device)
         s_valid = self._smirror["s_valid"]
         if dropped:
             s_valid = s_valid.copy()
@@ -453,7 +532,7 @@ class ServingEngine:
         for k in _STAGE_FIELDS:
             if k != "s_prompt":
                 src = s_valid if k == "s_valid" else self._smirror[k]
-                self.state[k] = torch.as_tensor(src).to(self.device)
+                self.state[k] = torch.as_tensor(src[lo:hi]).to(self.device)
         self._dirty_slots = list(dropped)
 
     # ------------------------------------------------------------------
@@ -502,8 +581,13 @@ class ServingEngine:
         self._retire(req, status)
 
     def _kill_rows(self, start: int, stop: int):
-        """Mark device rows [start, stop) dead between supersteps (a new
-        tensor: the superstep may still hold the old one)."""
+        """Mark slot rows [start, stop) dead between supersteps, on the
+        rank that holds them (a new tensor: the superstep may still hold
+        the old one)."""
+        lo = self._rows.start
+        start, stop = max(start, lo) - lo, min(stop, self._rows.stop) - lo
+        if start >= stop:
+            return
         alive = self.state["alive"].clone()
         alive[start:stop] = False
         self.state["alive"] = alive
@@ -529,7 +613,13 @@ class ServingEngine:
         """The ``corrupt_state`` fault: NaN into the recurrent state rows
         of ``slots`` (new tensors, never in place on one a bound kernel
         may hold).  The superstep's health guard kills the poisoned rows
-        on their next round."""
+        on their next round.  Under a mesh each rank poisons the rows it
+        holds, and under TP its whole ``h`` block of them: every model
+        rank of a row sees the fault."""
+        lo = self._rows.start
+        slots = [s - lo for s in slots if s in self._rows]
+        if not slots:
+            return
         cache = dict(self.state["cache"])
         touched = False
         for name in lm._RECURRENT_CACHE_KEYS:
@@ -576,14 +666,14 @@ class ServingEngine:
     def _crash_shard(self, shard: int, round_: int):
         """The ``shard_crash`` fault fired: mark ``shard``'s rows dead for
         good and drain its staged and in-flight requests back through the
-        requeue path (no retry budget burned).  The dead rows keep
-        stepping as ``wasted_slot_steps``, so the slot-step identity
-        holds.  With one shard this is a total outage: the requests wait
-        in the queue and ``run_to_completion`` reports the stall."""
+        requeue path (no retry budget burned), onto the surviving shards.
+        The dead rows keep stepping as that shard's
+        ``wasted_slot_steps``, so the per-shard slot-step identity holds.
+        With one shard this is a total outage: the requests wait in the
+        queue and ``run_to_completion`` reports the stall."""
         self.dead_shards.add(shard)
         self.stats.shard_crashes += 1
-        rows = range(shard * self._rows_per_shard,
-                     (shard + 1) * self._rows_per_shard)
+        rows = serve_mesh.shard_rows(shard, self._rows_per_shard)
         self._kill_rows(rows.start, rows.stop)
         for slot in rows:
             parked = self.staged[slot]
@@ -716,34 +806,45 @@ class ServingEngine:
         names = _COUNTERS + (_SPEC_COUNTERS if spec else ())
 
         with self.stats.timed("decode"):
-            toks, rids, self.state, counters = lm.superstep(
-                self.params, self.cfg, self.state, k,
-                prompt_chunk=self.prompt_chunk, layers=self.layers,
-                sampled=sampled, chunk_rounds=chunk_rounds,
-                draft=self.draft if spec else None,
-                draft_params=self.draft_params)
-            # one device-to-host copy for everything the host reads
+            toks, rids, self.state, counters = serve_mesh.make_superstep(
+                self.cfg, self.mesh, k, prompt_chunk=self.prompt_chunk,
+                draft=self.draft if spec else None)(
+                    self.params, self.draft_params, self.state,
+                    layers=self.layers, sampled=sampled,
+                    chunk_rounds=chunk_rounds)
+            # one device-to-host copy for everything the host reads; under
+            # a mesh, gathered over the data shards (one row each)
             scal = torch.stack([counters[c] for c in names])
             flat = torch.cat([toks.flatten(), rids.flatten(),
                               counters["nonfinite"].flatten().to(torch.int32),
                               self.state["s_valid"].to(torch.int32),
                               self.state["prompt_pos"], self.state["rid"],
-                              scal.to(torch.int32)]).cpu().numpy()
+                              scal.to(torch.int32)]).cpu()
+            if self.mesh is None:
+                gathered = flat.numpy()[None]
+            else:
+                gathered, mismatches = self.mesh.gather(flat)
+                self.tp_plane_mismatches += mismatches
             if self.faults is not None:
                 stall = self.faults.straggler(self.stats.decode_calls)
                 if stall > 0:
                     time.sleep(stall)
         planes = toks.shape[2] if toks.dim() == 3 else 1
-        toks_np, rids_np, nf_np, s_valid_np, pos_np, rid_np, scal_np = \
-            np.split(flat, np.cumsum([bsz * k * planes, bsz * k * planes,
-                                      bsz * k, bsz, bsz, bsz]))
+        rps = self._rows_per_shard
+        fields = [np.split(row, np.cumsum([rps * k * planes, rps * k * planes,
+                                           rps * k, rps, rps, rps]))
+                  for row in gathered]
+        toks_np, rids_np, nf_np, s_valid_np, pos_np, rid_np = (
+            np.concatenate([f[i] for f in fields]) for i in range(6))
         toks_np = toks_np.reshape(bsz, k, planes)
         rids_np = rids_np.reshape(bsz, k, planes)
         nf_np = nf_np.reshape(bsz, k).astype(bool)
         s_valid_np = s_valid_np.astype(bool)
         self._prompt_pos[:] = pos_np
         self._rid_dev[:] = rid_np
-        cnt = dict(zip(names, (int(v) for v in scal_np)))
+        # the counters: one row per data shard, and their sums
+        per = [dict(zip(names, (int(v) for v in f[6]))) for f in fields]
+        cnt = {c: sum(p[c] for p in per) for c in names}
 
         base_round = self.stats.decode_steps
         self.stats.decode_calls += 1
@@ -755,19 +856,21 @@ class ServingEngine:
         self.stats.nonfinite_decode_rounds += cnt["nonfinite_decode_rounds"]
         self.stats.draft_proposed += cnt.get("draft_proposed", 0)
         self.stats.draft_accepted += cnt.get("draft_accepted", 0)
-        sh = self.stats.shards[0]
-        sh.slot_steps += k * bsz
-        sh.prefill_rounds += cnt["prefill_rounds"]
-        sh.wasted_slot_steps += cnt["wasted_slot_steps"]
-        sh.nonfinite_decode_rounds += cnt["nonfinite_decode_rounds"]
+        for sh, p in zip(self.stats.shards, per):
+            sh.slot_steps += k * rps
+            sh.prefill_rounds += p["prefill_rounds"]
+            sh.wasted_slot_steps += p["wasted_slot_steps"]
+            sh.nonfinite_decode_rounds += p["nonfinite_decode_rounds"]
         self._adapt_speculation(cnt.get("draft_proposed", 0),
                                 cnt.get("draft_accepted", 0))
 
         now = time.perf_counter()
         dirty = set(self._dirty_slots)
         drained = 0
+        drained_shard = [0] * self.dp
         emits: List[List[int]] = []     # (rid, token) in drain order
         for slot in range(bsz):
+            sh = self.stats.shards[slot // rps]
             for j in range(k):
                 if nf_np[slot, j]:
                     self._quarantine(slot, base_round + j, s_valid_np, dirty)
@@ -790,6 +893,7 @@ class ServingEngine:
                     req.out.append(t)
                     emits.append([rid, t])
                     drained += 1
+                    drained_shard[slot // rps] += 1
                     if (req.eos is not None and t == req.eos) or \
                             len(req.out) >= req.max_new:
                         self._finish(req, now, base_round + j)
@@ -800,11 +904,12 @@ class ServingEngine:
                 self._promote(slot)
         # non_spec_tokens: the tokens the non-speculative path would have
         # emitted in these rounds, one per emitting slot-round
-        non_spec = cnt["emit_rounds"] if spec else drained
         self.stats.decode_tokens += drained
-        self.stats.non_spec_tokens += non_spec
-        sh.decode_tokens += drained
-        sh.non_spec_tokens += non_spec
+        self.stats.non_spec_tokens += cnt["emit_rounds"] if spec else drained
+        for s, (sh, p) in enumerate(zip(self.stats.shards, per)):
+            sh.decode_tokens += drained_shard[s]
+            sh.non_spec_tokens += p["emit_rounds"] if spec \
+                else drained_shard[s]
         # re-sync the staging mirror with what the device consumed --
         # except dirty slots (dropped uploads), whose parked requests the
         # device never saw: their mirror rows stay authoritative

@@ -73,6 +73,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import serve_mesh
 from repro_torch.serving import tuning
 from repro_torch.serving.faults import FaultConfig, FaultInjector
 from repro_torch.serving.scheduler import EngineStats, ShardStats
@@ -136,7 +137,7 @@ def engine_knobs(engine) -> dict:
     everything that shapes device state, placement or replay control
     flow.  All values JSON-able; recorded in the journal header and
     every snapshot manifest (they must agree at restore).  The port has
-    no ``block_dh`` (the kernels plan their own tiles) and no mesh."""
+    no ``block_dh`` (the kernels plan their own tiles)."""
     from repro_torch.serving import draft as draft_lib
     draft = engine.draft
     spec_name = ngram = None
@@ -163,7 +164,7 @@ def engine_knobs(engine) -> dict:
         "spec_accept_floor": engine.spec_accept_floor,
         "spec_window": engine.spec_window,
         "spec_cooldown": engine.spec_cooldown,
-        "mesh": None,
+        "mesh": None if engine.mesh_plan is None else str(engine.mesh_plan),
         "fuse_block": engine.cfg.fuse_block,
         "faults": None if engine.faults is None
         else dataclasses.asdict(engine.faults.cfg),
@@ -233,12 +234,17 @@ class Journal:
     from the original run and raises :class:`RecoveryError`.  When the
     pending tail is exhausted the journal truncates any torn bytes and
     flips to append mode, so the restored engine journals seamlessly.
+
+    ``writes=False`` keeps the sequence and the replay checks but touches
+    no file: the journal of a mesh rank other than 0 (rank 0 writes).
     """
 
     def __init__(self, path: str, fh, mode: str, next_seq: int,
-                 pending: Optional[List[dict]] = None, good_bytes: int = 0):
+                 pending: Optional[List[dict]] = None, good_bytes: int = 0,
+                 writes: bool = True):
         self.path = path
         self._fh = fh
+        self.writes = writes
         self.mode = mode
         self._next_seq = next_seq
         self._pending = list(pending or [])
@@ -250,22 +256,26 @@ class Journal:
 
     # -- constructors --------------------------------------------------
     @classmethod
-    def create(cls, path: str, header: dict) -> "Journal":
+    def create(cls, path: str, header: dict,
+               writes: bool = True) -> "Journal":
         """Start a NEW journal epoch (truncating any previous file --
         resuming an old epoch goes through ``restore_engine``, never
         through a fresh engine construction)."""
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        fh = open(path, "wb")
-        j = cls(path, fh, "append", next_seq=0)
+        fh = None
+        if writes:
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            fh = open(path, "wb")
+        j = cls(path, fh, "append", next_seq=0, writes=writes)
         j._append("header", header)
         return j
 
     @classmethod
-    def for_replay(cls, path: str, pending: List[dict],
-                   next_seq: int, good_bytes: int) -> "Journal":
-        return cls(path, None, "replay", next_seq, pending, good_bytes)
+    def for_replay(cls, path: str, pending: List[dict], next_seq: int,
+                   good_bytes: int, writes: bool = True) -> "Journal":
+        return cls(path, None, "replay", next_seq, pending, good_bytes,
+                   writes=writes)
 
     # -- engine-facing hooks -------------------------------------------
     @property
@@ -297,6 +307,9 @@ class Journal:
 
     # -- internals -----------------------------------------------------
     def _append(self, kind: str, payload: dict) -> None:
+        if not self.writes:
+            self._next_seq += 1
+            return
         rec = {"seq": self._next_seq, "kind": kind}
         rec.update(payload)
         rec = _jnorm(rec)
@@ -333,6 +346,9 @@ class Journal:
             self._switch_to_append()
 
     def _switch_to_append(self) -> None:
+        self.mode = "append"
+        if not self.writes:
+            return
         fh = open(self.path, "r+b")
         fh.seek(self._good_bytes or 0, os.SEEK_SET)
         if self._good_bytes:
@@ -340,7 +356,6 @@ class Journal:
         else:
             fh.seek(0, os.SEEK_END)
         self._fh = fh
-        self.mode = "append"
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +378,12 @@ def snapshot_engine(engine) -> Tuple[Dict[str, torch.Tensor], dict]:
     mirrors as tensors (state leaves where they live: ``keys`` on the
     host, the rest on the engine's device), and all host bookkeeping
     (requests with partial outputs, scheduler order, stats, spec / fault
-    state) as a JSON-able manifest."""
-    arrays = ckpt.flatten_tree(engine.state, "state")
+    state) as a JSON-able manifest.  A meshed engine's slot state is the
+    global one, gathered from every rank as CPU tensors (collective: every
+    rank calls this)."""
+    state = engine.state if engine.mesh is None else \
+        serve_mesh.join_slot_state(engine.cfg, engine.state, engine.mesh)
+    arrays = ckpt.flatten_tree(state, "state")
     for k, v in engine._smirror.items():
         arrays[_SMIRROR + ckpt.SEP + k] = torch.from_numpy(np.array(v))
     arrays["prompt_pos"] = torch.from_numpy(engine._prompt_pos.copy())
@@ -400,10 +419,13 @@ def snapshot_path(directory: str, round_: int) -> str:
     return os.path.join(directory, f"{_SNAP_PREFIX}{round_:08d}")
 
 
-def save_snapshot(engine, directory: str, keep: int = 3) -> str:
+def save_snapshot(engine, directory: str, keep: int = 3) -> Optional[str]:
     """Atomic snapshot write (tmp dir + rename, sha256 checksum in the
-    manifest) with keep-N GC of older generations."""
+    manifest) with keep-N GC of older generations.  Under a mesh every
+    rank calls it and rank 0 alone writes; the others return None."""
     arrays, manifest = snapshot_engine(engine)
+    if not engine.writer:
+        return None
     packed, dtypes = ckpt.pack_arrays(arrays)
     manifest["dtypes"] = dtypes
     os.makedirs(directory, exist_ok=True)
@@ -471,7 +493,10 @@ def apply_snapshot(engine, arrays: Dict[str, torch.Tensor],
     snapshot's recorded knobs (``restore_engine`` guarantees this; a
     hand-built engine is checked and rejected on mismatch).  Every state
     leaf is checked against the fresh engine's tree -- the same paths,
-    shapes and dtypes -- and placed on that leaf's device."""
+    shapes and dtypes -- and placed on that leaf's device.  A meshed
+    engine's snapshot holds the global state: each rank checks it against
+    the global tree and keeps its own cut (collective: every rank calls
+    this)."""
     _check_stamp("snapshot", manifest["config"],
                     _jnorm(config_stamp(engine.cfg, engine.device)))
     knobs = _jnorm(engine_knobs(engine))
@@ -484,7 +509,10 @@ def apply_snapshot(engine, arrays: Dict[str, torch.Tensor],
                 f"{k}={knobs.get(k)!r} (snapshot {rec_knobs.get(k)!r})"
                 for k in sorted(diff)))
 
-    fresh = ckpt.flatten_tree(engine.state, "state")
+    local = ckpt.flatten_tree(engine.state, "state")
+    fresh = local if engine.mesh is None else ckpt.flatten_tree(
+        serve_mesh.join_slot_state(engine.cfg, engine.state, engine.mesh),
+        "state")
     snap_keys = {k for k in arrays if k.startswith("state" + ckpt.SEP)}
     if set(fresh) != snap_keys:
         raise RecoveryError(
@@ -498,8 +526,10 @@ def apply_snapshot(engine, arrays: Dict[str, torch.Tensor],
             raise RecoveryError(
                 f"snapshot leaf {k} is {v.dtype} {tuple(v.shape)}, the "
                 f"engine's is {like.dtype} {tuple(like.shape)}")
-        flat[k] = v.to(like.device)
-    engine.state = ckpt.unflatten_tree(flat, "state")
+        flat[k] = v.to(local[k].device)
+    state = ckpt.unflatten_tree(flat, "state")
+    engine.state = state if engine.mesh is None else \
+        serve_mesh.cut_slot_state(engine.cfg, state, engine.mesh)
     engine._smirror = {
         k[len(_SMIRROR) + len(ckpt.SEP):]: v.numpy().copy()
         for k, v in arrays.items()
@@ -607,6 +637,13 @@ def restore_engine(recover_dir: str, cfg, params, *, speculative=None,
     kw = _ctor_kwargs(dict(header["engine"]), speculative=speculative,
                       draft_params=draft_params)
     eng = engine_mod.ServingEngine(cfg, params, device=device, **kw)
+    if eng.mesh is not None:
+        # a meshed journal: every rank reads once rank 0 has written all
+        # it will (its last step record and snapshot), and rank 0 appends
+        # once every rank has read
+        eng.mesh.barrier()
+        header, records, dropped, good_bytes = read_journal(jpath)
+        eng.mesh.barrier()
     eng.recover_dir = recover_dir
     snapcfg = header.get("snapshot") or {}
     eng.snapshot_every = int(snapcfg.get("every", eng.snapshot_every))
@@ -619,7 +656,8 @@ def restore_engine(recover_dir: str, cfg, params, *, speculative=None,
         snap_seq = int(manifest["journal_seq"])
     tail = [r for r in records if r["seq"] > snap_seq]
     next_seq = (records[-1]["seq"] if records else header["seq"]) + 1
-    eng.journal = Journal.for_replay(jpath, tail, next_seq, good_bytes)
+    eng.journal = Journal.for_replay(jpath, tail, next_seq, good_bytes,
+                                     writes=eng.writer)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     t1 = time.perf_counter()

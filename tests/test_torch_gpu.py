@@ -1576,3 +1576,55 @@ def test_block_init_state_defaults_to_the_card(cuda_device):
     assert all(v.device.type == "cuda" for v in st.values())
     assert all(v.device.type == "cpu"
                for v in blocks.init_state(bc, (3,), device="cpu").values())
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded serving: worlds of ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+def _card_single(dtype):
+    import torch_mesh_ranks as ranks
+    cfg = ranks.CFG.replace(param_dtype=dtype, compute_dtype=dtype)
+    dev = torch.device("cuda")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    eng = ServingEngine(cfg, params, max_batch=4, max_len=96,
+                        decode_block=4, device=dev)
+    ranks.submit_all(eng, 9)
+    return eng.run_to_completion()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dp_world_on_the_card_equals_one_card(dtype, cuda_device):
+    """A 2x1 world, both ranks on cuda:0: the one-card engine's streams
+    bit for bit, one block kernel a layer a round on each rank."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.distributed import serve_mesh
+    got = serve_mesh.run_world(ranks.card_world, 2, ("2x1", dtype))
+    want = _card_single(dtype)
+    for r in got:
+        assert r["device"] == "cuda:0" and r["tier"] == "block-fused"
+        assert r["streams"] == want
+        assert r["identities_ok"] and r["mismatches"] == 0
+        assert r["launches"]["block_step_kernel"] \
+            == ranks.CFG.n_layers * r["rounds"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tp_world_model_ranks_agree_bit_for_bit(dtype, cuda_device):
+    """A 1x2 world: the cell tier on each rank's d_hidden half, the model
+    ranks' drained planes equal bit for bit (no mismatch on either), the
+    streams complete; fp32 streams equal the one card's."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.distributed import serve_mesh
+    got = serve_mesh.run_world(ranks.card_world, 2, ("1x2", dtype))
+    assert got[0]["streams"] == got[1]["streams"]
+    for r in got:
+        assert r["tier"] == "cell-fused" and r["mismatches"] == 0
+        assert r["identities_ok"]
+        assert r["launches"]["block_step_kernel"] == 0
+        assert r["launches"]["mingru_step_kernel"] \
+            == ranks.CFG.n_layers * r["rounds"]
+        assert all(len(s) == 8 for s in r["streams"].values())
+    if dtype == "float32":
+        assert got[0]["streams"] == _card_single(dtype)

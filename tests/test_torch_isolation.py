@@ -135,15 +135,17 @@ def test_cpu_serving_launches_no_kernel():
     {"mesh": "1x2"}, {"mesh": "2x1"}, {"faults": "seeded"},
     {"recover_dir": "journal"}, {"tune": "auto"}])
 def test_left_out_features_raise_not_implemented(kw, tmp_path):
-    """Serving meshes are the engine's one feature still left out (ROADMAP
-    queue 1, item 6).  Fault injection, crash recovery and tune plans are
-    ported now: they construct, and on the CPU the tune plans of the JAX
-    package at the repo root are not picked up."""
+    """Every serving feature of the engine is ported now.  A serving mesh
+    needs a world of its size, one process per rank: outside one it
+    raises, naming the launcher's ``--mesh`` and ``torchrun`` (no quiet
+    one-device fallback).  Fault injection, crash recovery and tune
+    plans construct, and on the CPU the tune plans of the JAX package at
+    the repo root are not picked up."""
     cfg = archs.smoke("mingru-lm")
     params = lm.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             engine.ServingEngine(cfg, params, max_batch=2, max_len=16,
                                  device="cpu", **kw)
         return

@@ -1,7 +1,8 @@
 """Port parity for crash-tolerant serving: ``serving/recovery.py``,
 ``ServingEngine.restore`` and ``replay_trace`` (the port of
-``tests/test_recovery.py``; its two cases that need a serving mesh wait
-for the port's meshes, ROADMAP queue 1, item 6).
+``tests/test_recovery.py``; its two meshed cases run on a 2x1 world of
+CPU ranks, ``tests/torch_mesh_ranks.py``, beside a meshed kill /
+restore).
 
 Greedy and seeded-sampled streams are a pure function of the submit /
 cancel / step sequence, so an engine rebuilt from the newest good
@@ -32,12 +33,15 @@ from repro.serving import faults as jax_faults
 from repro.serving import recovery as jax_recovery
 from repro_torch import bridge
 from repro_torch.configs import archs
+from repro_torch.distributed import serve_mesh
 from repro_torch.serving import recovery
 from repro_torch.serving.engine import (
     CANCELLED, ServingEngine, replay_trace)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.recovery import Journal, RecoveryError
 from repro_torch.training import checkpoint as ckpt
+
+import torch_mesh_ranks as ranks
 
 MAX_LEN = 64
 
@@ -475,3 +479,71 @@ def test_snapshot_roundtrip_resumes_bit_identically(seed, n, rounds):
     recovery.apply_snapshot(clone, arrays, manifest)
     assert eng.run_to_completion() == clone.run_to_completion()
     assert clone.stats.decode_steps == eng.stats.decode_steps
+
+
+# ---------------------------------------------------------------------------
+# DP-shard failover and meshed snapshots (a 2x1 world of CPU ranks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    """Every rank's results of ``torch_mesh_ranks.recovery_world``."""
+    return serve_mesh.run_world(ranks.recovery_world, 2, (
+        _setup()[1], str(tmp_path_factory.mktemp("mesh"))))
+
+
+def test_shard_crash_failover_completes_on_survivors(mesh_world):
+    """Shard 1 dies at round 4: its requests finish on shard 0 with the
+    uninterrupted streams, the identities hold with the dead rows idling
+    as waste, and the run equals the JAX engine's meshed failover."""
+    for r in mesh_world:
+        f = r["failover"]
+        assert f["rids_equal"]
+        assert f["crash_count"] == 1 and f["shard_crashes"] == 1
+        assert f["dead_shards"] == [1] == f["report_dead"]
+        assert f["failover_requeued"] >= 1
+        assert f["retried"] == 0     # an infrastructure fault burns none
+        assert all(s == "COMPLETED" for s in f["statuses"])
+        assert f["streams"] == f["ref_streams"]
+        assert f["completed"] == f["submitted"] == 6
+        assert f["identities_ok"]
+        assert f["rounds"] > f["ref_rounds"]    # half the pool survives
+    jcfg, _, jparams, _ = _pair()
+    jeng = jax_engine.ServingEngine(
+        jcfg, jparams, max_batch=4, max_len=MAX_LEN, decode_block=2,
+        mesh="2x1", faults=jax_faults.FaultInjector(shard_crash_at=((4, 1),)))
+    rids = [jeng.submit([i + 1, i + 2, i + 3], max_new=5) for i in range(6)]
+    jout = jeng.run_to_completion()
+    f = mesh_world[0]["failover"]
+    assert f["streams"] == [jout[r] for r in rids]
+    assert f["rounds"] == jeng.stats.decode_steps
+
+
+def test_meshed_snapshot_roundtrip_preserves_dead_shards(mesh_world):
+    """A 2x1 engine's snapshot holds the global state (shard 1 dead at
+    round 2); a fresh 2x1 engine applies it, each rank keeping its cut,
+    and both finish alike."""
+    cfg = _setup()[0]
+    for r in mesh_world:
+        t = r["roundtrip"]
+        assert t["dead_before"] == [1] == t["clone_dead"]
+        assert t["clone_crashed"] == [1]
+        assert t["h_shape"] == (cfg.n_layers, 4, 2 * cfg.d_model)
+        assert t["orig"] == t["clone"]
+        assert t["rounds"][0] == t["rounds"][1]
+
+
+def test_meshed_kill_restore_matches_uninterrupted(mesh_world):
+    """A journaled 2x1 run abandoned after 5 steps restores on both ranks
+    (rank 0 alone wrote the journal and snapshots) and finishes with the
+    streams and round clock of an uninterrupted 2x1 run, greedy and
+    seeded-sampled requests alike."""
+    writers = [r["restore"]["writer"] for r in mesh_world]
+    assert writers == [True, False]
+    for r in mesh_world:
+        rs = r["restore"]
+        assert rs["journal_exists"]
+        assert rs["report"]["snapshot_round"] == 8
+        assert rs["report"]["replayed_records"] >= 1
+        assert rs["restored"] == rs["full"]
+        assert rs["rounds"][0] == rs["rounds"][1]
