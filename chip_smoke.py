@@ -15,8 +15,11 @@ serves with speculative decoding on both tiers, trains full-width
 mingru-lm / minlstm-lm through the port's train step, then serves under
 injected faults, kills and restores the engine (in this process and a
 serving process sent SIGKILL), serves under the card's tune plans and
-on data x model worlds of ranks sharing the card, and checks that every layer of every device round, prefill and training
-step went through the kernels.
+on data x model worlds of ranks sharing the card, trains on such worlds
+(the compressed data-parallel step, MoE expert parallelism, the
+sequence-parallel scan, a checkpoint restored onto a mesh), and checks
+that every layer of every device round, prefill and training step went
+through the kernels.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -255,6 +258,26 @@ Phases (any failed check exits non-zero before the result line):
      card's, bf16 streams counted; ``python -m repro_torch.launch.serve
      --mesh 2x2`` on the card; decoded tok/s per mesh against the one
      card, ms per TP all-reduce, each world's start-up (not gated);
+  7b. training on worlds of ranks that share the card (gloo, cuda:0):
+     the compressed DP step (bf16 grads, one all-reduce over the data
+     ranks) of full-width mingru-lm (bf16, remat full, B 8 x T 256, 3
+     steps) at 2x1 and 2x2: every rank launches the one card's 24 fused
+     minGRU and 12 reversed linear scans a step, replicas bit-equal,
+     losses within 1e-2 of the one card's, params within the
+     reference's trend tolerance (rtol 0.1, atol 2e-3) of the one card's
+     step on the same halves as 2 microbatches (against its whole-batch
+     step: printed, not gated); deepseek-moe-16b at full width cut to 1
+     dense + 1 MoE layer, expert parallel at 1x2 and 2x2 with ep_2d off
+     and on: the MoE layer's y and aux against the one card at capacity
+     factor 16 (bf16 limit; fp32 1e-4), its drops at capacity factor 1
+     equal to the one card's on each data rank's tokens, "auto" taking
+     2D at 2x2 at the published 1.25, one train step's grads within 2e-2
+     of the max of the one card's, the global norm, the bytes each rank
+     holds; the sequence-parallel scan over 4 ranks at B 8 x T 4096 x D
+     1536 fp32 against the one-card linear_scan_kernel (1e-4); the whole
+     mingru-lm checkpoint restored onto a 2x2 world, each block its
+     slice and every leaf reassembled bit for bit; ms a DP step per
+     world against the one card, each world's start-up (not gated);
   8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
@@ -285,6 +308,8 @@ from repro_torch.configs import archs  # noqa: E402
 from repro_torch.data import lm_corpus  # noqa: E402
 from repro_torch.distributed import context as mesh_ctx  # noqa: E402
 from repro_torch.distributed import serve_mesh  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.core import scan as scan_lib  # noqa: E402
 from repro_torch.core import nn as core_nn  # noqa: E402
 from repro_torch.core.min_lstm import normalized_gates  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -304,7 +329,8 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
 from repro_torch.training import train_step as ts_lib  # noqa: E402
-from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch.tree import (  # noqa: E402
+    at, leaves, leaves_with_path, map_with_path, tree_map)
 from repro_torch.serving import autotune, recovery, tuning  # noqa: E402
 from repro_torch.serving import draft as draft_lib  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
@@ -4906,6 +4932,518 @@ def mesh_phase():
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# 7b. mesh training: worlds of ranks on the one card
+# ---------------------------------------------------------------------------
+
+MT_SEED = 28
+MT_STEPS = 3
+MT_OPT = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+# deepseek-moe-16b at full width, cut to 1 dense + 1 MoE layer so that
+# four ranks' weights, grads and AdamW moments fit the card together
+EP_LAYERS = 2
+EP_B, EP_T = 8, 512
+EP_PUBLISHED_CF = 1.25
+# the drops check's capacity factor: seeded random tokens route almost
+# evenly (no expert overflowed at the published 1.25 on an H100 80GB
+# HBM3), so the check runs where capacity equals the mean load
+EP_DROP_CF = 1.0
+SP_SHAPE = (8, 4096, 1536)
+MT_DIR = os.path.join(SCRATCH, "mesh_train")
+# the reference's trend tolerance for the compressed DP step against the
+# one-device step (tests/test_spmd.py)
+DP_RTOL, DP_ATOL, DP_LOSS = 0.1, 2e-3, 1e-2
+_CORPUS = []
+
+
+def mt_batch(i):
+    """mingru-lm's training traffic, B 8 x T 256 of the corpus."""
+    if not _CORPUS:
+        _CORPUS.append(lm_corpus.build_corpus()[0])
+    return lm_corpus.lm_batch(_CORPUS[0], 0, i, TB, TT)
+
+
+def ep_cfg(cf, dtype="bfloat16", mode="auto"):
+    cfg = archs.get("deepseek-moe-16b")
+    return cfg.replace(n_layers=EP_LAYERS, param_dtype=dtype,
+                       compute_dtype=dtype, moe=dataclasses.replace(
+                           cfg.moe, first_dense_layers=1,
+                           capacity_factor=cf, ep_2d=mode))
+
+
+def ep_batch(cfg):
+    """B 8 x T 512 seeded token ids, each labelled with the next."""
+    toks = torch.randint(0, cfg.vocab_size, (EP_B, EP_T + 1),
+                         generator=torch.Generator().manual_seed(MT_SEED))
+    return {"tokens": toks[:, :-1].to(torch.int32),
+            "labels": toks[:, 1:].to(torch.int32)}
+
+
+def ep_layer_and_x(cfg, dev):
+    """The MoE layer's weights and B 8 x T 512 tokens, drawn from one
+    seed on ``dev`` (every rank and this process draw the same bits)."""
+    gen = torch.Generator(device=dev).manual_seed(MT_SEED)
+    layer = moe_lib.moe_init(gen, cfg, dtype=cfg.pdtype)
+    x = torch.randn((EP_B, EP_T, cfg.d_model), generator=gen, device=dev)
+    return layer, x.to(cfg.cdtype)
+
+
+def mt_timed_steps(step, params, state, batch_of):
+    """MT_STEPS steps: losses, the launches of each step, ms of each."""
+    losses, per_step, ms = [], [], []
+    for i in range(MT_STEPS):
+        reset_train_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch_of(i))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v for k, v in train_launches().items() if v})
+    return params, state, losses, per_step, ms
+
+
+def nbytes(*trees):
+    return sum(a.numel() * a.element_size() for t in trees
+               for a in leaves(t))
+
+
+def mt_dp(mesh_spec, dev):
+    """The compressed DP step of full-width mingru-lm on this rank of a
+    world: its losses, launches a step, ms a step, its params against the
+    one card's (the reference's trend tolerance) and the replicas' bits
+    against rank 0's."""
+    import torch.distributed as dist
+    cfg = archs.get("mingru-lm")
+    mesh = serve_mesh.MeshPlan.parse(mesh_spec).build()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(MT_SEED),
+                            cfg, device=dev)
+    state = opt_lib.init(MT_OPT, params)
+    step = ts_lib.make_dp_compressed_step(cfg, MT_OPT, mesh)
+    params, state, losses, per_step, ms = mt_timed_steps(
+        step, params, state, mt_batch)
+    out = {"losses": losses, "per_step": per_step, "ms": ms,
+           "n_params": sum(a.numel() for a in leaves(params))}
+    for name in ("plain", "micro"):
+        ref = torch.load(os.path.join(MT_DIR, f"dp_{name}.pt"), mmap=True)
+        worst, n_bad = 0.0, 0
+        with torch.no_grad():
+            for path, p_ in leaves_with_path(params):
+                want = ref["|".join(path)].to(dev).float()
+                err = (p_.float() - want).abs()
+                worst = max(worst, float(err.max()))
+                n_bad += int((err > DP_ATOL + DP_RTOL * want.abs()).sum())
+        out[name] = {"max_err": worst, "n_bad": n_bad}
+    with torch.no_grad():
+        flat = torch.cat([a.float().reshape(-1) for a in leaves(params)])
+        first = flat.clone()
+        dist.broadcast(first, src=0)
+        out["replicas_equal"] = bool(torch.equal(first, flat))
+    del params, state, flat, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def mt_ep(mesh_spec, mode, dev):
+    """Expert parallelism of full-width deepseek-moe-16b's MoE on this
+    rank of a world: the layer's forward at capacity factor 16 (no
+    drops) in bf16 and fp32, its drops at capacity factor 1, the
+    layout ``ep_2d="auto"`` takes at the published 1.25, and one
+    train step of the 1 dense + 1 MoE layer model at 16: its grads
+    against the one card's, the mesh's global norm, and the bytes this
+    rank holds."""
+    mesh = serve_mesh.MeshPlan.parse(mesh_spec).build()
+    n_data = mesh.plan.data
+    rows = slice(mesh.data_index * EP_B // n_data,
+                 (mesh.data_index + 1) * EP_B // n_data)
+    tokens = EP_B // n_data * EP_T
+    published = moe_lib.ep_layout(ep_cfg(EP_PUBLISHED_CF), mesh, tokens)
+    out = {"layout": {}, "auto_published": (published.ep, published.two_d)}
+    for cf, dtype in ((NO_DROP_CF, "bfloat16"), (NO_DROP_CF, "float32"),
+                      (EP_DROP_CF, "bfloat16")):
+        cfg = ep_cfg(cf, dtype, mode)
+        layout = moe_lib.ep_layout(cfg, mesh, tokens)
+        out["layout"][(cf, dtype)] = (layout.ep, layout.two_d)
+        layer, x = ep_layer_and_x(cfg, dev)
+        specs = moe_lib.expert_placements(layer, layout)
+        local = map_with_path(lambda path, a: sharding.shard_of(
+            a, at(specs, path), mesh, mesh.coords), layer)
+        x_loc = x[rows].contiguous()
+        del layer, x
+        with torch.no_grad(), moe_lib.count_drops() as drops:
+            y, aux = moe_lib.moe_apply(local, cfg, x_loc, mesh=mesh)
+        dropped, assigned, _ = dropped_share(drops)
+        out[(cf, dtype)] = {"y": y.cpu(), "aux": float(aux),
+                            "dropped": dropped, "assigned": assigned}
+        del local, x_loc, y
+        torch.cuda.empty_cache()
+    # one train step of the cut model at capacity factor 16
+    cfg = ep_cfg(NO_DROP_CF, "bfloat16", mode)
+    layout = moe_lib.ep_layout(cfg, mesh, tokens)
+    full = lm.init_params(torch.Generator(device=dev).manual_seed(MT_SEED),
+                          cfg, device=dev)
+    specs = moe_lib.expert_placements(full, layout)
+    params = map_with_path(lambda path, a: sharding.shard_of(
+        a, at(specs, path), mesh, mesh.coords), full)
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, grads, gnorm = ts_lib.mesh_value_and_grad(
+        cfg, mesh, specs, params, ep_batch(cfg))
+    torch.cuda.synchronize()
+    out["grad_s"] = time.perf_counter() - t0
+    ref = torch.load(os.path.join(MT_DIR, "ep_grads.pt"), mmap=True)
+    worst, worst_at = 0.0, ""
+    for path, g in leaves_with_path(grads):
+        sp = at(specs, path)
+        want = sharding.shard_of(ref["|".join(path)], sp, mesh,
+                                 mesh.coords).to(dev).float()
+        e = float((g.float() - want).abs().max()
+                  / want.abs().max().clamp(min=1e-30))
+        check(bool(torch.isfinite(g).all()), f"EP {mesh_spec} {mode}: "
+              f"non-finite grad of {'/'.join(path)}")
+        if e > worst:
+            worst, worst_at = e, "/".join(path)
+    state = opt_lib.init(MT_OPT, params)
+    params, state, om = opt_lib.apply(MT_OPT, state, params, grads,
+                                      grad_norm=gnorm)
+    check(all(bool(torch.isfinite(a).all()) for a in leaves(params)),
+          f"EP {mesh_spec} {mode}: non-finite params after the step")
+    out["step"] = {"loss": float(metrics["loss"]),
+                   "moe_aux": float(metrics["moe_aux"]),
+                   "grad_norm": float(gnorm), "grad_rel_err": worst,
+                   "worst_leaf": worst_at,
+                   "bytes": (nbytes(params), nbytes(grads),
+                             nbytes(state.mu, state.nu)),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, grads, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mt_sp_scan(dev):
+    """This rank's block of the sequence-parallel scan over the world at
+    B 8 x T 4096 x D 1536, fp32, and its ms."""
+    import torch.distributed as dist
+    a, b, c0 = scan_ref.inputs(torch.Generator().manual_seed(MT_SEED),
+                               "linear", torch.float32, SP_SHAPE, True, "cpu")
+    n, r = dist.get_world_size(), dist.get_rank()
+    t = SP_SHAPE[1] // n
+    a, b = (v[:, r * t:(r + 1) * t].contiguous().to(dev) for v in (a, b))
+    c0 = c0.to(dev)
+    h = scan_lib.scan_sequence_parallel(a, b, dist.group.WORLD, h0=c0)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        scan_lib.scan_sequence_parallel(a, b, dist.group.WORLD, h0=c0)
+    torch.cuda.synchronize()
+    return {"h": h.cpu(), "ms": (time.perf_counter() - t0) / 3 * 1e3}
+
+
+def mt_ckpt(dev):
+    """The whole checkpoint of full-width mingru-lm restored as this
+    rank's blocks of a 2x2 world (``params_pspecs``) on the card: each
+    block against its slice of the whole, and every leaf reassembled by
+    ``join_blocks`` against the whole, bit for bit."""
+    mesh = serve_mesh.MeshPlan(2, 2).build()
+    path = os.path.join(MT_DIR, "ckpt", f"step_{MT_STEPS:08d}")
+    _, whole, wstate = ckpt_lib.restore(path, device="cpu")
+    specs = sharding.params_pspecs(whole, mesh)
+    step, blocks, st = ckpt_lib.restore(path, device=dev, placements=specs,
+                                        mesh=mesh)
+    n_leaves = n_split = 0
+    ok_blocks = ok_joined = True
+    held = 0
+    for (wt, bt) in ((whole, blocks), (wstate.mu, st.mu),
+                     (wstate.nu, st.nu)):
+        for path_, w in leaves_with_path(wt):
+            b, sp = at(bt, path_), at(specs, path_)
+            n_leaves += 1
+            n_split += tuple(b.shape) != tuple(w.shape)
+            held += b.numel() * b.element_size()
+            ok_blocks &= b.device.type == "cuda" and torch.equal(
+                b.cpu(), sharding.shard_of(w, sp, mesh, mesh.coords))
+            ok_joined &= torch.equal(
+                sharding.join_blocks(b, sp, mesh).cpu(), w)
+    return {"step": step, "opt_step": int(st.step), "leaves": n_leaves,
+            "split": n_split, "blocks_equal": ok_blocks,
+            "joined_equal": ok_joined, "held": held,
+            "whole": nbytes(whole, wstate.mu, wstate.nu)}
+
+
+def mt_rank(size, t_spawn):
+    """One rank of a training world on the card: DP (2x1 or 2x2), EP (1x2,
+    or 2x2 with ep_2d off and on), and in the 4-rank world the
+    sequence-parallel scan and the checkpoint restored onto the mesh."""
+    dev = serve_mesh.rank_device("cuda")
+    out = {"rank": int(os.environ["RANK"]), "device": str(dev),
+           "ready_s": time.time() - t_spawn}
+    dp = "2x1" if size == 2 else "2x2"
+    out["dp"] = mt_dp(dp, dev)
+    if size == 2:
+        out["ep 1x2"] = mt_ep("1x2", "on", dev)
+        return out
+    for mode in ("off", "on"):
+        out[f"ep 2x2 {mode}"] = mt_ep("2x2", mode, dev)
+    out["sp"] = mt_sp_scan(dev)
+    out["ckpt"] = mt_ckpt(dev)
+    return out
+
+
+def mesh_train_refs(card):
+    """The one card's references, written under MT_DIR for the ranks: the
+    DP run of full-width mingru-lm (its params, losses, launches and ms a
+    step), the whole checkpoint after it, the MoE layer's forward and
+    drops, and the cut deepseek-moe-16b's grads on the whole batch."""
+    shutil.rmtree(MT_DIR, ignore_errors=True)
+    os.makedirs(MT_DIR)
+    refs = {}
+    cfg = archs.get("mingru-lm")
+    # the one card's step on the whole batch, and on the data ranks' two
+    # halves as microbatches (their grads accumulated in fp32)
+    for name, micro in (("micro", 2), ("plain", 1)):
+        params = lm.init_params(
+            torch.Generator(device=DEV).manual_seed(MT_SEED), cfg,
+            device=DEV)
+        state = opt_lib.init(MT_OPT, params)
+        step = ts_lib.make_train_step(cfg, MT_OPT, microbatches=micro)
+        params, state, losses, per_step, ms = mt_timed_steps(
+            step, params, state, mt_batch)
+        torch.save({"|".join(p_): a.detach().cpu()
+                    for p_, a in leaves_with_path(params)},
+                   os.path.join(MT_DIR, f"dp_{name}.pt"))
+    refs["dp"] = {"losses": losses, "per_step": per_step, "ms": ms}
+    ckpt_lib.save(os.path.join(MT_DIR, "ckpt"), MT_STEPS, params, state)
+    print(f"mesh train one card: mingru-lm (bf16, remat full, B {TB} x T "
+          f"{TT}) {MT_STEPS} steps, losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; launches a step {per_step}; ms a step "
+          + " ".join(f"{v:.2f}" for v in ms) + f" [{card}]")
+    del params, state
+    fresh_card()
+    for cf, dtype in ((NO_DROP_CF, "bfloat16"), (NO_DROP_CF, "float32"),
+                      (EP_DROP_CF, "bfloat16")):
+        cfg = ep_cfg(cf, dtype)
+        layer, x = ep_layer_and_x(cfg, DEV)
+        with torch.no_grad(), moe_lib.count_drops() as drops:
+            y, aux = moe_lib.moe_apply(layer, cfg, x)
+        halves = []
+        for i in range(2):
+            with torch.no_grad(), moe_lib.count_drops() as d_:
+                moe_lib.moe_apply(layer, cfg, x[i * EP_B // 2:
+                                               (i + 1) * EP_B // 2])
+            halves.append(dropped_share(d_)[0])
+        refs[(cf, dtype)] = {"y": y.cpu(), "aux": float(aux),
+                             "dropped": dropped_share(drops)[:2],
+                             "halves": halves}
+        del layer, x, y
+        fresh_card()
+    cfg = ep_cfg(NO_DROP_CF)
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(MT_SEED),
+                            cfg, device=DEV)
+    (loss, metrics), grads = ts_lib.value_and_grad(
+        ts_lib.make_loss_fn(cfg), params,
+        ts_lib.batch_to(ep_batch(cfg), DEV))
+    refs["ep_step"] = {"loss": float(loss),
+                       "grad_norm": float(opt_lib.global_norm(grads)),
+                       "bytes": nbytes(params),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.save({"|".join(p_): a.detach().cpu()
+                for p_, a in leaves_with_path(grads)},
+               os.path.join(MT_DIR, "ep_grads.pt"))
+    del params, grads
+    fresh_card()
+    a, b, c0 = scan_ref.inputs(torch.Generator().manual_seed(MT_SEED),
+                               "linear", torch.float32, SP_SHAPE, True, DEV)
+    refs["sp"] = scan_ops.linear_scan(a, b, c0).cpu()
+    refs["sp_ms"] = eager_ms([lambda: scan_ops.linear_scan(a, b, c0)], 5)
+    del a, b, c0
+    fresh_card()
+    return refs
+
+
+def mesh_train_phase():
+    """Training on data x model worlds of ranks that share the card (gloo,
+    every rank on cuda:0): the compressed DP step of full-width mingru-lm
+    at 2x1 and 2x2 against the one card (trend tolerance, replicas
+    bit-equal, the one card's launches a step on every rank); expert
+    parallelism of full-width deepseek-moe-16b at 1x2 and 2x2 with ep_2d
+    off and on (forward against the one card in bf16 and fp32, the
+    dropped share at 1.25, one train step's gathered grads); the
+    sequence-parallel scan over 4 ranks against the one-card kernel; a
+    whole checkpoint restored onto a 2x2 world and reassembled bit for
+    bit.  Returns the launches of every rank's DP steps."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    refs = mesh_train_refs(card)
+    want_step = refs["dp"]["per_step"][0]
+    check(all(p_ == want_step for p_ in refs["dp"]["per_step"])
+          and want_step == {"fused_mingru_kernel": 2 * 12,
+                            "linear_scan_kernel": 12},
+          f"one-card DP reference launches {refs['dp']['per_step']}")
+    launches = {}
+    for size in (2, 4):
+        t0 = time.time()
+        ranks = serve_mesh.run_world(mt_rank, size, (size, t0))
+        up = max(r["ready_s"] for r in ranks)
+        dp_spec = "2x1" if size == 2 else "2x2"
+        for r in ranks:
+            d = r["dp"]
+            check(r["device"] == "cuda:0", f"rank on {r['device']}")
+            check(d["replicas_equal"], f"DP {dp_spec}: rank {r['rank']}'s "
+                  f"params differ from rank 0's")
+            check(d["micro"]["n_bad"] == 0, f"DP {dp_spec} rank "
+                  f"{r['rank']}: {d['micro']['n_bad']} params outside rtol "
+                  f"{DP_RTOL} atol {DP_ATOL} of the one card's step on the "
+                  f"same halves (max abs err {d['micro']['max_err']:.3g})")
+            check(all(abs(a - b_) <= DP_LOSS for a, b_ in
+                      zip(d["losses"], refs["dp"]["losses"])),
+                  f"DP {dp_spec}: losses {d['losses']} against one card "
+                  f"{refs['dp']['losses']}")
+            check(d["per_step"] == refs["dp"]["per_step"],
+                  f"DP {dp_spec} rank {r['rank']}: launches a step "
+                  f"{d['per_step']} != one card's {refs['dp']['per_step']}")
+            for p_ in d["per_step"]:
+                merge(launches, p_)
+        d0 = ranks[0]["dp"]
+        print(f"mesh train DP {dp_spec} ({size} ranks, {serve_mesh.BACKEND}; "
+              f"world up in {up:.1f}s): losses "
+              + " ".join(f"{v:.4f}" for v in d0["losses"])
+              + f" (one card "
+              + " ".join(f"{v:.4f}" for v in refs["dp"]["losses"])
+              + f"); params within rtol {DP_RTOL} atol {DP_ATOL} of the "
+              f"one card's step on the data ranks' halves as 2 "
+              f"microbatches (max abs err "
+              f"{max(r['dp']['micro']['max_err'] for r in ranks):.3g}); "
+              f"against the one card's whole-batch step "
+              f"{d0['plain']['n_bad']} of {d0['n_params']} params outside "
+              f"that tolerance (max abs err {d0['plain']['max_err']:.3g}; "
+              f"not gated: an fp32 all-reduce parts the same ones, "
+              f"|grad| ~1e-7 against 1e-2 in their leaf, where AdamW's "
+              f"sign-like step follows the rounding); replicas "
+              f"bit-equal on all {size} ranks; launches a step on every "
+              f"rank {d0['per_step'][0]} == one card's; ms a step (rank 0) "
+              + " ".join(f"{v:.2f}" for v in d0["ms"])
+              + " against one card "
+              + " ".join(f"{v:.2f}" for v in refs["dp"]["ms"])
+              + f" [{card}]")
+        eps = [k for k in ranks[0] if k.startswith("ep ")]
+        for key in eps:
+            spec, mode = key.split()[1], (key.split() + ["on"])[2]
+            plan = serve_mesh.MeshPlan.parse(spec)
+            for (cf, dtype), ref in ((k, v) for k, v in refs.items()
+                                     if isinstance(k, tuple)):
+                tol_dtype = torch.float32 if dtype == "float32" \
+                    else torch.bfloat16
+                for r in ranks:
+                    got = r[key][(cf, dtype)]
+                    check(r[key]["layout"][(cf, dtype)][0],
+                          f"EP {key}: expert parallelism off")
+                    # f_e counts routes alike; p_e's means part by fp32
+                    # rounding alone
+                    check(abs(got["aux"] - ref["aux"]) <= 1e-4
+                          * abs(ref["aux"]),
+                          f"EP {key} cf {cf} {dtype}: aux {got['aux']} "
+                          f"against one card's {ref['aux']}")
+                rows = EP_B // plan.data
+                y = torch.cat([ranks[i * plan.model][key][(cf, dtype)]["y"]
+                               for i in range(plan.data)])
+                for r in ranks:
+                    row0 = ranks[r["rank"] - r["rank"] % plan.model]
+                    check(torch.equal(r[key][(cf, dtype)]["y"],
+                                      row0[key][(cf, dtype)]["y"]),
+                          f"EP {key}: model ranks' y differ")
+                dropped = sum(r[key][(cf, dtype)]["dropped"] for r in ranks)
+                want_drop = ref["dropped"][0] if plan.data == 1 \
+                    else sum(ref["halves"])
+                check(dropped == want_drop,
+                      f"EP {key} cf {cf}: dropped {dropped} against the "
+                      f"one card's {want_drop}")
+                if cf == NO_DROP_CF:
+                    err = max_err(y, ref["y"], tol_dtype,
+                                  f"EP {key} {dtype} y against one card")
+                    print(f"mesh train EP {key} cf {cf:g} {dtype}: y max abs "
+                          f"err {err:.3g} against the one-card moe_apply "
+                          f"(limit atol {TOL[tol_dtype][0]} rtol "
+                          f"{TOL[tol_dtype][1]}), aux "
+                          f"{ranks[0][key][(cf, dtype)]['aux']:.6f} against "
+                          f"{ref['aux']:.6f}; layout (EP, 2D) "
+                          f"{ranks[0][key]['layout'][(cf, dtype)]}")
+                else:
+                    check(dropped > 0, f"EP {key} cf {cf}: no drops")
+                    auto = ranks[0][key]["auto_published"]
+                    check(auto == (True, plan.data > 1),
+                          f"EP {key}: ep_2d auto at cf {EP_PUBLISHED_CF} "
+                          f"gave (EP, 2D) {auto}")
+                    print(f"mesh train EP {key} cf {cf:g}: dropped "
+                          f"{dropped} of {EP_B * EP_T * ep_cfg(cf).moe.top_k}"
+                          f" assignments == the one card's on each data "
+                          f"rank's tokens ({want_drop}; on the whole batch "
+                          f"{ref['dropped'][0]}); ep_2d auto at "
+                          f"{EP_B // plan.data * EP_T} tokens a rank and the "
+                          f"published cf {EP_PUBLISHED_CF}: (EP, 2D) {auto}")
+            st = [r[key]["step"] for r in ranks]
+            worst = max(s_["grad_rel_err"] for s_ in st)
+            at_leaf = max(st, key=lambda s_: s_["grad_rel_err"])["worst_leaf"]
+            check(worst <= GRAD_TOL[torch.bfloat16],
+                  f"EP {key}: grads {worst:.3g} of the max from the one "
+                  f"card's ({at_leaf})")
+            check(abs(st[0]["loss"] - refs["ep_step"]["loss"]) <= DP_LOSS,
+                  f"EP {key}: loss {st[0]['loss']} against "
+                  f"{refs['ep_step']['loss']}")
+            held = [sum(s_["bytes"]) for s_ in st]
+            print(f"mesh train EP {key} (deepseek-moe-16b, d 2048, 64 experts "
+                  f"of 1408 top-6, 1 dense + 1 MoE layer, bf16, B {EP_B} x T "
+                  f"{EP_T}, cf {NO_DROP_CF:g}): one train step, loss "
+                  f"{st[0]['loss']:.4f} (one card "
+                  f"{refs['ep_step']['loss']:.4f}), grads within "
+                  f"{worst:.3g} of the max of the one card's (limit "
+                  f"{GRAD_TOL[torch.bfloat16]}), global norm "
+                  f"{st[0]['grad_norm']:.4f} (one card "
+                  f"{refs['ep_step']['grad_norm']:.4f}); bytes a rank "
+                  f"(weights, grads, AdamW moments) "
+                  f"{[tuple(round(b_ / 1e9, 2) for b_ in s_['bytes'])
+                      for s_ in st]}"
+                  f" GB, {sum(held) / 1e9:.2f} GB on the card together "
+                  f"(the whole model's weights "
+                  f"{refs['ep_step']['bytes'] / 1e9:.2f} GB); peak GiB a rank "
+                  f"{[round(s_['peak_gib'], 1) for s_ in st]}")
+        if size == 4:
+            h = torch.cat([r["sp"]["h"] for r in ranks], dim=1)
+            err = max_err(h, refs["sp"], torch.float32,
+                          "sequence-parallel scan against the one-card "
+                          "linear_scan_kernel")
+            print(f"mesh train sequence-parallel scan, B {SP_SHAPE[0]} x T "
+                  f"{SP_SHAPE[1]} x D {SP_SHAPE[2]} fp32 over 4 ranks: max "
+                  f"abs err {err:.3g} against the one-card "
+                  f"linear_scan_kernel (limit atol {TOL[torch.float32][0]} "
+                  f"rtol {TOL[torch.float32][1]}); ms a call per rank "
+                  f"{[round(r['sp']['ms'], 2) for r in ranks]} against "
+                  f"the kernel's {refs['sp_ms']:.3f} [{card}]")
+            for r in ranks:
+                c = r["ckpt"]
+                check(c["blocks_equal"] and c["joined_equal"]
+                      and c["step"] == MT_STEPS
+                      and c["opt_step"] == MT_STEPS and c["split"] > 0,
+                      f"checkpoint onto 2x2, rank {r['rank']}: {c}")
+            c = ranks[0]["ckpt"]
+            print(f"mesh train checkpoint: full-width mingru-lm's whole "
+                  f"checkpoint (params, mu, nu: {c['leaves']} leaves, "
+                  f"{c['whole'] / 1e9:.3f} GB) restored onto a 2x2 world, "
+                  f"{c['split']} leaves split; every rank's blocks equal "
+                  f"their slices and every leaf reassembles bit for bit "
+                  f"(bytes held a rank "
+                  f"{[round(r['ckpt']['held'] / 1e9, 3) for r in ranks]} GB)")
+        print(f"mesh train world of {size} ranks up in {up:.1f}s [{card}]")
+    shutil.rmtree(MT_DIR, ignore_errors=True)
+    print(f"mesh train: launches of every rank's DP steps {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     print(card_line())
@@ -4986,6 +5524,8 @@ def main():
     lap("tuning")
     merge(launches, mesh_phase())
     lap("mesh serving")
+    merge(launches, mesh_train_phase())
+    lap("mesh training")
 
     entries = []
     for name in REPLACES:

@@ -34,8 +34,8 @@ class MoEConfig:
     router_aux_weight: float = 0.01
     first_dense_layers: int = 0    # deepseek: leading dense layers
     ep_2d: str = "auto"            # 2D (expert x d) weight sharding of
-                                   # the expert-parallel mesh path (not
-                                   # ported: ROADMAP.md queue 1, item 6)
+                                   # the expert-parallel mesh path: on |
+                                   # off | auto (models/moe.ep_layout)
 
 
 @dataclass(frozen=True)

@@ -17,10 +17,11 @@ Strategies (the reference's names):
                             sequential carry across them
   * ``"pallas"``         -- the hand-written CUDA scans
                             (``kernels/scan/ops.py``)
+  * ``scan_sequence_parallel`` -- the time axis split over the ranks of a
+                            ``torch.distributed`` group
 
 Array convention: time axis ``axis`` (default -2), shapes ``(..., T, D)``;
-``h0`` is ``(..., D)``.  The sequence-parallel scan waits for
-``torch.distributed`` (ROADMAP.md queue 1, item 6).
+``h0`` is ``(..., D)``.
 """
 
 from __future__ import annotations
@@ -98,6 +99,44 @@ def scan_associative(a: torch.Tensor, b: torch.Tensor,
     if h0 is None:
         return b_cum
     return b_cum + a_cum * h0.unsqueeze(axis)
+
+
+def scan_sequence_parallel(a: torch.Tensor, b: torch.Tensor, group,
+                           h0: Optional[torch.Tensor] = None,
+                           axis: int = -2) -> torch.Tensor:
+    """A scan whose time axis is split over the ranks of ``group`` (a
+    ``torch.distributed`` process group, None for a group of one), in
+    group-rank order: ``a`` / ``b`` are this rank's block of the
+    sequence, ``h0`` the state before the whole sequence.  The
+    reference's steps:
+
+      1. a local inclusive scan -> (A_loc, B_loc);
+      2. an all-gather of every rank's aggregate (its last element), 2 D
+         values a row per rank -- the only collective;
+      3. the aggregates of the ranks before this one combined in order
+         onto ``h0`` (zero without it): this rank's incoming carry;
+      4. the fix-up h = B_loc + A_loc * carry_in.
+
+    Differentiable: the gather's backward sums the cotangents of this
+    rank's aggregate over the group (a collective: every rank of the
+    group runs the backward)."""
+    from repro_torch.distributed import collectives
+    a_cum, b_cum = scan_associative_with_aggregate(a, b, axis=axis)
+    last = a_cum.shape[axis] - 1
+    agg = torch.stack([a_cum.narrow(axis, last, 1),
+                       b_cum.narrow(axis, last, 1)])     # (2, ..., 1, D)
+    every = collectives.all_gather(agg, group)           # (n, 2, ..., 1, D)
+    carry = torch.zeros_like(agg[1])
+    if h0 is not None:
+        carry = carry + h0.unsqueeze(axis).to(b.dtype)
+    # the carry before every rank, as the reference's scan over the ranks
+    # gives them: every rank's graph then holds the gather, so every rank
+    # joins its backward's all-reduce
+    carries = [carry]
+    for k in range(every.shape[0] - 1):
+        carries.append(every[k, 0] * carries[-1] + every[k, 1])
+    carry_in = torch.stack(carries)[collectives.rank_in(group)]
+    return b_cum + a_cum * carry_in
 
 
 def logcumsumexp(x: torch.Tensor, axis: int = -2) -> torch.Tensor:

@@ -60,6 +60,7 @@ import torch
 
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding
+from repro_torch.tree import map_with_path
 
 BACKEND = "gloo"
 # how long a collective waits for the other ranks before it raises
@@ -256,7 +257,7 @@ def cut_slot_state(cfg, state: Dict[str, Any], mesh: RankMesh
             placement[m_ax] = "model"
         return sharding.shard_of(leaf, tuple(placement), mesh, mesh.coords)
 
-    return _map_with_path(cut, state)
+    return map_with_path(cut, state)
 
 
 def join_slot_state(cfg, state: Dict[str, Any], mesh: RankMesh
@@ -268,10 +269,9 @@ def join_slot_state(cfg, state: Dict[str, Any], mesh: RankMesh
     hidden = _tp_shards_hidden(cfg, mesh.plan)
 
     def gather(t: torch.Tensor, axis: int, group, n: int) -> torch.Tensor:
-        # bool and bf16 travel as integers of their width: the bits, on
-        # any backend
-        wire = {torch.bool: torch.uint8, torch.bfloat16: torch.int16,
-                torch.float16: torch.int16}.get(t.dtype)
+        # bool travels as uint8; bf16 and fp16 as themselves (gloo on
+        # torch 2.11 refuses int16: "Invalid scalar type")
+        wire = {torch.bool: torch.uint8}.get(t.dtype)
         send = (t.view(wire) if wire is not None else t).contiguous()
         parts = [torch.empty_like(send) for _ in range(n)]
         dist.all_gather(parts, send, group=group)
@@ -287,14 +287,7 @@ def join_slot_state(cfg, state: Dict[str, Any], mesh: RankMesh
             t = gather(t, b_ax, mesh.data_group, mesh.plan.data)
         return t
 
-    return _map_with_path(join, state)
-
-
-def _map_with_path(fn: Callable, tree, path: Tuple[str, ...] = ()):
-    if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,))
-                for k, v in tree.items()}
-    return fn(path, tree)
+    return map_with_path(join, state)
 
 
 # Serving-TP whitelist: ONLY the projections whose d_hidden / d_ff dim the
@@ -313,7 +306,7 @@ def serve_params_pspecs(params, cfg, mesh: RankMesh):
     with ``tp -> ("model",)`` and every other logical axis off (``fsdp``
     and the rest are training layouts: serving wants whole weights per
     data shard)."""
-    return _map_with_path(lambda path, leaf: _serve_spec(path, leaf, mesh),
+    return map_with_path(lambda path, leaf: _serve_spec(path, leaf, mesh),
                           params)
 
 
@@ -330,7 +323,7 @@ def shard_params(params, cfg, mesh: RankMesh):
     """This rank's serving params: each split leaf's block as a contiguous
     copy (the cell kernels' bindings assume dense rows and 16-byte aligned
     weights), every other leaf as it is."""
-    return _map_with_path(
+    return map_with_path(
         lambda path, leaf: sharding.shard_of(
             leaf, _serve_spec(path, leaf, mesh), mesh, mesh.coords), params)
 

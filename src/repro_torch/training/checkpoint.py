@@ -10,7 +10,9 @@ so restore needs no pickled structure.  bf16 leaves are stored as a
 uint16 view and listed under ``dtypes`` in the manifest; ``checksum`` is
 the sha256 of ``arrays.npz``, verified on restore.
 ``CheckpointManager.restore_latest`` walks checkpoints newest first and
-falls back past corrupt ones.
+falls back past corrupt ones.  A checkpoint is always whole on disk;
+``restore(placements=, mesh=)`` lands each rank of a world on its own
+block of every leaf (the reference's ``restore(shardings=)``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 from repro_torch.bridge import leaf_from_numpy
 from repro_torch.device import resolve_device
 from repro_torch.training.optimizer import AdamWState
-from repro_torch.tree import leaves_with_path, tree_map
+from repro_torch.tree import at, leaves_with_path, map_with_path, tree_map
 
 log = logging.getLogger("repro_torch.checkpoint")
 
@@ -176,17 +178,40 @@ def _to(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
-def restore(path: str, *, device="cuda"):
-    """Returns (step, params, opt_state or None), on ``device``."""
+def _place(tree, dev, placements, mesh):
+    """Each leaf on ``dev``; with ``placements`` (a tree of the same
+    layout) only this rank's block of it (``sharding.shard_of`` at
+    ``mesh.coords``), cut on the host before it moves."""
+    if placements is None:
+        return _to(tree, dev)
+    from repro_torch.distributed import sharding
+    return map_with_path(lambda path, t: sharding.shard_of(
+        t, at(placements, path), mesh, mesh.coords).to(dev), tree)
+
+
+def restore(path: str, *, device="cuda", placements=None,
+            opt_placements=None, mesh=None):
+    """Returns (step, params, opt_state or None), on ``device``.
+
+    ``placements``: a tree of placements matching the params (e.g.
+    ``sharding.params_pspecs``) -- each leaf lands as the block that this
+    rank of ``mesh`` (a ``serve_mesh.RankMesh``) holds, whatever mesh or
+    package wrote the checkpoint (it is always whole on disk).
+    ``opt_placements``: (step, mu, nu) placements for the moments
+    (default: ``placements`` for both)."""
     dev = resolve_device(device)
+    if placements is not None and mesh is None:
+        raise ValueError("restore with placements needs the rank's mesh")
     flat, manifest = _load_arrays(path)
-    params = _to(unflatten_tree(flat, "params"), dev)
+    params = _place(unflatten_tree(flat, "params"), dev, placements, mesh)
     opt_state = None
     if manifest.get("has_opt"):
+        mu_p, nu_p = (opt_placements[1], opt_placements[2]) \
+            if opt_placements is not None else (placements, placements)
         opt_state = AdamWState(
             step=flat["opt_step"].to(torch.int32).to(dev),
-            mu=_to(unflatten_tree(flat, "mu"), dev),
-            nu=_to(unflatten_tree(flat, "nu"), dev))
+            mu=_place(unflatten_tree(flat, "mu"), dev, mu_p, mesh),
+            nu=_place(unflatten_tree(flat, "nu"), dev, nu_p, mesh))
     return manifest["step"], params, opt_state
 
 

@@ -97,10 +97,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, state: AdamWState, params, grads) -> tuple:
+def apply(cfg: AdamWConfig, state: AdamWState, params, grads,
+          grad_norm=None) -> tuple:
     """One AdamW update, in place (see the module docstring).  ``grads``
-    has the params' layout.  Returns (params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+    has the params' layout.  ``grad_norm``: the global norm to clip by,
+    where ``grads`` is one rank's block of a tree split over a mesh
+    (default: ``global_norm(grads)``).  Returns (params, new_state,
+    metrics)."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)

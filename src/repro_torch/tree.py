@@ -32,6 +32,20 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def map_with_path(fn: Callable, tree, path: Tuple[str, ...] = ()):
+    """``fn(key path, leaf)`` over every leaf, in ``tree``'s layout."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def at(tree, path: Tuple[str, ...]):
+    """The subtree (or leaf) of ``tree`` at key ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def unflatten(like, new_leaves: Sequence[Any]):
     """A tree of ``like``'s layout holding ``new_leaves`` in leaf order."""
     it = iter(new_leaves)

@@ -1628,3 +1628,125 @@ def test_tp_world_model_ranks_agree_bit_for_bit(dtype, cuda_device):
         assert all(len(s) == 8 for s in r["streams"].values())
     if dtype == "float32":
         assert got[0]["streams"] == _card_single(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Distributed training on worlds of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+_TRAIN_WORLD = {}
+
+
+def _train_inputs():
+    """Seeded inputs of the card's training world: the EP test layer (d 16,
+    8 experts, top-2, fp32), tokens and cotangents (2, 12, 16), scan
+    inputs (2, 64, 4) and h0, and 2 corpus batches of B 8 x T 32."""
+    import numpy as np
+    import torch_train_ranks as ranks
+    from repro_torch.data import lm_corpus
+    from repro_torch.models import moe
+    layer = tree.tree_map(lambda a: a.numpy(), moe.moe_init(
+        torch.Generator().manual_seed(0), ranks.EP_CFG))
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 12, 16).astype(np.float32)
+    g = rng.randn(2, 12, 16).astype(np.float32)
+    scan_in = (rng.uniform(0.5, 1.0, (2, 64, 4)).astype(np.float32),
+               rng.randn(2, 64, 4).astype(np.float32),
+               rng.randn(2, 4).astype(np.float32))
+    data, _ = lm_corpus.build_corpus(target_bytes=20_000)
+    batches = [lm_corpus.lm_batch(data, 0, i, 8, 32) for i in range(2)]
+    return layer, x, g, scan_in, batches
+
+
+def _train_world():
+    import torch_train_ranks as ranks
+    from repro_torch.distributed import serve_mesh
+    if not _TRAIN_WORLD:
+        inputs = _train_inputs()
+        _TRAIN_WORLD["inputs"] = inputs
+        _TRAIN_WORLD["ranks"] = serve_mesh.run_world(ranks.card_world, 4,
+                                                     inputs)
+    return _TRAIN_WORLD["inputs"], _TRAIN_WORLD["ranks"]
+
+
+def test_dp_compressed_step_world_on_the_card(cuda_device):
+    """A 2x2 world of the bf16 smoke LM: every rank launches the one
+    card's fused-cell and reversed-scan kernels a step, the replicas stay
+    bit-equal, and the params follow the one card's step on the same
+    halves (2 microbatches: a whole-batch step parts where a grad is
+    rounding noise) within the reference's trend tolerance (rtol 0.1,
+    atol 2e-3; loss 1e-2)."""
+    (_, _, _, _, batches), got = _train_world()
+    cfg = archs.smoke("mingru-lm").replace(param_dtype="bfloat16",
+                                           compute_dtype="bfloat16")
+    opt = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    params = lm.init_params(torch.Generator(device=cuda_device)
+                            .manual_seed(0), cfg, device=cuda_device)
+    state = opt_lib.init(opt, params)
+    step = ts_lib.make_train_step(cfg, opt, microbatches=2)
+    losses = []
+    for batch in batches:
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    # remat "full" runs each layer's forward twice a step; the smoke
+    # config's "none" once
+    want = ((2 if cfg.remat == "full" else 1) * cfg.n_layers, cfg.n_layers)
+    for r in got:
+        d = r["dp"]
+        assert d["device"] == "cuda:0" and d["replicas_equal"]
+        assert d["per_step"] == [want] * len(batches)
+        assert all(abs(a - b) < 1e-2 for a, b in zip(d["losses"], losses))
+        for path, p in tree.leaves_with_path(params):
+            got_p = torch.from_numpy(tree.at(d["params"], path))
+            torch.testing.assert_close(got_p, p.float().cpu(), rtol=0.1,
+                                       atol=2e-3)
+
+
+@pytest.mark.parametrize("mode", ["off", "on"])
+def test_expert_parallel_world_on_the_card(mode, cuda_device):
+    """EP at 2x2 on the card (fp32, the reference's test layer): each data
+    row's y, the x grads and the gathered weight grads against the one
+    card's ``moe_apply`` at 1e-4."""
+    import numpy as np
+    import torch_train_ranks as ranks
+    from repro_torch.models import moe
+    (layer, x, g, _, _), got = _train_world()
+    res = [r[f"ep_{mode}"] for r in got]
+    assert all(r["ep"] and r["two_d"] == (mode == "on") for r in res)
+    p = tree.tree_map(lambda a: torch.from_numpy(a).to(cuda_device)
+                      .requires_grad_(), layer)
+    xt = torch.from_numpy(x).to(cuda_device).requires_grad_()
+    y, aux = moe.moe_apply(p, ranks.EP_CFG, xt)
+    ((y * torch.from_numpy(g).to(cuda_device)).sum() + aux).backward()
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        np.concatenate([res[0]["y"], res[2]["y"]]), y.detach().cpu(), **tol)
+    np.testing.assert_allclose(
+        np.concatenate([res[0]["x_grad"], res[2]["x_grad"]]),
+        xt.grad.cpu(), **tol)
+    aux = float(aux.detach())
+    assert abs(res[0]["aux"] - aux) <= 1e-4 * abs(aux)
+    router = sum(res[i]["grads"]["router"]["kernel"] for i in (0, 2))
+    np.testing.assert_allclose(router, p["router"]["kernel"].grad.cpu(),
+                               **tol)
+    for key, d_axis in (("gate_w", 1), ("up_w", 1), ("down_w", 2)):
+        blocks = [r["grads"][key]["kernel"] for r in res]
+        if mode == "on":       # d split over the data ranks
+            cols = [np.concatenate([blocks[j], blocks[2 + j]], axis=d_axis)
+                    for j in range(2)]
+        else:                  # whole on the data ranks: summed
+            cols = [blocks[j] + blocks[2 + j] for j in range(2)]
+        np.testing.assert_allclose(np.concatenate(cols, axis=0),
+                                   p[key]["kernel"].grad.cpu(), **tol)
+
+
+def test_sequence_parallel_scan_world_on_the_card(cuda_device):
+    """The scan split over 4 ranks on the card against the one-card
+    ``linear_scan_kernel`` on the whole sequence (fp32 1e-4)."""
+    import numpy as np
+    (_, _, _, (a, b, h0), _), got = _train_world()
+    want = scan_ops.linear_scan(*(torch.from_numpy(v).to(cuda_device)
+                                  for v in (a, b, h0)))
+    np.testing.assert_allclose(
+        np.concatenate([r["sp_scan"]["h"] for r in got], axis=-2),
+        want.cpu(), rtol=1e-4, atol=1e-4)

@@ -59,7 +59,11 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_neither_jax_nor_repro():
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples \
+        + [ROOT / "tests" / "torch_mesh_ranks.py",
+           ROOT / "tests" / "torch_train_ranks.py"]
     assert len(files) > 10
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())

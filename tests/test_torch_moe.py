@@ -271,10 +271,35 @@ def test_routing_log_and_forced_routing():
 
 
 def test_moe_mesh_path_names_the_roadmap():
+    """The mesh path is ported (ROADMAP.md queue 1, item 6): on a 1x1
+    ``RankMesh``, built in this process with no world, as the ``mesh=``
+    argument or the context's mesh, ``moe_apply`` is the no-mesh path bit
+    for bit, output, aux and gradients (expert parallelism over worlds:
+    ``test_torch_expert_parallel.py``)."""
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.distributed import serve_mesh
     _, pcfg, _, pparams = _setup()
-    layer = tree.tree_map(lambda a: a[0], pparams["layers"]["blocks"]["moe"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        pt_moe.moe_apply(layer, pcfg, torch.zeros((1, 2, 64)), mesh=object())
+    layer = tree.tree_map(lambda a: a[0].clone(),
+                          pparams["layers"]["blocks"]["moe"])
+    mesh = serve_mesh.MeshPlan(1, 1).build()
+    assert mesh.model_group is None and mesh.data_group is None
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 11, 64)
+                         .astype(np.float32))
+
+    def run(**kw):
+        for leaf in tree.leaves(layer):
+            leaf.grad = None
+            leaf.requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        y, aux = pt_moe.moe_apply(layer, pcfg, xg, **kw)
+        (y.square().sum() + aux).backward()
+        return [y, aux, xg.grad] + [leaf.grad for leaf in tree.leaves(layer)]
+
+    plain = run()
+    with mesh_ctx.use_mesh(mesh):
+        in_context = run()
+    for got in (run(mesh=mesh), in_context):
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
 # ---------------------------------------------------------------------------
