@@ -7,6 +7,8 @@ with RoPE and a KV cache), mamba2-370m (the SSD trunk), zamba2-2.7b (the
 hybrid), deepseek-moe-16b (MoE; trained at 4 layers), starcoder2-15b
 (LayerNorm, biases), pixtral-12b (a patch prefix), deepseek-67b and
 deepseek-v3-671b (MLA with 256 routed experts; all at cut depths),
+and deepseek-moe-16b, deepseek-v3-671b and zamba2-2.7b with the paper's
+minGRU / minLSTM in place of attention,
 encodes, decodes and trains whisper-base (the encoder-decoder),
 compares remat "dots" with "full" and "none", trains the
 paper's task heads, holds the GRU / LSTM baselines against the CPU and
@@ -134,7 +136,7 @@ Phases (any failed check exits non-zero before the result line):
      loss finite and falling; outside the count, the first 3 losses
      against the same run on the plain versions, a checkpoint restore +
      resumed step 6, and ms per step over 5 repeats;
-  5c. mamba2-370m at full width, cut to 12 of its 48 SSD layers for the
+  5c. mamba2-370m at full width, cut to 6 of its 48 SSD layers for the
      script's time (d 1024, 32 heads of 64, d_state 128, chunk 256, tied
      vocab 50,280; bf16, drawn on the card; no kernel of the repo, every
      count stays 0): 8 slots, 8 prompts of
@@ -189,7 +191,7 @@ Phases (any failed check exits non-zero before the result line):
      training steps, the losses and ``moe_aux`` printed;
   5e. the rest of the dense zoo at full width, bf16, drawn on the card,
      no kernel of the repo (every count stays 0), a lap line each.
-     starcoder2-15b cut to 16 of 40 layers (d 6144, GQA 48 / 4, LayerNorm,
+     starcoder2-15b cut to 8 of 40 layers (d 6144, GQA 48 / 4, LayerNorm,
      biased attention and GELU MLP 24576, vocab 49,152): 8
      prompts of 8 seeded ids, 32 new tokens, K 4, C 1, a KV cache of
      1024 (streams equal ``generate_one``, a B-8 decode row equal to the
@@ -199,12 +201,12 @@ Phases (any failed check exits non-zero before the result line):
      tokens and a step after against 128 sequential steps within 5e-2 of
      the largest |logit|, and of 32 in an fp32 compute dtype within
      1e-4); cut to 4 layers, 3 training steps at B 8 x T 512.
-     pixtral-12b cut to 10 of 40 layers (d 5120, GQA 32 / 8; 1024 patch
+     pixtral-12b cut to 5 of 40 layers (d 5120, GQA 32 / 8; 1024 patch
      embeddings of dim 1024): the same serving traffic as text, its
      prefill B 8 x (1024 patches + 512 tokens) against a prefill of the
      patches and 384 tokens followed by 128 steps (5e-2), and cut to 4
      layers 3 training steps with the patch prefix.  deepseek-67b cut to
-     8 of 95 layers (d 8192, GQA 64 / 8, SwiGLU 22016): serving and
+     4 of 95 layers (d 8192, GQA 64 / 8, SwiGLU 22016): serving and
      prefill as starcoder2-15b's, the route at 128 steps.  whisper-base
      whole (6 + 6 layers, d 512): encode B 8 x 1500 frames; prefill and
      64 greedy decode steps against teacher-forced ``forward`` (bf16
@@ -225,6 +227,37 @@ Phases (any failed check exits non-zero before the result line):
      training steps on the 3 dense layers (an empty MoE stack), then one
      loss and its gradients under remat full, dots and none (the same
      loss, gradients within the bf16 limit of full's, peaks ordered);
+  5g. the paper's swap of attention for a minRNN cell inside the MoE and
+     hybrid trunks (``seq_mixer``; the cell at Dh = d_model in log mode
+     and a down projection), each run right after its native model on
+     that model's weights, the mixers drawn anew: zamba2-2.7b's shared
+     block as minGRU (Dx 2560) refuses init_cache / decode_step /
+     prefill, as the reference fails on it, holds its fused layer's
+     forward and gradients against the plain version at B 8 x T 512,
+     and trains 3 steps (two
+     fused_mingru_kernel launches and one reversed linear scan a group a
+     step); deepseek-moe-16b with minGRU at 1 dense + 5 MoE layers
+     (Dx 2048) holds its cell step (B 8) and fused layer (forward and
+     gradients, B 8 x T 512) against their plain versions on layer 0's
+     weights, serves 8 x 32 tokens at capacity factor 16 (streams equal
+     ``generate_one``, a B-8 decode row equal to the B-1 row in logits
+     and h, one mingru_step_kernel launch a layer a round on the
+     tensor-core body) and 1.25 (the dropped share), one sampled window,
+     prefills B 8 x T 512 right-padded (one fused launch a layer; at 16
+     the route held to its routing, 5e-2; in an fp32 compute dtype each
+     padded row against its own prefill and the route, 1e-4), and
+     trains 3 steps cut to 1 dense + 3 MoE layers (losses within 1% of
+     the plain versions'); with minLSTM at 1 dense + 1 MoE layer the
+     same kernel checks, serving, prefill and one training step;
+     deepseek-v3-671b with
+     minGRU at 3 dense + 2 MoE layers (Dx 7168): the cell step on the
+     CUDA-core body against its plain version, a row alone bit-equal,
+     its ms beside its byte bound and one torch.matmul, fp32 refused at
+     binding; the fused layer at B 8 x T 512 forward and backward
+     against the plain version; the serving windows and row, the
+     prefill and its route (128 steps), then 2 training steps on the 3
+     dense layers (the swapped model's expert-parallel step is left to
+     the CPU tests' 2x2 world, for the script's time);
   6. the robustness layer, full width, bf16, weights seeded on the card.
      Faults on mingru-lm (block tier and cell tier) and minlstm-lm
      (block tier), K 4, C 8: an injector armed at rate 0 gives the plain
@@ -2384,6 +2417,17 @@ GEMMA_MAX_LEN = 1024
 ATTN_OPT = opt_lib.AdamWConfig(lr=1e-4, warmup_steps=10, total_steps=1000)
 
 
+def cell_applications(cfg) -> int:
+    """minRNN cell layers a forward runs: one a layer of an attention
+    trunk whose mixer is a cell, one an application of a hybrid's shared
+    cell block; none for a native mixer."""
+    if cfg.seq_mixer not in GATES:
+        return 0
+    if cfg.block_kind == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
 def timed_steps(cfg, params, batch, ocfg, n, aux=None):
     """``n`` train steps on one batch from ``params`` (updated in place):
     the per-step losses and host ms (each step ends in the loss's read);
@@ -2402,16 +2446,19 @@ def timed_steps(cfg, params, batch, ocfg, n, aux=None):
     return losses, times
 
 
-def attn_train(cfg, params, plain_check, extra=None):
-    """3 AdamW steps of full-width ``cfg`` (bf16, remat "full") at B 8 x T
-    512 on one repeated corpus batch (``extra``: more batch entries, e.g.
-    a patch prefix), from ``params`` (updated in place):
-    launches against the formula (gemma-2b-mingru: 2 fused-cell launches
-    per layer a step, forward and recompute, all on the tensor-core body,
-    and one reversed linear scan; native GQA: none), the loss finite and
-    falling, ms a step and peak memory.  ``plain_check``: outside the
-    count, the same 3 steps on the plain versions of the kernels (losses
-    within LOSS_RTOL_PLAIN) and a profiled step."""
+def attn_train(cfg, params, plain_check, extra=None, steps=3,
+               profile=True):
+    """``steps`` (3) AdamW steps of full-width ``cfg`` (bf16, remat "full")
+    at B 8 x T 512 on one repeated corpus batch (``extra``: more batch
+    entries, e.g. a patch prefix), from ``params`` (updated in place):
+    launches against the formula (a minRNN mixer: 2 fused-cell launches
+    a cell layer a step, forward and recompute, all on the tensor-core
+    body, and one reversed linear scan; native mixers: none), the loss
+    finite (and falling over more than one step), ms a step and peak
+    memory.  ``plain_check``: outside the count, the same steps on the
+    plain versions of the kernels (losses within LOSS_RTOL_PLAIN), and
+    with ``profile`` a profiled step and the reversed scan at the
+    model's width."""
     train_data, _ = lm_corpus.build_corpus()
     batch = dict(lm_corpus.lm_batch(train_data, 0, 0, AB, AT),
                  **(extra or {}))
@@ -2423,51 +2470,59 @@ def attn_train(cfg, params, plain_check, extra=None):
     reset_train_launches()
     reset_serve_launches()
     aux = [] if cfg.moe else None
-    losses, times = timed_steps(cfg, params, batch, ocfg, 3, aux=aux)
+    losses, times = timed_steps(cfg, params, batch, ocfg, steps, aux=aux)
     peak = torch.cuda.max_memory_allocated()
     launches = train_launches()
-    n = cfg.n_layers
+    n = cell_applications(cfg)
     want = {k_: 0 for k_ in launches}
-    if lm.kernel_tier(cfg) != "unfused":
-        want.update(fused_mingru_kernel=2 * n * 3, linear_scan_kernel=n * 3)
+    fused = f"fused_{cfg.seq_mixer}_kernel"
+    if n:
+        want.update({fused: 2 * n * steps, "linear_scan_kernel": n * steps})
     check(launches == want, f"{cfg.name} training launches {launches} != "
           f"{want}")
-    check(gru_ops.LAUNCHES["fused_mingru_kernel/tc"]
-          == want["fused_mingru_kernel"],
+    check(not n or body_launches()[f"{fused}/tc"] == want[fused],
           f"{cfg.name} training launches by body {body_launches()}")
     check(sum(serve_launches().values()) == 0,
           f"{cfg.name} training launched decode kernels")
     check(all(math.isfinite(v) for v in losses), f"{cfg.name}: {losses}")
-    check(losses[-1] < losses[0], f"{cfg.name}: loss did not fall: {losses}")
+    check(steps == 1 or losses[-1] < losses[0],
+          f"{cfg.name}: loss did not fall: {losses}")
     tok = AB * AT
+    rate = "" if steps < 2 else \
+        f" (steps 2-{steps}: tokens/s " \
+        f"{tok / (sum(times[1:]) / (steps - 1)) * 1e3:.1f})"
     if aux is not None:
         check(all(math.isfinite(v) for v in aux), f"{cfg.name}: moe_aux "
               f"{aux}")
     prefix = "" if not extra else \
         " + a prefix of " + ", ".join(f"{k} {tuple(v.shape)}"
                                       for k, v in extra.items())
-    print(f"train {cfg.name} ({cfg.n_layers} layers, bf16, remat full, B "
-          f"{AB} x T {AT}{prefix}, one repeated batch, 3 steps): losses "
-          + " ".join(f"{v:.4f}" for v in losses)
+    swapped = cfg.seq_mixer != "native" \
+        and not cfg.name.endswith(cfg.seq_mixer)
+    name = f"{cfg.name} x {cfg.seq_mixer}" if swapped else cfg.name
+    print(f"train {name} ({cfg.n_layers} layers, bf16, remat full, B "
+          f"{AB} x T {AT}{prefix}, one repeated batch, {steps} steps): "
+          f"losses " + " ".join(f"{v:.4f}" for v in losses)
           + ("" if aux is None else "; moe_aux "
              + " ".join(f"{v:.4f}" for v in aux))
           + f"; launches {launches} == {want}; ms per step "
           + " ".join(f"{v:.2f}" for v in times)
-          + f" (steps 2-3: tokens/s {tok / (sum(times[1:]) / 2) * 1e3:.1f});"
-          f" peak device memory {peak / 2**30:.2f} GiB")
+          + f"{rate}; peak device memory {peak / 2**30:.2f} GiB")
     if not plain_check:
         return launches
     with plain_kernels():
         before = train_launches()
-        plain, _ = timed_steps(cfg, clone(p_init), batch, ocfg, 3)
+        plain, _ = timed_steps(cfg, clone(p_init), batch, ocfg, steps)
         check(train_launches() == before, "the plain run launched kernels")
     d_plain = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
     check(max(d_plain) <= LOSS_RTOL_PLAIN,
           f"{cfg.name} kernel vs plain losses {losses} vs {plain} "
           f"(relative {d_plain})")
-    print(f"train {cfg.name}: losses vs the plain versions' run {plain}: "
+    print(f"train {name}: losses vs the plain versions' run {plain}: "
           f"relative differences " + " ".join(f"{v:.3g}" for v in d_plain)
           + f" (limit {LOSS_RTOL_PLAIN})")
+    if not profile:
+        return launches
     train_profile(cfg, p_init, lambda i: batch, ocfg, shape=(AB, AT))
     scan_at_gemma_width()
     return launches
@@ -3186,10 +3241,10 @@ MOE_ROUTE_T = 64
 FP32_ROUTE_T = 32
 # depths of the earlier big models in this script, cut at full width so
 # the whole run stays inside its time (their checks are host-bound, a
-# layer at a time): mamba2-370m 48 -> 12 layers, zamba2-2.7b 54 -> 12
+# layer at a time): mamba2-370m 48 -> 6 layers, zamba2-2.7b 54 -> 12
 # (2 groups), deepseek-moe-16b's serving and prefill 28 -> 6 (1 dense +
 # 5 MoE)
-MAMBA2_LAYERS = 12
+MAMBA2_LAYERS = 6
 ZAMBA2_LAYERS = 12
 DEEPSEEK_MOE_LAYERS = 6
 # deepseek-moe-16b's capacity factor for the checks that need no drops:
@@ -3321,7 +3376,8 @@ def zamba2_phase():
     repo: every count stays 0.  Serving: 8 requests x 32 new tokens, K 4,
     C 1, a KV cache of 1024 (streams equal ``generate_one``, a B-8 decode
     row equal to the B-1 row, tok/s over 5 windows, a profile); then the
-    prefill and 3 training steps on the same weights."""
+    prefill and 3 training steps on the same weights, which it returns
+    with the config (phase 5g swaps their shared block's mixer)."""
     cfg = archs.get("zamba2-2.7b")
     s = cfg.ssm
     nh = s.n_heads(cfg.d_model)
@@ -3352,9 +3408,7 @@ def zamba2_phase():
     profile_events(cfg, params, prompts, "zamba2-2.7b")
     zamba2_prefill(cfg, params)
     launches = attn_train(cfg, params, plain_check=False)
-    del params
-    fresh_card()
-    return launches
+    return launches, (cfg, params)
 
 
 def zamba2_prefill(cfg, params):
@@ -3464,7 +3518,9 @@ def deepseek_phase():
     share, tok/s over 5 windows, a profile and one sampled superstep.
     Prefill B 8 x T 512 at 1.25 and the route check at NO_DROP_CF.  Then
     training cut to 4 layers (1 dense + 3 MoE; 16.38 B parameters take
-    ~196 GB with AdamW's fp32 moments), 3 steps."""
+    ~196 GB with AdamW's fp32 moments), 3 steps.  Returns the launches
+    and the serving model's config and weights (phase 5g swaps their
+    mixers)."""
     cfg = archs.get("deepseek-moe-16b")
     m = cfg.moe
     check(cfg.n_layers == 28 and m.first_dense_layers == 1
@@ -3516,14 +3572,13 @@ def deepseek_phase():
           f"(K 4, T 0.8, top-k 40, top-p 0.95): {t_window:.2f}s, "
           f"{s_info['rounds']} rounds")
     deepseek_prefill(cfg, cfg16, params)
-    del params
     tcfg = cfg.replace(n_layers=4)
     tparams = draw_params(tcfg, "deepseek-moe-16b cut to 4 layers (1 dense "
                           "+ 3 MoE) for training")
     launches = attn_train(tcfg, tparams, plain_check=False)
     del tparams
     fresh_card()
-    return launches
+    return launches, (cfg, params)
 
 
 def deepseek_prefill(cfg, cfg16, params):
@@ -3584,14 +3639,14 @@ def deepseek_prefill(cfg, cfg16, params):
 # whisper-base
 # ---------------------------------------------------------------------------
 
-# depths at full width, for the script's time: starcoder2-15b at 16 of
-# 40 layers, pixtral-12b at 10 of 40 (4.07 B, 8.15 GB) and deepseek-67b
-# at 8 of 95 (whole it is 134.85 GB of bf16, more than the card); every
+# depths at full width, for the script's time: starcoder2-15b at 8 of
+# 40 layers, pixtral-12b at 5 of 40 and deepseek-67b
+# at 4 of 95 (whole it is 134.85 GB of bf16, more than the card); every
 # zoo model trains cut to 4 layers (AdamW's fp32 moments: ~12 bytes a
 # parameter on top of the weights)
-STARCODER2_LAYERS = 16
-PIXTRAL_LAYERS = 10
-DEEPSEEK67_LAYERS = 8
+STARCODER2_LAYERS = 8
+PIXTRAL_LAYERS = 5
+DEEPSEEK67_LAYERS = 4
 ZOO_TRAIN_LAYERS = 4
 ZOO_RATE_WINDOWS = 3
 # the sequential routes the prefills are held against: starcoder2-15b
@@ -3967,9 +4022,9 @@ def deepseek_v3_phase():
     V3_NO_DROP_CF streams equal ``generate_one`` and a B-8 decode row the
     B-1 row; at the published 1.25 the dropped share, tok/s over
     ZOO_RATE_WINDOWS windows and a profile.  The prefill
-    (``deepseek_v3_prefill``), the fp32 route at 1 + 1 layers, then 3
-    training steps on the dense prefix and one more under each remat
-    (``remat_peaks``)."""
+    (``deepseek_v3_prefill``).  Returns the config and the weights (phase
+    5g swaps their mixers, then frees them); ``deepseek_v3_training``
+    runs the rest."""
     cfg = archs.get("deepseek-v3-671b")
     m = cfg.moe
     check(cfg.n_layers == 61 and m.first_dense_layers == 3
@@ -4023,7 +4078,17 @@ def deepseek_v3_phase():
     profile_events(cfg, params, prompts, label)
     deepseek_v3_prefill(cfg, cf32, params)
     zoo_kernel_counts_zero(label)
-    del params
+    return cfg, params
+
+
+def deepseek_v3_training(cfg):
+    """deepseek-v3-671b after its serving weights are freed: the fp32
+    route at 1 + 1 layers, then 3 training steps on the dense prefix and
+    one more under each remat (``remat_peaks``)."""
+    label = "deepseek-v3-671b"
+    m = cfg.moe
+    cf32 = cfg.replace(moe=dataclasses.replace(m,
+                                               capacity_factor=V3_NO_DROP_CF))
     deepseek_v3_fp32_route(cf32)
     tcfg = cfg.replace(n_layers=m.first_dense_layers)
     tparams = draw_params(tcfg, f"{label} cut to its {tcfg.n_layers} dense "
@@ -4156,6 +4221,450 @@ def remat_peaks(cfg, params, label):
           f"{peaks['full'] / 2**30:.2f} <= dots {peaks['dots'] / 2**30:.2f}"
           f" <= none {peaks['none'] / 2**30:.2f} GiB; ms full "
           f"{ms['full']:.1f}, dots {ms['dots']:.1f}, none {ms['none']:.1f}")
+
+
+# ---------------------------------------------------------------------------
+# 5g. the paper's swap inside the MoE and hybrid trunks: minGRU / minLSTM
+# in place of attention in deepseek-moe-16b and deepseek-v3-671b, and as
+# zamba2-2.7b's shared block
+# ---------------------------------------------------------------------------
+
+SWAP_SEED = 29
+# the swapped deepseek-moe-16b's minLSTM case: 1 dense + 1 MoE layer
+SWAP_LSTM_LAYERS = 2
+# the prefill's right-padded lengths at T 512 (AT), across the fused
+# kernel's 128-row T chunks
+SWAP_PREFILL_LENS = (1, 17, 64, 127, 128, 300, 511, 512)
+
+
+def swap_mixers(cfg, params, label):
+    """``params`` of the native model, its attention mixers replaced in
+    place by ``cfg.seq_mixer``'s cell and down projection at Dh = d_model
+    (the reference's ``_mixer_init`` with ``minrnn=None``), drawn on the
+    card a layer at a time; every other weight is the native model's.
+    Each stack's old mixers are freed before its new ones are drawn."""
+    gen = torch.Generator(device=DEV).manual_seed(SWAP_SEED)
+    layers = params["layers"]
+    t0 = time.perf_counter()
+    n_new = 0
+    keys = ("shared_attn",) if cfg.block_kind == "hybrid" \
+        else ("dense_blocks", "blocks")
+    for key in keys:
+        if key not in layers:
+            continue
+        n = None if key == "shared_attn" else \
+            leaves(layers[key])[0].shape[0]
+        layers[key]["mixer"] = None
+        torch.cuda.empty_cache()
+        if n is None:
+            layers[key]["mixer"] = lm._mixer_init(gen, cfg, cfg.pdtype)
+        else:
+            layers[key]["mixer"] = lm._stack_init(
+                lambda: lm._mixer_init(gen, cfg, cfg.pdtype), n)
+        n_new += sum(a.numel() for a in leaves(layers[key]["mixer"]))
+    torch.cuda.synchronize()
+    print(f"{label}: attention mixers swapped for {cfg.seq_mixer} (Dx = Dh "
+          f"= {cfg.d_model}, log mode, and the down projection): {n_new} "
+          f"parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f}s; "
+          f"{sum(a.numel() for a in leaves(params))} in the model")
+    return params
+
+
+def cut_layers(params, n_dense, n_moe):
+    """Views of the first ``n_dense`` dense and ``n_moe`` MoE layers of a
+    stacked MoE trunk, and its embedding, norm and logits, for a model of
+    fewer layers on the same weights."""
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {
+        "dense_blocks": tree_map(lambda a: a[:n_dense],
+                                 layers["dense_blocks"]),
+        "blocks": tree_map(lambda a: a[:n_moe], layers["blocks"])}
+    return out
+
+
+def swap_serving(cfg, cf_check, params, prompts, label, streams_check=True):
+    """The swapped MoE trunk served: at ``cf_check`` (no drops) one counted
+    window of 8 requests x 32 tokens, K 4, C 1 (one cell launch a layer a
+    round, every one on the body its weights bind to; with
+    ``streams_check`` the streams equal ``generate_one``), a B-8 decode row
+    equal to the B-1 row bit for bit (logits and h); then one window at
+    the config's capacity (the dropped share, the rate).  Returns the
+    launches of the counted windows."""
+    cell = f"{cfg.seq_mixer}_step_kernel"
+    body = step_ops.cell_body(cfg.seq_mixer, cfg.cdtype, cfg.d_model,
+                              cfg.d_model, True)
+    serve(cf_check, params, 1, [p[:2] for p in prompts], 2, label="warm-up",
+          max_len=GEMMA_MAX_LEN, quiet=True)
+    reset_serve_launches()
+    reset_train_launches()
+    torch.cuda.reset_peak_memory_stats()
+    streams, info = serve(cf_check, params, 1, prompts, 32,
+                          max_len=GEMMA_MAX_LEN, label=f"serve [{label}]")
+    with moe_lib.count_drops() as drops:
+        _, info2 = serve(cfg, params, 1, prompts, 32, max_len=GEMMA_MAX_LEN,
+                         label=f"serve [{label} cf "
+                               f"{cfg.moe.capacity_factor}]")
+    peak = torch.cuda.max_memory_allocated()
+    launches = serve_launches()
+    rounds = info["rounds"] + info2["rounds"]
+    check(launches[cell] == cfg.n_layers * rounds
+          and sum(launches.values()) == launches[cell]
+          and step_ops.LAUNCHES[f"{cell}/{body}"] == launches[cell]
+          and sum(train_launches().values()) == 0,
+          f"{label}: launches {launches}, by body {cell_body_launches()}, "
+          f"for {cfg.n_layers} layers x {rounds} rounds")
+    for p, s_ in zip(prompts, streams):
+        check(len(s_) == 32 and all(0 <= t < cfg.vocab_size for t in s_),
+              f"malformed {label} stream")
+        if streams_check:
+            ref_s = tuple(generate_one(cf_check, params, p, max_new=32,
+                                       max_len=GEMMA_MAX_LEN, device=DEV))
+            check(ref_s == s_, f"{label} stream for {p} != generate_one: "
+                  f"first divergence at token {first_divergence(ref_s, s_)}")
+    row_alone(cf_check, params, label)
+    dropped, assigned, share = dropped_share(drops)
+    print(f"serve {label}: {cell} launches {launches[cell]} == "
+          f"{cfg.n_layers} layers x {rounds} rounds, all on the {body} "
+          f"body; "
+          + ("streams equal generate_one; " if streams_check else "")
+          + f"a B-8 decode row equals the B-1 row bit for bit (logits, h; "
+          f"6 steps) at cf {cf_check.moe.capacity_factor}; at cf "
+          f"{cfg.moe.capacity_factor}: {dropped} of {assigned} assignments "
+          f"dropped ({100 * share:.1f}%), {info2['rate']:.1f} decoded "
+          f"tok/s; peak device memory while serving {peak / 2**30:.2f} GiB")
+    return launches
+
+
+def swap_prefill(cfg, cf_check, params, label, route_t, fp32=True):
+    """The swapped MoE trunk's prefill, B 8 x T 512 right-padded
+    (SWAP_PREFILL_LENS), at the config's capacity: one fused-cell launch a
+    layer on the tensor-core body (the counted run), the dropped share,
+    ms, prompt tokens/s, peak memory; outside the count, at ``cf_check``,
+    a prefill of ``route_t`` tokens against that many steps held to its
+    routing (bf16, PREFILL_REL); with ``fp32``, in an fp32 compute dtype
+    (the bf16 weights cast a layer at a time), each padded row against
+    its own prefill and the route at FP32_ROUTE_T (1e-4, no top-k choice
+    apart).  Returns the launches."""
+    fused = f"fused_{cfg.seq_mixer}_kernel"
+    gen = torch.Generator().manual_seed(2)
+    toks, lens = padded_prompts(gen, SWAP_PREFILL_LENS, cfg.vocab_size, AT)
+    v, tol = cfg.vocab_size, PREFILL_REL[torch.bfloat16]
+    lm.prefill(params, cfg, toks[:, :16], GEMMA_MAX_LEN)
+    fresh_card()
+    reset_train_launches()
+    reset_serve_launches()
+    with moe_lib.count_drops() as drops:
+        logits, cache = lm.prefill(params, cfg, toks, GEMMA_MAX_LEN,
+                                   lengths=lens)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = train_launches()
+    check(launches[fused] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers
+          and body_launches()[f"{fused}/tc"] == cfg.n_layers
+          and sum(serve_launches().values()) == 0,
+          f"{label} prefill launches {launches}, by body {body_launches()}")
+    check(set(cache) == {"pos", "h"}
+          and tuple(cache["h"].shape) == (cfg.n_layers, AB, cfg.d_model)
+          and cache["pos"].tolist() == list(SWAP_PREFILL_LENS)
+          and bool(torch.isfinite(logits[:, :v]).all()),
+          f"{label} prefill cache and logits")
+    del logits, cache
+    dropped, assigned, share = dropped_share(drops)
+    ms = synced_ms(lambda: lm.prefill(params, cfg, toks, GEMMA_MAX_LEN,
+                                      lengths=lens), reps=3)
+    full = torch.randint(0, v, (AB, route_t), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    held, apart, n_dec, seq_ms = moe_route_check(cf_check, params, full)
+    held = rel_err(*held, f"{label} prefill vs the step path on the "
+                   f"prefill's routing", tol)
+    line32 = ""
+    if fp32:
+        f32 = cf_check.replace(compute_dtype="float32")
+        tol32 = PREFILL_REL[torch.float32]
+        lp, _ = lm.prefill(params, f32, toks, GEMMA_MAX_LEN, lengths=lens)
+        worst = 0.0
+        for b, n in enumerate(SWAP_PREFILL_LENS):
+            l1, _ = lm.prefill(params, f32, toks[b:b + 1, :n], GEMMA_MAX_LEN)
+            worst = max(worst, rel_err(lp[b, :v], l1[0, :v],
+                                       f"{label} fp32 padded row {b}",
+                                       tol32))
+        held32, apart32, n_dec32, _ = moe_route_check(
+            f32, params, full[:, :FP32_ROUTE_T])
+        check(apart32 == 0, f"{label} fp32: {apart32} top-k choices of the "
+              f"steps differ from the prefill's")
+        held32 = rel_err(*held32, f"{label} fp32 prefill vs the step path",
+                         tol32)
+        line32 = (f"; in an fp32 compute dtype: padded rows vs their own "
+                  f"prefill, worst {worst:.3g}, and at T {FP32_ROUTE_T} "
+                  f"against the steps {held32:.3g} (limit {tol32}), "
+                  f"{apart32} of {n_dec32} choices apart (limit 0)")
+    print(f"prefill {label} B {AB} x T {AT} right-padded (lengths "
+          f"{SWAP_PREFILL_LENS}) at cf {cfg.moe.capacity_factor}: {fused} "
+          f"launches {launches[fused]} == {cfg.n_layers} layers, all on the "
+          f"tensor-core body; {dropped} of {assigned} assignments dropped "
+          f"({100 * share:.1f}%); peak device memory {peak / 2**30:.2f} GiB; "
+          f"ms min {ms[0]:.2f} median {ms[1]:.2f} max {ms[-1]:.2f}, prompt "
+          f"tokens/s median {sum(SWAP_PREFILL_LENS) / ms[1] * 1e3:.0f} "
+          f"(real tokens); at cf {cf_check.moe.capacity_factor} against "
+          f"{route_t} sequential steps held to the prefill's routing "
+          f"(bf16): logits {held:.3g} (limit {tol}), {apart} of {n_dec} "
+          f"top-k choices of the steps' own apart (printed; the steps "
+          f"{seq_ms:.1f} ms){line32}")
+    return launches
+
+
+def swap_moe16b_phase(cfg, params):
+    """5g (a), (b): deepseek-moe-16b's serving model from phase 5d (1
+    dense + 5 MoE layers, full width) with minGRU in place of attention
+    (the MoE, dense-MLP and embedding weights kept, the mixers drawn):
+    its cell kernels at Dx 2048 against their plain versions
+    (``swap_cell_kernels``), served at NO_DROP_CF and 1.25, a sampled
+    window, prefilled, then trained cut to 1 dense + 3 MoE layers (3
+    steps, losses within 1% of the plain versions'); then minLSTM in
+    place of attention at 1 dense + 1 MoE layer: its cell kernels the
+    same way, one serving window, one prefill, one training step.
+    Frees the weights.  Returns the launches."""
+    label = "deepseek-moe-16b x minGRU"
+    scfg = cfg.replace(seq_mixer="mingru")
+    check(lm.kernel_tier(scfg) == "cell-fused" and scfg.minrnn is None
+          and scfg.n_layers == DEEPSEEK_MOE_LAYERS,
+          f"{label}: {lm.kernel_tier(scfg)} {scfg}")
+    cf16 = scfg.replace(moe=dataclasses.replace(scfg.moe,
+                                                capacity_factor=NO_DROP_CF))
+    swap_mixers(scfg, params, label)
+    swap_cell_kernels("mingru", params["layers"]["dense_blocks"]["mixer"]
+                      ["rnn"], label)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    launches = swap_serving(scfg, cf16, params, prompts, label)
+    t0 = time.perf_counter()
+    s_streams, s_info = serve(scfg, params, 1, [p[:2] for p in prompts], 2,
+                              quiet=True, max_len=GEMMA_MAX_LEN,
+                              temperature=0.8, top_k=40, top_p=0.95)
+    for s_ in s_streams:
+        check(len(s_) == 2 and all(0 <= t < cfg.vocab_size for t in s_),
+              f"malformed sampled {label} stream")
+    print(f"sampled {label}, one window of 8 requests x 2 tokens (K 4, T "
+          f"0.8, top-k 40, top-p 0.95): {time.perf_counter() - t0:.2f}s, "
+          f"{s_info['rounds']} rounds")
+    merge(launches, swap_prefill(scfg, cf16, params, label, MOE_ROUTE_T))
+    tcfg = scfg.replace(n_layers=4)
+    merge(launches, attn_train(tcfg, cut_layers(params, 1, 3),
+                               plain_check=True, profile=False))
+    label = "deepseek-moe-16b x minLSTM"
+    lcfg = cfg.replace(seq_mixer="minlstm")
+    swap_mixers(lcfg, params, label)
+    swap_cell_kernels("minlstm", params["layers"]["dense_blocks"]["mixer"]
+                      ["rnn"], label)
+    lcfg = lcfg.replace(n_layers=SWAP_LSTM_LAYERS)
+    lparams = cut_layers(params, 1, SWAP_LSTM_LAYERS - 1)
+    lcf16 = lcfg.replace(moe=dataclasses.replace(lcfg.moe,
+                                                 capacity_factor=NO_DROP_CF))
+    merge(launches, swap_serving(lcfg, lcf16, lparams, prompts, label))
+    merge(launches, swap_prefill(lcfg, lcf16, lparams, label, MOE_ROUTE_T))
+    merge(launches, attn_train(lcfg, lparams, plain_check=True, steps=1,
+                               profile=False))
+    del lparams, params
+    fresh_card()
+    return launches
+
+
+CELL_STEPS = {"mingru": (step_ops.fused_mingru_step, step_ref.mingru_step_ref),
+              "minlstm": (step_ops.fused_minlstm_step,
+                          step_ref.minlstm_step_ref)}
+CELL_LAYERS = {"mingru": (gru_ops, gru_ops.fused_mingru,
+                          gru_ref.fused_mingru_ref),
+               "minlstm": (lstm_ops, lstm_ops.fused_minlstm,
+                           lstm_ref.fused_minlstm_ref)}
+
+
+def swap_cell_kernels(cell, rnn, label, step=True):
+    """A swapped model's cell kernels at its width, on its layer-0 cell
+    weights (``rnn``, stacked or not; bf16), against their plain versions
+    on the same inputs: with ``step``, the cell step at B 8 (on the
+    tensor-core body up to TC_MAX_DX, past it on the CUDA-core body, and
+    where fp32 does not fit that body's shared memory, its refusal at
+    binding) with a row alone bit-equal to its row of the batch, its
+    eager and CUDA-graph ms beside the bound and one torch.matmul of x
+    against the concatenated gates; the fused layer at the training
+    shape (B 8 x T 512) on the tensor-core body, forward and gradients
+    (the backward's reversed linear scan inside), its occupancy and ms.
+    Launches made here are not counted on the main path."""
+    gates = GATES[cell]
+    ws = [(rnn[g]["kernel"][0] if rnn[g]["kernel"].dim() == 3
+           else rnn[g]["kernel"]).to(torch.bfloat16) for g in gates]
+    bs = [(rnn[g]["bias"][0] if rnn[g]["bias"].dim() == 2
+           else rnn[g]["bias"]).to(torch.bfloat16) for g in gates]
+    args = tuple(t for wb in zip(ws, bs) for t in wb)
+    d, dh = ws[0].shape
+    gen = torch.Generator().manual_seed(SWAP_SEED)
+    if step:
+        ops_ = step_ops.CellOperands(cell, ws, bs)
+        want_body = "tc" if d <= step_ops.TC_MAX_DX else "cuda_core"
+        check(ops_.body == want_body, f"{label}: the step bound to "
+              f"{ops_.body}, not {want_body}")
+        fn, ref_fn = CELL_STEPS[cell]
+        x = torch.randn((AB, d), generator=gen).to(torch.bfloat16).to(DEV)
+        h = (0.5 * torch.randn((AB, dh), generator=gen)) \
+            .to(torch.bfloat16).to(DEV)
+        step_ops.reset_launches()
+        got = fn(x, *args, h, operands=ops_)
+        e_step = max_err(got, ref_fn(x, *args, h), torch.bfloat16,
+                         f"{label} step at Dx {d}")
+        check(torch.equal(fn(x[3:4], *args, h[3:4], operands=ops_),
+                          got[3:4]),
+              f"{label}: a step row changed with the batch size")
+        check(step_ops.LAUNCHES[f"{cell}_step_kernel/{ops_.body}"] == 2,
+              f"{label}: step launches by body {cell_body_launches()}")
+        refused = ""
+        if d > step_ops.cuda_core_max_dx(torch.float32):
+            try:        # fp32: 8 rows of x past the body's shared memory
+                step_ops.CellOperands(cell, [w.float() for w in ws],
+                                      [b.float() for b in bs])
+            except ValueError as e:
+                refused = f"; fp32 refused at binding: {e}"
+            else:
+                fail(f"{label}: fp32 at Dx {d} bound to the CUDA-core body")
+        step_ops.reset_launches()
+        occ = step_ops.occupancy(ops_, AB, 1)
+        t_k = eager_ms([raw(step_ops.prepare_launch(ops_, x[:, None], h,
+                                                    None, mode="log")[0])],
+                       50)
+        # bound inside the capture, on its stream
+        t_kd = graph_ms(lambda: raw(step_ops.prepare_launch(
+            ops_, x[:, None], h, None, mode="log")[0])())
+        w_cat = torch.cat(ws, dim=1)
+        t_lib = eager_ms([lambda: x @ w_cat], 50)
+        t_plain = eager_ms([lambda: ref_fn(x, *args, h)], 5)
+        b_ms, b_by = cell_bound_ms(len(gates), torch.bfloat16, AB, 1, d, dh)
+        del w_cat
+        print(f"{cell}_step_kernel at {label}'s width (bf16, B {AB}, Dx "
+              f"{d}, Dh {dh}): body {occ['body']}, {occ['blocks_per_sm']} "
+              f"block(s)/SM, {occ['grid_blocks']} blocks on {occ['sms']} "
+              f"SMs, {occ['waves']} wave(s); max abs err {e_step:.3g} "
+              f"against the plain version (limits atol "
+              f"{TOL[torch.bfloat16][0]} rtol {TOL[torch.bfloat16][1]}); a "
+              f"row alone bit-equal; {t_k:.5f} ms eager, device "
+              f"{t_kd:.5f} ms, bound {b_ms:.5f} ms ({b_by}: "
+              f"{len(gates) * (d * dh + dh) * 2 / 1e6:.1f} MB of gates a "
+              f"launch at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), plain "
+              f"{t_plain:.4f} ms, library (one torch.matmul of x against "
+              f"the concatenated gates) {t_lib:.5f} ms{refused}")
+    # the fused layer at the training shape, forward and backward
+    mod, fused, fused_ref = CELL_LAYERS[cell]
+    xs = torch.randn((AB, AT, d), generator=gen).to(torch.bfloat16).to(DEV)
+    h0 = torch.zeros((AB, dh), dtype=torch.bfloat16, device=DEV)
+    ins = [v.detach().clone().requires_grad_(True) for v in (xs,) + args]
+    reset_train_launches()
+    out = fused(*ins, None)
+    want = fused_ref(*ins, None)
+    e_f = max_err(out, want, torch.bfloat16, f"{label} fused forward at Dx "
+                  f"{d}")
+    ct = torch.randn(out.shape, generator=gen).to(torch.bfloat16).to(DEV)
+    g_err = max(rel_err(g, w, f"{label} fused grad {i} at Dx {d}",
+                        GRAD_TOL[torch.bfloat16])
+                for i, (g, w) in enumerate(zip(
+                    torch.autograd.grad(out, ins, ct),
+                    torch.autograd.grad(want, ins, ct))))
+    check(mod.LAUNCHES[f"fused_{cell}_kernel/tc"] == 1
+          and scan_ops.LAUNCHES["linear_scan_kernel"] == 1,
+          f"{label}: fused launches {body_launches()}, scans "
+          f"{scan_ops.LAUNCHES}")
+    del out, want, ins, ct
+    fargs = (xs,) + args + (h0,)
+    focc = mod.occupancy(*fargs)
+    t_f = eager_ms([lambda: mod.launch(*fargs)], 10)
+    t_fp = eager_ms([lambda: fused_ref(*fargs)], 2)
+    fb_ms = len(gates) * 2 * AB * AT * d * dh \
+        / PEAK_FLOPS[torch.bfloat16] * 1e3
+    reset_train_launches()
+    step_ops.reset_launches()
+    print(f"fused_{cell}_kernel at {label}'s width (bf16, B {AB} x T {AT}, "
+          f"Dx {d}, Dh {dh}): body {focc['body']}, "
+          f"{focc['blocks_per_sm']} block(s)/SM, {focc['grid_blocks']} "
+          f"blocks on {focc['sms']} SMs, {focc['waves']} wave(s); forward "
+          f"max abs err {e_f:.3g}, gradients (the reversed linear_scan_kernel "
+          f"inside) {g_err:.3g} of the largest (limit "
+          f"{GRAD_TOL[torch.bfloat16]}) against the plain version; "
+          f"{t_f:.4f} ms eager (operation bound {fb_ms:.4f} ms), plain "
+          f"{t_fp:.3f} ms")
+
+
+def swap_v3_phase(cfg, params):
+    """5g (c): deepseek-v3-671b's serving model from phase 5f (3 dense + 2
+    MoE layers, full width) with minGRU in place of MLA (a 154 M-parameter
+    cell a layer): the cell kernels at Dx 7168 (``swap_cell_kernels``); one
+    counted serving window at V3_NO_DROP_CF and one at 1.25 (the cell
+    step on the CUDA-core body), a B-8 decode row equal to the B-1 row;
+    the prefill B 8 x T 512 and its route at V3_ROUTE_T; then the MoE
+    layers freed and 2 training steps on the 3 dense layers (an empty
+    MoE stack).  Frees the weights.  Returns the launches."""
+    label = "deepseek-v3-671b x minGRU"
+    scfg = cfg.replace(seq_mixer="mingru")
+    check(lm.kernel_tier(scfg) == "cell-fused" and scfg.minrnn is None
+          and scfg.n_layers == DEEPSEEK_V3_LAYERS,
+          f"{label}: {lm.kernel_tier(scfg)} {scfg}")
+    cf32 = scfg.replace(moe=dataclasses.replace(scfg.moe,
+                                                capacity_factor=V3_NO_DROP_CF))
+    swap_mixers(scfg, params, label)
+    swap_cell_kernels("mingru", params["layers"]["dense_blocks"]["mixer"]
+                      ["rnn"], label)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 8), generator=torch.
+                            Generator().manual_seed(1)).tolist()
+    launches = swap_serving(scfg, cf32, params, prompts, label,
+                            streams_check=False)
+    merge(launches, swap_prefill(scfg, cf32, params, label, V3_ROUTE_T,
+                                 fp32=False))
+    n_dense = scfg.moe.first_dense_layers
+    blocks = params["layers"].pop("blocks")
+    params["layers"]["blocks"] = tree_map(
+        lambda a: a.new_empty((0,) + tuple(a.shape[1:])), blocks)
+    del blocks
+    fresh_card()
+    tcfg = scfg.replace(n_layers=n_dense)
+    merge(launches, attn_train(tcfg, params, plain_check=False, steps=2))
+    del params
+    fresh_card()
+    return launches
+
+
+def swap_zamba2_phase(cfg, params):
+    """5g (d): zamba2-2.7b's model from phase 5d (12 SSD layers, 2
+    groups, full width, trained 3 steps there) with its shared attention
+    block's mixer swapped for minGRU at Dx = Dh 2560: ``decode_step``,
+    ``prefill`` and ``init_cache`` refuse (the reference's hybrid serving
+    reads the shared block's KV cache and fails on this config), the
+    fused layer and its gradients at Dx 2560 against the plain version
+    (``swap_cell_kernels``), then 3
+    training steps at B 8 x T 512 (the fused cell twice a group a step
+    under remat, one reversed scan a group a step).  Frees the weights.
+    Returns the launches."""
+    label = "zamba2-2.7b x minGRU"
+    scfg = cfg.replace(seq_mixer="mingru")
+    swap_mixers(scfg, params, label)
+    one = torch.ones((1, 4), dtype=torch.int32, device=DEV)
+    for what, call in (
+            ("init_cache", lambda: lm.init_cache(scfg, 1, 8, DEV)),
+            ("decode_step", lambda: lm.decode_step(params, scfg, one[:, 0],
+                                                   {})),
+            ("prefill", lambda: lm.prefill(params, scfg, one, 8))):
+        try:
+            call()
+        except NotImplementedError as e:
+            check("lm.py:1220" in str(e), f"{label} {what}: {e}")
+        else:
+            fail(f"{label}: {what} did not refuse the swapped hybrid")
+    print(f"{label}: init_cache, decode_step and prefill refuse, as the "
+          f"reference's hybrid serving fails on this config")
+    swap_cell_kernels("mingru", params["layers"]["shared_attn"]["mixer"]
+                      ["rnn"], label, step=False)
+    launches = attn_train(scfg, params, plain_check=False)
+    del params
+    fresh_card()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5498,10 +6007,18 @@ def main():
     lap("task heads")
     rnn_baselines_phase()
     lap("GRU / LSTM")
-    merge(launches, zamba2_phase())
+    z_launches, z_model = zamba2_phase()
+    merge(launches, z_launches)
     lap("zamba2-2.7b")
-    merge(launches, deepseek_phase())
+    merge(launches, swap_zamba2_phase(*z_model))
+    del z_model
+    lap("5g zamba2-2.7b x minGRU")
+    d_launches, d_model = deepseek_phase()
+    merge(launches, d_launches)
     lap("deepseek-moe-16b")
+    merge(launches, swap_moe16b_phase(*d_model))
+    del d_model
+    lap("5g deepseek-moe-16b x minGRU / minLSTM")
     merge(launches, starcoder2_phase())
     lap("starcoder2-15b")
     merge(launches, pixtral_phase())
@@ -5510,8 +6027,14 @@ def main():
     lap("deepseek-67b")
     merge(launches, whisper_phase())
     lap("whisper-base")
-    merge(launches, deepseek_v3_phase())
+    v3_model = deepseek_v3_phase()
     lap("deepseek-v3-671b")
+    merge(launches, swap_v3_phase(*v3_model))
+    v3_cfg = v3_model[0]
+    del v3_model
+    lap("5g deepseek-v3-671b x minGRU")
+    merge(launches, deepseek_v3_training(v3_cfg))
+    lap("deepseek-v3-671b training")
     rgen = torch.Generator().manual_seed(21)
     robust, (cfg, params) = robustness_phase(rgen)
     merge(launches, robust)

@@ -47,7 +47,15 @@ for _name, _cell in (("mingru-lm", "mingru"), ("minlstm-lm", "minlstm")):
                     vocab_size=256, norm="rmsnorm", rope=False,
                     tie_embeddings=True, minrnn=_mr, **_SMOKE_NUM))
 
+# the reference's lists: its assigned zoo, the paper's own LMs, and the
+# paper's swap of gemma-2b's attention for minGRU
+ASSIGNED = [
+    "starcoder2-15b", "gemma-7b", "gemma-2b", "deepseek-67b", "pixtral-12b",
+    "mamba2-370m", "deepseek-v3-671b", "deepseek-moe-16b", "whisper-base",
+    "zamba2-2.7b",
+]
 PAPER_OWN = ["mingru-lm", "minlstm-lm"]
+EXTRAS = ["gemma-2b-mingru"]
 
 _GEMMA = dict(block_kind="attention", norm="rmsnorm",
               norm_zero_centered=True, gated_mlp=True, mlp_activation="gelu",

@@ -7,7 +7,8 @@ leading dense segment and MoE layers, or with its mixer swapped for a minRNN cel
 ``seq_mixer``, with RMSNorm or LayerNorm, biased or not, and a stub
 patch frontend; the SSD trunk of mamba2; the hybrid SSD trunk with one
 shared attention block of zamba2; and the encoder-decoder of whisper
-with its stub frame frontend); the field names, defaults and
+with its stub frame frontend), and the reference's input-shape cells
+(``SHAPES``, ``long_context_ok``); the field names, defaults and
 properties match the reference so a config built here describes the
 same model as its JAX twin.
 """
@@ -143,3 +144,31 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# archs whose native mixer is sub-quadratic (long_500k runs for these)
+SUBQUADRATIC_KINDS = ("ssm", "minrnn", "hybrid")
+
+
+def long_context_ok(cfg: ModelConfig) -> bool:
+    """Whether the long_500k cell runs for ``cfg``: a sub-quadratic trunk,
+    or an attention trunk whose mixer is swapped for a minRNN cell."""
+    if cfg.block_kind in SUBQUADRATIC_KINDS:
+        return True
+    return cfg.seq_mixer in ("mingru", "minlstm")

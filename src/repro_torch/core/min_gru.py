@@ -29,6 +29,12 @@ def init(gen: torch.Generator, d_in: int, d_hidden: int, *,
     }
 
 
+def n_params(d_in: int, d_hidden: int, use_bias: bool = False) -> int:
+    """The elements of ``init``'s leaves: two gate projections (the
+    paper's claim (1), fewer parameters than a GRU's three)."""
+    return 2 * d_in * d_hidden + (2 * d_hidden if use_bias else 0)
+
+
 # ---------------------------------------------------------------------------
 # Parallel (training) forms
 # ---------------------------------------------------------------------------

@@ -30,6 +30,12 @@ def init(gen: torch.Generator, d_in: int, d_hidden: int, *,
     }
 
 
+def n_params(d_in: int, d_hidden: int, use_bias: bool = False) -> int:
+    """The elements of ``init``'s leaves: three gate projections (an
+    LSTM's are four, each also over h)."""
+    return 3 * d_in * d_hidden + (3 * d_hidden if use_bias else 0)
+
+
 def normalized_gates(kf: torch.Tensor, ki: torch.Tensor):
     """f' = f/(f+i), i' = i/(f+i) in the stable form sigmoid(-diff),
     sigmoid(diff) with diff = softplus(-kf) - softplus(-ki): the naive

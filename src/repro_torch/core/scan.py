@@ -52,6 +52,12 @@ def combine(left, right):
     return a_l * a_r, a_r * b_l + b_r
 
 
+def scan_step(a_t: torch.Tensor, b_t: torch.Tensor,
+              h_prev: torch.Tensor) -> torch.Tensor:
+    """Single recurrence step (decode path)."""
+    return a_t * h_prev + b_t
+
+
 def scan_sequential(a: torch.Tensor, b: torch.Tensor,
                     h0: Optional[torch.Tensor] = None,
                     axis: int = -2) -> torch.Tensor:
@@ -61,7 +67,7 @@ def scan_sequential(a: torch.Tensor, b: torch.Tensor,
     h = torch.zeros_like(b[0]) if h0 is None else h0
     hs = []
     for t in range(a.shape[0]):
-        h = a[t] * h + b[t]
+        h = scan_step(a[t], b[t], h)
         hs.append(h)
     return torch.stack(hs).movedim(0, axis)
 

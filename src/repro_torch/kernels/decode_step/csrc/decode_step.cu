@@ -1250,6 +1250,16 @@ int repro_cell_chunk_launch(int lstm, int log_mode, int normalize, int bf16,
 // launch's shared memory), out[1] grid blocks, out[2] the device's SMs,
 // out[3] blocks per cluster, out[4] clusters resident at once on the
 // device (cudaOccupancyMaxActiveClusters; 0 without clusters).
+// The widest Dx the CUDA-core body takes with elements of `elem` bytes:
+// one tile of x rows and the partial sums must fit kSmemCap
+// (choose_cuda_core refuses past it).
+int repro_cell_cuda_core_max_dx(int elem) {
+  if (elem < 1) return 0;
+  int dx = (kSmemCap - kRedBytes) / (kBT * elem);
+  while (dx > 0 && smem_bytes(dx, 2, elem, false) > kSmemCap) --dx;
+  return dx;
+}
+
 int repro_cell_occupancy(int lstm, int bf16, int body, int B, int C, int Dx,
                          int Dh, void* const* ptrs, int* out) {
   const Params p = make_params(1, 1, 0, B, C, Dx, Dh, ptrs, C > 1);

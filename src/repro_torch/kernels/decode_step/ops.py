@@ -78,9 +78,19 @@ def _lib():
         lib.repro_cell_occupancy.argtypes = [ctypes.c_int] * 7 + [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         lib.repro_cell_occupancy.restype = ctypes.c_int
+        lib.repro_cell_cuda_core_max_dx.argtypes = [ctypes.c_int]
+        lib.repro_cell_cuda_core_max_dx.restype = ctypes.c_int
         kl.declare_error_string(lib)
         _LIB = lib
     return _LIB
+
+
+def cuda_core_max_dx(dtype: torch.dtype) -> int:
+    """The widest Dx the CUDA-core body takes in ``dtype`` (7136 in fp32,
+    14272 in bf16), as its C launcher computes it from the shared memory
+    a tile of x rows needs; builds the library."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    return _lib().repro_cell_cuda_core_max_dx(elem)
 
 
 def cell_body(cell: str, dtype: torch.dtype, dx: int, dh: int,
@@ -126,6 +136,12 @@ class CellOperands:
         self.ws, self.bs = tuple(ws), tuple(bs)
         self.body = cell_body(cell, dt, dx, dh,
                               all(w.data_ptr() % 16 == 0 for w in ws))
+        if self.body == "cuda_core" and dx > cuda_core_max_dx(dt):
+            raise ValueError(
+                f"{cell} at Dx {dx} in {dt}: the CUDA-core body keeps 8 "
+                f"rows of x in shared memory and takes Dx up to "
+                f"{cuda_core_max_dx(dt)} in this dtype (bf16 up to "
+                f"{cuda_core_max_dx(torch.bfloat16)})")
         ptrs = [0] * 7
         for i, (w, b) in enumerate(zip(ws, bs)):
             ptrs[1 + i], ptrs[4 + i] = w.data_ptr(), b.data_ptr()

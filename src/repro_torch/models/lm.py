@@ -1,12 +1,13 @@
 """Decoder-only LM: the minRNN LMs, the attention trunk (native GQA
 with RoPE and a KV cache, e.g. gemma-2b, or MLA with a latent cache;
 with a leading dense segment and mixture-of-experts layers,
-deepseek-moe-16b and deepseek-v3-671b; or its mixer swapped for a minRNN
-cell by ``seq_mixer``, e.g. gemma-2b-mingru), the SSD trunk
-(mamba2-370m) and the hybrid trunk (zamba2-2.7b: SSD layers with one
-shared attention block applied after every ``hybrid_attn_every`` of
-them), trained, prefilled and served -- the subset of
-``repro.models.lm`` ported so far.
+deepseek-moe-16b and deepseek-v3-671b; or, dense or MoE, its mixer
+swapped for a minRNN cell by ``seq_mixer``, e.g. gemma-2b-mingru), the
+SSD trunk (mamba2-370m) and the hybrid trunk (zamba2-2.7b: SSD layers
+with one shared attention block applied after every
+``hybrid_attn_every`` of them; with an MLA or minRNN mixer it trains
+only, as in the reference), trained, prefilled and served -- the models
+of ``repro.models.lm``.
 
 Params are nested dicts with the JAX pytree's layout -- ``embed.table``,
 ``final_norm.scale`` and ``layers.blocks.*`` stacked with a leading L
@@ -45,9 +46,10 @@ of the whole-block CUDA kernel, or, on the cell-fused tier
 minRNN mixer, one launch of the cell-only CUDA kernel between PyTorch
 norms, projections and MLPs.  Native GQA decodes in PyTorch ops against
 a KV cache written in place (``attention._cache_insert``), MLA in its
-latent space against a ``ckv`` / ``krope`` cache, every product of the
-step in tiles of ``attention.DECODE_ROWS`` rows (the MoE layer
-routes all B tokens together, as the reference's does); the SSD and
+latent space against a ``ckv`` / ``krope`` cache, every norm and product
+of an attention trunk's step in tiles of ``attention.DECODE_ROWS`` rows
+(a minRNN cell steps all B rows in one launch; the MoE layer routes all
+B tokens together, as the reference's does); the SSD and
 hybrid trunks step in groups of ``attention.DECODE_ROWS`` rows
 (``_ssm_decode``).
 A ``frontend="patches"`` config (pixtral-12b) prepends projected stub
@@ -97,18 +99,18 @@ def _minrnn_block_cfg(cfg) -> minrnn_blocks.MinRNNBlockConfig:
 
 
 def _check_cfg(cfg):
-    """The minRNN trunk; the attention trunk with native GQA or MLA
-    (dense, or a dense prefix and MoE layers) or a minRNN mixer; the SSD
-    trunk; the hybrid SSD trunk with a shared GQA block.  MoE under a
-    minRNN mixer and the hybrid with another shared mixer are not
-    ported; the encoder-decoder family is another module."""
+    """The minRNN trunk; the attention trunk with native GQA or MLA or a
+    minRNN mixer (dense, or a dense prefix and MoE layers); the SSD
+    trunk; the hybrid SSD trunk with a shared GQA, MLA or minRNN block
+    (served with GQA only: ``_check_serves``).  The encoder-decoder
+    family is another module."""
     if cfg.family == "encdec":
         raise ValueError(
             f"{cfg.name} is an encoder-decoder (family 'encdec'): its "
             f"model is models/encdec.py (training.train_step.model_for "
             f"picks it)")
     if cfg.block_kind == "minrnn" or _attn_native(cfg) or _ssm(cfg) \
-            or (_attn_minrnn(cfg) and cfg.moe is None):
+            or _attn_minrnn(cfg):
         return
     if _hybrid(cfg):
         if cfg.n_layers % cfg.hybrid_attn_every:
@@ -117,16 +119,32 @@ def _check_cfg(cfg):
                 f"multiple of hybrid_attn_every ({cfg.hybrid_attn_every})")
         return
     what = f"block_kind {cfg.block_kind!r}"
-    if _attn_minrnn(cfg):
-        what = f"MoE under a {cfg.seq_mixer} seq_mixer"
-    elif cfg.block_kind in ("attention", "hybrid"):
-        what = f"the {cfg.seq_mixer} {cfg.attn_kind} attention mixer of " \
-               f"block_kind {cfg.block_kind!r}"
+    if cfg.block_kind in ("attention", "hybrid"):
+        what = f"the {cfg.seq_mixer} {cfg.attn_kind} mixer of block_kind " \
+               f"{cfg.block_kind!r} (hybrid_attn_every " \
+               f"{cfg.hybrid_attn_every})"
     raise NotImplementedError(
-        f"{what} is not ported (ROADMAP.md queue 1, item 5); the port "
-        f"runs the minRNN LMs, attention trunks with native GQA or MLA "
-        f"(dense or MoE) or a mingru / minlstm seq_mixer, the SSD trunk "
-        f"and the hybrid SSD trunk with a shared GQA block")
+        f"{what} is not a model of the reference; the port runs the "
+        f"minRNN LMs, attention trunks with native GQA or MLA or a mingru "
+        f"/ minlstm seq_mixer (dense or MoE), the SSD trunk and the hybrid "
+        f"SSD trunk with a shared GQA, MLA or minRNN block every "
+        f"hybrid_attn_every > 0 layers")
+
+
+def _check_serves(cfg):
+    """``_check_cfg``, and the decode state exists: the hybrid's shared
+    block decodes and prefills against a KV cache, so with an MLA or
+    minRNN mixer it trains only -- the reference's serving reads that
+    block's ``k`` / ``v`` (``src/repro/models/lm.py:1220``, ``:1437``) and
+    fails on such a config."""
+    _check_cfg(cfg)
+    if _hybrid(cfg) and not _native_gqa(cfg):
+        raise NotImplementedError(
+            f"the hybrid trunk with a shared {cfg.seq_mixer} "
+            f"{cfg.attn_kind} block trains only: its cache, decode, prefill "
+            f"and serving read the shared block's KV cache, as the "
+            f"reference's do (src/repro/models/lm.py:1220 and :1437 fail "
+            f"on this config with a KeyError)")
 
 
 def _ssm(cfg) -> bool:
@@ -139,11 +157,14 @@ def _native_gqa(cfg) -> bool:
 
 
 def _hybrid(cfg) -> bool:
-    """The hybrid trunk (zamba2): SSD layers, and one shared native-GQA
-    attention block (params shared, KV caches not) after every
-    ``hybrid_attn_every`` of them."""
+    """The hybrid trunk (zamba2): SSD layers, and one shared attention
+    block (params shared, KV caches not) after every
+    ``hybrid_attn_every`` of them; its mixer native GQA or, as the
+    reference's ``_mixer_apply`` takes them, MLA or a minRNN cell."""
     return cfg.block_kind == "hybrid" and cfg.hybrid_attn_every > 0 \
-        and _native_gqa(cfg)
+        and (cfg.seq_mixer in _MIN_CELLS
+             or (cfg.seq_mixer == "native"
+                 and cfg.attn_kind in ("gqa", "mla")))
 
 
 def _attn_minrnn(cfg) -> bool:
@@ -636,8 +657,8 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     (L, B, K-1, d_inner + 2 G N) in the compute dtype and ``ssm`` (L, B,
     H, P, N) in fp32; the hybrid's: those for its L SSD layers and ``k`` /
     ``v`` (n_groups, B, max_len, KV, head_dim), one per application of
-    the shared block."""
-    _check_cfg(cfg)
+    the shared GQA block (``_check_serves``)."""
+    _check_serves(cfg)
     dev = resolve_device(device)
     dt = cfg.cdtype
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -725,15 +746,18 @@ def _attn_mixer_step(p, cfg, y, cache_l, pos, operands, tables=None):
     h = cell.step(p["rnn"], y, cache_l["h"], mode=mode,
                   compute_dtype=cfg.cdtype,
                   scan_strategy=cfg.scan_strategy, operands=operands)
-    return nn.dense_apply(p["down"], h, cfg.cdtype), {"h": h}
+    out = nn.tiled(lambda t: nn.dense_apply(p["down"], t, cfg.cdtype), h,
+                   attn.DECODE_ROWS)
+    return out, {"h": h}
 
 
 def _attn_block_step(p, cfg, x, cache_l, pos, operands, tables=None):
-    """One attention block for one token.  With native GQA the norms and
-    every product run in tiles of ``attention.DECODE_ROWS`` rows, so a
-    row's result does not depend on B (an MoE layer routes all B rows
-    together, as the reference's does at a step)."""
-    rows = None if cfg.seq_mixer in _MIN_CELLS else attn.DECODE_ROWS
+    """One attention block for one token.  The norms and every product
+    run in tiles of ``attention.DECODE_ROWS`` rows, so a row's result
+    does not depend on B (an MoE layer routes all B rows together, as
+    the reference's does at a step); a minRNN cell steps all B rows in
+    one launch, each row on its own."""
+    rows = attn.DECODE_ROWS
     y = nn.tiled(lambda t: _norm(cfg, p["norm1"], t), x, rows)
     out, mix_cache = _attn_mixer_step(p["mixer"], cfg, y, cache_l, pos,
                                       operands, tables)
@@ -778,7 +802,7 @@ def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
     params' ``bind_layers``, if the caller holds one.  A KV cache's ``k``
     / ``v`` are updated in place and come back in the new cache (the
     reference returns new arrays of the same values)."""
-    _check_cfg(cfg)
+    _check_serves(cfg)
     new_cache = dict(cache)
     new_cache["pos"] = cache["pos"] + 1
     if _ssm(cfg) or _hybrid(cfg):
@@ -789,7 +813,7 @@ def decode_step(params, cfg, token: torch.Tensor, cache: Dict[str, Any], *,
     decode = _attn_decode if cfg.block_kind == "attention" else _minrnn_decode
     x, outs = decode(params, cfg, x, cache, layers)
     new_cache.update(outs)
-    final = _final_rows if _attn_native(cfg) else _final
+    final = _final_rows if cfg.block_kind == "attention" else _final
     return final(params, cfg, x), new_cache
 
 
@@ -991,7 +1015,7 @@ def prefill(params, cfg, tokens: torch.Tensor, max_len: int, *,
     prefix before the tokens, its keys and values seeded into the cache
     at positions [0, P); ``lengths`` is refused with a patch frontend, as
     in the reference."""
-    _check_cfg(cfg)
+    _check_serves(cfg)
     if cache is not None and not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"chunked prefill resume not supported for block_kind="

@@ -19,6 +19,12 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, gated: bool,
     return p
 
 
+def mlp_flops(d_model: int, d_ff: int, gated: bool) -> int:
+    """Matmul FLOPs per token (forward)."""
+    n_mats = 3 if gated else 2
+    return 2 * n_mats * d_model * d_ff
+
+
 def mlp_apply(params, x: torch.Tensor, *, activation: str = "silu",
               compute_dtype=None) -> torch.Tensor:
     act = nn.ACTIVATIONS[activation]

@@ -92,7 +92,8 @@ def _world(size):
                    rng.randn(2, 64, 4).astype(np.float32),
                    rng.randn(2, 4).astype(np.float32))
         return serve_mesh.run_world(ranks.world_4, 4,
-                                    (layer, x, g, scan_in) + _lm_inputs())
+                                    (layer, x, g, scan_in) + _lm_inputs()
+                                    + (_swap_params(),))
     from test_torch_dp_training import dp_inputs
     params, batches = dp_inputs()
     return serve_mesh.run_world(ranks.world_2, 2,
@@ -116,6 +117,19 @@ def _lm_inputs():
                     "labels": toks[:, 1:].astype(np.int32)}
 
 
+@functools.lru_cache(maxsize=None)
+def _swap_params():
+    """The smoke deepseek-moe-16b with its attention swapped for minGRU
+    (``seq_mixer="mingru"``), the port's seeded init as numpy: the mesh
+    step is held against the port's one-device step, so no JAX init is
+    needed."""
+    from repro_torch import bridge
+    from repro_torch.models import lm
+    cfg = ranks.moe_lm_cfg("auto", "mingru")
+    return bridge.params_to_numpy(lm.init_params(
+        torch.Generator().manual_seed(5), cfg, device="cpu"))
+
+
 @pytest.mark.parametrize("mode", ["off", "on"])
 def test_mesh_train_step_matches_the_one_device_step(mode):
     """``make_mesh_train_step`` on a 2x2 world (the smoke deepseek-moe-16b,
@@ -126,11 +140,25 @@ def test_mesh_train_step_matches_the_one_device_step(mode):
     of lr (AdamW's first step moves a param by lr g / (|g| + eps): where
     |g| is near eps, a grad that agrees to 1e-7 moves it by a few percent
     of lr)."""
-    from repro_torch.training import train_step as ts_lib
     params_np, batch = _lm_inputs()
     res = _case(f"step_{mode}")
     assert all(r["two_d"] == (mode == "on") for r in res)
-    cfg = ranks.moe_lm_cfg(mode)
+    _check_mesh_step(res, ranks.moe_lm_cfg(mode), params_np, batch)
+
+
+def test_mesh_train_step_of_the_mingru_swap_matches_the_one_device_step():
+    """The same step of the smoke deepseek-moe-16b with minGRU in place of
+    attention (``ep_2d`` "auto"), in the same 2x2 world: the cell and its
+    down projection whole on every rank, the experts split."""
+    _, batch = _lm_inputs()
+    res = _case("step_mingru")
+    assert "rnn" in res[0]["specs"]["layers"]["blocks"]["mixer"]
+    _check_mesh_step(res, ranks.moe_lm_cfg("auto", "mingru"),
+                     _swap_params(), batch)
+
+
+def _check_mesh_step(res, cfg, params_np, batch):
+    from repro_torch.training import train_step as ts_lib
     p = ranks._tensors(params_np)
     (_, _), grads = ts_lib.value_and_grad(ts_lib.make_loss_fn(cfg), p,
                                           ts_lib.batch_to(batch, "cpu"))

@@ -1750,3 +1750,84 @@ def test_sequence_parallel_scan_world_on_the_card(cuda_device):
     np.testing.assert_allclose(
         np.concatenate([r["sp_scan"]["h"] for r in got], axis=-2),
         want.cpu(), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The minRNN mixer in the MoE trunks: deepseek-v3-671b's width, and a row
+# of the swapped deepseek-moe-16b independent of B
+# ---------------------------------------------------------------------------
+
+# deepseek-v3-671b's d_model: the cell's Dx = Dh past the tensor-core
+# decode body's Dx limit (4096), so its step takes the CUDA-core body in
+# bf16 too; the fused kernel's 96-column tiles leave a ragged last one
+V3_D = 7168
+
+
+def test_cell_step_at_deepseek_v3_width_matches_plain(cuda_device):
+    """bf16, B 8 x Dx 7168 x Dh 7168 (7168 terms in each gate's sum): the
+    kernel on the CUDA-core body against the plain version, and a row
+    launched alone equal to its row of the batch bit for bit.  In fp32
+    the body's 8 rows of x do not fit its shared memory: binding
+    refuses, naming the widest Dx it takes."""
+    gen = torch.Generator().manual_seed(7)
+    x, h, *wb = _cell_case(gen, "mingru", torch.bfloat16, cuda_device, 8,
+                           V3_D, V3_D, 1)
+    step_ops.reset_launches()
+    got = step_ops.fused_mingru_step(x[:, 0], *wb, h)
+    _close(got, step_ref.mingru_step_ref(x[:, 0], *wb, h), torch.bfloat16)
+    assert torch.equal(step_ops.fused_mingru_step(x[3:4, 0], *wb, h[3:4]),
+                       got[3:4])
+    assert step_ops.LAUNCHES["mingru_step_kernel/cuda_core"] == 2
+    with pytest.raises(ValueError, match="Dx up to 7136"):
+        step_ops.CellOperands("mingru", [w.float() for w in wb[0::2]],
+                              [b.float() for b in wb[1::2]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_and_grads_at_deepseek_v3_width(dtype, cuda_device):
+    """The fused minGRU layer at B 2 x T 130 x Dx 7168 x Dh 7168 (bf16:
+    the tensor-core body, 74 whole column tiles of 96 and a last of 64;
+    T over two 128-row chunks): forward and gradients against the plain
+    version."""
+    gen = torch.Generator().manual_seed(8)
+    ins = _fused_case(gen, "mingru", dtype, cuda_device, 2, 130, V3_D, V3_D)
+    fn, plain, mod = _fused_fns("mingru", "log")
+    body = "tc" if dtype == torch.bfloat16 else "cuda_core"
+    mod.reset_launches()
+    out = fn(*ins)
+    assert mod.LAUNCHES[f"fused_mingru_kernel/{body}"] == 1
+    want = plain(*ins)
+    _close(out, want, dtype)
+    ct = torch.randn(out.shape, generator=gen).to(dtype).to(cuda_device)
+    for g, w in zip(torch.autograd.grad(out, ins, ct),
+                    torch.autograd.grad(want, ins, ct)):
+        assert _rel_err(g, w) < GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("mixer", ["mingru", "minlstm"])
+def test_moe_swap_decode_row_is_independent_of_batch(mixer, cuda_device):
+    """The smoke deepseek-moe-16b with ``mixer`` in place of attention, in
+    bf16 on the card at its no-drop capacity: a row decoded in a batch of
+    8 (the cell one launch over all rows, norms and products in a tile of
+    8, the MoE routing all 8) equals the row decoded alone (one row
+    padded to a tile), logits and ``h``, bit for bit, 6 steps; one cell
+    launch a layer a step."""
+    cfg = archs.smoke("deepseek-moe-16b").replace(
+        seq_mixer=mixer, param_dtype="bfloat16", compute_dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(gen, cfg, device=cuda_device)
+    layers = lm.bind_layers(params, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (8, 6), generator=torch.
+                         Generator().manual_seed(7)).to(cuda_device)
+    c8 = lm.init_cache(cfg, 8, 16, cuda_device)
+    c1 = lm.init_cache(cfg, 1, 16, cuda_device)
+    step_ops.reset_launches()
+    for t in range(toks.shape[1]):
+        l8, c8 = lm.decode_step(params, cfg, toks[:, t], c8, layers=layers)
+        l1, c1 = lm.decode_step(params, cfg, toks[3:4, t], c1,
+                                layers=layers)
+        assert torch.equal(l8[3:4], l1), t
+    assert torch.equal(c8["h"][:, 3:4], c1["h"])
+    name = f"{mixer}_step_kernel"
+    assert step_ops.LAUNCHES[name] == step_ops.LAUNCHES[f"{name}/tc"] \
+        == 2 * 6 * cfg.n_layers

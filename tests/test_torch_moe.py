@@ -495,12 +495,6 @@ def test_packing_speculation_resume_and_autotune_are_refused():
         autotune.sweep(ARCH, smoke=True, device="cpu", points=1)
 
 
-def test_moe_under_a_minrnn_mixer_names_the_roadmap():
-    cfg = pt_archs.smoke(ARCH).replace(seq_mixer="mingru")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        pt_lm.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_serve_and_train_launchers_run_deepseek_on_cpu(capsys, tmp_path):
     from repro_torch.launch import serve, train
     serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",

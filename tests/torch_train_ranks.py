@@ -133,17 +133,21 @@ def world_2(params_np, layer_np, x, g, batches) -> dict:
 MOE_OPT = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
 
 
-def moe_lm_cfg(mode: str):
-    cfg = archs.smoke("deepseek-moe-16b")
+def moe_lm_cfg(mode: str, seq_mixer: str = "native"):
+    """The smoke deepseek-moe-16b (with ``seq_mixer`` "mingru": its
+    attention swapped for the cell, as the paper swaps it)."""
+    cfg = archs.smoke("deepseek-moe-16b").replace(seq_mixer=seq_mixer)
     return cfg.replace(moe=dataclasses.replace(cfg.moe, ep_2d=mode))
 
 
-def mesh_step_case(mesh, params_np, batch, mode: str) -> dict:
-    """One ``make_mesh_train_step`` of the smoke deepseek-moe-16b with its
-    experts split as ``ep_2d=mode`` places them: the loss, the global
-    grad norm, this rank's blocks of the grads (``mesh_value_and_grad``)
-    and of the updated params, and their placements."""
-    cfg = moe_lm_cfg(mode)
+def mesh_step_case(mesh, params_np, batch, mode: str,
+                   seq_mixer: str = "native") -> dict:
+    """One ``make_mesh_train_step`` of the smoke deepseek-moe-16b (its
+    mixer ``seq_mixer``) with its experts split as ``ep_2d=mode`` places
+    them: the loss, the global grad norm, this rank's blocks of the grads
+    (``mesh_value_and_grad``) and of the updated params, and their
+    placements."""
+    cfg = moe_lm_cfg(mode, seq_mixer)
     tokens = batch["tokens"].shape[0] // mesh.plan.data \
         * batch["tokens"].shape[1]
     layout = moe.ep_layout(cfg, mesh, tokens)
@@ -159,17 +163,22 @@ def mesh_step_case(mesh, params_np, batch, mode: str) -> dict:
             "specs": specs, "two_d": layout.two_d}
 
 
-def world_4(layer_np, x, g, scan_in, lm_np=None, lm_batch=None) -> dict:
+def world_4(layer_np, x, g, scan_in, lm_np=None, lm_batch=None,
+            swap_np=None) -> dict:
     """A 4-rank world: EP at 2x2 with ``ep_2d`` off and on (the layer,
     and with ``lm_np`` one ``make_mesh_train_step`` of the smoke
-    deepseek-moe-16b on ``lm_batch``), and the sequence-parallel scan
-    over the 4 ranks."""
+    deepseek-moe-16b on ``lm_batch``; with ``swap_np`` the same step of
+    its minGRU swap under ``ep_2d`` "auto"), and the sequence-parallel
+    scan over the 4 ranks."""
     mesh = serve_mesh.MeshPlan(2, 2).build()
     out = {f"ep_{mode}": ep_case(mesh, layer_np, x, g, mode)
            for mode in ("off", "on")}
     if lm_np is not None:
         for mode in ("off", "on"):
             out[f"step_{mode}"] = mesh_step_case(mesh, lm_np, lm_batch, mode)
+    if swap_np is not None:
+        out["step_mingru"] = mesh_step_case(mesh, swap_np, lm_batch, "auto",
+                                            "mingru")
     out["sp_scan"] = sp_scan_case(*scan_in)
     return out
 
