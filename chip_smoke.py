@@ -37,7 +37,12 @@ Phases (any failed check exits non-zero before the result line):
      most weight bytes one block holds, within 1.25x of the phase's
      share per SM; fp32 "streamed"; the grid co-resident), kernel / plain
      times and the bound, the kernel also as a CUDA graph (device ms),
-     and block 0's per-phase trace; then the cell-only decode kernels at
+     and block 0's per-phase trace; the block kernel past the shapes it
+     once refused (minGRU, fp32 and bf16, B 8, C 4: Dx 1024 / Dh 2048 /
+     Dm 8192, phase D's input in two K slices, and 200 / 72 / 520, off
+     the 16-column tile): its plan, kernel vs plain, the chunk equal to
+     its step launches and a row alone equal to its row, bit for bit,
+     ms against the bound; then the cell-only decode kernels at
      mingru-lm /
      minlstm-lm widths (B 8, Dx 768, Dh 1536; step and chunk C 8 with
      mixed valid, and C 5), gemma-2b-mingru's (B 8, 2048 x 2048, step)
@@ -49,7 +54,9 @@ Phases (any failed check exits non-zero before the result line):
      waves (one wave at every full width), minLSTM also without
      normalize, kernel / plain / one torch.matmul of the projections (the
      yardstick) and the bound, kernel and yardstick timed both as eager
-     calls and as a CUDA graph;
+     calls and as a CUDA graph; and bf16 minGRU / minLSTM at B 8 x Dx
+     16384 x Dh 1024 (x in K slices) held the same way, ms against the
+     bound;
   3. training kernels at the training shapes (B 8, T 256, Dx 768,
      Dh 1536; T 250 for a ragged edge; h0 given and not): the fused
      minGRU / minLSTM kernels and the linear / log-space scans, forward
@@ -71,7 +78,10 @@ Phases (any failed check exits non-zero before the result line):
      CUDA-graph times rotating over input
      sets larger than the L2, the Heinsen composition of torch.cumsum /
      torch.logcumsumexp as a yardstick line, and the same checks at
-     B 3, T 1100 (five T-tiles), D 70;
+     B 3, T 1100 (five T-tiles), D 70; then past grid.y's 65,535 rows:
+     the fused kernels (fp32 and bf16, T 8, Dx 64, Dh 128) and the
+     scans (T 8, D 128) at B 65,544 and the cell step at B 524,296,
+     each against its plain version with the last row alone bit-equal;
   4. serving: full-width mingru-lm (bf16, seeded init), 8 slots, 8 byte
      prompts, 32 new tokens, K = 4, C in {1, 8}: greedy streams equal
      across C and to ``generate_one``, launches == layers x rounds;
@@ -252,11 +262,13 @@ Phases (any failed check exits non-zero before the result line):
      deepseek-v3-671b with
      minGRU at 3 dense + 2 MoE layers (Dx 7168): the cell step on the
      CUDA-core body against its plain version, a row alone bit-equal,
-     its ms beside its byte bound and one torch.matmul, fp32 refused at
-     binding; the fused layer at B 8 x T 512 forward and backward
-     against the plain version; the serving windows and row, the
-     prefill and its route (128 steps), then 2 training steps on the 3
-     dense layers (the swapped model's expert-parallel step is left to
+     its ms beside its byte bound and one torch.matmul, and in fp32 (x
+     in K slices) the same against the plain version; the fused layer
+     at B 8 x T 512 forward and backward against the plain version; the
+     serving windows and row, the prefill and its route (128 steps),
+     then on the 3 dense layers (an empty MoE stack) the fp32 route (a
+     prefill of 32 tokens against 32 steps, 1e-4) and 2 training steps
+     (the swapped model's expert-parallel step is left to
      the CPU tests' 2x2 world, for the script's time);
   6. the robustness layer, full width, bf16, weights seeded on the card.
      Faults on mingru-lm (block tier and cell tier) and minlstm-lm
@@ -454,40 +466,47 @@ def card_line() -> str:
 # 2. kernels at full width
 # ---------------------------------------------------------------------------
 
-def block_params(gen, cell, dtype):
+def block_params(gen, cell, dtype, dims=(DX, DH, DM)):
+    """Seeded block weights, drawn on ``gen``'s device."""
+    dx, dh, dm = dims
+
     def w(shape, fan_in):
-        return (torch.randn(shape, generator=gen) / fan_in ** 0.5).to(dtype)
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                / fan_in ** 0.5).to(dtype)
 
     def v(n, s=0.1):
-        return (s * torch.randn(n, generator=gen)).to(dtype)
+        return (s * torch.randn(n, generator=gen, device=gen.device)
+                ).to(dtype)
 
-    p = {"norm_rnn": {"scale": (1.0 + v(DX)).to(dtype)},
-         "rnn": {g: {"kernel": w((DX, DH), DX), "bias": v(DH)}
+    p = {"norm_rnn": {"scale": (1.0 + v(dx)).to(dtype)},
+         "rnn": {g: {"kernel": w((dx, dh), dx), "bias": v(dh)}
                  for g in GATES[cell]},
-         "down": {"kernel": w((DH, DX), DH)},
-         "conv": {"kernel": w((K, DX), 4), "bias": v(DX)},
-         "norm_mlp": {"scale": (1.0 + v(DX)).to(dtype)},
-         "mlp_in": {"kernel": w((DX, DM), DX), "bias": v(DM)},
-         "mlp_out": {"kernel": w((DM, DX), DM), "bias": v(DX)}}
+         "down": {"kernel": w((dh, dx), dh)},
+         "conv": {"kernel": w((K, dx), 4), "bias": v(dx)},
+         "norm_mlp": {"scale": (1.0 + v(dx)).to(dtype)},
+         "mlp_in": {"kernel": w((dx, dm), dx), "bias": v(dm)},
+         "mlp_out": {"kernel": w((dm, dx), dm), "bias": v(dx)}}
     return lm.tree_to(p, DEV)
 
 
-def n_weight_elems(cell):
+def n_weight_elems(cell, dims=(DX, DH, DM)):
+    dx, dh, dm = dims
     n_g = len(GATES[cell])
-    return (n_g * (DX * DH + DH) + DH * DX + DX * DM + DM + DM * DX + DX
-            + 2 * DX + K * DX + DX)
+    return (n_g * (dx * dh + dh) + dh * dx + dx * dm + dm + dm * dx + dx
+            + 2 * dx + K * dx + dx)
 
 
-def bound_ms(cell, dtype, bsz, chunk):
+def bound_ms(cell, dtype, bsz, chunk, dims=(DX, DH, DM)):
     """Least time for the work: each input read once, each output written
     once, over the memory rate; multiply-adds over the type's peak."""
+    dx, dh, dm = dims
     e = torch.tensor([], dtype=dtype).element_size()
     n_g = len(GATES[cell])
-    elems_in = n_weight_elems(cell) + bsz * chunk * DX + bsz * DH \
-        + bsz * (K - 1) * DX
-    elems_out = bsz * chunk * (DX + DH + (K - 1) * DX)
+    elems_in = n_weight_elems(cell, dims) + bsz * chunk * dx + bsz * dh \
+        + bsz * (K - 1) * dx
+    elems_out = bsz * chunk * (dx + dh + (K - 1) * dx)
     nbytes = (elems_in + elems_out) * e + (bsz * 4 if chunk > 1 else 0)
-    flops = 2 * bsz * chunk * (n_g * DX * DH + DH * DX + 2 * DX * DM)
+    flops = 2 * bsz * chunk * (n_g * dx * dh + dh * dx + 2 * dx * dm)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -750,6 +769,103 @@ def kernel_phase(gen):
     return main
 
 
+# the block kernel at shapes it once refused to bind (Dx, Dh, Dm): "wide"
+# stages phase D's input (Dm 8192) in two K slices, "ragged" runs off the
+# 16-column tile (the streamed body, element by element); B 8, C 4
+BLOCK_WIDE = {"wide": (1024, 2048, 8192), "ragged": (200, 72, 520)}
+WIDE_C = 4
+WIDE_VALID = [4, 1, 3, 4, 2, 4, 3, 1]
+
+
+def block_shape_checks(gen):
+    """The block kernel past its old limits, minGRU, fp32 and bf16, on
+    weights rotating over 2 sets: the plan (streamed; "wide" phase D in 2
+    slices), the step and a C 4 chunk (mixed valid) against the plain
+    version, the chunk equal to C step launches bit for bit, a row
+    launched alone equal to its row of the batch, the step's eager ms
+    against its bound and the plain version.  Not counted on the main
+    path."""
+    t0 = time.perf_counter()
+    cell, lines = "mingru", []
+    valid = torch.tensor(WIDE_VALID, dtype=torch.int32, device=DEV)
+    for shape, dims in BLOCK_WIDE.items():
+        dx, dh, _ = dims
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{shape}/{str(dtype).split('.')[-1]}"
+            kw = dict(cell=cell, mode="log", use_conv=True, use_mlp=True,
+                      compute_dtype=dtype)
+            sets = [block_params(gen, cell, dtype, dims) for _ in range(2)]
+            bound = [ops.BlockOperands(p, cell=cell, compute_dtype=dtype,
+                                       use_conv=True, use_mlp=True)
+                     for p in sets]
+            kp = ops.kernel_params(sets[0], cell, dtype, True, True)
+            pl = ops.plan(bound[0])
+            slices = [ph["S"] for ph in pl["phases"]]
+            check(pl["body"] == "streamed"
+                  and slices == ([1, 1, 1, 2] if shape == "wide"
+                                 else [1, 1, 1, 1]),
+                  f"block {tag}: plan {pl}")
+            x = torch.randn((B, WIDE_C, dx), generator=gen,
+                            device=DEV).to(dtype)
+            st = {"h": (0.5 * torch.randn((B, dh), generator=gen,
+                                          device=DEV)).to(dtype),
+                  "conv": torch.randn((B, K - 1, dx), generator=gen,
+                                      device=DEV).to(dtype)}
+            ys, _, pos = ops.fused_block_chunk(
+                sets[0], x, st, valid, operands=bound[0],
+                return_positions=True, **kw)
+            ys_r, _, pos_r = ref.block_chunk_ref(kp, x, st, valid, **kw)
+            err = max(max_err(ys, ys_r, dtype, f"block {tag} chunk ys"),
+                      max_err(pos["h"], pos_r["h"], dtype,
+                              f"block {tag} chunk hs"),
+                      max_err(pos["conv"], pos_r["conv"], dtype,
+                              f"block {tag} chunk windows"))
+            s_ = st
+            for t in range(WIDE_C):
+                y, s_ = ops.fused_block_step(sets[0], x[:, t].contiguous(),
+                                             s_, operands=bound[0], **kw)
+                if t == 0:
+                    err = max(err, max_err(y, ref.block_step_ref(
+                        kp, x[:, 0].contiguous(), st, **kw)[0], dtype,
+                        f"block {tag} step y"))
+                for b in range(B):
+                    if t < WIDE_VALID[b]:
+                        check(torch.equal(y[b], ys[b, t])
+                              and torch.equal(s_["h"][b], pos["h"][b, t])
+                              and torch.equal(s_["conv"][b],
+                                              pos["conv"][b, t]),
+                              f"block {tag}: row {b} position {t} != step")
+            y5, _, pos5 = ops.fused_block_chunk(
+                sets[0], x[5:6].contiguous(),
+                {k_: v[5:6].contiguous() for k_, v in st.items()},
+                valid[5:6], operands=bound[0], return_positions=True, **kw)
+            check(torch.equal(y5, ys[5:6])
+                  and torch.equal(pos5["h"], pos["h"][5:6]),
+                  f"block {tag}: a row changed with the batch size")
+            x1 = x[:, :1].contiguous()
+            t_step = eager_ms([raw(ops.prepare_launch(b_, x1, st, None,
+                                                      mode="log")[0])
+                               for b_ in bound], 50)
+            t_plain = eager_ms([lambda: ref.block_step_ref(
+                kp, x1[:, 0], st, **kw)], 10)
+            b_ms, b_by = bound_ms(cell, dtype, B, 1, dims)
+            lines.append(f"  {tag:<15} grid {pl['grid']}, "
+                         f"{pl['blocks_per_sm']} block(s)/SM, smem "
+                         f"{pl['smem']} B, slices {slices}: max abs err "
+                         f"{err:.3g}; step {t_step:.5f} ms against a bound "
+                         f"of {b_ms:.5f} ({b_by}), plain {t_plain:.5f}")
+            del sets, bound, kp
+            torch.cuda.empty_cache()
+    print(f"block kernels past the old limits (minGRU, B {B}, step and chunk "
+          f"C {WIDE_C}, valid {WIDE_VALID}; Dx / Dh / Dm "
+          + ", ".join(f"{k_} {d}" for k_, d in BLOCK_WIDE.items())
+          + "; each against the plain version, the chunk equal to its step "
+          "launches and a row alone equal to its row, bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s):")
+    for line in lines:
+        print(line)
+
+
 # cell-only decode kernels: (B, Dx, Dh) and whether the chunk form runs
 CELL_SHAPES = {"mingru-lm": (8, 768, 1536, True),
                "gemma-2b-mingru": (8, 2048, 2048, False),
@@ -758,10 +874,11 @@ CELL_VALID = [8, 1, 3, 8, 5, 2, 8, 7]
 
 
 def cell_operands(gen, cell, dtype, dx, dh):
-    ws = [(torch.randn((dx, dh), generator=gen) / dx ** 0.5).to(dtype)
-          .to(DEV) for _ in GATES[cell]]
-    bs = [(0.1 * torch.randn((dh,), generator=gen)).to(dtype).to(DEV)
-          for _ in GATES[cell]]
+    """Seeded cell weights, drawn on ``gen``'s device, bound on the card."""
+    ws = [(torch.randn((dx, dh), generator=gen, device=gen.device)
+           / dx ** 0.5).to(dtype).to(DEV) for _ in GATES[cell]]
+    bs = [(0.1 * torch.randn((dh,), generator=gen, device=gen.device))
+          .to(dtype).to(DEV) for _ in GATES[cell]]
     return step_ops.CellOperands(cell, ws, bs)
 
 
@@ -972,6 +1089,82 @@ def cell_kernel_phase(gen):
     for line in occ_lines:
         print(line)
     return main
+
+
+# the cell step in bf16 past the widest x tile the CUDA-core body holds
+# whole (Dx 14272): x in three K slices of 5504; (B, Dx, Dh)
+CELL_WIDE = (8, 16384, 1024)
+
+
+def cell_wide_checks(gen):
+    """minGRU and minLSTM in bf16 at B 8 x Dx 16384 x Dh 1024, on the
+    CUDA-core body with x in K slices, weights rotating over 2 sets: the
+    step and a C 4 chunk (mixed valid) against the plain version, the
+    chunk equal to C step launches bit for bit, a row alone equal to its
+    row of the batch, the step's eager ms against its bound and the plain
+    version.  Not counted on the main path."""
+    bsz, dx, dh = CELL_WIDE
+    dtype, lines = torch.bfloat16, []
+    t0 = time.perf_counter()
+    valid = torch.tensor(WIDE_VALID[:bsz], dtype=torch.int32, device=DEV)
+    for cell in ("mingru", "minlstm"):
+        kw = {} if cell == "mingru" else {"normalize": True}
+        step_fn = getattr(step_ops, f"fused_{cell}_step")
+        chunk_fn = getattr(step_ops, f"fused_{cell}_chunk")
+        step_plain = getattr(step_ref, f"{cell}_step_ref")
+        chunk_plain = getattr(step_ref, f"{cell}_chunk_ref")
+        sets = [cell_operands(gen, cell, dtype, dx, dh) for _ in range(2)]
+        args = sets[0].args
+        check(sets[0].body == "cuda_core",
+              f"{cell} bf16 at Dx {dx}: bound to the {sets[0].body} body")
+        x = torch.randn((bsz, WIDE_C, dx), generator=gen, device=DEV) \
+            .to(dtype)
+        h = (0.5 * torch.randn((bsz, dh), generator=gen, device=DEV)) \
+            .to(dtype)
+        x0 = x[:, 0].contiguous()
+        step_ops.reset_launches()
+        got = step_fn(x0, *args, h, operands=sets[0], **kw)
+        err = max_err(got, step_plain(x0, *args, h, **kw), dtype,
+                      f"{cell} step at Dx {dx}")
+        check(torch.equal(step_fn(x0[6:7], *args, h[6:7], operands=sets[0],
+                                  **kw), got[6:7]),
+              f"{cell} at Dx {dx}: a row changed with the batch size")
+        hs = chunk_fn(x, *args, h, valid, operands=sets[0], **kw)
+        err = max(err, max_err(hs, chunk_plain(x, *args, h, valid, **kw),
+                               dtype, f"{cell} chunk at Dx {dx}"))
+        s_h = h
+        for t in range(WIDE_C):
+            st = step_fn(x[:, t].contiguous(), *args, s_h, operands=sets[0],
+                         **kw)
+            s_h = torch.where((t < valid)[:, None], st, s_h)
+            check(torch.equal(hs[:, t], s_h),
+                  f"{cell} at Dx {dx}: chunk position {t} != step launches")
+        for form in ("step", "chunk"):
+            name = f"{cell}_{form}_kernel"
+            check(step_ops.LAUNCHES[f"{name}/cuda_core"]
+                  == step_ops.LAUNCHES[name] > 0,
+                  f"{cell} at Dx {dx}: launches {step_ops.LAUNCHES}")
+        occ = step_ops.occupancy(sets[0], bsz, 1)
+        t_step = eager_ms([raw(step_ops.prepare_launch(
+            s_, x0[:, None], h, None, mode="log", **kw)[0]) for s_ in sets],
+            100)
+        t_plain = eager_ms([lambda: step_plain(x0, *args, h, **kw)], 20)
+        b_ms, b_by = cell_bound_ms(len(GATES[cell]), dtype, bsz, 1, dx, dh)
+        lines.append(f"  {cell:<8} body {occ['body']}, "
+                     f"{occ['blocks_per_sm']} block(s)/SM, "
+                     f"{occ['grid_blocks']} blocks, {occ['waves']} wave(s): "
+                     f"max abs err {err:.3g}; step {t_step:.5f} ms against "
+                     f"a bound of {b_ms:.5f} ({b_by}), plain {t_plain:.5f}")
+        del sets, args
+        torch.cuda.empty_cache()
+    step_ops.reset_launches()
+    print(f"cell kernels in bf16 at B {bsz} x Dx {dx} x Dh {dh} (x in K "
+          f"slices; step and chunk C {WIDE_C}, valid {WIDE_VALID[:bsz]}, "
+          f"against the plain version; the chunk equal to its step "
+          f"launches and a row alone equal to its row, bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s):")
+    for line in lines:
+        print(line)
 
 
 # ---------------------------------------------------------------------------
@@ -1821,22 +2014,22 @@ def fused_inputs(gen, cell, dtype, t, with_h0):
     return out, (None if h0 is None else h0.to(dtype).to(DEV))
 
 
-def fused_bound_ms(cell, dtype, t):
+def fused_bound_ms(cell, dtype, t, bsz=TB, dx=DX, dh=DH):
     """Projection multiply-adds over the type's peak, against the bytes
     of x, weights, biases, h0 in and h out."""
     n = len(GATES[cell])
     e = torch.tensor([], dtype=dtype).element_size()
-    flops = 2 * TB * t * DX * DH * n
-    nbytes = e * (TB * t * DX + n * (DX * DH + DH) + TB * t * DH) \
-        + 4 * TB * DH
+    flops = 2 * bsz * t * dx * dh * n
+    nbytes = e * (bsz * t * dx + n * (dx * dh + dh) + bsz * t * dh) \
+        + 4 * bsz * dh
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def scan_bound_ms(in_elem, out_elem, d=DH):
+def scan_bound_ms(in_elem, out_elem, d=DH, bsz=TB, t=TT):
     """Two (B, T, D) inputs and h0 read, one output written."""
-    nbytes = TB * TT * d * (2 * in_elem + out_elem) + 4 * TB * d
+    nbytes = bsz * t * d * (2 * in_elem + out_elem) + 4 * bsz * d
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -2152,11 +2345,111 @@ def fused_prefill_checks():
           f"on the tensor-core body: " + "; ".join(out))
 
 
+# a batch past grid.y's 65,535: the fused layers and the scans at B 65,544
+# (T 8, Dx 64, Dh 128; the scans at D 128) and the cell step at 65,537
+# tiles of 8 rows (one call of the C launcher: two kernel launches, both
+# counted), Dx = Dh 16
+BIG_B, BIG_T, BIG_DX, BIG_DH = 65544, 8, 64, 128
+BIG_CELL_B = 65537 * 8
+
+
+def big_batch_checks():
+    """Phase 3's kernels at a batch past the 65,535 rows grid.y held:
+    minGRU and minLSTM fused (fp32: CUDA cores, bf16: tensor cores) and
+    the linear and log scans at B 65,544 against their plain versions, the
+    last row launched alone bit-equal to its row of the batch, eager ms
+    against the bound; the cell step at B 524,296 (bf16, tensor cores) the
+    same way.  Not counted on the main path."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(30)
+    lines = []
+    for cell in ("mingru", "minlstm"):
+        mod, fused, fused_ref = CELL_LAYERS[cell]
+        for dtype in (torch.float32, torch.bfloat16):
+            n = len(GATES[cell])
+            ins = [torch.randn((BIG_B, BIG_T, BIG_DX), generator=gen)]
+            for _ in range(n):
+                ins += [torch.randn((BIG_DX, BIG_DH), generator=gen)
+                        / BIG_DX ** 0.5,
+                        0.1 * torch.randn((BIG_DH,), generator=gen)]
+            ins.append(0.5 * torch.randn((BIG_B, BIG_DH), generator=gen))
+            ins = [v.to(dtype).to(DEV) for v in ins]
+            reset_train_launches()
+            out = mod.launch(*ins)
+            body = [b_ for b_ in ("tc", "cuda_core")
+                    if body_launches()[f"fused_{cell}_kernel/{b_}"]]
+            err = max_err(out, fused_ref(*ins), dtype,
+                          f"fused {cell} at B {BIG_B}")
+            last = mod.launch(ins[0][-1:].contiguous(), *ins[1:-1],
+                              ins[-1][-1:].contiguous())
+            check(torch.equal(last, out[-1:]),
+                  f"fused {cell} at B {BIG_B}: the last row alone differs")
+            t_k = eager_ms([lambda: mod.launch(*ins)], 10)
+            b_ms, b_by = fused_bound_ms(cell, dtype, BIG_T, BIG_B, BIG_DX,
+                                        BIG_DH)
+            lines.append(f"  fused_{cell}_kernel/{str(dtype).split('.')[-1]}"
+                         f" ({'/'.join(body)}): max abs err {err:.3g}; "
+                         f"{t_k:.5f} ms against {b_ms:.5f} ({b_by})")
+            del ins, out
+    for kind in ("linear", "log"):
+        for dtype in (torch.float32, torch.bfloat16):
+            sins = scan_ref.inputs(gen, kind, dtype, (BIG_B, BIG_T, BIG_DH),
+                                   True, DEV)
+            fn = (scan_ops.linear_scan_kernel if kind == "linear"
+                  else scan_ops.log_scan_kernel)
+            plain = (scan_ref.linear_scan_ref if kind == "linear"
+                     else scan_ref.log_scan_ref)
+            out = fn(*sins)
+            err = max_err(out, plain(*sins),
+                          dtype if kind == "linear" else torch.float32,
+                          f"{kind} scan at B {BIG_B}")
+            check(torch.equal(fn(*(v[-1:].contiguous() for v in sins)),
+                              out[-1:]),
+                  f"{kind} scan at B {BIG_B}: the last row alone differs")
+            e = torch.tensor([], dtype=dtype).element_size()
+            t_k = eager_ms([lambda: fn(*sins)], 10)
+            b_ms, b_by = scan_bound_ms(e, e if kind == "linear" else 4,
+                                       BIG_DH, BIG_B, BIG_T)
+            lines.append(f"  {kind}_scan_kernel/{str(dtype).split('.')[-1]}"
+                         f": max abs err {err:.3g}; {t_k:.5f} ms against "
+                         f"{b_ms:.5f} ({b_by})")
+            del sins, out
+    ops_ = cell_operands(gen, "mingru", torch.bfloat16, 16, 16)
+    x = torch.randn((BIG_CELL_B, 16), generator=gen).to(torch.bfloat16) \
+        .to(DEV)
+    h = torch.randn((BIG_CELL_B, 16), generator=gen).to(torch.bfloat16) \
+        .to(DEV)
+    step_ops.reset_launches()
+    got = step_ops.fused_mingru_step(x, *ops_.args, h, operands=ops_)
+    err = max_err(got, step_ref.mingru_step_ref(x, *ops_.args, h),
+                  torch.bfloat16, f"cell step at B {BIG_CELL_B}")
+    check(torch.equal(step_ops.fused_mingru_step(
+        x[-9:].contiguous(), *ops_.args, h[-9:].contiguous(), operands=ops_),
+        got[-9:]) and step_ops.LAUNCHES["mingru_step_kernel/tc"] == 2 + 1,
+        f"cell step at B {BIG_CELL_B}: the last rows alone differ, or "
+        f"launches {step_ops.LAUNCHES}")
+    step_ops.reset_launches()
+    reset_train_launches()
+    scan_ops.reset_launches()
+    lines.append(f"  mingru_step_kernel/bfloat16 (tc) at B {BIG_CELL_B}, Dx "
+                 f"= Dh 16: max abs err {err:.3g}")
+    del x, h, got, ops_
+    torch.cuda.empty_cache()
+    print(f"kernels at a batch past 65,535 rows (fused B {BIG_B} x T "
+          f"{BIG_T} x Dx {BIG_DX} x Dh {BIG_DH}, scans B {BIG_B} x T "
+          f"{BIG_T} x D {BIG_DH}; each against its plain version, the last "
+          f"row alone bit-equal to its row of the batch; "
+          f"{time.perf_counter() - t0:.1f} s):")
+    for line in lines:
+        print(line)
+
+
 def train_kernel_phase(gen):
     main = fused_checks(gen)
     fused_prefill_checks()
     main.update(scan_checks(gen))
     torch.cuda.empty_cache()
+    big_batch_checks()
     return main
 
 
@@ -4486,8 +4779,8 @@ def swap_cell_kernels(cell, rnn, label, step=True):
     weights (``rnn``, stacked or not; bf16), against their plain versions
     on the same inputs: with ``step``, the cell step at B 8 (on the
     tensor-core body up to TC_MAX_DX, past it on the CUDA-core body, and
-    where fp32 does not fit that body's shared memory, its refusal at
-    binding) with a row alone bit-equal to its row of the batch, its
+    there in fp32 too, x in K slices, against its plain version) with a
+    row alone bit-equal to its row of the batch, its
     eager and CUDA-graph ms beside the bound and one torch.matmul of x
     against the concatenated gates; the fused layer at the training
     shape (B 8 x T 512) on the tensor-core body, forward and gradients
@@ -4519,15 +4812,33 @@ def swap_cell_kernels(cell, rnn, label, step=True):
               f"{label}: a step row changed with the batch size")
         check(step_ops.LAUNCHES[f"{cell}_step_kernel/{ops_.body}"] == 2,
               f"{label}: step launches by body {cell_body_launches()}")
-        refused = ""
-        if d > step_ops.cuda_core_max_dx(torch.float32):
-            try:        # fp32: 8 rows of x past the body's shared memory
-                step_ops.CellOperands(cell, [w.float() for w in ws],
-                                      [b.float() for b in bs])
-            except ValueError as e:
-                refused = f"; fp32 refused at binding: {e}"
-            else:
-                fail(f"{label}: fp32 at Dx {d} bound to the CUDA-core body")
+        fp32 = ""
+        if d > step_ops.TC_MAX_DX:
+            # fp32 too (8 rows of x past the body's shared memory at Dx
+            # 7168: staged in K slices), against the plain version
+            t0 = time.perf_counter()
+            o32 = step_ops.CellOperands(cell, [w.float() for w in ws],
+                                        [b.float() for b in bs])
+            x32, h32 = x.float(), h.float()
+            got32 = fn(x32, *o32.args, h32, operands=o32)
+            e32 = max_err(got32, ref_fn(x32, *o32.args, h32), torch.float32,
+                          f"{label} fp32 step at Dx {d}")
+            check(torch.equal(fn(x32[3:4], *o32.args, h32[3:4],
+                                 operands=o32), got32[3:4])
+                  and step_ops.LAUNCHES[f"{cell}_step_kernel/cuda_core"]
+                  == step_ops.LAUNCHES[f"{cell}_step_kernel"],
+                  f"{label}: an fp32 step row changed with the batch size, "
+                  f"or launches by body {cell_body_launches()}")
+            t32 = eager_ms([raw(step_ops.prepare_launch(
+                o32, x32[:, None], h32, None, mode="log")[0])], 20)
+            b32, b32_by = cell_bound_ms(len(gates), torch.float32, AB, 1, d,
+                                        dh)
+            fp32 = (f"; fp32 on the CUDA-core body (x in K slices): max abs "
+                    f"err {e32:.3g} (limits atol {TOL[torch.float32][0]} rtol "
+                    f"{TOL[torch.float32][1]}), a row alone bit-equal, "
+                    f"{t32:.5f} ms eager against a bound of {b32:.5f} "
+                    f"({b32_by}); {time.perf_counter() - t0:.1f} s")
+            del o32, x32, h32, got32
         step_ops.reset_launches()
         occ = step_ops.occupancy(ops_, AB, 1)
         t_k = eager_ms([raw(step_ops.prepare_launch(ops_, x[:, None], h,
@@ -4552,7 +4863,7 @@ def swap_cell_kernels(cell, rnn, label, step=True):
               f"{len(gates) * (d * dh + dh) * 2 / 1e6:.1f} MB of gates a "
               f"launch at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), plain "
               f"{t_plain:.4f} ms, library (one torch.matmul of x against "
-              f"the concatenated gates) {t_lib:.5f} ms{refused}")
+              f"the concatenated gates) {t_lib:.5f} ms{fp32}")
     # the fused layer at the training shape, forward and backward
     mod, fused, fused_ref = CELL_LAYERS[cell]
     xs = torch.randn((AB, AT, d), generator=gen).to(torch.bfloat16).to(DEV)
@@ -4600,8 +4911,9 @@ def swap_v3_phase(cfg, params):
     counted serving window at V3_NO_DROP_CF and one at 1.25 (the cell
     step on the CUDA-core body), a B-8 decode row equal to the B-1 row;
     the prefill B 8 x T 512 and its route at V3_ROUTE_T; then the MoE
-    layers freed and 2 training steps on the 3 dense layers (an empty
-    MoE stack).  Frees the weights.  Returns the launches."""
+    layers freed, the fp32 route on the 3 dense layers (an empty MoE
+    stack; ``swap_v3_fp32_route``) and 2 training steps on them.  Frees
+    the weights.  Returns the launches."""
     label = "deepseek-v3-671b x minGRU"
     scfg = cfg.replace(seq_mixer="mingru")
     check(lm.kernel_tier(scfg) == "cell-fused" and scfg.minrnn is None
@@ -4625,10 +4937,45 @@ def swap_v3_phase(cfg, params):
     del blocks
     fresh_card()
     tcfg = scfg.replace(n_layers=n_dense)
+    swap_v3_fp32_route(tcfg, params, label)
     merge(launches, attn_train(tcfg, params, plain_check=False, steps=2))
     del params
     fresh_card()
     return launches
+
+
+def swap_v3_fp32_route(cfg, params, label):
+    """deepseek-v3-671b x minGRU's dense layers (an empty MoE stack) in an
+    fp32 compute dtype, the bf16 weights cast a layer at a time: a
+    prefill of FP32_ROUTE_T tokens (the fused layer on the CUDA-core body)
+    against that many ``decode_step`` calls (the cell step at Dx 7168 in
+    fp32, x in K slices) and one step after each, within PREFILL_REL of
+    the largest logit.  Not counted on the main path."""
+    t0 = time.perf_counter()
+    f32 = cfg.replace(compute_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (AB, FP32_ROUTE_T),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32).to(DEV)
+    tol = PREFILL_REL[torch.float32]
+    step_ops.reset_launches()
+    reset_train_launches()
+    e_l, e_d, seq_ms = route_check(f32, params, toks, GEMMA_MAX_LEN,
+                                   f"{label} fp32", tol)
+    n = cfg.n_layers
+    check(step_ops.LAUNCHES["mingru_step_kernel/cuda_core"]
+          == step_ops.LAUNCHES["mingru_step_kernel"] == n * (FP32_ROUTE_T + 2)
+          and body_launches()["fused_mingru_kernel/cuda_core"] == n,
+          f"{label} fp32 route: launches {cell_body_launches()}, "
+          f"{body_launches()}")
+    step_ops.reset_launches()
+    reset_train_launches()
+    print(f"prefill {label} on its {n} dense layers in an fp32 compute dtype "
+          f"against {FP32_ROUTE_T} sequential steps (the cell step at Dx "
+          f"{cfg.d_model} in fp32 on the CUDA-core body, x in K slices): "
+          f"logits {e_l:.3g}, one step after {e_d:.3g} of the largest "
+          f"(limit {tol}); the steps {seq_ms:.1f} ms; "
+          f"{time.perf_counter() - t0:.1f} s")
+    fresh_card()
 
 
 def swap_zamba2_phase(cfg, params):
@@ -5979,7 +6326,9 @@ def main():
         clock[0] = now
 
     main_k = kernel_phase(gen)
+    block_shape_checks(torch.Generator(device=DEV).manual_seed(30))
     main_k.update(cell_kernel_phase(gen))
+    cell_wide_checks(torch.Generator(device=DEV).manual_seed(30))
     lap("decode kernels")
     main_k.update(train_kernel_phase(gen))
     lap("training kernels")

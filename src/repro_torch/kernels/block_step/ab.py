@@ -1,12 +1,13 @@
 """Same-process A/B of two builds of the whole-block decode kernel.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.block_step.ab OLD.cu \\
-        [--new NEW.cu] [--rounds 10]
+        [--new NEW.cu] [--rounds 10] [--dims DX DH DM]
 
 Builds OLD and NEW (by default this package's ``csrc/block_step.cu``)
 with ``kernels.build``, binds full-width mingru-lm / minlstm-lm block
-weights (Dx 768, Dh 1536, Dm 3072, conv K 4, MLP on; fp32 and bf16; 4
-seeded sets rotating, together more than the L2 holds) through this
+weights (Dx 768, Dh 1536, Dm 3072 unless ``--dims`` says otherwise,
+conv K 4, MLP on; fp32 and bf16; 4 seeded sets rotating, together more
+than the L2 holds) through this
 package's ``BlockOperands``, and times both builds on the same inputs
 (B 8: the step, and a C 8 chunk with mixed valid lengths), alternating
 which build runs first round by round: eager launches, and a CUDA graph
@@ -37,21 +38,23 @@ DX, DH, DM, K, B, C = 768, 1536, 3072, 4, 8, 8
 GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
 
 
-def _params(gen, cell, dtype, dev):
+def _params(gen, cell, dtype, dev, dims):
+    dx, dh, dm = dims
+
     def w(shape):
         return (torch.randn(shape, generator=gen) / shape[0] ** 0.5).to(dtype)
 
     def v(n):
         return (0.1 * torch.randn(n, generator=gen)).to(dtype)
 
-    p = {"norm_rnn": {"scale": 1.0 + v(DX)},
-         "rnn": {g: {"kernel": w((DX, DH)), "bias": v(DH)}
+    p = {"norm_rnn": {"scale": 1.0 + v(dx)},
+         "rnn": {g: {"kernel": w((dx, dh)), "bias": v(dh)}
                  for g in GATES[cell]},
-         "down": {"kernel": w((DH, DX))},
-         "conv": {"kernel": w((K, DX)), "bias": v(DX)},
-         "norm_mlp": {"scale": 1.0 + v(DX)},
-         "mlp_in": {"kernel": w((DX, DM)), "bias": v(DM)},
-         "mlp_out": {"kernel": w((DM, DX)), "bias": v(DX)}}
+         "down": {"kernel": w((dh, dx))},
+         "conv": {"kernel": w((K, dx)), "bias": v(dx)},
+         "norm_mlp": {"scale": 1.0 + v(dx)},
+         "mlp_in": {"kernel": w((dx, dm)), "bias": v(dm)},
+         "mlp_out": {"kernel": w((dm, dx)), "bias": v(dx)}}
     return lm.tree_to(p, dev)
 
 
@@ -65,7 +68,10 @@ def main(argv=None):
     ap.add_argument("old", type=Path)
     ap.add_argument("--new", type=Path, default=ops.SOURCE)
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--dims", type=int, nargs=3, default=[DX, DH, DM],
+                    metavar=("DX", "DH", "DM"))
     a = ap.parse_args(argv)
+    dx, dh, _ = a.dims
     if not torch.cuda.is_available():
         raise SystemExit("ab.py needs a GPU")
     libs = {}
@@ -74,20 +80,22 @@ def main(argv=None):
         lib.repro_block_launch.restype = ctypes.c_int
         libs[name] = lib
     dev = torch.device("cuda")
-    print(torch.cuda.get_device_name(0))
+    print(f"{torch.cuda.get_device_name(0)}; Dx {dx}, Dh {dh}, Dm "
+          f"{a.dims[2]}")
     gen = torch.Generator().manual_seed(0)
     valid = torch.tensor([8, 1, 3, 8, 5, 2, 8, 7], dtype=torch.int32,
                          device=dev)
     for cell in ("mingru", "minlstm"):
         for dtype in (torch.float32, torch.bfloat16):
-            bound = [ops.BlockOperands(_params(gen, cell, dtype, dev),
+            bound = [ops.BlockOperands(_params(gen, cell, dtype, dev,
+                                               a.dims),
                                        cell=cell, compute_dtype=dtype,
                                        use_conv=True, use_mlp=True)
                      for _ in range(4)]
-            x = torch.randn((B, C, DX), generator=gen).to(dtype).to(dev)
-            st = {"h": (0.5 * torch.randn((B, DH), generator=gen))
+            x = torch.randn((B, C, dx), generator=gen).to(dtype).to(dev)
+            st = {"h": (0.5 * torch.randn((B, dh), generator=gen))
                   .to(dtype).to(dev),
-                  "conv": torch.randn((B, K - 1, DX), generator=gen)
+                  "conv": torch.randn((B, K - 1, dx), generator=gen)
                   .to(dtype).to(dev)}
             for form, xx, vv, iters in (
                     ("step", x[:, :1].contiguous(), None, 300),

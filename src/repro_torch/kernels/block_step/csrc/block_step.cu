@@ -33,9 +33,11 @@
 //   D  MLP out: y = xr + m W_out + b_out.              K = Dm, N = Dx
 //
 // Two bodies.  The launcher picks one from the dims, the element type and
-// the card's SM count, never from B, C or the data (make_plan):
-//   split     where one block's weight slices for a position fit in its
-//             shared memory (bf16 at mingru-lm / minlstm-lm width: 126 /
+// the card's SM count, never from B, C or the data (make_plan); every
+// shape runs one of them:
+//   split     where every feature dim is a multiple of 16 and one
+//             block's weight slices for a position fit in its shared
+//             memory (bf16 at mingru-lm / minlstm-lm width: 126 /
 //             144 KB a block), so they are loaded once per launch;
 //   streamed  every other shape (fp32 at those widths: 33 MB a layer, 258
 //             KB a block).  A split plan that has to stream its slices
@@ -77,11 +79,30 @@
 //
 // streamed.  A work unit is 16 output columns over the whole contraction,
 // strided over the grid.  A batch tile's rows are staged in fp32 in
-// shared memory (8 x max(Dx, Dh, Dm) floats, so a width of at most about
-// 7,200); each thread streams its weights from global memory with 8 rows
-// of 4 columns in flight.  Order: 64 k-lanes (8 a warp), k-lane kl sums k
-// = kl, kl + 64, ... in ascending order; a warp's 8 k-lanes by a fixed xor
-// butterfly, then the 8 warps in order 0..7.
+// shared memory: whole rows, once for all of a block's units, in every
+// phase whose K fits (8 x K floats beside the partials: K up to 7,134);
+// a longer K in slices of at most 7,104 rows, as few as fit, of equal
+// length rounded up to the 64 k-lanes (slice_len: a function of K alone),
+// staged again for each unit and matrix (one gate's accumulators at a
+// time), each thread's accumulators kept across the slices and reduced
+// once after the last.  Such shapes, and ragged ones, run kernels of their
+// own (Any: one per element type and load width, the cell and the mode
+// read at run time), so the whole-row kernels (Fixed) keep their code.
+// Each thread streams its weights from global memory with 8 rows of 4
+// columns in flight, never past its slice.  Order: 64 k-lanes (8 a warp),
+// k-lane kl sums k = kl, kl + 64, ... in ascending order, over the slices
+// in turn; a warp's 8 k-lanes by a fixed xor butterfly, then the 8 warps
+// in order 0..7.  The RMSNorms' 1/rms is reduced over the whole row (its
+// true length) before any slice is staged, and the carried window is
+// written on one pass over the slices (block 0's first unit), each
+// element once.
+//   Feature dims that 16 does not divide run this body only, loading
+// element by element: the last column tile ragged (its columns past N
+// neither computed nor stored, so no ragged Dh column reaches hs, the
+// state or the down product), each row's 1/rms over its true length in
+// the vector path's order.  Dims that 16 divides run 16-byte vector loads
+// in both bodies, on operands the wrapper keeps 16-byte aligned (it copies
+// any other; the launcher refuses one).
 //
 // Determinism.  In either body every output element is reduced in an
 // order that depends only on the dims (and the body they pick).  The batch
@@ -136,6 +157,8 @@ struct Phase {
 struct Layout {
   Phase ph[kPhases];
   int n_ph, body, part_per_tile, counters, ring;
+  int vec;              // every dim a multiple of 16: 16-byte vector loads
+  int whole;            // streamed: every phase's input staged in whole rows
   int flag_off, rs_off, stage_off, ring_off;    // split: shared memory
   int grid, blocks_per_sm, sms, smem;
 };
@@ -912,14 +935,16 @@ struct Args {
   void* m;              // (B, Dm)             T   scratch (use_mlp)
   long long* trace;     // as Params::trace
   int B, C, Dx, Dh, Dm, K, use_conv, use_mlp;
+  int lstm, log_mode;   // read by the Any kernels only
 };
 
-Args args_of(const Params& p) {
+Args args_of(const Params& p, int lstm, int log_mode) {
   return Args{p.x, p.gamma, p.conv_k, p.conv_b, p.win0,
               {p.wt[0][0], p.wt[0][1], p.wt[0][2]}, {p.b[0], p.b[1], p.b[2]},
               p.h0, p.wt[1][0], p.gamma2, p.wt[2][0], p.bi, p.wt[3][0], p.bo,
               p.valid, p.ys, p.hs, p.wins, p.xr, p.m, p.trace,
-              p.B, p.C, p.Dx, p.Dh, p.Dm, p.K, p.use_conv, p.use_mlp};
+              p.B, p.C, p.Dx, p.Dh, p.Dm, p.K, p.use_conv, p.use_mlp,
+              lstm, log_mode};
 }
 
 constexpr int kLanes = kThreads / kGroups;   // 64 k-lanes, 8 per warp
@@ -927,6 +952,20 @@ constexpr int kUnroll = 8;              // weight rows in flight per thread
 constexpr int kRed = kWarps * kBT * kTN;     // warp partials per unit
 constexpr int kRsOff = kRed;                 // 1/rms of the tile's rows
 constexpr int kAOff = kRed + 2 * kBT;        // staged GEMV inputs
+// the longest contraction whose 8 staged rows (fp32) fit shared memory
+// beside the partials and 1/rms: every phase up to it stages whole rows
+constexpr int kWholeMax = (kSmemCap / (int)sizeof(float) - kAOff) / kBT;
+constexpr int kSliceCap = kWholeMax / kLanes * kLanes;
+
+// Rows per K slice of a contraction of K: all of K up to kWholeMax, else
+// as few slices as fit, of equal length rounded up to the 64 k-lanes (so
+// a k-lane's k = kl, kl + 64, ... continues across the slices in order).
+// A function of K alone.
+__host__ __device__ __forceinline__ int slice_len(int K) {
+  if (K <= kWholeMax) return K;
+  const int n = (K + kSliceCap - 1) / kSliceCap;
+  return ((K + n - 1) / n + kLanes - 1) / kLanes * kLanes;
+}
 
 // 4 consecutive elements (weights: 8- or 16-byte aligned by construction)
 __device__ __forceinline__ void load4(const float* p, float* f) {
@@ -951,61 +990,91 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   unpack8(*reinterpret_cast<const uint4*>(p), f);
 }
 
-// kUnroll weight rows k0, k0 + kLanes, ... of this thread's 4 columns.
-template <typename T>
+// N = 8 consecutive elements by vector loads and stores (dims multiples of
+// 16, operands 16-byte aligned), or N = 1 (any dims, any address)
+template <int N, typename T>
+__device__ __forceinline__ void ldn(const T* p, float* f) {
+  if constexpr (N == 8) load8(p, f);
+  else f[0] = to_f(*p);
+}
+template <int N, typename T>
+__device__ __forceinline__ void stn(T* p, const float* f) {
+  if constexpr (N == 8) store8(p, f);
+  else *p = from_f<T>(f[0]);
+}
+
+// kUnroll weight rows k0, k0 + kLanes, ... of this thread's 4 columns;
+// rows past K load as zeros, and (kVector false) columns past `ncol`.
+template <typename T, bool kVector>
 __device__ __forceinline__ void load_rows(const T* wp, int N, int K, int k0,
+                                          int ncol,
                                           float (&w)[kUnroll][kVec]) {
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const int k = k0 + u * kLanes;
-    if (k < K) {
+    if (kVector && k < K) {
       load4(wp + (size_t)k * N, w[u]);
     } else {
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) w[u][c] = 0.0f;
+      for (int c = 0; c < kVec; ++c)
+        w[u][c] = !kVector && k < K && c < ncol
+            ? to_f(wp[(size_t)k * N + c]) : 0.0f;
     }
   }
 }
 
-// One work unit of a batched GEMV: out[r, col0 + c] for the BT staged rows
-// a[r * K + k] (fp32 in shared memory) against W (K, N) row-major.  Thread
-// tid < BT*TN returns the sum for row tid / TN, column tid % TN.
-template <typename T>
-__device__ float gemv_unit(const T* __restrict__ W, int N, int K, int col0,
-                           const float* __restrict__ a, float* red) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// acc[r][c] += the terms k0 <= k < k0 + klen of a batched GEMV: staged
+// rows a[r * lda + k - k0] (fp32 in shared memory) against W (K, N)
+// row-major at columns col0 + 4 cgp + c.  Thread (k-lane kl, column group
+// cgp) takes k = k0 + kl, k0 + kl + 64, ... in ascending order.
+// kVector: 4 columns a load (N a multiple of 16, W aligned); else one,
+// columns past N as zeros.
+template <typename T, bool kVector>
+__device__ __forceinline__ void gemv_acc(float (&acc)[kBT][kVec],
+                                         const T* __restrict__ W, int N,
+                                         int col0, int k0, int klen,
+                                         const float* __restrict__ a,
+                                         int lda) {
+  const int tid = threadIdx.x;
   const int cgp = tid % kGroups;
   const int kl = tid / kGroups;
-  float acc[kBT][kVec];
-#pragma unroll
-  for (int r = 0; r < kBT; ++r)
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) acc[r][c] = 0.0f;
-  const T* wp = W + col0 + kVec * cgp;
+  const T* wp = W + (size_t)k0 * N + col0 + kVec * cgp;
+  const int ncol = N - col0 - kVec * cgp;
   // software-pipelined: the next kUnroll weight rows are in flight while
   // this iteration's FMAs run (left to itself the compiler sinks each
   // load to its first use, serialising kUnroll memory latencies).  Rows
-  // past K load as zeros; adding +0 changes no sum.
+  // past the slice load as zeros and read no staged value; adding +0
+  // changes no sum.
   float wn[kUnroll][kVec];
-  load_rows(wp, N, K, kl, wn);
-  for (int k0 = kl; k0 < K; k0 += kUnroll * kLanes) {
+  load_rows<T, kVector>(wp, N, klen, kl, ncol, wn);
+  for (int kk = kl; kk < klen; kk += kUnroll * kLanes) {
     float w[kUnroll][kVec];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
       for (int c = 0; c < kVec; ++c) w[u][c] = wn[u][c];
-    load_rows(wp, N, K, k0 + kUnroll * kLanes, wn);
+    load_rows<T, kVector>(wp, N, klen, kk + kUnroll * kLanes, ncol, wn);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int k = k0 + u * kLanes;
+      const int k = kk + u * kLanes;
 #pragma unroll
       for (int r = 0; r < kBT; ++r) {
-        const float av = k < K ? a[r * K + k] : 0.0f;
+        const float av = k < klen ? a[r * lda + k] : 0.0f;
 #pragma unroll
         for (int c = 0; c < kVec; ++c) acc[r][c] = fmaf(av, w[u][c], acc[r][c]);
       }
     }
   }
+}
+
+// The unit's sums for row tid / TN, column tid % TN (thread tid < BT*TN)
+// from every thread's accumulators: a warp's 8 k-lanes by a fixed xor
+// butterfly, then the 8 warps in order 0..7.  Ends on a barrier: red is
+// free again on return.
+__device__ __forceinline__ float reduce_unit(float (&acc)[kBT][kVec],
+                                             float* red) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cgp = tid % kGroups;
   // the 8 k-lanes of a warp differ in lane bits 2..4
 #pragma unroll
   for (int r = 0; r < kBT; ++r)
@@ -1035,8 +1104,11 @@ __device__ float gemv_unit(const T* __restrict__ W, int N, int K, int col0,
   return s;
 }
 
-// 1/rms of row b0 + warp into rs[warp] (0 for rows past B).
-template <typename T>
+// 1/rms of row b0 + warp into rs[warp] (0 for rows past B), over all D
+// elements of the row: lane j takes 8-element groups j, j + 32, ... in
+// order (kVector: a vector load each; else one element at a time, the
+// same sum), then the warp's butterfly.
+template <typename T, bool kVector>
 __device__ void stage_rsqrt(const T* __restrict__ base, size_t row_stride,
                             int B, int b0, int D, float* rs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1044,9 +1116,15 @@ __device__ void stage_rsqrt(const T* __restrict__ base, size_t row_stride,
   float ss = 0.0f;
   if (b < B) {
     const T* row = base + (size_t)b * row_stride;
-    for (int v = lane; v < D / 8; v += 32) {
+    for (int v = lane; v < (D + 7) / 8; v += 32) {
       float f[8];
-      load8(row + 8 * v, f);
+      if constexpr (kVector) {
+        load8(row + 8 * v, f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          f[i] = 8 * v + i < D ? to_f(row[8 * v + i]) : 0.0f;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) ss = fmaf(f[i], f[i], ss);
     }
@@ -1055,262 +1133,358 @@ __device__ void stage_rsqrt(const T* __restrict__ base, size_t row_stride,
   if (lane == 0) rs[warp] = b < B ? rsqrtf(ss / (float)D + kEps) : 0.0f;
 }
 
-// Phase A staging: a[r, :] = T(conv(T(RMSNorm(x[b, t])))) for the tile's
-// rows; block 0 also writes the carried window after position t.
-template <typename T>
-__device__ void stage_mixer_input(const Args& p, int t, int b0, float* a,
-                                  float* rs, bool write_window) {
-  const int Dx = p.Dx, W = p.K - 1, per_row = Dx / 8;
+// Phase A staging: a[r, d - k0] = T(conv(T(RMSNorm(x[b, t]))))[d] for the
+// tile's rows and d in [k0, k0 + klen) (rs: the rows' 1/rms over all of
+// Dx), row stride lda.  write_window: also the carried window after
+// position t on those columns; the caller passes it on one pass over the
+// row's slices only, so each element is written once.
+template <typename T, bool kVector>
+__device__ void stage_mixer_input(const Args& p, int t, int b0, int k0,
+                                  int klen, int lda, float* a,
+                                  const float* rs, bool write_window) {
+  constexpr int NV = kVector ? 8 : 1;
+  const int Dx = p.Dx, W = p.K - 1, per_row = klen / NV;
   const T* x = static_cast<const T*>(p.x);
   const T* gamma = static_cast<const T*>(p.gamma);
   const T* ck = static_cast<const T*>(p.conv_k);
   const T* cb = static_cast<const T*>(p.conv_b);
-  stage_rsqrt<T>(x + (size_t)t * Dx, (size_t)p.C * Dx, p.B, b0, Dx, rs);
-  __syncthreads();
   for (int v = threadIdx.x; v < kBT * per_row; v += kThreads) {
-    const int r = v / per_row, d0 = (v % per_row) * 8, b = b0 + r;
-    float y[8];
+    const int r = v / per_row, dd = (v % per_row) * NV, d0 = k0 + dd;
+    const int b = b0 + r;
+    float y[NV];
     if (b >= p.B) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) y[i] = 0.0f;
-      store8(a + r * Dx + d0, y);
+      for (int i = 0; i < NV; ++i) y[i] = 0.0f;
+      stn<NV>(a + r * lda + dd, y);
       continue;
     }
-    float xv[8], gv[8];
-    load8(x + ((size_t)b * p.C + t) * Dx + d0, xv);
-    load8(gamma + d0, gv);
+    float xv[NV], gv[NV];
+    ldn<NV>(x + ((size_t)b * p.C + t) * Dx + d0, xv);
+    ldn<NV>(gamma + d0, gv);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) y[i] = rnd<T>(xv[i] * rs[r] * gv[i]);
+    for (int i = 0; i < NV; ++i) y[i] = rnd<T>(xv[i] * rs[r] * gv[i]);
     if (p.use_conv) {
       const T* wprev = t == 0
           ? static_cast<const T*>(p.win0) + (size_t)b * W * Dx
           : static_cast<const T*>(p.wins) + ((size_t)b * p.C + t - 1) * W * Dx;
-      float acc[8], wv[8], cv[8];
+      float acc[NV], wv[NV], cv[NV];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
       for (int k = 0; k < W; ++k) {
-        load8(wprev + (size_t)k * Dx + d0, wv);
-        load8(ck + (size_t)k * Dx + d0, cv);
+        ldn<NV>(wprev + (size_t)k * Dx + d0, wv);
+        ldn<NV>(ck + (size_t)k * Dx + d0, cv);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] = fmaf(wv[i], cv[i], acc[i]);
+        for (int i = 0; i < NV; ++i) acc[i] = fmaf(wv[i], cv[i], acc[i]);
       }
-      load8(ck + (size_t)W * Dx + d0, cv);
+      ldn<NV>(ck + (size_t)W * Dx + d0, cv);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(y[i], cv[i], acc[i]);
+      for (int i = 0; i < NV; ++i) acc[i] = fmaf(y[i], cv[i], acc[i]);
       if (write_window) {
         const bool keep = p.valid == nullptr || t < p.valid[b];
         T* wout = static_cast<T*>(p.wins) + ((size_t)b * p.C + t) * W * Dx;
         for (int k = 0; k < W; ++k) {
           if (keep && k + 1 == W) {
-            store8(wout + (size_t)k * Dx + d0, y);
+            stn<NV>(wout + (size_t)k * Dx + d0, y);
           } else {
-            load8(wprev + (size_t)(keep ? k + 1 : k) * Dx + d0, wv);
-            store8(wout + (size_t)k * Dx + d0, wv);
+            ldn<NV>(wprev + (size_t)(keep ? k + 1 : k) * Dx + d0, wv);
+            stn<NV>(wout + (size_t)k * Dx + d0, wv);
           }
         }
       }
-      load8(cb + d0, cv);
+      ldn<NV>(cb + d0, cv);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) y[i] = rnd<T>(rnd<T>(acc[i]) + cv[i]);
+      for (int i = 0; i < NV; ++i) y[i] = rnd<T>(rnd<T>(acc[i]) + cv[i]);
     }
-    store8(a + r * Dx + d0, y);
+    stn<NV>(a + r * lda + dd, y);
   }
 }
 
-// Stage T-valued rows src[b * row_stride + d] of the tile into a (fp32).
-template <typename T>
+// Stage columns [k0, k0 + klen) of the tile's T-valued rows src[b *
+// row_stride + d] into a (fp32, row stride lda); with gamma, as
+// T(RMSNorm(row)) (rs: the rows' 1/rms over the whole row).
+template <typename T, bool kVector>
 __device__ void stage_rows(const T* __restrict__ src, size_t row_stride,
-                           int B, int b0, int D, float* a) {
-  const int per_row = D / 8;
+                           int B, int b0, int k0, int klen, int lda,
+                           float* a, const T* __restrict__ gamma = nullptr,
+                           const float* rs = nullptr) {
+  constexpr int NV = kVector ? 8 : 1;
+  const int per_row = klen / NV;
   for (int v = threadIdx.x; v < kBT * per_row; v += kThreads) {
-    const int r = v / per_row, d0 = (v % per_row) * 8, b = b0 + r;
-    float f[8];
+    const int r = v / per_row, dd = (v % per_row) * NV, b = b0 + r;
+    float f[NV];
     if (b < B) {
-      load8(src + (size_t)b * row_stride + d0, f);
+      ldn<NV>(src + (size_t)b * row_stride + k0 + dd, f);
+      if (gamma != nullptr) {
+        float gv[NV];
+        ldn<NV>(gamma + k0 + dd, gv);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) f[i] = rnd<T>(f[i] * rs[r] * gv[i]);
+      }
     } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = 0.0f;
+      for (int i = 0; i < NV; ++i) f[i] = 0.0f;
     }
-    store8(a + r * D + d0, f);
+    stn<NV>(a + r * lda + dd, f);
   }
 }
 
-template <typename T, bool kLSTM, bool kLog>
+// What a streamed kernel fixes when it is compiled.  Fixed: the cell and
+// the mode, 16-byte vector loads, every phase's input staged in whole
+// rows (the LMs' fp32 widths: one kernel per element type, cell and
+// mode).  Any: the cell and the mode read from the arguments, loads by
+// kVec16, each phase's input staged again for every unit in K slices of
+// slice_len(K), one where K fits (every other shape: one kernel per
+// element type and load width, so the wide and ragged shapes add no code
+// to the Fixed kernels, which run as fast as before them).  Any<false>
+// gives Any<true>'s bits at every shape Any<true> takes, but at B 8 x Dx
+// 1024 x Dh 2048 x Dm 8192 it took 2.2-2.7x Any<true>'s time on an H100
+// (block_step/ab.py --dims 1024 2048 8192), so aligned dims keep 16-byte
+// loads.
+template <bool kLSTM, bool kLog>
+struct Fixed {
+  static constexpr bool kVector = true, kSliced = false;
+  __device__ static constexpr bool lstm(const Args&) { return kLSTM; }
+  __device__ static constexpr bool log(const Args&) { return kLog; }
+};
+template <bool kVec16>
+struct Any {
+  static constexpr bool kVector = kVec16, kSliced = true;
+  __device__ static bool lstm(const Args& p) { return p.lstm != 0; }
+  __device__ static bool log(const Args& p) { return p.log_mode != 0; }
+};
+
+// One unit's sums over whole staged rows a[r * K + k]: the accumulators
+// from zeros over all of K, then reduce_unit.
+template <typename T, bool kVector>
+__device__ float gemv_unit(const T* __restrict__ W, int N, int K, int col0,
+                           const float* __restrict__ a, float* red) {
+  float acc[kBT][kVec];
+#pragma unroll
+  for (int r = 0; r < kBT; ++r)
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) acc[r][c] = 0.0f;
+  gemv_acc<T, kVector>(acc, W, N, col0, 0, K, a, K);
+  return reduce_unit(acc, red);
+}
+
+// One unit's sums over K slices of Ks rows: `stage(k0, klen)` stages
+// each into a (row stride Ks), the accumulators kept across the slices,
+// one reduce_unit after the last.
+template <typename T, bool kVector, typename Stage>
+__device__ float gemv_slices(const T* __restrict__ W, int N, int K, int Ks,
+                             int col0, const float* __restrict__ a,
+                             float* red, Stage stage) {
+  float acc[kBT][kVec];
+#pragma unroll
+  for (int r = 0; r < kBT; ++r)
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) acc[r][c] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += Ks) {
+    const int klen = K - k0 < Ks ? K - k0 : Ks;
+    stage(k0, klen);
+    __syncthreads();                          // the slice is staged
+    gemv_acc<T, kVector>(acc, W, N, col0, k0, klen, a, Ks);
+    __syncthreads();                          // and read by every thread
+  }
+  return reduce_unit(acc, red);
+}
+
+// One phase's units for every batch tile: ng (at most 3) matrices W[g]
+// (K, N), unit u the 16 columns from 16 u, strided over the grid.  Per
+// tile, `tile(b0)` first (the 1/rms where the phase normalises), then the
+// input rows staged by `stage(b0, k0, klen, lda, first)`: Fixed, whole
+// rows once for all of the block's units; Any, slice by slice again for
+// each unit and matrix (`first` on the block's first pass over the row;
+// one matrix's accumulators at a time); then `epi(b0, col0, pre)` on the
+// unit's sums.
+template <typename T, typename Cfg, typename Tile, typename Stage,
+          typename Epi>
+__device__ void run_units(int B, int K, int N, int ng, const T* const* W,
+                          float* a, float* red, Tile tile, Stage stage,
+                          Epi epi) {
+  const int n_units = (N + kTN - 1) / kTN;
+  if ((int)blockIdx.x >= n_units) return;
+  const int Ks = slice_len(K);
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    tile(b0);
+    if constexpr (!Cfg::kSliced) {
+      stage(b0, 0, K, K, true);
+      __syncthreads();
+    }
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int col0 = u * kTN;
+      float pre[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        if (g >= ng) break;
+        if constexpr (!Cfg::kSliced) {
+          pre[g] = gemv_unit<T, Cfg::kVector>(W[g], N, K, col0, a, red);
+        } else {
+          const bool first = u == (int)blockIdx.x && g == 0;
+          pre[g] = gemv_slices<T, Cfg::kVector>(
+              W[g], N, K, Ks, col0, a, red, [&](int k0, int klen) {
+                stage(b0, k0, klen, Ks, first);
+              });
+        }
+      }
+      epi(b0, col0, pre);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, typename Cfg>
 __device__ void phase_a(const Args& p, int t, float* a, float* red,
                         float* rs) {
-  const int n_units = p.Dh / kTN;
-  if ((int)blockIdx.x >= n_units) return;
-  const int tid = threadIdx.x;
-  for (int b0 = 0; b0 < p.B; b0 += kBT) {
-    stage_mixer_input<T>(p, t, b0, a, rs, blockIdx.x == 0);
-    __syncthreads();
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int j0 = u * kTN;
-      float pre[3];
-      constexpr int n_gates = kLSTM ? 3 : 2;
-#pragma unroll
-      for (int g = 0; g < n_gates; ++g)
-        pre[g] = gemv_unit<T>(static_cast<const T*>(p.w[g]), p.Dh, p.Dx, j0,
-                              a, red);
-      if (tid < kBT * kTN) {
+  const bool lstm = Cfg::lstm(p), log_mode = Cfg::log(p);
+  const T* W[3] = {static_cast<const T*>(p.w[0]),
+                   static_cast<const T*>(p.w[1]),
+                   static_cast<const T*>(p.w[2])};
+  const T* x = static_cast<const T*>(p.x);
+  run_units<T, Cfg>(
+      p.B, p.Dx, p.Dh, lstm ? 3 : 2, W, a, red,
+      [&](int b0) {
+        stage_rsqrt<T, Cfg::kVector>(x + (size_t)t * p.Dx,
+                                     (size_t)p.C * p.Dx, p.B, b0, p.Dx, rs);
+        __syncthreads();
+      },
+      [&](int b0, int k0, int klen, int lda, bool first) {
+        stage_mixer_input<T, Cfg::kVector>(p, t, b0, k0, klen, lda, a, rs,
+                                           first && blockIdx.x == 0);
+      },
+      [&](int b0, int j0, const float (&pre)[3]) {
+        const int tid = threadIdx.x;
+        if (tid >= kBT * kTN) return;
         const int b = b0 + tid / kTN, j = j0 + tid % kTN;
-        if (b < p.B) {
-          const T* hprev_p =
-              t == 0 ? static_cast<const T*>(p.h0) + (size_t)b * p.Dh
-                     : static_cast<const T*>(p.hs) +
-                           ((size_t)b * p.C + t - 1) * p.Dh;
-          const T hprev = hprev_p[j];
-          const float h32 = to_f(hprev);
-          float h;
-          if (!kLSTM) {
-            const float kz = pre[0] + to_f(static_cast<const T*>(p.b[0])[j]);
-            const float v = pre[1] + to_f(static_cast<const T*>(p.b[1])[j]);
-            const float z = sigmoidf_(kz);
-            const float ht = kLog ? g_(v) : v;
-            h = (1.0f - z) * h32 + z * ht;
-          } else {
-            const float kf = pre[0] + to_f(static_cast<const T*>(p.b[0])[j]);
-            const float ki = pre[1] + to_f(static_cast<const T*>(p.b[1])[j]);
-            const float v = pre[2] + to_f(static_cast<const T*>(p.b[2])[j]);
-            const float diff = softplusf_(-kf) - softplusf_(-ki);
-            const float f = sigmoidf_(-diff), i = sigmoidf_(diff);
-            const float ht = kLog ? g_(v) : v;
-            h = f * h32 + i * ht;
-          }
-          const bool keep = p.valid == nullptr || t < p.valid[b];
-          static_cast<T*>(p.hs)[((size_t)b * p.C + t) * p.Dh + j] =
-              keep ? from_f<T>(h) : hprev;
+        if (b >= p.B || j >= p.Dh) return;
+        const T* hprev_p =
+            t == 0 ? static_cast<const T*>(p.h0) + (size_t)b * p.Dh
+                   : static_cast<const T*>(p.hs) +
+                         ((size_t)b * p.C + t - 1) * p.Dh;
+        const T hprev = hprev_p[j];
+        const float h32 = to_f(hprev);
+        float h;
+        if (!lstm) {
+          const float kz = pre[0] + to_f(static_cast<const T*>(p.b[0])[j]);
+          const float v = pre[1] + to_f(static_cast<const T*>(p.b[1])[j]);
+          const float z = sigmoidf_(kz);
+          const float ht = log_mode ? g_(v) : v;
+          h = (1.0f - z) * h32 + z * ht;
+        } else {
+          const float kf = pre[0] + to_f(static_cast<const T*>(p.b[0])[j]);
+          const float ki = pre[1] + to_f(static_cast<const T*>(p.b[1])[j]);
+          const float v = pre[2] + to_f(static_cast<const T*>(p.b[2])[j]);
+          const float diff = softplusf_(-kf) - softplusf_(-ki);
+          const float f = sigmoidf_(-diff), i = sigmoidf_(diff);
+          const float ht = log_mode ? g_(v) : v;
+          h = f * h32 + i * ht;
         }
-      }
-    }
-    __syncthreads();
-  }
+        const bool keep = p.valid == nullptr || t < p.valid[b];
+        static_cast<T*>(p.hs)[((size_t)b * p.C + t) * p.Dh + j] =
+            keep ? from_f<T>(h) : hprev;
+      });
 }
 
-template <typename T>
+template <typename T, typename Cfg>
 __device__ void phase_b(const Args& p, int t, float* a, float* red) {
-  const int n_units = p.Dx / kTN;
-  if ((int)blockIdx.x >= n_units) return;
-  const int tid = threadIdx.x;
+  const T* W[1] = {static_cast<const T*>(p.down)};
   const T* hs = static_cast<const T*>(p.hs) + (size_t)t * p.Dh;
-  for (int b0 = 0; b0 < p.B; b0 += kBT) {
-    stage_rows<T>(hs, (size_t)p.C * p.Dh, p.B, b0, p.Dh, a);
-    __syncthreads();
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int i0 = u * kTN;
-      const float s = gemv_unit<T>(static_cast<const T*>(p.down), p.Dx, p.Dh,
-                                   i0, a, red);
-      if (tid < kBT * kTN) {
+  run_units<T, Cfg>(
+      p.B, p.Dh, p.Dx, 1, W, a, red, [](int) {},
+      [&](int b0, int k0, int klen, int lda, bool) {
+        stage_rows<T, Cfg::kVector>(hs, (size_t)p.C * p.Dh, p.B, b0, k0,
+                                    klen, lda, a);
+      },
+      [&](int b0, int i0, const float (&s)[3]) {
+        const int tid = threadIdx.x;
+        if (tid >= kBT * kTN) return;
         const int b = b0 + tid / kTN, i = i0 + tid % kTN;
-        if (b < p.B) {
-          const size_t xi = ((size_t)b * p.C + t) * p.Dx + i;
-          const T xr = from_f<T>(to_f(static_cast<const T*>(p.x)[xi]) + rnd<T>(s));
-          if (p.use_mlp) static_cast<T*>(p.xr)[(size_t)b * p.Dx + i] = xr;
-          else static_cast<T*>(p.ys)[xi] = xr;
-        }
-      }
-    }
-    __syncthreads();
-  }
+        if (b >= p.B || i >= p.Dx) return;
+        const size_t xi = ((size_t)b * p.C + t) * p.Dx + i;
+        const T xr =
+            from_f<T>(to_f(static_cast<const T*>(p.x)[xi]) + rnd<T>(s[0]));
+        if (p.use_mlp) static_cast<T*>(p.xr)[(size_t)b * p.Dx + i] = xr;
+        else static_cast<T*>(p.ys)[xi] = xr;
+      });
 }
 
-template <typename T>
+template <typename T, typename Cfg>
 __device__ void phase_c(const Args& p, float* a, float* red, float* rs) {
-  const int n_units = p.Dm / kTN;
-  if ((int)blockIdx.x >= n_units) return;
-  const int tid = threadIdx.x, Dx = p.Dx, per_row = Dx / 8;
+  const T* W[1] = {static_cast<const T*>(p.wi)};
   const T* xr = static_cast<const T*>(p.xr);
   const T* gamma2 = static_cast<const T*>(p.gamma2);
-  for (int b0 = 0; b0 < p.B; b0 += kBT) {
-    stage_rsqrt<T>(xr, (size_t)Dx, p.B, b0, Dx, rs);
-    __syncthreads();
-    for (int v = tid; v < kBT * per_row; v += kThreads) {
-      const int r = v / per_row, d0 = (v % per_row) * 8, b = b0 + r;
-      float y[8];
-      if (b < p.B) {
-        float xv[8], gv[8];
-        load8(xr + (size_t)b * Dx + d0, xv);
-        load8(gamma2 + d0, gv);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) y[i] = rnd<T>(xv[i] * rs[r] * gv[i]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) y[i] = 0.0f;
-      }
-      store8(a + r * Dx + d0, y);
-    }
-    __syncthreads();
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int j0 = u * kTN;
-      const float s = gemv_unit<T>(static_cast<const T*>(p.wi), p.Dm, Dx, j0,
-                                   a, red);
-      if (tid < kBT * kTN) {
+  run_units<T, Cfg>(
+      p.B, p.Dx, p.Dm, 1, W, a, red,
+      [&](int b0) {
+        stage_rsqrt<T, Cfg::kVector>(xr, (size_t)p.Dx, p.B, b0, p.Dx, rs);
+        __syncthreads();
+      },
+      [&](int b0, int k0, int klen, int lda, bool) {
+        stage_rows<T, Cfg::kVector>(xr, (size_t)p.Dx, p.B, b0, k0, klen,
+                                    lda, a, gamma2, rs);
+      },
+      [&](int b0, int j0, const float (&s)[3]) {
+        const int tid = threadIdx.x;
+        if (tid >= kBT * kTN) return;
         const int b = b0 + tid / kTN, j = j0 + tid % kTN;
-        if (b < p.B) {
-          const float mm =
-              rnd<T>(rnd<T>(s) + to_f(static_cast<const T*>(p.bi)[j]));
-          static_cast<T*>(p.m)[(size_t)b * p.Dm + j] = from_f<T>(gelu_tanh(mm));
-        }
-      }
-    }
-    __syncthreads();
-  }
+        if (b >= p.B || j >= p.Dm) return;
+        const float mm =
+            rnd<T>(rnd<T>(s[0]) + to_f(static_cast<const T*>(p.bi)[j]));
+        static_cast<T*>(p.m)[(size_t)b * p.Dm + j] = from_f<T>(gelu_tanh(mm));
+      });
 }
 
-template <typename T>
+template <typename T, typename Cfg>
 __device__ void phase_d(const Args& p, int t, float* a, float* red) {
-  const int n_units = p.Dx / kTN;
-  if ((int)blockIdx.x >= n_units) return;
-  const int tid = threadIdx.x;
-  for (int b0 = 0; b0 < p.B; b0 += kBT) {
-    stage_rows<T>(static_cast<const T*>(p.m), (size_t)p.Dm, p.B, b0, p.Dm, a);
-    __syncthreads();
-    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int i0 = u * kTN;
-      const float s = gemv_unit<T>(static_cast<const T*>(p.wo), p.Dx, p.Dm, i0,
-                                   a, red);
-      if (tid < kBT * kTN) {
+  const T* W[1] = {static_cast<const T*>(p.wo)};
+  const T* m = static_cast<const T*>(p.m);
+  run_units<T, Cfg>(
+      p.B, p.Dm, p.Dx, 1, W, a, red, [](int) {},
+      [&](int b0, int k0, int klen, int lda, bool) {
+        stage_rows<T, Cfg::kVector>(m, (size_t)p.Dm, p.B, b0, k0, klen, lda,
+                                    a);
+      },
+      [&](int b0, int i0, const float (&s)[3]) {
+        const int tid = threadIdx.x;
+        if (tid >= kBT * kTN) return;
         const int b = b0 + tid / kTN, i = i0 + tid % kTN;
-        if (b < p.B) {
-          const float o =
-              rnd<T>(rnd<T>(s) + to_f(static_cast<const T*>(p.bo)[i]));
-          const float xr = to_f(static_cast<const T*>(p.xr)[(size_t)b * p.Dx + i]);
-          static_cast<T*>(p.ys)[((size_t)b * p.C + t) * p.Dx + i] =
-              from_f<T>(xr + o);
-        }
-      }
-    }
-    __syncthreads();
-  }
+        if (b >= p.B || i >= p.Dx) return;
+        const float o =
+            rnd<T>(rnd<T>(s[0]) + to_f(static_cast<const T*>(p.bo)[i]));
+        const float xr =
+            to_f(static_cast<const T*>(p.xr)[(size_t)b * p.Dx + i]);
+        static_cast<T*>(p.ys)[((size_t)b * p.C + t) * p.Dx + i] =
+            from_f<T>(xr + o);
+      });
 }
 
-template <typename T, bool kLSTM, bool kLog>
+template <typename T, typename Cfg>
 __global__ void __launch_bounds__(kThreads, 1)
 block_kernel(Args p) {
   extern __shared__ float smem[];
   float* red = smem;
   float* rs = smem + kRsOff;
-  float* a = smem + kAOff;                    // kBT * max(Dx, Dh, Dm)
+  float* a = smem + kAOff;            // kBT * the longest slice_len(K)
   cg::grid_group grid = cg::this_grid();
   const bool tracing = p.trace != nullptr && blockIdx.x == 0 &&
                        threadIdx.x == 0;
   if (tracing) p.trace[0] = now_ns();
   for (int t = 0; t < p.C; ++t) {
     long long* tr = tracing ? p.trace + 1 + 7 * t : nullptr;
-    phase_a<T, kLSTM, kLog>(p, t, a, red, rs);
+    phase_a<T, Cfg>(p, t, a, red, rs);
     if (tracing) tr[0] = now_ns();
     grid.sync();                              // h (and the window) ready
     if (tracing) tr[1] = now_ns();
-    phase_b<T>(p, t, a, red);
+    phase_b<T, Cfg>(p, t, a, red);
     if (tracing) tr[2] = now_ns();
     if (p.use_mlp) {
       grid.sync();                            // xr ready
       if (tracing) tr[3] = now_ns();
-      phase_c<T>(p, a, red, rs);
+      phase_c<T, Cfg>(p, a, red, rs);
       if (tracing) tr[4] = now_ns();
       grid.sync();                            // m ready
       if (tracing) tr[5] = now_ns();
-      phase_d<T>(p, t, a, red);
+      phase_d<T, Cfg>(p, t, a, red);
       if (tracing) tr[6] = now_ns();
     }
     // no barrier before the next position: phase A reads only x, h and
@@ -1342,17 +1516,19 @@ int slice_rows(int K, int ncols) {
 
 // the phases' shapes, each split into slices of ks(K, ncols) rows, and
 // the grid: one block per SM, or fewer where no phase has that many units
+// (a unit: a column tile times a slice where slices_are_units, the split
+// body's; else a column tile over all its slices, the streamed body's)
 template <typename KsRule>
 void plan_phases(Layout& L, const int dims[kPhases][3], int elem, int cap,
-                 KsRule ks_rule) {
+                 KsRule ks_rule, bool slices_are_units) {
   int max_units = 0;
   for (int x = 0; x < L.n_ph; ++x) {
     Phase& ph = L.ph[x];
     ph.K = dims[x][0]; ph.N = dims[x][1]; ph.ng = dims[x][2];
-    ph.ncols = ph.N / kTN;
+    ph.ncols = ceil_div(ph.N, kTN);
     ph.Ks = ks_rule(ph.K, ph.ncols);
     ph.S = ceil_div(ph.K, ph.Ks);
-    ph.units = ph.ncols * ph.S;
+    ph.units = slices_are_units ? ph.ncols * ph.S : ph.ncols;
     ph.job_bytes = ph.ng * ph.Ks * kTN * elem;
     if (ph.units > max_units) max_units = ph.units;
   }
@@ -1365,7 +1541,7 @@ void plan_phases(Layout& L, const int dims[kPhases][3], int elem, int cap,
 // beside the job table, the flags, 1/rms and the stage: returns true and
 // fills L; else false.  Nothing in it depends on B or C.
 bool plan_split(Layout& L, const int dims[kPhases][3], int elem) {
-  plan_phases(L, dims, elem, L.sms, slice_rows);
+  plan_phases(L, dims, elem, L.sms, slice_rows, true);
   int part = 0, cnt = 0, ring = 0, jobs_cap = 0, max_stage = 0;
   for (int x = 0; x < L.n_ph; ++x) {
     Phase& ph = L.ph[x];
@@ -1392,23 +1568,35 @@ bool plan_split(Layout& L, const int dims[kPhases][3], int elem) {
 }
 
 // The streamed body's plan on a grid of at most `cap` blocks: a unit per
-// 16 columns over all of K, 8 rows of the widest input staged in fp32
+// 16 columns (the last one ragged) over all of K, 8 rows of each phase's
+// input staged in fp32, whole or in K slices (streamed::slice_len, S the
+// slices; the staged rows fit shared memory at any K)
 void plan_streamed(Layout& L, const int dims[kPhases][3], int elem,
                    int cap) {
-  plan_phases(L, dims, elem, cap, [](int K, int) { return K; });
+  plan_phases(L, dims, elem, cap,
+              [](int K, int) { return streamed::slice_len(K); }, false);
   int kmax = 0;
-  for (int x = 0; x < L.n_ph; ++x)
-    if (L.ph[x].K > kmax) kmax = L.ph[x].K;
+  L.whole = 1;
+  for (int x = 0; x < L.n_ph; ++x) {
+    if (L.ph[x].Ks > kmax) kmax = L.ph[x].Ks;
+    if (L.ph[x].S > 1) L.whole = 0;
+  }
   L.part_per_tile = L.counters = L.ring = 0;
   L.flag_off = L.rs_off = L.stage_off = L.ring_off = 0;
   L.smem = (streamed::kAOff + kBT * kmax) * (int)sizeof(float);
 }
 
+// the plan's kernel: split, or streamed Fixed (vector loads, whole rows)
+// or Any (K slices or element loads)
 template <typename T, bool kLSTM, bool kLog>
-const void* kernel_of(int body) {
-  return body == kSplit
-      ? (const void*)split::block_kernel<T, kLSTM, kLog>
-      : (const void*)streamed::block_kernel<T, kLSTM, kLog>;
+const void* kernel_of(const Layout& L) {
+  using namespace streamed;
+  if (L.body == kSplit)
+    return (const void*)split::block_kernel<T, kLSTM, kLog>;
+  if (L.vec && L.whole)
+    return (const void*)block_kernel<T, Fixed<kLSTM, kLog>>;
+  return L.vec ? (const void*)block_kernel<T, Any<true>>
+               : (const void*)block_kernel<T, Any<false>>;
 }
 
 // the plan of a shape on the current device; 0 or a cudaError_t
@@ -1424,17 +1612,18 @@ int make_plan(const Params& p, Layout& L) {
   const int dims[kPhases][3] = {{p.Dx, p.Dh, kLSTM ? 3 : 2}, {p.Dh, p.Dx, 1},
                                 {p.Dx, p.Dm, 1}, {p.Dm, p.Dx, 1}};
   L.n_ph = p.use_mlp ? 4 : 2;
-  L.body = kSplit;
-  if (!plan_split(L, dims, elem)) L.body = kStreamed;
-  if (L.body == kStreamed) {
-    // its smem, then (below) the grid its occupancy allows
-    plan_streamed(L, dims, elem, L.sms);
-    if (L.smem > kSmemCap) return (int)cudaErrorInvalidValue;
-  }
+  // feature dims that 16 does not divide (a ragged last column tile,
+  // rows that are not 16-byte multiples) take the streamed body, element
+  // by element
+  L.vec = p.Dx % kTN == 0 && p.Dh % kTN == 0 &&
+          (!p.use_mlp || p.Dm % kTN == 0);
+  L.body = L.vec && plan_split(L, dims, elem) ? kSplit : kStreamed;
+  // the streamed body's smem, then (below) the grid its occupancy allows
+  if (L.body == kStreamed) plan_streamed(L, dims, elem, L.sms);
   // the kernel's dynamic shared memory limit, raised to this plan's use
   // and no further (a limit at the cap measured slower on the fp32
   // minLSTM step on an H100)
-  const void* kernel = kernel_of<T, kLSTM, kLog>(L.body);
+  const void* kernel = kernel_of<T, kLSTM, kLog>(L);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
@@ -1469,6 +1658,19 @@ constexpr int kPlanCache = 8;
 PlanEntry plan_cache[kPlanCache];
 int plan_next = 0;
 
+// whether a T-valued operand the vector loads read or write is off a
+// 16-byte boundary (the wrapper hands the vector path aligned copies)
+bool misaligned(const Params& p) {
+  const void* ptrs[] = {p.x, p.gamma, p.conv_k, p.conv_b, p.win0,
+                        p.wt[0][0], p.wt[0][1], p.wt[0][2], p.wt[1][0],
+                        p.wt[2][0], p.wt[3][0], p.b[0], p.b[1], p.b[2],
+                        p.h0, p.gamma2, p.bi, p.bo, p.ys, p.hs, p.wins,
+                        p.xr, p.m};
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return true;
+  return false;
+}
+
 template <typename T, bool kLSTM, bool kLog>
 int plan_and_launch(Params& p, cudaStream_t stream, bool run) {
   PlanKey key{0, kLSTM, kLog, sizeof(T) == 2, p.use_conv, p.use_mlp,
@@ -1488,13 +1690,14 @@ int plan_and_launch(Params& p, cudaStream_t stream, bool run) {
     plan_next = (plan_next + 1) % kPlanCache;
   }
   if (!run) return 0;
+  if (L.vec && misaligned(p)) return (int)cudaErrorMisalignedAddress;
   streamed::Args a;
   void* kargs[] = {&p};
   if (p.body == kStreamed) {
-    a = streamed::args_of(p);
+    a = streamed::args_of(p, kLSTM, kLog);
     kargs[0] = &a;
   }
-  err = cudaLaunchCooperativeKernel(kernel_of<T, kLSTM, kLog>(p.body),
+  err = cudaLaunchCooperativeKernel(kernel_of<T, kLSTM, kLog>(p),
                                     dim3(p.grid), dim3(kThreads), kargs,
                                     (size_t)p.smem, stream);
   if (err != cudaSuccess) return (int)err;
@@ -1518,7 +1721,7 @@ int dispatch(Params& p, int lstm, int log_mode, int bf16, cudaStream_t s,
 
 int fill_dims(Params& p, int use_conv, int use_mlp, int B, int C, int Dx,
               int Dh, int Dm, int K) {
-  if (Dx % kTN || Dh % kTN || (use_mlp && Dm % kTN) || B < 1 || C < 1 ||
+  if (Dx < 1 || Dh < 1 || (use_mlp && Dm < 1) || B < 1 || C < 1 ||
       (use_conv && K < 2))
     return (int)cudaErrorInvalidValue;
   p.B = B; p.C = C; p.Dx = Dx; p.Dh = Dh; p.Dm = Dm; p.K = K;

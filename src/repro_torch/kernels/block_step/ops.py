@@ -11,8 +11,12 @@ weights and biases are cast to the compute dtype here, exactly where the
 reference casts them; norm scales and conv params are passed uncast.
 The kernel has one element type, so on CUDA every operand must then be
 in the activation dtype (fp32 or bf16) -- true for the LM, whose params,
-activations and cache share the compute dtype.  Feature dims must be
-multiples of 16 (the kernel's column tile); there is no padding.
+activations and cache share the compute dtype.  Any feature dims run,
+with no padding: dims that 16 (the kernel's column tile) does not
+divide take the streamed body with a ragged last tile, loading element by
+element.  Other dims load 16-byte vectors, so an operand off a 16-byte
+boundary is copied (weights once, when bound; activations at the
+launch) -- never the case for the engine's own tensors.
 
 The step form is the chunk form at C = 1 with every position valid: one
 kernel, so "a C-token chunk equals C steps" holds by construction.
@@ -27,11 +31,12 @@ partials and per-column-tile arrival counters in device memory.  Both
 are bound with the weights (:class:`BlockOperands`): the counters are
 zeroed once there and every launch leaves them zero again, so one
 binding runs on one stream at a time (the engine's layers do).
-"streamed" (every other shape, e.g. fp32 at those widths) streams each
-16-column unit's weights over the whole contraction from global memory
-and stages 8 rows of the widest input in fp32 in shared memory: so
-max(Dx, Dh, Dm) is at most 7120 there, and binding a shape that neither
-body takes raises.
+"streamed" (every other shape, e.g. fp32 at those widths, and every
+ragged one) streams each 16-column unit's weights over the whole
+contraction from global memory and stages 8 input rows in fp32 in shared
+memory: whole rows where they fit (K up to 7134), else K slices of at
+most 7104 rows chosen from K alone, each thread's sums carried across
+them in the order of whole rows.  So every shape binds and runs.
 :func:`plan` reports what a launch runs: the body, each phase's split,
 units and the most weight bytes one block streams, the grid, blocks per
 SM and shared memory.
@@ -54,7 +59,6 @@ LAUNCHES = {"block_step_kernel": 0, "block_chunk_kernel": 0}
 
 _GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
 _DTYPES = kl.DTYPES
-_TILE = 16
 _N_PTRS = 27
 _PHASES = ("A", "B", "C", "D")
 _PLAN_HEAD = ("n_phases", "body", "grid", "blocks_per_sm", "sms", "smem",
@@ -115,12 +119,13 @@ def kernel_params(params, cell: str, compute_dtype, use_conv: bool,
     return out
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device):
-    """The kernel runs one element type for activations, state and
-    params, and loads them in 16-byte vectors."""
+def _check(t: torch.Tensor, name: str, shape, dtype,
+           device) -> torch.Tensor:
+    """``t`` checked (the kernel runs one element type for activations,
+    state and params) and on a 16-byte boundary, for the kernel's vector
+    loads: a copy of it where it is not."""
     kl.check(t, name, shape, dtype, device)
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned (vector loads)")
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 class BlockOperands:
@@ -136,8 +141,8 @@ class BlockOperands:
     It also holds the split body's scratch: the arrival counters (zeroed
     here; every launch leaves them zero) and the fp32 partials (grown to
     the largest batch seen).  So a binding serves one stream at a time.
-    ``body`` is the body the launches run (:func:`plan`); binding raises
-    where no body takes the shape."""
+    ``body`` is the body the launches run (:func:`plan`): every shape has
+    one.  A leaf off a 16-byte boundary is bound as an aligned copy."""
 
     def __init__(self, params, *, cell, compute_dtype, use_conv, use_mlp):
         if cell not in _GATES:
@@ -152,39 +157,36 @@ class BlockOperands:
             raise ValueError(f"block kernel runs fp32 or bf16, got {dt}")
         dh, dx = down.shape
         dm = kp["mlp_in"]["kernel"].shape[1] if use_mlp else 0
-        if dx % _TILE or dh % _TILE or dm % _TILE:
-            raise ValueError(f"feature dims (Dx {dx}, Dh {dh}, Dm {dm}) must "
-                             f"be multiples of {_TILE}")
         ptrs = [0] * _N_PTRS
-        keep = [kp]
-        _check(kp["norm_rnn"]["scale"], "norm_rnn.scale", (dx,), dt, dev)
-        ptrs[1] = kp["norm_rnn"]["scale"].data_ptr()
+        keep = []
+
+        def bind(i, t, name, shape):
+            t = _check(t, name, shape, dt, dev)
+            ptrs[i] = t.data_ptr()
+            keep.append(t)
+
+        bind(1, kp["norm_rnn"]["scale"], "norm_rnn.scale", (dx,))
         ksize = 0
         if use_conv:
             ck, cb = kp["conv"]["kernel"], kp["conv"]["bias"]
             ksize = ck.shape[0]
-            _check(ck, "conv.kernel", (ksize, dx), dt, dev)
-            _check(cb, "conv.bias", (dx,), dt, dev)
-            ptrs[2], ptrs[3] = ck.data_ptr(), cb.data_ptr()
+            bind(2, ck, "conv.kernel", (ksize, dx))
+            bind(3, cb, "conv.bias", (dx,))
         for g, gname in enumerate(_GATES[cell]):
-            w = kp["rnn"][gname]["kernel"]
             b = kp["rnn"][gname].get("bias")
             if b is None:
                 b = torch.zeros((dh,), dtype=dt, device=dev)
-                keep.append(b)
-            _check(w, f"rnn.{gname}.kernel", (dx, dh), dt, dev)
-            _check(b, f"rnn.{gname}.bias", (dh,), dt, dev)
-            ptrs[5 + g], ptrs[8 + g] = w.data_ptr(), b.data_ptr()
-        _check(down, "down.kernel", (dh, dx), dt, dev)
-        ptrs[12] = down.data_ptr()
+            bind(5 + g, kp["rnn"][gname]["kernel"], f"rnn.{gname}.kernel",
+                 (dx, dh))
+            bind(8 + g, b, f"rnn.{gname}.bias", (dh,))
+        bind(12, down, "down.kernel", (dh, dx))
         if use_mlp:
             named = (("norm_mlp", "scale", (dx,)),
                      ("mlp_in", "kernel", (dx, dm)), ("mlp_in", "bias", (dm,)),
                      ("mlp_out", "kernel", (dm, dx)),
                      ("mlp_out", "bias", (dx,)))
             for i, (mod, leaf, shape) in enumerate(named):
-                _check(kp[mod][leaf], f"{mod}.{leaf}", shape, dt, dev)
-                ptrs[13 + i] = kp[mod][leaf].data_ptr()
+                bind(13 + i, kp[mod][leaf], f"{mod}.{leaf}", shape)
         self.cell, self.use_conv, self.use_mlp = cell, use_conv, use_mlp
         self.device, self.dtype = dev, dt
         self.dims = (dx, dh, dm, ksize)
@@ -225,10 +227,11 @@ def plan(operands: BlockOperands) -> dict:
     launch uses) and the occupancy query; launches nothing.  {"body"
     ("split": K-split phases, each block's weight slices resident in
     shared memory, ``ring_bytes`` of them; "streamed": a unit per 16
-    columns over all of K, S 1), "grid", "blocks_per_sm", "sms", "smem",
+    columns over all of K), "grid", "blocks_per_sm", "sms", "smem",
     "ring_bytes", "partials_per_tile", "counters", "phases": [{"name",
     "K", "N", "gates", "S", "slice_rows", "units", "max_block_jobs",
-    "job_bytes", "max_block_bytes"}, ...]}."""
+    "job_bytes", "max_block_bytes"}, ...]}; on the streamed body S > 1
+    where a phase's K is staged in slices of ``slice_rows``."""
     lib = _lib()
     dx, dh, dm, ksize = operands.dims
     out = (ctypes.c_int * (len(_PLAN_HEAD) + 4 * len(_PLAN_PHASE)))()
@@ -267,23 +270,22 @@ def prepare_launch(operands: BlockOperands, x, state, valid, *, mode,
     dx, dh, dm, ksize = operands.dims
     use_conv, use_mlp = operands.use_conv, operands.use_mlp
     bsz, chunk = x.shape[0], x.shape[1]
-    h0 = state["h"]
-    _check(x, "x", (bsz, chunk, dx), dt, dev)
-    _check(h0, "state['h']", (bsz, dh), dt, dev)
+    x = _check(x, "x", (bsz, chunk, dx), dt, dev)
+    h0 = _check(state["h"], "state['h']", (bsz, dh), dt, dev)
     ptrs = list(operands.ptrs)
     ptrs[0], ptrs[11] = x.data_ptr(), h0.data_ptr()
     keep = [operands, x, h0]
     if use_conv:
-        win = state["conv"]
-        _check(win, "state['conv']", (bsz, ksize - 1, dx), dt, dev)
+        win = _check(state["conv"], "state['conv']", (bsz, ksize - 1, dx),
+                     dt, dev)
         ptrs[4] = win.data_ptr()
         keep.append(win)
     if valid is not None:
-        _check(valid, "valid", (bsz,), torch.int32, dev)
+        kl.check(valid, "valid", (bsz,), torch.int32, dev)
         ptrs[18] = valid.data_ptr()
         keep.append(valid)
     if trace is not None:
-        _check(trace, "trace", (1 + 7 * chunk,), torch.int64, dev)
+        kl.check(trace, "trace", (1 + 7 * chunk,), torch.int64, dev)
         ptrs[24] = trace.data_ptr()
         keep.append(trace)
 

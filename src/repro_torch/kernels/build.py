@@ -4,9 +4,11 @@ with ctypes.
 Each ``csrc/*.cu`` file becomes one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  Libraries go
 to ``build/repro_torch/<source stem>-<hash>/`` under the repository root
-(listed in ``.gitignore``), keyed by a hash of the source, the shared
-headers (``*.cuh`` under ``kernels/``) and the flags, so an edited source
-rebuilds and an unchanged one loads at once.  Nothing
+(listed in ``.gitignore``), keyed by a hash of the source, its path,
+the shared headers (``*.cuh`` under ``kernels/``) and the flags, so an
+edited source rebuilds and an unchanged one loads at once (the path: an
+A/B tool's other checkout may hold the same source beside other
+headers).  Nothing
 here runs at import time: the CPU tests import every module of the port.
 """
 
@@ -46,6 +48,7 @@ def nvcc_path() -> str:
 
 def _lib_dir(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    h.update(str(src.resolve()).encode())
     for header in sorted(KERNELS_DIR.rglob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -142,6 +142,16 @@ __device__ __forceinline__ void gate_ab(const float (&k)[G], float& a,
   }
 }
 
+// A block's (batch row, Dh tile) from its place in a one-dimensional grid of
+// B x ceil(Dh / bn) blocks, tiles fastest (the order of the 2D grid it
+// replaced, whose grid.y held B: at most 65535 rows)
+__device__ __forceinline__ int tile_of(int Dh, int bn) {
+  return (int)(blockIdx.x % (unsigned)((Dh + bn - 1) / bn));
+}
+__device__ __forceinline__ int row_of(int Dh, int bn) {
+  return (int)(blockIdx.x / (unsigned)((Dh + bn - 1) / bn));
+}
+
 // ---------------------------------------------------------------------------
 // The CUDA-core body (fp32, and bf16 the tensor-core body cannot take)
 // ---------------------------------------------------------------------------
@@ -170,9 +180,9 @@ __global__ void __launch_bounds__(kThreads) fused_cell_kernel(Params p) {
   __shared__ Smem sm;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;   // 4 x 4 micro-tile coordinates
-  const int n0 = blockIdx.x * kBN;
-  const int row = blockIdx.y;
   const int T_ = p.T, Dx = p.Dx, Dh = p.Dh;
+  const int n0 = tile_of(Dh, kBN) * kBN;
+  const int row = row_of(Dh, kBN);
   const T* x = static_cast<const T*>(p.x) + (long long)row * T_ * Dx;
   T* out = static_cast<T*>(p.out) + (long long)row * T_ * Dh;
 
@@ -362,9 +372,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp % kRowWarps, wn = warp / kRowWarps;
   const int grp = lane / 4, tq = lane % 4;   // mma fragment coordinates
-  const int n0 = blockIdx.x * kBN;
-  const int row = blockIdx.y;
   const int T_ = p.T, Dh = p.Dh;
+  const int n0 = tile_of(Dh, kBN) * kBN;
+  const int row = row_of(Dh, kBN);
   const bf16* x = static_cast<const bf16*>(p.x) + (long long)row * T_ * p.Dx;
   bf16* out = static_cast<bf16*>(p.out) + (long long)row * T_ * Dh;
 
@@ -585,6 +595,11 @@ struct Choice {
   dim3 grid;
 };
 
+// B x ceil(Dh / bn) blocks, on grid.x (tile_of, row_of)
+inline unsigned grid_blocks(const Params& p, int bn) {
+  return (unsigned)((long long)p.B * ((p.Dh + bn - 1) / bn));
+}
+
 template <int G>
 Choice choose(int bf16, int log_mode, int normalize, const Params& p) {
   const int key = (bf16 ? 4 : 0) | (log_mode ? 2 : 0) |
@@ -595,7 +610,7 @@ Choice choose(int bf16, int log_mode, int normalize, const Params& p) {
   if (c.body) {
     c.threads = tc::kThreads;
     c.smem = tc::Layout<G>::smem_bytes;
-    c.grid = dim3((unsigned)((p.Dh + tc::kBN - 1) / tc::kBN), (unsigned)p.B);
+    c.grid = dim3(grid_blocks(p, tc::kBN));
     switch (key & 3) {
       case 0: c.fn = tc::fused_cell_tc_kernel<G, false, false>; break;
       case 1: c.fn = tc::fused_cell_tc_kernel<G, false, true>; break;
@@ -606,7 +621,7 @@ Choice choose(int bf16, int log_mode, int normalize, const Params& p) {
   }
   c.threads = kThreads;
   c.smem = 0;
-  c.grid = dim3((unsigned)((p.Dh + kBN - 1) / kBN), (unsigned)p.B);
+  c.grid = dim3(grid_blocks(p, kBN));
   switch (key) {
     case 0: c.fn = fused_cell_kernel<float, G, false, false>; break;
     case 1: c.fn = fused_cell_kernel<float, G, false, true>; break;
@@ -620,8 +635,11 @@ Choice choose(int bf16, int log_mode, int normalize, const Params& p) {
   return c;
 }
 
+// (grid.x holds up to 2^31 - 1 blocks: more rows than a card's memory
+// holds at any Dh and T)
 inline bool valid_shape(const Params& p) {
-  return p.B >= 1 && p.T >= 1 && p.Dx >= 1 && p.Dh >= 1 && p.B <= 65535;
+  return p.B >= 1 && p.T >= 1 && p.Dx >= 1 && p.Dh >= 1 &&
+         (long long)p.B * ((p.Dh + 63) / 64) <= 0x7fffffffLL;
 }
 
 // Launch on stream s; *body gets the body it took (1 tensor cores, 0

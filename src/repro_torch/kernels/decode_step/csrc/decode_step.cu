@@ -101,6 +101,22 @@
 //   width) each token reads the tile from device memory (an L2 hit after
 //   the first token); the values and the order are the same.  Ragged Dx,
 //   Dh and B are masked (zero operands, no stores), not padded.
+//   Where the 8 rows of x do not fit shared memory beside the partial sums
+//   (Dx past 7136 in fp32, past 14272 in bf16: deepseek-v3-671b's 7168 in
+//   fp32), cell_sliced_kernel stages x in K slices of Ks columns, Ks a
+//   multiple of the 64 k-lanes chosen from Dx and the element type alone
+//   (slice_cols): as few slices as fit two blocks an SM, of equal width.
+//   The weights come from device memory, 4 columns a load where Dh and the
+//   address allow.  Each thread keeps every gate's accumulators across
+//   the slices of a token, so x is staged once a slice (restaging it for
+//   each gate, in the unsliced body's registers, measured 1.34x the time
+//   for fp32 minGRU at B 8 x 7168 x 7168 in 2 slices and 1.06-1.17x in
+//   bf16 at Dx 16384 on an H100), and the butterfly and the cross-warp sum
+//   run once,
+//   after the last slice.  A
+//   thread's k = kl, kl + 64, ... then runs in ascending order over the
+//   slices: the order of the unsliced body.  Wherever the whole row fits,
+//   the unsliced body runs, as before.
 //
 // Determinism.  In either body every pre-activation is summed by a fixed
 // thread in an order that depends only on Dx:
@@ -113,7 +129,8 @@
 //   then the 8 warps in order 0..7 (the order of block_step.cu).
 // The batch tile, the chunk length, the pass, the cp.async grouping, the
 // launch shape (gate blocks or one block per unit), a row's place in its mma
-// tile and the grid change only WHERE a row is computed, never the
+// tile, the grid and the launches a batch past 65535 tiles is split into
+// (kMaxTiles a launch) change only WHERE a row is computed, never the
 // arithmetic.  So a C-token chunk equals C step launches bit
 // for bit, and a row's result does not depend on B.
 
@@ -135,6 +152,7 @@ constexpr int kGroups = kTN / kVec;     // column groups per unit
 constexpr int kLanes = kThreads / kGroups;   // 64 k-lanes, 8 per warp
 constexpr int kRedBytes = kWarps * kBT * kTN * (int)sizeof(float);
 constexpr int kSmemCap = 232448;        // 227 KB a block may use
+constexpr int kMaxTiles = 65535;        // batch tiles a launch (grid.y)
 
 struct Params {
   const void* x;        // (B, C, Dx)   T
@@ -241,41 +259,15 @@ __device__ void stage_x(const T* __restrict__ x, int B, int C, int Dx,
   }
 }
 
-// One projection of the unit: sum_k a[r, k] W[k, c] for the 8 staged rows
-// and the unit's 16 columns.  W is the staged tile (row stride 16) or, when
-// not staged, the device matrix offset to the unit (row stride ldw, columns
-// past ncols read as zero).  Thread tid < 8*16 returns the sum of row
-// tid / 16, column tid % 16.
-template <typename T, bool kStaged>
-__device__ float gemv_unit(const T* __restrict__ W, int ldw, int ncols,
-                           int Dx, const T* __restrict__ a, float* red) {
+// The unit's sums from every thread's accumulators acc[row][column of its
+// group]: the 8 k-lanes of a warp combined by a fixed xor butterfly, then
+// the 8 warps' partials in order 0..7.  Thread tid < 8*16 returns the sum
+// of row tid / 16, column tid % 16.  Begins and ends on a barrier's far
+// side: red is free again on return.
+__device__ __forceinline__ float reduce_unit(float (&acc)[kBT][kVec],
+                                             float* red) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cg = tid % kGroups;
-  const int kl = tid / kGroups;
-  float acc[kBT][kVec];
-#pragma unroll
-  for (int r = 0; r < kBT; ++r)
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) acc[r][c] = 0.0f;
-#pragma unroll 4
-  for (int k = kl; k < Dx; k += kLanes) {
-    float w[kVec];
-    if (kStaged) {
-      ld4(W + k * kTN + kVec * cg, w);
-    } else {
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        const int col = kVec * cg + c;
-        w[c] = col < ncols ? to_f(W[(size_t)k * ldw + col]) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) {
-      const float av = to_f(a[r * Dx + k]);
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) acc[r][c] = fmaf(av, w[c], acc[r][c]);
-    }
-  }
   // the 8 k-lanes of a warp differ in lane bits 2..4
 #pragma unroll
   for (int r = 0; r < kBT; ++r)
@@ -303,6 +295,70 @@ __device__ float gemv_unit(const T* __restrict__ W, int ldw, int ncols,
   }
   __syncthreads();
   return s;
+}
+
+// One projection of the unit: sum_k a[r, k] W[k, c] for the 8 staged rows
+// and the unit's 16 columns.  W is the staged tile (row stride 16) or, when
+// not staged, the device matrix offset to the unit (row stride ldw, columns
+// past ncols read as zero).  Thread tid < 8*16 returns the sum of row
+// tid / 16, column tid % 16.
+template <typename T, bool kStaged>
+__device__ float gemv_unit(const T* __restrict__ W, int ldw, int ncols,
+                           int Dx, const T* __restrict__ a, float* red) {
+  const int tid = threadIdx.x;
+  const int cg = tid % kGroups;
+  const int kl = tid / kGroups;
+  float acc[kBT][kVec];
+#pragma unroll
+  for (int r = 0; r < kBT; ++r)
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) acc[r][c] = 0.0f;
+#pragma unroll 4
+  for (int k = kl; k < Dx; k += kLanes) {
+    float w[kVec];
+    if (kStaged) {
+      ld4(W + k * kTN + kVec * cg, w);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const int col = kVec * cg + c;
+        w[c] = col < ncols ? to_f(W[(size_t)k * ldw + col]) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) {
+      const float av = to_f(a[r * Dx + k]);
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) acc[r][c] = fmaf(av, w[c], acc[r][c]);
+    }
+  }
+  return reduce_unit(acc, red);
+}
+
+// h after one token (fp32, before the caller's rounding to T) from the G
+// gates' pre-activations and biases: minGRU (1 - z) h + z h~; minLSTM
+// f' h + i' h~ (the stable f / (f + i) under normalize)
+template <int G>
+__device__ __forceinline__ float cell_update(const float (&pre)[G],
+                                             const float (&bias)[G], float h,
+                                             const Params& p) {
+  const float v = pre[G - 1] + bias[G - 1];
+  const float ht = p.log_mode ? g_(v) : v;
+  if (G == 2) {
+    const float z = sigmoidf_(pre[0] + bias[0]);
+    return (1.0f - z) * h + z * ht;
+  }
+  const float kf = pre[0] + bias[0], ki = pre[1] + bias[1];
+  float f, i;
+  if (p.normalize) {
+    const float d = softplusf_(-kf) - softplusf_(-ki);
+    f = sigmoidf_(-d);
+    i = sigmoidf_(d);
+  } else {
+    f = sigmoidf_(kf);
+    i = sigmoidf_(ki);
+  }
+  return f * h + i * ht;
 }
 
 template <typename T, int G, bool kStaged>
@@ -360,26 +416,7 @@ cell_kernel(Params p) {
     for (int g = 0; g < G; ++g)
       pre[g] = gemv_unit<T, kStaged>(ws[g], ldw, ncols, Dx, a, red);
     if (mine) {
-      float hn;
-      const float v = pre[G - 1] + bias[G - 1];
-      const float ht = p.log_mode ? g_(v) : v;
-      if (G == 2) {
-        const float z = sigmoidf_(pre[0] + bias[0]);
-        hn = (1.0f - z) * h + z * ht;
-      } else {
-        const float kf = pre[0] + bias[0], ki = pre[1] + bias[1];
-        float f, i;
-        if (p.normalize) {
-          const float d = softplusf_(-kf) - softplusf_(-ki);
-          f = sigmoidf_(-d);
-          i = sigmoidf_(d);
-        } else {
-          f = sigmoidf_(kf);
-          i = sigmoidf_(ki);
-        }
-        hn = f * h + i * ht;
-      }
-      if (t < vlen) h = rnd<T>(hn);
+      if (t < vlen) h = rnd<T>(cell_update<G>(pre, bias, h, p));
       out[((size_t)b * p.C + t) * Dh + j] = from_f<T>(h);
     }
     // gemv_unit ended on a barrier: the next token may restage a
@@ -388,6 +425,165 @@ cell_kernel(Params p) {
 
 int smem_bytes(int Dx, int G, int elem, bool staged) {
   return kRedBytes + align16(kBT * Dx * elem) + (staged ? G * Dx * kTN * elem : 0);
+}
+
+// ---- the CUDA-core body past the widest x tile: x in K slices ----------
+
+// the widest Dx whose 8 rows of x fit shared memory beside the partial
+// sums (7136 in fp32, 14272 in bf16): the unsliced body's
+__host__ __device__ constexpr int whole_row_max(int elem) {
+  return (kSmemCap - kRedBytes) / (kBT * elem);
+}
+
+// columns per K slice for a Dx past whole_row_max: as few slices as fit
+// in half of it, so that two blocks share an SM, of equal width rounded up
+// to the 64 k-lanes (fp32 Dx 7168: 3 x 2432; 2 x 3584, one block an SM,
+// measured 1.77x the time on an H100)
+__host__ __device__ __forceinline__ int slice_cols(int Dx, int elem) {
+  const int cap = whole_row_max(elem) / 2 / kLanes * kLanes;
+  const int n = (Dx + cap - 1) / cap;
+  return ((Dx + n - 1) / n + kLanes - 1) / kLanes * kLanes;
+}
+
+// 4 consecutive elements of a device matrix (16- / 8-byte aligned)
+__device__ __forceinline__ void ldg4(const float* p, float* f) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void ldg4(const __nv_bfloat16* p, float* f) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+// Stage columns k0 .. k0 + klen - 1 of x[b0 + r, t, :] (r < 8) into a
+// (8, Ks); rows past B are zero.  vec: 16-byte loads (Dx a multiple of
+// 16 bytes and x aligned; k0 and Ks are multiples of 64).
+template <typename T>
+__device__ void stage_x_slice(const T* __restrict__ x, int B, int C, int Dx,
+                              int b0, int t, int k0, int klen, int Ks, T* a,
+                              bool vec) {
+  constexpr int per16 = 16 / (int)sizeof(T);
+  if (vec) {
+    const int per_row = klen / per16;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < kBT * per_row; e += kThreads) {
+      const int r = e / per_row, d0 = (e % per_row) * per16, b = b0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (b < B)
+        v = *reinterpret_cast<const uint4*>(
+            x + ((size_t)b * C + t) * Dx + k0 + d0);
+      *reinterpret_cast<uint4*>(a + r * Ks + d0) = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < kBT * klen; e += kThreads) {
+      const int r = e / klen, d = e % klen, b = b0 + r;
+      a[r * Ks + d] = b < B ? x[((size_t)b * C + t) * Dx + k0 + d]
+                            : from_f<T>(0.0f);
+    }
+  }
+}
+
+// acc[r][c] += one slice's terms: thread (k-lane kl, column group cg)
+// takes k = kl, kl + 64, ... < klen in ascending order, a[r, k] times W[k,
+// 4 cg + c], W the device matrix at the slice's first row and the unit's
+// first column (row stride ldw; columns past ncols read as zero).  vec: 4
+// columns a load where all four are in range (Dh a multiple of 4, W
+// aligned).
+template <typename T>
+__device__ __forceinline__ void slice_acc(float (&acc)[kBT][kVec],
+                                          const T* __restrict__ W, int ldw,
+                                          int ncols, int klen,
+                                          const T* __restrict__ a, int Ks,
+                                          bool vec) {
+  const int cg = threadIdx.x % kGroups, kl = threadIdx.x / kGroups;
+  const bool whole = vec && kVec * cg + kVec <= ncols;
+  const T* wp = W + kVec * cg;
+#pragma unroll 4
+  for (int k = kl; k < klen; k += kLanes) {
+    float w[kVec];
+    if (whole) {
+      ldg4(wp + (size_t)k * ldw, w);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c)
+        w[c] = kVec * cg + c < ncols ? to_f(wp[(size_t)k * ldw + c]) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < kBT; ++r) {
+      const float av = to_f(a[r * Ks + k]);
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) acc[r][c] = fmaf(av, w[c], acc[r][c]);
+    }
+  }
+}
+
+// cell_kernel's unit past whole_row_max: x in K slices of slice_cols(Dx)
+// columns, the weights read from device memory, each thread's
+// accumulators kept across a token's slices, one reduction after the last.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+cell_sliced_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);
+  T* a = reinterpret_cast<T*>(smem + kRedBytes);
+  constexpr int per16 = 16 / (int)sizeof(T);
+  const int Dx = p.Dx, Dh = p.Dh, Ks = slice_cols(Dx, (int)sizeof(T));
+  const int j0 = blockIdx.x * kTN;
+  const int ncols = min(kTN, Dh - j0);
+  const int b0 = blockIdx.y * kBT;
+  const T* x = static_cast<const T*>(p.x);
+  const bool x_vec = Dx % per16 == 0 && ((uintptr_t)x & 15) == 0;
+  const T* ws[G];
+  bool w_vec = Dh % kVec == 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    ws[g] = static_cast<const T*>(p.w[g]) + j0;
+    w_vec = w_vec && ((uintptr_t)p.w[g] & 15) == 0;
+  }
+
+  const int tid = threadIdx.x;
+  const int r = tid / kTN, c = tid % kTN, b = b0 + r, j = j0 + c;
+  const bool mine = tid < kBT * kTN && b < p.B && c < ncols;
+  float h = 0.0f, bias[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) bias[g] = 0.0f;
+  int vlen = p.C;
+  if (mine) {
+    h = p.h0_f32 ? static_cast<const float*>(p.h0)[(size_t)b * Dh + j]
+                 : to_f(static_cast<const T*>(p.h0)[(size_t)b * Dh + j]);
+#pragma unroll
+    for (int g = 0; g < G; ++g) bias[g] = to_f(static_cast<const T*>(p.b[g])[j]);
+    if (p.valid != nullptr) vlen = p.valid[b];
+  }
+  T* out = static_cast<T*>(p.out);
+
+  for (int t = 0; t < p.C; ++t) {
+    float pre[G], acc[G][kBT][kVec];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < kBT; ++i)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[g][i][e] = 0.0f;
+    for (int k0 = 0; k0 < Dx; k0 += Ks) {
+      const int klen = min(Ks, Dx - k0);
+      stage_x_slice<T>(x, p.B, p.C, Dx, b0, t, k0, klen, Ks, a, x_vec);
+      __syncthreads();                // the slice is staged
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        slice_acc<T>(acc[g], ws[g] + (size_t)k0 * Dh, Dh, ncols, klen, a,
+                     Ks, w_vec);
+      __syncthreads();                // every thread is done with it
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) pre[g] = reduce_unit(acc[g], red);
+    if (mine) {
+      if (t < vlen) h = rnd<T>(cell_update<G>(pre, bias, h, p));
+      out[((size_t)b * p.C + t) * Dh + j] = from_f<T>(h);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1035,14 +1231,15 @@ template <typename T, int G>
 int choose_cuda_core(const Params& p, Choice* c) {
   const int elem = (int)sizeof(T);
   const int staged = smem_bytes(p.Dx, G, elem, true);
-  if (staged <= kSmemCap) {
+  if (p.Dx > whole_row_max(elem)) {   // x in K slices
+    c->fn = reinterpret_cast<const void*>(cell_sliced_kernel<T, G>);
+    c->smem = kRedBytes + align16(kBT * slice_cols(p.Dx, elem) * elem);
+  } else if (staged <= kSmemCap) {
     c->fn = reinterpret_cast<const void*>(cell_kernel<T, G, true>);
     c->smem = staged;
   } else {
-    const int plain = smem_bytes(p.Dx, G, elem, false);
-    if (plain > kSmemCap) return (int)cudaErrorInvalidValue;
     c->fn = reinterpret_cast<const void*>(cell_kernel<T, G, false>);
-    c->smem = plain;
+    c->smem = smem_bytes(p.Dx, G, elem, false);
   }
   c->threads = kThreads;
   c->cluster = 1;
@@ -1166,9 +1363,10 @@ int choose_tc(int lstm, const Params& p, Choice* c) {
   return 0;
 }
 
+// the launch of these operands; its grid.y is ceil(B / 8), which launch()
+// keeps within kMaxTiles
 int choose(int lstm, int bf16, int body, const Params& p, Choice* c) {
-  if (p.B < 1 || p.C < 1 || p.Dx < 1 || p.Dh < 1 ||
-      (p.B + kBT - 1) / kBT > 65535)
+  if (p.B < 1 || p.C < 1 || p.Dx < 1 || p.Dh < 1)
     return (int)cudaErrorInvalidValue;
   if (body == kBodyTC) {
     if (!tc_can_run(lstm, bf16, p)) return (int)cudaErrorInvalidValue;
@@ -1195,6 +1393,13 @@ Params make_params(int log_mode, int normalize, int h0_f32, int B, int C,
   return p;
 }
 
+// the launches a batch of B rows is split into, kMaxTiles batch tiles
+// each (one where B fits, or where choose() refuses B)
+int launches_for(int B) {
+  const long long tiles = ((long long)B + kBT - 1) / kBT;
+  return tiles <= kMaxTiles ? 1 : (int)((tiles + kMaxTiles - 1) / kMaxTiles);
+}
+
 int launch(int lstm, int log_mode, int normalize, int bf16, int h0_f32,
            int B, int C, int Dx, int Dh, void* const* ptrs, void* stream,
            int body, bool chunk) {
@@ -1205,15 +1410,30 @@ int launch(int lstm, int log_mode, int normalize, int bf16, int h0_f32,
   // aligned x, and any other is refused, never read another way
   if (body == kBodyTC && reinterpret_cast<uintptr_t>(p.x) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  Choice c;
-  int err = choose(lstm, bf16, body, p, &c);
-  if (err == 0) err = opt_in(c);
-  if (err != 0) return err;
-  void* args[] = {const_cast<Params*>(&p)};
-  const cudaError_t e = cudaLaunchKernel(
-      c.fn, c.grid, dim3(c.threads), args, (size_t)c.smem,
-      static_cast<cudaStream_t>(stream));
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  // kMaxTiles batch tiles a launch (grid.y), the rest in further launches
+  // on the rows after them (offsets keep x 16-byte aligned: a multiple of
+  // 8 rows)
+  const size_t elem = bf16 ? 2 : 4, h_elem = h0_f32 ? 4 : elem;
+  for (int i = 0, n = launches_for(B); i < n; ++i) {
+    const int b0 = i * kMaxTiles * kBT;
+    Params q = p;
+    q.B = B - b0 < kMaxTiles * kBT ? B - b0 : kMaxTiles * kBT;
+    q.x = static_cast<const char*>(p.x) + (size_t)b0 * C * Dx * elem;
+    q.h0 = static_cast<const char*>(p.h0) + (size_t)b0 * Dh * h_elem;
+    if (p.valid != nullptr) q.valid = p.valid + b0;
+    q.out = static_cast<char*>(p.out) + (size_t)b0 * C * Dh * elem;
+    Choice c;
+    int err = choose(lstm, bf16, body, q, &c);
+    if (err == 0) err = opt_in(c);
+    if (err != 0) return err;
+    void* args[] = {&q};
+    cudaError_t e = cudaLaunchKernel(
+        c.fn, c.grid, dim3(c.threads), args, (size_t)c.smem,
+        static_cast<cudaStream_t>(stream));
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1250,16 +1470,6 @@ int repro_cell_chunk_launch(int lstm, int log_mode, int normalize, int bf16,
 // launch's shared memory), out[1] grid blocks, out[2] the device's SMs,
 // out[3] blocks per cluster, out[4] clusters resident at once on the
 // device (cudaOccupancyMaxActiveClusters; 0 without clusters).
-// The widest Dx the CUDA-core body takes with elements of `elem` bytes:
-// one tile of x rows and the partial sums must fit kSmemCap
-// (choose_cuda_core refuses past it).
-int repro_cell_cuda_core_max_dx(int elem) {
-  if (elem < 1) return 0;
-  int dx = (kSmemCap - kRedBytes) / (kBT * elem);
-  while (dx > 0 && smem_bytes(dx, 2, elem, false) > kSmemCap) --dx;
-  return dx;
-}
-
 int repro_cell_occupancy(int lstm, int bf16, int body, int B, int C, int Dx,
                          int Dh, void* const* ptrs, int* out) {
   const Params p = make_params(1, 1, 0, B, C, Dx, Dh, ptrs, C > 1);
@@ -1272,7 +1482,8 @@ int repro_cell_occupancy(int lstm, int bf16, int body, int B, int C, int Dx,
       &per_sm, c.fn, c.threads, c.smem);
   if (e == cudaSuccess && c.cluster > 1) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = c.grid;
+    cfg.gridDim = dim3(c.grid.x, c.grid.y < (unsigned)kMaxTiles
+                                          ? c.grid.y : (unsigned)kMaxTiles);
     cfg.blockDim = dim3(c.threads);
     cfg.dynamicSmemBytes = (size_t)c.smem;
     e = cudaOccupancyMaxActiveClusters(&clusters, c.fn, &cfg);
@@ -1287,6 +1498,11 @@ int repro_cell_occupancy(int lstm, int bf16, int body, int B, int C, int Dx,
   out[4] = clusters;
   return (int)e;
 }
+
+// The kernel launches repro_cell_step_launch / repro_cell_chunk_launch
+// make for B rows: one up to 65535 tiles of 8 rows, one per 65535 tiles
+// past that.
+int repro_cell_launches(int B) { return launches_for(B); }
 
 const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -78,19 +78,11 @@ def _lib():
         lib.repro_cell_occupancy.argtypes = [ctypes.c_int] * 7 + [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         lib.repro_cell_occupancy.restype = ctypes.c_int
-        lib.repro_cell_cuda_core_max_dx.argtypes = [ctypes.c_int]
-        lib.repro_cell_cuda_core_max_dx.restype = ctypes.c_int
+        lib.repro_cell_launches.argtypes = [ctypes.c_int]
+        lib.repro_cell_launches.restype = ctypes.c_int
         kl.declare_error_string(lib)
         _LIB = lib
     return _LIB
-
-
-def cuda_core_max_dx(dtype: torch.dtype) -> int:
-    """The widest Dx the CUDA-core body takes in ``dtype`` (7136 in fp32,
-    14272 in bf16), as its C launcher computes it from the shared memory
-    a tile of x rows needs; builds the library."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    return _lib().repro_cell_cuda_core_max_dx(elem)
 
 
 def cell_body(cell: str, dtype: torch.dtype, dx: int, dh: int,
@@ -99,7 +91,9 @@ def cell_body(cell: str, dtype: torch.dtype, dx: int, dh: int,
     cores) for minGRU or minLSTM in bf16 whose Dx and Dh are multiples of
     8, Dx at most ``TC_MAX_DX``, and whose weights (every gate's) start on
     16-byte boundaries (``aligned``); "cuda_core" for fp32 (the exact
-    path) and any other bf16."""
+    path) and any other bf16, at any width: past the widest 8 rows of x
+    its shared memory holds (Dx 7136 in fp32, 14272 in bf16) it stages x
+    in K slices, summing in the same order."""
     if cell not in GATES:
         raise ValueError(f"unknown cell {cell!r}")
     tc = (dtype == torch.bfloat16 and dx % 8 == 0 and dh % 8 == 0
@@ -136,12 +130,6 @@ class CellOperands:
         self.ws, self.bs = tuple(ws), tuple(bs)
         self.body = cell_body(cell, dt, dx, dh,
                               all(w.data_ptr() % 16 == 0 for w in ws))
-        if self.body == "cuda_core" and dx > cuda_core_max_dx(dt):
-            raise ValueError(
-                f"{cell} at Dx {dx} in {dt}: the CUDA-core body keeps 8 "
-                f"rows of x in shared memory and takes Dx up to "
-                f"{cuda_core_max_dx(dt)} in this dtype (bf16 up to "
-                f"{cuda_core_max_dx(torch.bfloat16)})")
         ptrs = [0] * 7
         for i, (w, b) in enumerate(zip(ws, bs)):
             ptrs[1 + i], ptrs[4 + i] = w.data_ptr(), b.data_ptr()
@@ -218,6 +206,8 @@ def prepare_launch(operands: CellOperands, x, h_prev, valid, *, mode,
     def launch(_keep=keep):        # _keep: the operands alive while bound
         return fn(*args)
 
+    # the C entry point and its arguments (``ab.py`` calls another build's)
+    launch.entry, launch.args = fn.__name__, args
     return launch, out
 
 
@@ -250,9 +240,12 @@ def occupancy(operands: CellOperands, bsz: int, chunk: int) -> dict:
 def _launch(name, operands, x, h_prev, valid, *, mode, normalize=True):
     launch, out = prepare_launch(operands, x, h_prev, valid, mode=mode,
                                  normalize=normalize)
-    kl.raise_on_error(_lib(), name, launch())
-    LAUNCHES[name] += 1
-    LAUNCHES[f"{name}/{operands.body}"] += 1
+    lib = _lib()
+    kl.raise_on_error(lib, name, launch())
+    # one launch, or past 65,535 tiles of 8 rows one per 65,535 tiles
+    n = lib.repro_cell_launches(out.shape[0])
+    LAUNCHES[name] += n
+    LAUNCHES[f"{name}/{operands.body}"] += n
     return out
 
 

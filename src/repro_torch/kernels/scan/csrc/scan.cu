@@ -178,8 +178,10 @@ scan_kernel(const In* __restrict__ x, const In* __restrict__ y,
   __shared__ float carry_in[kCols];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int row = blockIdx.y;
-  const int d = blockIdx.x * kCols + lane;
+  // one-dimensional grid, column tiles fastest (grid_for)
+  const unsigned tiles = (unsigned)((D + kCols - 1) / kCols);
+  const int row = (int)(blockIdx.x / tiles);
+  const int d = (int)(blockIdx.x % tiles) * kCols + lane;
   const bool live = d < D;
   const long long stride = reverse ? -(long long)D : (long long)D;
   const long long first =
@@ -223,12 +225,17 @@ scan_kernel(const In* __restrict__ x, const In* __restrict__ y,
   }
 }
 
+// B x ceil(D / 32) blocks on grid.x, column tiles fastest: the order of
+// the 2D grid it replaced, whose grid.y held B (at most 65535 rows)
 dim3 grid_for(int B, int D) {
-  return dim3((unsigned)((D + kCols - 1) / kCols), (unsigned)B);
+  return dim3((unsigned)((long long)B * ((D + kCols - 1) / kCols)));
 }
 
+// (grid.x holds 2^31 - 1 blocks: more than a card's memory holds rows
+// of, at any D and T)
 bool bad_dims(int B, int T, int D) {
-  return B < 1 || T < 1 || D < 1 || B > 65535;
+  return B < 1 || T < 1 || D < 1 ||
+         (long long)B * ((D + kCols - 1) / kCols) > 0x7fffffffLL;
 }
 
 template <class Op, typename In, typename Out>

@@ -167,13 +167,19 @@ def test_saturated_minlstm_gates_stay_finite(scale):
     ("minlstm", torch.bfloat16, 764, 1536, True, "cuda_core"),  # Dx % 8
     ("minlstm", torch.bfloat16, 768, 1536, False, "cuda_core"),
     ("minlstm", torch.float32, 768, 1536, True, "cuda_core"),  # exact path
-    ("minlstm", torch.float32, 2048, 2048, True, "cuda_core")])
+    ("minlstm", torch.float32, 2048, 2048, True, "cuda_core"),
+    # past the widest 8 rows of x the CUDA-core body's shared memory holds
+    # (7136 fp32, 14272 bf16): x in K slices, the same body
+    ("mingru", torch.float32, 7168, 7168, True, "cuda_core"),
+    ("mingru", torch.bfloat16, 7168, 7168, True, "cuda_core"),
+    ("minlstm", torch.float32, 16384, 16384, True, "cuda_core"),
+    ("mingru", torch.bfloat16, 16384, 16384, True, "cuda_core")])
 def test_cell_body_routes_by_cell_dtype_widths_and_alignment(
         cell, dtype, dx, dh, aligned, body):
     """The tensor-core body takes bf16 minGRU and minLSTM whose widths
     are multiples of 8 (Dx up to the shared-memory limit) and whose
     weights allow 16-byte copies; everything else runs on the CUDA
-    cores.  The rule reads neither x nor C."""
+    cores, at any width.  The rule reads neither x nor C."""
     assert pt_ops.cell_body(cell, dtype, dx, dh, aligned) == body
     assert pt_ops.TC_MAX_DX == 4096
 

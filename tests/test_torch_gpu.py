@@ -110,16 +110,21 @@ def test_kernels_match_plain_and_chunk_equals_steps(cell, dtype,
 
 # (Dx, Dh, Dm): mingru-lm's width, where the split body splits every
 # phase's K (S 4, 8, 2, 8) in bf16 and fp32 takes the streamed body; a
-# ragged one whose last K slices are short in every phase (split); and a
-# wide one whose weight slices fit no block's shared memory (streamed)
+# ragged one whose last K slices are short in every phase (split); a
+# wide one whose weight slices fit no block's shared memory (streamed);
+# one whose Dm (8192) stages phase D's input in two K slices (streamed);
+# and two off the 16-column tile (streamed, element by element)
 BLOCK_SHAPES = {"mingru-lm": (768, 1536, 3072), "ragged": (208, 80, 336),
-                "wide": (1536, 3072, 6144)}
+                "wide": (1536, 3072, 6144), "wide-mlp": (1024, 2048, 8192),
+                "off-tile": (200, 72, 520), "off-tile-small": (40, 72, 100)}
 BLOCK_BODY = {("mingru-lm", torch.float32): "streamed",
               ("mingru-lm", torch.bfloat16): "split",
               ("ragged", torch.float32): "split",
               ("ragged", torch.bfloat16): "split",
-              ("wide", torch.float32): "streamed",
-              ("wide", torch.bfloat16): "streamed"}
+              **{(shape, dt): "streamed"
+                 for shape in ("wide", "wide-mlp", "off-tile",
+                               "off-tile-small")
+                 for dt in (torch.float32, torch.bfloat16)}}
 
 
 def _block_case(gen, cell, dtype, dev, shape, bsz, chunk):
@@ -269,16 +274,84 @@ def test_block_kernel_after_refused_launch(cuda_device):
 
 def test_block_binding_refuses_beyond_both_bodies(cuda_device):
     """Weights too large for the split body's shared memory and a width
-    above the streamed body's 7120 (8 rows of Dm 8192 in fp32 exceed a
-    block's shared memory): binding raises, before any launch."""
+    whose 8 staged rows (Dm 8192 in fp32) exceed a block's shared memory
+    once refused to bind (the name records that refusal, the fault this
+    test now holds repaired); now the streamed body stages phase D's input
+    in two K slices of 4096 (Dm 7120 still in whole rows): in bf16 and
+    fp32, the kernel against the plain version, a C-token chunk equal to
+    C step launches bit for bit, and a row launched alone equal to its
+    row of the batch."""
     gen = torch.Generator().manual_seed(6)
-    params = _params(gen, "mingru", torch.bfloat16, cuda_device, 1024, 2048,
-                     8192)
-    with pytest.raises(RuntimeError, match="block plan"):
-        _bound(params, "mingru", torch.bfloat16)
+    cell, bsz, chunk = "mingru", 9, 3
+    for dtype in (torch.float32, torch.bfloat16):
+        params = _params(gen, cell, dtype, cuda_device, 1024, 2048, 8192)
+        bound = _bound(params, cell, dtype)
+        assert bound.body == "streamed"
+        phases = ops.plan(bound)["phases"]
+        assert [(p["S"], p["slice_rows"]) for p in phases] == [
+            (1, 1024), (1, 2048), (1, 1024), (2, 4096)], phases
+        kp = ops.kernel_params(params, cell, dtype, True, True)
+        kw = dict(cell=cell, mode="log", use_conv=True, use_mlp=True,
+                  compute_dtype=dtype)
+        x = torch.randn((bsz, chunk, 1024), generator=gen).to(dtype) \
+            .to(cuda_device)
+        st = {"h": (0.5 * torch.randn((bsz, 2048), generator=gen))
+              .to(dtype).to(cuda_device),
+              "conv": torch.randn((bsz, K - 1, 1024), generator=gen)
+              .to(dtype).to(cuda_device)}
+        full = torch.full((bsz,), chunk, dtype=torch.int32,
+                          device=cuda_device)
+        ys, _, pos = ops.fused_block_chunk(params, x, st, full,
+                                           operands=bound,
+                                           return_positions=True, **kw)
+        ys_r, _, pos_r = ref.block_chunk_ref(kp, x, st, full, **kw)
+        _close(ys, ys_r, dtype)
+        _close(pos["h"], pos_r["h"], dtype)
+        _close(pos["conv"], pos_r["conv"], dtype)
+        s = st
+        for t in range(chunk):
+            y, s = ops.fused_block_step(params, x[:, t].contiguous(), s,
+                                        operands=bound, **kw)
+            assert torch.equal(y, ys[:, t]) and torch.equal(
+                s["h"], pos["h"][:, t]) and torch.equal(
+                s["conv"], pos["conv"][:, t]), (dtype, t)
+        alone = _raw(bound, x[4:5].contiguous(),
+                     {k: v[4:5].contiguous() for k, v in st.items()},
+                     full[4:5])
+        for got, want in zip(alone, (ys, pos["h"], pos["conv"])):
+            assert torch.equal(got, want[4:5])
     narrower = _params(gen, "mingru", torch.bfloat16, cuda_device, 1024,
                        2048, 7120)
-    assert _bound(narrower, "mingru", torch.bfloat16).body == "streamed"
+    pl = ops.plan(_bound(narrower, "mingru", torch.bfloat16))
+    assert pl["body"] == "streamed"
+    assert all(p["S"] == 1 for p in pl["phases"]), pl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernel_copies_operands_off_16_byte_boundaries(dtype,
+                                                             cuda_device):
+    """Weights and activations two elements past a 16-byte boundary (views
+    into larger buffers) at dims the vector loads take: the binding holds
+    aligned copies of the weights, the launch of the activations, and
+    the outputs equal the aligned operands' bit for bit."""
+    gen = torch.Generator().manual_seed(7)
+    cell = "minlstm"
+    params, x, st = _block_case(gen, cell, dtype, cuda_device, "mingru-lm",
+                                3, 2)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+        view = buf[2:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    aligned = _raw(_bound(params, cell, dtype), x, st, None)
+    moved = _raw(_bound(tree.tree_map(shifted, params), cell, dtype),
+                 shifted(x),
+                 {k: shifted(v) for k, v in st.items()}, None)
+    for a, b in zip(aligned, moved):
+        assert torch.equal(a, b)
 
 
 def test_smoke_engine_streams_on_gpu(cuda_device):
@@ -1764,23 +1837,97 @@ V3_D = 7168
 
 
 def test_cell_step_at_deepseek_v3_width_matches_plain(cuda_device):
-    """bf16, B 8 x Dx 7168 x Dh 7168 (7168 terms in each gate's sum): the
-    kernel on the CUDA-core body against the plain version, and a row
+    """B 8 x Dx 7168 x Dh 7168 (7168 terms in each gate's sum) on the
+    CUDA-core body, bf16 and fp32, against the plain version, and a row
     launched alone equal to its row of the batch bit for bit.  In fp32
-    the body's 8 rows of x do not fit its shared memory: binding
-    refuses, naming the widest Dx it takes."""
+    the 8 rows of x do not fit the body's shared memory whole (binding
+    once refused, naming Dx 7136): they are staged in three K slices of
+    2432 columns (two blocks an SM), and
+    a C-token chunk equals C step launches bit for bit."""
     gen = torch.Generator().manual_seed(7)
-    x, h, *wb = _cell_case(gen, "mingru", torch.bfloat16, cuda_device, 8,
-                           V3_D, V3_D, 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, h, *wb = _cell_case(gen, "mingru", dtype, cuda_device, 8, V3_D,
+                               V3_D, 3)
+        step_ops.reset_launches()
+        got = step_ops.fused_mingru_step(x[:, 0], *wb, h)
+        _close(got, step_ref.mingru_step_ref(x[:, 0], *wb, h), dtype)
+        assert torch.equal(step_ops.fused_mingru_step(x[3:4, 0], *wb,
+                                                      h[3:4]), got[3:4])
+        assert step_ops.LAUNCHES["mingru_step_kernel/cuda_core"] == 2
+        if dtype == torch.float32:
+            valid = torch.tensor([3, 1, 2, 3, 3, 2, 1, 3], dtype=torch.int32,
+                                 device=cuda_device)
+            hs = step_ops.fused_mingru_chunk(x, *wb, h, valid)
+            _close(hs, step_ref.mingru_chunk_ref(x, *wb, h, valid), dtype)
+            s_h = h
+            for t in range(3):
+                st = step_ops.fused_mingru_step(x[:, t].contiguous(), *wb,
+                                                s_h)
+                s_h = torch.where((t < valid)[:, None], st, s_h)
+                assert torch.equal(hs[:, t], s_h), t
+
+
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+def test_cell_step_bf16_at_dx_16384_matches_plain(cell, cuda_device):
+    """bf16 past the widest x tile the CUDA-core body holds whole (14272):
+    B 8 x Dx 16384 x Dh 64, x in three K slices of 5504 columns (two
+    blocks an SM), against the plain version,
+    a row alone bit-equal to its row of the batch."""
+    gen = torch.Generator().manual_seed(8)
+    x, h, *wb = _cell_case(gen, cell, torch.bfloat16, cuda_device, 8,
+                           16384, 64, 1)
+    step, _, plain, _, kw = _cell_fns(cell, True)
+    step_ops.reset_launches()
+    got = step(x[:, 0], *wb, h, **kw)
+    _close(got, plain(x[:, 0], *wb, h, **kw), torch.bfloat16)
+    assert torch.equal(step(x[5:6, 0], *wb, h[5:6], **kw), got[5:6])
+    assert step_ops.LAUNCHES[f"{cell}_step_kernel/cuda_core"] == 2
+
+
+@pytest.mark.parametrize("body_dtype", [torch.float32, torch.bfloat16])
+def test_cell_step_past_65535_batch_tiles(body_dtype, cuda_device):
+    """B 524,296 (65,537 tiles of 8: one launch of 65,535 tiles and one of
+    the rest) at Dx 16, Dh 16 (bf16: the tensor-core body) against the
+    plain version; the last rows launched alone bit-equal; the count
+    holds the kernel launches, 2 + 1."""
+    gen = torch.Generator().manual_seed(9)
+    bsz = 65537 * 8
+    x, h, *wb = _cell_case(gen, "mingru", body_dtype, cuda_device, bsz, 16,
+                           16, 1)
     step_ops.reset_launches()
     got = step_ops.fused_mingru_step(x[:, 0], *wb, h)
-    _close(got, step_ref.mingru_step_ref(x[:, 0], *wb, h), torch.bfloat16)
-    assert torch.equal(step_ops.fused_mingru_step(x[3:4, 0], *wb, h[3:4]),
-                       got[3:4])
-    assert step_ops.LAUNCHES["mingru_step_kernel/cuda_core"] == 2
-    with pytest.raises(ValueError, match="Dx up to 7136"):
-        step_ops.CellOperands("mingru", [w.float() for w in wb[0::2]],
-                              [b.float() for b in wb[1::2]])
+    _close(got, step_ref.mingru_step_ref(x[:, 0], *wb, h), body_dtype)
+    tail = step_ops.fused_mingru_step(x[-9:, 0].contiguous(), *wb,
+                                      h[-9:].contiguous())
+    assert torch.equal(tail, got[-9:])
+    assert step_ops.LAUNCHES["mingru_step_kernel"] == 3
+
+
+@pytest.mark.parametrize("cell", ["mingru", "minlstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_and_scan_kernels_at_b_65544(cell, dtype, cuda_device):
+    """B 65,544, past grid.y's 65,535 rows: the fused layer (T 3, Dx 32,
+    Dh 64) and the linear and log scans (T 5, D 40) against their plain
+    versions, a row alone bit-equal to its row of the batch."""
+    gen = torch.Generator().manual_seed(10)
+    bsz = 65544
+    ins = [v.detach() for v in _fused_case(gen, cell, dtype, cuda_device,
+                                           bsz, 3, 32, 64)]
+    fn, plain, _ = _fused_fns(cell, "log")
+    got = fn(*ins)
+    _close(got, plain(*ins), dtype)
+    alone = fn(ins[0][-1:].contiguous(), *ins[1:-1],
+               ins[-1][-1:].contiguous())
+    assert torch.equal(alone, got[-1:])
+    for kind in ("linear", "log"):
+        sins = scan_ref.inputs(gen, kind, dtype, (bsz, 5, 40), False,
+                               cuda_device)
+        kfn, splain, _ = _scan_fns(kind, False)
+        out = kfn(*sins)
+        _close(out, splain(*sins),
+               dtype if kind == "linear" else torch.float32)
+        assert torch.equal(kfn(*(v[-1:].contiguous() for v in sins)),
+                           out[-1:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
