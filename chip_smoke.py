@@ -367,6 +367,10 @@ from repro_torch.kernels.fused_minlstm import ops as lstm_ops  # noqa: E402
 from repro_torch.kernels.fused_minlstm import ref as lstm_ref  # noqa: E402
 from repro_torch.kernels.scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.scan import ref as scan_ref  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import hlo_analysis as hlo  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.kernels.timing import (  # noqa: E402
     eager_ms, graph_ms, rotating)
 from repro_torch.models import encdec, lm  # noqa: E402
@@ -384,9 +388,8 @@ from repro_torch.serving.engine import (  # noqa: E402
 from repro_torch.serving.faults import FaultInjector  # noqa: E402
 
 DEV = torch.device("cuda")
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12,  # fp32 outside the tensor cores
-              torch.bfloat16: 989e12}
+HBM_BYTES_PER_S = hlo.HBM_BW         # H100 SXM data sheet
+PEAK_FLOPS = hlo.PEAK_FLOPS_BY_DTYPE
 # |kernel - plain| <= ATOL + RTOL * |plain|.  fp32: the same arithmetic
 # summed in another order over up to 3072 terms.  bf16: both round at the
 # same cast points, but a sum in another order can land on the
@@ -489,28 +492,14 @@ def block_params(gen, cell, dtype, dims=(DX, DH, DM)):
     return lm.tree_to(p, DEV)
 
 
-def n_weight_elems(cell, dims=(DX, DH, DM)):
-    dx, dh, dm = dims
-    n_g = len(GATES[cell])
-    return (n_g * (dx * dh + dh) + dh * dx + dx * dm + dm + dm * dx + dx
-            + 2 * dx + K * dx + dx)
-
-
 def bound_ms(cell, dtype, bsz, chunk, dims=(DX, DH, DM)):
-    """Least time for the work: each input read once, each output written
-    once, over the memory rate; multiply-adds over the type's peak."""
-    dx, dh, dm = dims
-    e = torch.tensor([], dtype=dtype).element_size()
-    n_g = len(GATES[cell])
-    elems_in = n_weight_elems(cell, dims) + bsz * chunk * dx + bsz * dh \
-        + bsz * (K - 1) * dx
-    elems_out = bsz * chunk * (dx + dh + (K - 1) * dx)
-    nbytes = (elems_in + elems_out) * e + (bsz * 4 if chunk > 1 else 0)
-    flops = 2 * bsz * chunk * (n_g * dx * dh + dh * dx + 2 * dx * dm)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """Least time for the block kernel's work (``ops.work``: chunk 1 the
+    step kernel, the conv of K taps): each input read once, each output
+    written once, over the memory rate; multiply-adds over the type's
+    peak (``hlo.kernel_bound_ms``)."""
+    kernel = "block_step_kernel" if chunk == 1 else "block_chunk_kernel"
+    return hlo.kernel_bound_ms(
+        ops.work(kernel, cell, dtype, bsz, chunk, (*dims, K)), dtype)
 
 
 def max_err(got, want, dtype, what):
@@ -883,16 +872,12 @@ def cell_operands(gen, cell, dtype, dx, dh):
 
 
 def cell_bound_ms(n_g, dtype, bsz, chunk, dx, dh):
-    """Weights, biases, x, h0 read once and the output written once over
-    the memory rate (plus valid for a chunk); the projections'
-    multiply-adds over the type's peak."""
-    e = torch.tensor([], dtype=dtype).element_size()
-    nbytes = e * (n_g * (dx * dh + dh) + bsz * chunk * dx + bsz * dh
-                  + bsz * chunk * dh) + (4 * bsz if chunk > 1 else 0)
-    flops = 2 * bsz * chunk * n_g * dx * dh
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """The cell kernel's work (``step_ops.work``: n_g 2 minGRU, 3 minLSTM;
+    chunk 1 the step kernel) over the card's rates."""
+    cell = {2: "mingru", 3: "minlstm"}[n_g]
+    kernel = f"{cell}_{'step' if chunk == 1 else 'chunk'}_kernel"
+    return hlo.kernel_bound_ms(
+        step_ops.work(kernel, dtype, bsz, chunk, dx, dh), dtype)
 
 
 def cell_kernel_phase(gen):
@@ -2015,22 +2000,15 @@ def fused_inputs(gen, cell, dtype, t, with_h0):
 
 
 def fused_bound_ms(cell, dtype, t, bsz=TB, dx=DX, dh=DH):
-    """Projection multiply-adds over the type's peak, against the bytes
-    of x, weights, biases, h0 in and h out."""
-    n = len(GATES[cell])
-    e = torch.tensor([], dtype=dtype).element_size()
-    flops = 2 * bsz * t * dx * dh * n
-    nbytes = e * (bsz * t * dx + n * (dx * dh + dh) + bsz * t * dh) \
-        + 4 * bsz * dh
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """The fused kernel's work (its ``ops.work``) over the card's rates."""
+    mod = gru_ops if cell == "mingru" else lstm_ops
+    return hlo.kernel_bound_ms(mod.work(dtype, bsz, t, dx, dh), dtype)
 
 
-def scan_bound_ms(in_elem, out_elem, d=DH, bsz=TB, t=TT):
-    """Two (B, T, D) inputs and h0 read, one output written."""
-    nbytes = bsz * t * d * (2 * in_elem + out_elem) + 4 * bsz * d
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+def scan_bound_ms(kind, dtype, d=DH, bsz=TB, t=TT):
+    """The scan's work (``scan_ops.work``: bytes alone) over the card's
+    rates."""
+    return hlo.kernel_bound_ms(scan_ops.work(kind, dtype, bsz, t, d), dtype)
 
 
 def unfused(cell, x, wb, h0):
@@ -2241,8 +2219,7 @@ def scan_checks(gen):
             t_k = eager_ms(calls, 200)
             t_kd = graph_ms(rotating(calls))
             t_p = eager_ms([lambda: plain(*ins)], 3)
-            e = ins[0].element_size()
-            b_ms, b_by = scan_bound_ms(e, e if kind == "linear" else 4)
+            b_ms, b_by = scan_bound_ms(kind, ins[0].dtype)
             rows.append((what, t_k, t_kd, t_p, b_ms, b_ms / t_kd, err))
             name = f"{kind}_scan_kernel"
             if dtype == torch.float32 and (rev or (kind == "log"
@@ -2406,10 +2383,8 @@ def big_batch_checks():
             check(torch.equal(fn(*(v[-1:].contiguous() for v in sins)),
                               out[-1:]),
                   f"{kind} scan at B {BIG_B}: the last row alone differs")
-            e = torch.tensor([], dtype=dtype).element_size()
             t_k = eager_ms([lambda: fn(*sins)], 10)
-            b_ms, b_by = scan_bound_ms(e, e if kind == "linear" else 4,
-                                       BIG_DH, BIG_B, BIG_T)
+            b_ms, b_by = scan_bound_ms(kind, dtype, BIG_DH, BIG_B, BIG_T)
             lines.append(f"  {kind}_scan_kernel/{str(dtype).split('.')[-1]}"
                          f": max abs err {err:.3g}; {t_k:.5f} ms against "
                          f"{b_ms:.5f} ({b_by})")
@@ -6300,6 +6275,105 @@ def mesh_train_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py) against the runs it predicts
+# ---------------------------------------------------------------------------
+
+# predicted peak bytes against torch.cuda.max_memory_allocated(): the
+# allocator rounds each block up and may hold a cuBLAS workspace
+DRYRUN_PEAK_RTOL = 0.15
+
+
+def all_launches():
+    """Launch totals of every kernel of the repo (no per-body counts)."""
+    out = {}
+    for mod in (ops, step_ops, gru_ops, lstm_ops, scan_ops):
+        out.update({k: v for k, v in mod.LAUNCHES.items() if "/" not in k})
+    return out
+
+
+def dryrun_phase():
+    """Three cells this script runs for real, traced by the dry run on
+    fake CUDA tensors of one rank (``dryrun.trace_cell`` on a 1x1 mesh:
+    the kernels' shape-only route) and then run for real on the same
+    shapes: mingru-lm's train step (B 8 x T 256, ``make_train_step``),
+    its block-tier decode round (``lm.decode_step``, B 8) and
+    gemma-2b-mingru's prefill (B 8 x T 512).  Each kernel's predicted
+    launches must equal the real run's ``LAUNCHES`` deltas, the FLOPs
+    outside the kernels ``FlopCounterMode`` over the real run, and the
+    predicted peak ``max_memory_allocated()`` over it (from the bytes
+    allocated before its arguments) within DRYRUN_PEAK_RTOL.  Returns
+    the real runs' launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+    one = make_debug_mesh(1, 1)
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    launches = {}
+    cells = [("mingru-lm", ShapeConfig("train", TT, TB, "train")),
+             ("mingru-lm", ShapeConfig("decode", TT, B, "decode")),
+             ("gemma-2b-mingru", ShapeConfig("prefill", 512, 8, "prefill"))]
+    for arch, shape in cells:
+        t0 = time.perf_counter()
+        cfg = archs.get(arch)
+        pred = dryrun.trace_cell(cfg, shape, one, device="cuda")
+        t_trace = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params = lm.init_params(gen, cfg, device=DEV)
+        toks = torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                                 shape.seq_len),
+                             generator=gen, device=DEV, dtype=torch.int32)
+        if shape.kind == "train":
+            ocfg = dryrun._opt_cfg(cfg)
+            fn = ts_lib.make_train_step(cfg, ocfg)
+            args = (params, opt_lib.init(ocfg, params),
+                    {"tokens": toks, "labels": toks})
+        elif shape.kind == "decode":
+            def fn(p, t, c):
+                return lm.decode_step(p, cfg, t, c)
+            args = (params, toks[:, 0].contiguous(),
+                    lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device=DEV))
+        else:
+            def fn(p, t):
+                return lm.prefill(p, cfg, t, shape.seq_len)
+            args = (params, toks)
+        fn(*args)                                   # first use
+        torch.cuda.synchronize()
+        before = all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        real = {k: v - before[k] for k, v in all_launches().items()
+                if v != before[k]}
+        merge(launches, real)
+        del out, args, params, toks
+        torch.cuda.empty_cache()
+
+        tag = f"dryrun {arch} {shape.kind} (B {shape.global_batch} x T " \
+              f"{shape.seq_len}, fake cuda, one rank)"
+        want_l = {k: v["launches"] for k, v in pred["kernels"].items()}
+        check(want_l == real, f"{tag}: predicted launches {want_l} != the "
+              f"run's {real}")
+        check(pred["flops_ops"] == fc.get_total_flops(),
+              f"{tag}: FLOPs outside the kernels {pred['flops_ops']} != "
+              f"FlopCounterMode's {fc.get_total_flops()}")
+        ratio = pred["peak_bytes"] / peak
+        check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+              f"{tag}: predicted peak {pred['peak_bytes']} B against "
+              f"max_memory_allocated {peak} B (ratio {ratio:.3f})")
+        k_flops = sum(v["flops"] for v in pred["kernels"].values())
+        print(f"{tag}: traced in {t_trace:.1f}s; launches {want_l} == the "
+              f"run's; FLOPs outside the kernels {pred['flops_ops']:.6g} == "
+              f"FlopCounterMode's, in the kernels {k_flops:.6g}; peak "
+              f"{pred['peak_bytes'] / 1e9:.4f} GB predicted, "
+              f"{peak / 1e9:.4f} GB max_memory_allocated (ratio "
+              f"{ratio:.4f}, limit 1 +- {DRYRUN_PEAK_RTOL})")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     print(card_line())
@@ -6350,6 +6424,8 @@ def main():
     merge(launches, train_phase(gen))
     torch.cuda.empty_cache()
     lap("training")
+    merge(launches, dryrun_phase())
+    lap("dry run")
     merge(launches, mamba2_phase())
     lap("mamba2-370m")
     merge(launches, heads_phase())

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import fake_mode
+
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -23,7 +25,8 @@ def lecun_normal(gen: torch.Generator, shape, dtype=torch.float32,
                  in_axis: int = 0) -> torch.Tensor:
     std = math.sqrt(1.0 / max(1, shape[in_axis]))
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if fake_mode() is None:         # a fake trace takes the shapes alone
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (std * t).to(dtype)
 
 

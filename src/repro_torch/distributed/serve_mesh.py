@@ -137,19 +137,32 @@ _GROUP_CACHE: Dict[Tuple[int, MeshPlan], Tuple[list, list]] = {}
 def _groups(plan: MeshPlan):
     """(model group of each data row, data group of each model column);
     None where the axis has size 1.  Every rank creates every group, in
-    the same order, as ``new_group`` requires."""
+    the same order, as ``new_group`` requires.  A world of the "fake"
+    backend (``launch/dryrun.py``: one process plays one rank) makes
+    its groups on its own backend; every other world's are gloo."""
     import torch.distributed as dist
     key = (id(dist.group.WORLD), plan)
     if key not in _GROUP_CACHE:
         d, m = plan.data, plan.model
+        backend = None if dist.get_backend() == "fake" else BACKEND
         rows = [dist.new_group([r * m + j for j in range(m)],
-                               backend=BACKEND, timeout=TIMEOUT)
+                               backend=backend, timeout=TIMEOUT)
                 if m > 1 else None for r in range(d)]
         cols = [dist.new_group([i * m + c for i in range(d)],
-                               backend=BACKEND, timeout=TIMEOUT)
+                               backend=backend, timeout=TIMEOUT)
                 if d > 1 else None for c in range(m)]
         _GROUP_CACHE[key] = (rows, cols)
     return _GROUP_CACHE[key]
+
+
+def forget_groups():
+    """Drop the open world's cached groups; a process that opens another
+    world after destroying this one calls it first (a new world's group
+    may reuse the old one's ``id``)."""
+    import torch.distributed as dist
+    world = id(dist.group.WORLD)
+    for key in [k for k in _GROUP_CACHE if k[0] == world]:
+        del _GROUP_CACHE[key]
 
 
 @dataclasses.dataclass

@@ -4,7 +4,8 @@
 param dict (``blocks.init`` layout) and its carried decode state and run
 the ENTIRE block -- norm, conv step, cell, down-projection, MLP -- in one
 kernel launch.  A CPU tensor goes to the plain version in ``ref.py``; a
-CUDA tensor launches the kernel or raises.  Nothing falls back.
+CUDA tensor launches the kernel or raises; a fake CUDA tensor takes the
+shape-only route (``kernels/launch.py``).  Nothing falls back.
 
 Dtype contract (as ``repro.kernels.block_step.ops``): gate / down / MLP
 weights and biases are cast to the compute dtype here, exactly where the
@@ -125,6 +126,8 @@ def _check(t: torch.Tensor, name: str, shape, dtype,
     state and params) and on a 16-byte boundary, for the kernel's vector
     loads: a copy of it where it is not."""
     kl.check(t, name, shape, dtype, device)
+    if kl.shape_only(t):            # a dry run's operand has no address
+        return t
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -159,10 +162,11 @@ class BlockOperands:
         dm = kp["mlp_in"]["kernel"].shape[1] if use_mlp else 0
         ptrs = [0] * _N_PTRS
         keep = []
+        fake = kl.shape_only(down)
 
         def bind(i, t, name, shape):
             t = _check(t, name, shape, dt, dev)
-            ptrs[i] = t.data_ptr()
+            ptrs[i] = 0 if fake else t.data_ptr()
             keep.append(t)
 
         bind(1, kp["norm_rnn"]["scale"], "norm_rnn.scale", (dx,))
@@ -192,6 +196,9 @@ class BlockOperands:
         self.dims = (dx, dh, dm, ksize)
         self.ptrs = ptrs
         self._keep = keep
+        if fake:            # a dry run's binding: checked, no plan, no scratch
+            self.body = None
+            return
         layout = plan(self)
         self.body = layout["body"]
         self._part_per_tile = layout["partials_per_tile"]
@@ -339,7 +346,61 @@ def phase_times(trace: torch.Tensor, use_mlp: bool = True) -> dict:
     return out
 
 
+def work(kernel: str, cell: str, dtype: torch.dtype, bsz: int, chunk: int,
+         dims, *, use_conv: bool = True, use_mlp: bool = True):
+    """(flops, bytes) of one launch of ``kernel`` ("block_step_kernel" or
+    "block_chunk_kernel") on (B, C, Dx) x of ``dtype``, ``dims`` = (Dx,
+    Dh, Dm, conv K) as ``BlockOperands.dims``: the gate, down and MLP
+    products' and the conv taps' multiply-adds (the plain version's conv
+    step is a product); every weight, x, h and the conv window read
+    once (and a chunk's int32 valid lengths), ys, hs and the windows
+    written once."""
+    dx, dh, dm, ksize = dims
+    n_g = len(_GATES[cell])
+    e = torch.tensor([], dtype=dtype).element_size()
+    weights = n_g * (dx * dh + dh) + dh * dx + dx
+    elems_in = bsz * chunk * dx + bsz * dh
+    elems_out = bsz * chunk * (dx + dh)
+    products = n_g * dx * dh + dh * dx
+    if use_conv:
+        products += ksize * dx
+        weights += ksize * dx + dx
+        elems_in += bsz * (ksize - 1) * dx
+        elems_out += bsz * chunk * (ksize - 1) * dx
+    if use_mlp:
+        weights += dx + dx * dm + dm + dm * dx + dx
+        products += 2 * dx * dm
+    nbytes = (weights + elems_in + elems_out) * e
+    if "chunk" in kernel:
+        nbytes += 4 * bsz
+    return 2 * bsz * chunk * products, nbytes
+
+
+def _shape_only(name, operands, x, state, valid):
+    """A dry run's launch on fake operands: the launch's checks and
+    outputs, its work recorded (``kernels/launch.py``)."""
+    dev, dt = operands.device, operands.dtype
+    dx, dh, dm, ksize = operands.dims
+    bsz, chunk = x.shape[0], x.shape[1]
+    kl.check(x, "x", (bsz, chunk, dx), dt, dev)
+    kl.check(state["h"], "state['h']", (bsz, dh), dt, dev)
+    if operands.use_conv:
+        kl.check(state["conv"], "state['conv']", (bsz, ksize - 1, dx), dt,
+                 dev)
+    if valid is not None:
+        kl.check(valid, "valid", (bsz,), torch.int32, dev)
+    kl.record(name, 1, work(name, operands.cell, dt, bsz, chunk,
+                            operands.dims, use_conv=operands.use_conv,
+                            use_mlp=operands.use_mlp))
+    wins = torch.empty((bsz, chunk, ksize - 1, dx), dtype=dt, device=dev) \
+        if operands.use_conv else None
+    return (torch.empty((bsz, chunk, dx), dtype=dt, device=dev),
+            torch.empty((bsz, chunk, dh), dtype=dt, device=dev), wins)
+
+
 def _launch(name, operands, x, state, valid, *, mode):
+    if kl.shape_only(x):
+        return _shape_only(name, operands, x, state, valid)
     launch, outs = prepare_launch(operands, x, state, valid, mode=mode)
     rc = launch()
     kl.raise_on_error(_lib(), name, rc)
@@ -362,13 +423,13 @@ def fused_block_step(params, x_t: torch.Tensor, state: dict, *,
                                   compute_dtype=compute_dtype)
     operands = _operands(params, operands, cell, compute_dtype, use_conv,
                          use_mlp)
-    ys, hs, wins = _launch("block_step_kernel", operands, x_t[:, None], state,
-                           None, mode=mode)
+    ys, hs, wins = _launch("block_step_kernel", operands, x_t.unsqueeze(1),
+                           state, None, mode=mode)
     new_state = dict(state)
-    new_state["h"] = hs[:, 0]
+    new_state["h"] = hs.select(1, 0)
     if use_conv:
-        new_state["conv"] = wins[:, 0]
-    return ys[:, 0], new_state
+        new_state["conv"] = wins.select(1, 0)
+    return ys.select(1, 0), new_state
 
 
 def fused_block_chunk(params, x: torch.Tensor, state: dict,
@@ -390,10 +451,10 @@ def fused_block_chunk(params, x: torch.Tensor, state: dict,
         ys, hs, wins = _launch("block_chunk_kernel", operands, x, state,
                                valid.to(torch.int32), mode=mode)
         new_state = dict(state)
-        new_state["h"] = hs[:, -1]
+        new_state["h"] = hs.select(1, -1)
         pos = {"h": hs}
         if use_conv:
-            new_state["conv"] = wins[:, -1]
+            new_state["conv"] = wins.select(1, -1)
             pos["conv"] = wins
     if return_positions:
         return ys, new_state, pos

@@ -9,7 +9,8 @@ position bit-identical to the step.  A missing bias means zeros.  The
 output is in x's dtype; h_prev may be x's dtype or float32.
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor
-launches the kernel or raises.  Nothing falls back.  The norm, conv,
+launches the kernel or raises; a fake CUDA tensor takes the shape-only
+route (``kernels/launch.py``).  Nothing falls back.  The norm, conv,
 down projection and MLP around the cell stay PyTorch ops
 (``blocks.step``).
 
@@ -56,6 +57,9 @@ GATES = {"mingru": ("wz", "wh"), "minlstm": ("wf", "wi", "wh")}
 # the widest Dx whose whole weight tile the tensor-core body keeps in
 # shared memory (csrc/decode_step.cu, tc::kMaxDx)
 TC_MAX_DX = 4096
+# csrc/decode_step.cu's kBT and kMaxTiles: batch rows a tile, batch tiles
+# a launch (the launcher splits a larger batch over launches)
+ROWS_PER_TILE, MAX_TILES = 8, 65535
 _N_PTRS = 10
 _LIB = None
 
@@ -128,9 +132,13 @@ class CellOperands:
             kl.check(b, f"{cell} bias {i}", (dh,), dt, dev)
         self.cell, self.device, self.dtype, self.dims = cell, dev, dt, (dx, dh)
         self.ws, self.bs = tuple(ws), tuple(bs)
+        ptrs = [0] * 7
+        if kl.shape_only(ws[0]):
+            # a dry run's binding: no address; the allocator's alignment
+            self.body, self.ptrs = cell_body(cell, dt, dx, dh, True), ptrs
+            return
         self.body = cell_body(cell, dt, dx, dh,
                               all(w.data_ptr() % 16 == 0 for w in ws))
-        ptrs = [0] * 7
         for i, (w, b) in enumerate(zip(ws, bs)):
             ptrs[1 + i], ptrs[4 + i] = w.data_ptr(), b.data_ptr()
         self.ptrs = ptrs
@@ -237,7 +245,50 @@ def occupancy(operands: CellOperands, bsz: int, chunk: int) -> dict:
             "clusters_resident": clusters, "waves": n_waves}
 
 
+def launches(bsz: int) -> int:
+    """The kernel launches one call on ``bsz`` rows makes (the C
+    launcher's ``repro_cell_launches``): one, or past ``MAX_TILES`` tiles
+    of ``ROWS_PER_TILE`` rows one per ``MAX_TILES`` tiles."""
+    tiles = -(-bsz // ROWS_PER_TILE)
+    return 1 if tiles <= MAX_TILES else -(-tiles // MAX_TILES)
+
+
+def work(kernel: str, dtype: torch.dtype, bsz: int, chunk: int, dx: int,
+         dh: int, h_dtype: Optional[torch.dtype] = None):
+    """(flops, bytes) of one call of ``kernel`` (one of ``KERNELS``) on
+    (B, C, Dx) x of ``dtype`` (C 1 for a step): the gate projections'
+    multiply-adds; the weights, biases and x read once, h_prev
+    (``h_dtype``, default ``dtype``) and, for a chunk, the int32 valid
+    lengths read once, the output written once."""
+    n_g = len(GATES[kernel.split("_")[0]])
+    e = torch.tensor([], dtype=dtype).element_size()
+    e_h = torch.tensor([], dtype=h_dtype or dtype).element_size()
+    nbytes = e * (n_g * (dx * dh + dh) + bsz * chunk * dx
+                  + bsz * chunk * dh) + e_h * bsz * dh
+    if "chunk" in kernel:
+        nbytes += 4 * bsz
+    return 2 * bsz * chunk * n_g * dx * dh, nbytes
+
+
+def _shape_only(name, operands, x, h_prev, valid):
+    """A dry run's call on fake operands: the launch's checks and output,
+    its launches and work recorded (``kernels/launch.py``)."""
+    dev, dt = operands.device, operands.dtype
+    dx, dh = operands.dims
+    bsz, chunk = x.shape[0], x.shape[1]
+    kl.check(x.contiguous(), "x", (bsz, chunk, dx), dt, dev)
+    kl.check(h_prev.contiguous(), "h_prev", (bsz, dh), h_prev.dtype, dev)
+    if valid is not None:
+        kl.check(valid.to(torch.int32).contiguous(), "valid", (bsz,),
+                 torch.int32, dev)
+    kl.record(name, launches(bsz),
+              work(name, dt, bsz, chunk, dx, dh, h_prev.dtype))
+    return torch.empty((bsz, chunk, dh), dtype=dt, device=dev)
+
+
 def _launch(name, operands, x, h_prev, valid, *, mode, normalize=True):
+    if kl.shape_only(x):
+        return _shape_only(name, operands, x, h_prev, valid)
     launch, out = prepare_launch(operands, x, h_prev, valid, mode=mode,
                                  normalize=normalize)
     lib = _lib()
@@ -267,8 +318,9 @@ def fused_mingru_step(x: torch.Tensor, wz: torch.Tensor,
         return ref.mingru_step_ref(x, wz, bz, wh, bh, h_prev, mode=mode)
     operands = _bound("mingru", (wz, wh), (bz, bh), operands)
     return call_with_flat_lead(
-        lambda xf, hf: _launch("mingru_step_kernel", operands, xf[:, None],
-                               hf, None, mode=mode)[:, 0],
+        lambda xf, hf: _launch("mingru_step_kernel", operands,
+                               xf.unsqueeze(1), hf, None,
+                               mode=mode).select(1, 0),
         (x, 1), (h_prev, 1))
 
 
@@ -287,9 +339,9 @@ def fused_minlstm_step(x: torch.Tensor, wf: torch.Tensor,
                                     mode=mode, normalize=normalize)
     operands = _bound("minlstm", (wf, wi, wh), (bf, bi, bh), operands)
     return call_with_flat_lead(
-        lambda xf, hf: _launch("minlstm_step_kernel", operands, xf[:, None],
-                               hf, None, mode=mode,
-                               normalize=normalize)[:, 0],
+        lambda xf, hf: _launch("minlstm_step_kernel", operands,
+                               xf.unsqueeze(1), hf, None, mode=mode,
+                               normalize=normalize).select(1, 0),
         (x, 1), (h_prev, 1))
 
 

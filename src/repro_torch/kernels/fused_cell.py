@@ -61,9 +61,23 @@ def _operands(name, x, ws, bs, h0, mode):
         kl.check(b, f"bias {i}", (dh,), dt, dev)
     kl.check(h0, "h0", (bsz, dh), torch.float32, dev)
     out = torch.empty((bsz, t, dh), dtype=dt, device=dev)
+    if kl.shape_only(x):            # a dry run's operands have no address
+        return code, (bsz, t, dx, dh), h0, out, None
     ptrs = [x.data_ptr()] + [w.data_ptr() for w in ws] \
         + [b.data_ptr() for b in bs] + [h0.data_ptr(), out.data_ptr()]
     return code, (bsz, t, dx, dh), h0, out, ptrs
+
+
+def work(n_gates: int, dtype: torch.dtype, bsz: int, t: int, dx: int,
+         dh: int):
+    """(flops, bytes) of one fused layer of ``n_gates`` projections: the
+    projections' multiply-adds; x, the weights and biases (``dtype``) and
+    the fp32 h0 read once, h (``dtype``) written once."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    flops = 2 * bsz * t * dx * dh * n_gates
+    nbytes = e * (bsz * t * dx + n_gates * (dx * dh + dh) + bsz * t * dh) \
+        + 4 * bsz * dh
+    return flops, nbytes
 
 
 def launch(get_lib, fn_name: str, name: str, x, ws, bs, h0, *, mode: str,
@@ -72,8 +86,12 @@ def launch(get_lib, fn_name: str, name: str, x, ws, bs, h0, *, mode: str,
     x: (B, T, Dx); ws: G (Dx, Dh); bs: G (Dh,), all of x's dtype;
     h0: (B, Dh), taken as fp32 -> (h (B, T, Dh) in x's dtype, the body
     that ran, as the launcher reports it).  ``get_lib()`` builds and loads
-    the library, after the checks."""
+    the library, after the checks.  Fake CUDA operands take the
+    shape-only route: the body is None, nothing is launched."""
     code, shape, h0, out, ptrs = _operands(name, x, ws, bs, h0, mode)
+    if ptrs is None:
+        kl.record(name, 1, work(len(ws), x.dtype, *shape))
+        return out, None
     lib = get_lib()
     fn = getattr(lib, fn_name)
     body = ctypes.c_int(-1)

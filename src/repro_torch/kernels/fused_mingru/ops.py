@@ -9,7 +9,8 @@ g_t = dh_t + (1 - z_{t+1}) g_{t+1}, and autograd pulls (g h_{t-1}, g)
 back through the gates.
 
 ``fused_mingru_kernel`` is the raw wrapper: a CPU tensor goes to the
-plain version (``ref.py``); a CUDA tensor launches the kernel or raises.
+plain version (``ref.py``); a CUDA tensor launches the kernel or raises;
+a fake CUDA tensor takes the shape-only route (``kernels/launch.py``).
 """
 
 from __future__ import annotations
@@ -59,9 +60,16 @@ def launch(x, wz, bz, wh, bh, h0, *, mode: str = "log") -> torch.Tensor:
     """Launch the kernel on x's stream (CUDA tensors only)."""
     out, body = fused_cell.launch(_lib, _FN, "fused_mingru_kernel", x,
                                   (wz, wh), (bz, bh), h0, mode=mode)
-    LAUNCHES["fused_mingru_kernel"] += 1
-    LAUNCHES[f"fused_mingru_kernel/{body}"] += 1
+    if body is not None:       # None: a dry run's shape-only call
+        LAUNCHES["fused_mingru_kernel"] += 1
+        LAUNCHES[f"fused_mingru_kernel/{body}"] += 1
     return out
+
+
+def work(dtype: torch.dtype, bsz: int, t: int, dx: int, dh: int):
+    """(flops, bytes) of one launch on (B, T, Dx) x of ``dtype`` to Dh
+    (``fused_cell.work`` of its 2 projections)."""
+    return fused_cell.work(2, dtype, bsz, t, dx, dh)
 
 
 def occupancy(x, wz, bz, wh, bh, h0, *, mode: str = "log") -> dict:

@@ -8,7 +8,8 @@ CUDA linear scan g_t = dh_t + f'_{t+1} g_{t+1}, and pulls (g h_{t-1}, g)
 back through the gates (the f/(f+i) normalisation jacobian included).
 
 ``fused_minlstm_kernel`` is the raw wrapper: a CPU tensor goes to the
-plain version (``ref.py``); a CUDA tensor launches the kernel or raises.
+plain version (``ref.py``); a CUDA tensor launches the kernel or raises;
+a fake CUDA tensor takes the shape-only route (``kernels/launch.py``).
 """
 
 from __future__ import annotations
@@ -63,9 +64,16 @@ def launch(x, wf, bf, wi, bi, wh, bh, h0, *, mode: str = "log",
     out, body = fused_cell.launch(_lib, _FN, "fused_minlstm_kernel", x,
                                   (wf, wi, wh), (bf, bi, bh), h0, mode=mode,
                                   normalize=normalize)
-    LAUNCHES["fused_minlstm_kernel"] += 1
-    LAUNCHES[f"fused_minlstm_kernel/{body}"] += 1
+    if body is not None:       # None: a dry run's shape-only call
+        LAUNCHES["fused_minlstm_kernel"] += 1
+        LAUNCHES[f"fused_minlstm_kernel/{body}"] += 1
     return out
+
+
+def work(dtype: torch.dtype, bsz: int, t: int, dx: int, dh: int):
+    """(flops, bytes) of one launch on (B, T, Dx) x of ``dtype`` to Dh
+    (``fused_cell.work`` of its 3 projections)."""
+    return fused_cell.work(3, dtype, bsz, t, dx, dh)
 
 
 def occupancy(x, wf, bf, wi, bi, wh, bh, h0, *, mode: str = "log",

@@ -1,13 +1,24 @@
 """What every ctypes kernel wrapper of the port shares: the operand checks
 made before a pointer is handed to C, the current stream, turning a
 returned CUDA status into an exception, and the waves a grid needs.  Nothing here touches a GPU at
-import time."""
+import time.
+
+It also holds the wrappers' shape-only route (``launch/dryrun.py``): a
+``FakeTensor`` on the ``cuda`` device is checked as a launch's operand
+is, its outputs are made empty with the launch's shapes and dtypes, and
+the call's launches and work (each kernel's ``ops.work``) go into the
+active :class:`Tally` -- never into a wrapper's ``LAUNCHES``, and never
+through ``_lib()`` or a data pointer.  A fake operand with no tally
+recording raises."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from typing import Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 # element type codes of the C interfaces: 0 float32, 1 bfloat16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,3 +70,49 @@ def waves(blocks: int, per_sm: int, sms: int) -> int:
     if per_sm < 1:
         raise ValueError(f"no block fits on an SM (per_sm={per_sm})")
     return -(-blocks // (per_sm * sms))
+
+
+class Tally:
+    """The kernel calls of one traced step: ``kernels[name]`` = {"launches",
+    "flops", "bytes"}, FLOPs counted as ``FlopCounterMode`` counts the
+    plain version's (the products' multiply-adds, 2 a pair) and bytes
+    as each input read once and each output written once."""
+
+    def __init__(self):
+        self.kernels: Dict[str, Dict[str, int]] = {}
+
+    def add(self, name: str, launches: int, flops: int, nbytes: int):
+        row = self.kernels.setdefault(
+            name, {"launches": 0, "flops": 0, "bytes": 0})
+        row["launches"] += launches
+        row["flops"] += flops
+        row["bytes"] += nbytes
+
+
+_TALLY: Optional[Tally] = None
+
+
+@contextlib.contextmanager
+def recording(tally: Tally):
+    """Shape-only kernel calls inside the block go into ``tally``."""
+    global _TALLY
+    prev, _TALLY = _TALLY, tally
+    try:
+        yield tally
+    finally:
+        _TALLY = prev
+
+
+def shape_only(t: torch.Tensor) -> bool:
+    """True for a fake ``cuda`` tensor: a dry run's operand."""
+    return isinstance(t, FakeTensor) and t.device.type == "cuda"
+
+
+def record(name: str, launches: int, work):
+    """One shape-only call of kernel ``name``: ``launches`` as the real
+    wrapper would count them, ``work`` its ``ops.work`` (flops, bytes)."""
+    if _TALLY is None:
+        raise RuntimeError(
+            f"{name}: a fake CUDA operand outside a kernel tally; trace "
+            f"under kernels.launch.recording (launch/dryrun.py)")
+    _TALLY.add(name, launches, *work)

@@ -19,7 +19,8 @@ cell layer too.
 
 ``linear_scan_kernel`` / ``log_scan_kernel`` are the raw wrappers: a CPU
 tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  Nothing falls back.
+the kernel or raises; a fake CUDA tensor takes the shape-only route
+(``kernels/launch.py``).  Nothing falls back.
 
 The kernels run a segmented two-level scan (``csrc/scan.cu``): one block
 of ``WARPS`` warps per (batch row, ``COLS`` columns); each warp scans its
@@ -110,6 +111,16 @@ def occupancy(kind: str, dtype: torch.dtype, bsz: int, t: int, d: int,
     return out
 
 
+def work(kind: str, dtype: torch.dtype, bsz: int, t: int, d: int):
+    """(flops, bytes) of one scan of ``kind`` "linear" or "log" over
+    (B, T, D) inputs of ``dtype``: both inputs and the fp32 h0 read once,
+    the output (``dtype``; fp32 for "log") written once.  Its FLOPs are
+    0: elementwise work, which ``FlopCounterMode`` does not count."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    out_e = 4 if kind == "log" else e
+    return 0, bsz * t * d * (2 * e + out_e) + 4 * bsz * d
+
+
 def _check_scan(name, x, y, h0):
     if x.dim() != 3:
         raise ValueError(f"{name}: inputs must be (B, T, D), got "
@@ -136,6 +147,9 @@ def launch_linear_scan(a, b, h0, reverse: bool = False) -> torch.Tensor:
     h0 = h0.float()
     code, bsz, t, d = _check_scan("linear_scan_kernel", a, b, h0)
     out = torch.empty_like(b)
+    if kl.shape_only(a):
+        kl.record("linear_scan_kernel", 1, work("linear", a.dtype, bsz, t, d))
+        return out
     lib = _lib()
     rc = lib.repro_linear_scan(code, int(reverse), bsz, t, d, a.data_ptr(),
                                b.data_ptr(), h0.data_ptr(), out.data_ptr(),
@@ -159,6 +173,9 @@ def launch_log_scan(log_a, log_b, log_h0) -> torch.Tensor:
     log_h0 = log_h0.float()
     code, bsz, t, d = _check_scan("log_scan_kernel", log_a, log_b, log_h0)
     out = torch.empty((bsz, t, d), dtype=torch.float32, device=log_a.device)
+    if kl.shape_only(log_a):
+        kl.record("log_scan_kernel", 1, work("log", log_a.dtype, bsz, t, d))
+        return out
     lib = _lib()
     rc = lib.repro_log_scan(code, bsz, t, d, log_a.data_ptr(),
                             log_b.data_ptr(), log_h0.data_ptr(),

@@ -74,7 +74,7 @@ import torch.utils.checkpoint
 from repro_torch.core import blocks as minrnn_blocks
 from repro_torch.core import min_gru, min_lstm, nn
 from repro_torch.core import scan as scan_lib
-from repro_torch.device import resolve_device
+from repro_torch.device import fake_mode, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
@@ -271,11 +271,14 @@ def _stack_init(make, n: int):
     n: deepseek-moe-16b's 32.75 GB of bf16 weights fit the card once, not
     twice, and deepseek-v3-671b's two 23 GB MoE layers with one more.
     One layer is its own stack (views, no copy); n = 0 draws one layer
-    for the shapes and keeps none (an empty MoE stack)."""
+    for the shapes and keeps none (an empty MoE stack).  A fake trace
+    (``launch/input_specs.py``) makes one layer: the stack's shapes."""
     layer = make()
     if n == 1:
         return tree_map(lambda a: a.unsqueeze(0), layer)
     out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), layer)
+    if fake_mode() is not None:
+        return out
     for i in range(n):
         if i:
             layer = make()

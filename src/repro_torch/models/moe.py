@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import nn
+from repro_torch.device import fake_mode
 from repro_torch.distributed import collectives
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.models import mlp as mlp_lib
@@ -127,8 +128,11 @@ def moe_init(gen: torch.Generator, cfg, *, dtype=torch.float32):
 def _expert_init(gen, e, d_in, d_out, dtype):
     """(e, d_in, d_out) LeCun-normal weights, drawn an expert at a time:
     the fp32 draw of a whole deepseek-v3-671b expert weight (15 GB) would
-    not fit the card beside the layers already drawn."""
+    not fit the card beside the layers already drawn.  A fake trace
+    takes the shape alone (``launch/input_specs.py``)."""
     out = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
+    if fake_mode() is not None:
+        return {"kernel": out}
     std = math.sqrt(1.0 / d_in)
     for i in range(e):
         t = torch.empty((d_in, d_out), dtype=torch.float32,

@@ -1978,3 +1978,31 @@ def test_moe_swap_decode_row_is_independent_of_batch(mixer, cuda_device):
     name = f"{mixer}_step_kernel"
     assert step_ops.LAUNCHES[name] == step_ops.LAUNCHES[f"{name}/tc"] \
         == 2 * 6 * cfg.n_layers
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_dryrun_production_cell_on_fake_cuda(shape, cuda_device):
+    """The dry run of mingru-lm on the 16x16 production mesh, fake CUDA
+    tensors of rank 0 of a fake 256-rank world: the kernels' shape-only
+    route shows in ``kernels`` (train: two fused-cell and one reversed
+    scan a layer, counting the remat's forward; decode under serving TP:
+    the cell tier, one step kernel a layer), no ``LAUNCHES`` move, and
+    the collectives of the mesh are recorded."""
+    from repro_torch.launch import dryrun
+    cfg = archs.get("mingru-lm")
+    before = {**gru_ops.LAUNCHES, **scan_ops.LAUNCHES, **step_ops.LAUNCHES,
+              **ops.LAUNCHES}
+    rec = dryrun.run_cell("mingru-lm", shape, "single", verbose=False)
+    after = {**gru_ops.LAUNCHES, **scan_ops.LAUNCHES, **step_ops.LAUNCHES,
+             **ops.LAUNCHES}
+    assert before == after
+    assert rec["ok"] and rec["n_devices"] == 256 and rec["fits"]
+    kernels = {k: v["launches"] for k, v in rec["kernels"].items()}
+    n = cfg.n_layers
+    if shape == "train_4k":
+        assert kernels == {"fused_mingru_kernel": 2 * n,
+                           "linear_scan_kernel": n}
+    else:
+        assert kernels == {"mingru_step_kernel": n}
+    assert rec["collectives"]["all-reduce"]["count"] > 0
+    assert rec["flops_per_dev"] > rec["flops_ops"] > 0
